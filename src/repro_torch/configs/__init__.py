@@ -1,0 +1,21 @@
+"""Architecture config registry of the port (the archs ported so far)."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_REGISTRY = {
+    "qwen2-1.5b": "qwen2_1_5b",
+}
+
+ARCH_IDS = list(_REGISTRY)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
+                       f"known: {sorted(_REGISTRY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch]}")
+    return mod.SMOKE_CONFIG if smoke else mod.CONFIG

@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a``), in
+``src/repro_torch/_build/`` (listed in ``.gitignore``). A library is named
+after a hash of its source and flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing is built on import: the first call that
+needs a library builds it, and ``build_all`` builds every source at once
+with one nvcc process each, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("seq_policy_matmul",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": wall time of its nvcc, "log": nvcc's output}
+BUILD_INFO: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or CUDA_HOME set)")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every named source not built yet, in parallel; raise with
+    nvcc's output if one fails. Returns name -> library path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    todo = [n for n, t in targets.items() if not t.exists()]
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.perf_counter()
+        for n in todo:
+            tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_INFO[n] = {"seconds": time.perf_counter() - t0, "log": log}
+            if proc.returncode != 0:
+                failed.append(f"--- {n} (exit {proc.returncode})\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                tmp.replace(targets[n])  # atomic: no half-written library
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        _LIBS[name] = lib
+    return lib

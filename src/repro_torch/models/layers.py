@@ -1,0 +1,271 @@
+"""Decoder layers: norms, RoPE, GQA attention, MLP; torch port of
+``repro.models.layers`` for the dense family.
+
+Plain functions on tensors. Params are dicts of tensors, one dict per
+layer. Activations flow in the compute dtype; norms and softmax run in
+f32. Any projection may be a QTensor: ``lin`` dequantizes it, or inside
+``core.dispatch.integer_lin`` runs it as an integer PQS dot. Attention is
+plain einsum/softmax, as the JAX package leaves it to XLA, and is never
+query-chunked here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch
+from repro_torch.core.qtensor import QTensor, asarray
+
+Params = dict[str, Any]
+
+
+def lin(x: torch.Tensor, w: Any, site: Optional[str] = None) -> torch.Tensor:
+    """x @ w, with QTensor weights run as integer dots inside an
+    ``integer_lin`` context and dequantized otherwise."""
+    if isinstance(w, QTensor):
+        cfg = dispatch.integer_lin_config()
+        if cfg is not None:
+            return dispatch.qtensor_dot(x, w, cfg, site=site)
+    return x @ asarray(w, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# initialization helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, in_dim, out_dim, dtype, device,
+               scale=None):
+    scale = scale if scale is not None else (2.0 / (in_dim + out_dim)) ** 0.5
+    return torch.randn((in_dim, out_dim), generator=gen, dtype=dtype,
+                       device=device) * scale
+
+
+def norm_init(d: int, device) -> torch.Tensor:
+    return torch.zeros((d,), dtype=torch.float32, device=device)  # scale - 1
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + gamma.to(torch.float32))
+    return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    i = torch.arange(0, head_dim // 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i * 2 / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, head_dim: int,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, hd), positions (B, S) int."""
+    freqs = rope_freqs(head_dim, theta, x.device)
+    angles = positions.to(torch.float32)[..., None] * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, g = cfg.num_heads, cfg.num_kv_heads
+    dt = getattr(torch, cfg.param_dtype)
+    p: Params = {
+        "wq": dense_init(gen, d, h * hd, dt, device),
+        "wk": dense_init(gen, d, g * hd, dt, device),
+        "wv": dense_init(gen, d, g * hd, dt, device),
+        "wo": dense_init(gen, h * hd, d, dt, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((g * hd,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((g * hd,), dtype=dt, device=device)
+    return p
+
+
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool):
+    """(Sq, Sk) boolean mask: True = attend."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    m = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        m = m & (diff >= 0)
+    return m
+
+
+def _sdpa(q, k, v, mask):
+    """Attention with unexpanded GQA KV: q (B,Sq,H,hd), k/v (B,Sk,G,hd).
+
+    Decode (Sq == 1) keeps KV unexpanded; Sq > 1 repeats each KV head
+    H/G times, as the JAX package does. Masked scores are -1e30.
+    """
+    b, sq, h, hd = q.shape
+    g = k.shape[2]
+    rep = h // g
+    if sq > 1 and rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+        g, rep = h, 1
+    qg = q.reshape(b, sq, g, rep, hd)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).to(torch.float32)
+    scores = scores / (hd**0.5)
+    if mask.ndim == 2:
+        mask = mask[None, None, None]
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    q = lin(x, params["wq"], site="wq")
+    k = lin(x, params["wk"], site="wk")
+    v = lin(x, params["wv"], site="wv")
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return q, k, v
+
+
+def attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, *, causal: bool = True,
+              return_kv: bool = False):
+    """Full-sequence self-attention (prefill, no cache). ``return_kv``
+    also returns the unexpanded post-RoPE (k, v) (B, S, G, hd)."""
+    b, s, _ = x.shape
+    h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(params, x, cfg)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, g, hd)
+    v = v.reshape(b, s, g, hd)
+    q = apply_rope(q, positions, hd, cfg.rope_theta)
+    k = apply_rope(k, positions, hd, cfg.rope_theta)
+    q_pos = positions[0]  # (S,) shared across the batch
+    o = _sdpa(q, k, v, _attn_mask(q_pos, q_pos, causal))
+    out = lin(o.reshape(b, s, h * hd), params["wo"], site="wo")
+    return (out, (k, v)) if return_kv else out
+
+
+def attention_decode(params: Params, x: torch.Tensor, cache: dict,
+                     cfg: ModelConfig):
+    """Single-token decode against a dense KV cache {"k","v": (B, S_max,
+    G, hd), "pos": (B,)}; returns (out, new_cache). The new cache is a
+    copy: the engine merges old and new lanes by slot."""
+    b, one, _ = x.shape
+    assert one == 1
+    h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    pos = cache["pos"]  # (B,) next write index per sequence
+    s_max = cache["k"].shape[1]
+    q, k, v = _qkv(params, x, cfg)
+    q = q.reshape(b, 1, h, hd)
+    k = k.reshape(b, 1, g, hd)
+    v = v.reshape(b, 1, g, hd)
+    pvec = pos[:, None].to(torch.int32)
+    q = apply_rope(q, pvec, hd, cfg.rope_theta)
+    k = apply_rope(k, pvec, hd, cfg.rope_theta)
+
+    rows = torch.arange(b, device=x.device)
+    # an index past the cache drops its write, as JAX's scatter does
+    inb = (pos < s_max)[:, None, None]
+    idx = torch.clamp(pos, max=s_max - 1)
+
+    def write(c, new):
+        out = c.clone()
+        out[rows, idx] = torch.where(inb, new[:, 0].to(c.dtype), c[rows, idx])
+        return out
+
+    new_k, new_v = write(cache["k"], k), write(cache["v"], v)
+    new_cache = {"k": new_k, "v": new_v, "pos": pos + 1}
+    kk = new_k.to(x.dtype)  # (B, S_max, G, hd), never expanded
+    vv = new_v.to(x.dtype)
+    valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
+    qg = q.reshape(b, 1, g, h // g, hd)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kk).to(torch.float32)
+    scores = scores / (hd**0.5)
+    scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", probs, vv)
+    out = lin(o.reshape(b, 1, h * hd), params["wo"], site="wo")
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP and caches
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d, ff = cfg.d_model, cfg.d_ff
+    dt = getattr(torch, cfg.param_dtype)
+    return {
+        "w_gate": dense_init(gen, d, ff, dt, device),
+        "w_up": dense_init(gen, d, ff, dt, device),
+        "w_out": dense_init(gen, ff, d, dt, device),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    gate = lin(x, params["w_gate"], site="w_gate")
+    gate = F.silu(gate) if cfg.activation == "silu" else F.gelu(
+        gate, approximate="tanh")
+    up = lin(x, params["w_up"], site="w_up")
+    return lin(gate * up, params["w_out"], site="w_out")
+
+
+def write_prefill_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> dict:
+    """Write one-shot prefill K/V (B, S, G, hd) into a decode cache: slot
+    b's positions t < lengths[b] land at index t; the rest are dropped.
+    ``pos`` becomes ``lengths``."""
+    size = cache["k"].shape[1]
+    b, s = k.shape[0], k.shape[1]
+    t = torch.arange(s, device=k.device)
+    keep = (t[None, :] < lengths[:, None]) & (t[None, :] >= lengths[:, None] - size)
+    # dropped positions scatter into one spare row past the cache
+    idx = torch.where(keep, t[None, :] % size, size)  # (B, S)
+
+    def scatter(c, new):
+        spare = torch.zeros((b, 1) + c.shape[2:], dtype=c.dtype,
+                            device=c.device)
+        full = torch.cat([c, spare], dim=1)
+        ix = idx[:, :, None, None].expand(b, s, *c.shape[2:])
+        full.scatter_(1, ix, new.to(c.dtype))
+        return full[:, :size]
+
+    return {
+        "k": scatter(cache["k"], k),
+        "v": scatter(cache["v"], v),
+        "pos": lengths.to(torch.int32).expand(cache["pos"].shape).clone(),
+    }
+
+
+def empty_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
+                   device) -> dict:
+    g, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, s_max, g, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, s_max, g, hd), dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

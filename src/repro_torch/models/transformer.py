@@ -1,0 +1,130 @@
+"""Decoder-only LM: forward, one-shot prefill and KV-cache decode; torch
+port of ``repro.models.transformer`` for the dense family.
+
+The JAX package stacks layer params (L, ...) and scans them; here
+``params["layers"]`` is a list of per-layer dicts walked by a Python loop,
+and decode caches are a per-layer list of {"k", "v", "pos"} dicts.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qtensor import QTensor, asarray
+from repro_torch.models.layers import (
+    Params,
+    attention,
+    attention_decode,
+    attn_init,
+    empty_kv_cache,
+    mlp,
+    mlp_init,
+    norm_init,
+    rms_norm,
+    write_prefill_kv,
+)
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    return {
+        "ln1": norm_init(cfg.d_model, device),
+        "attn": attn_init(gen, cfg, device),
+        "ln2": norm_init(cfg.d_model, device),
+        "mlp": mlp_init(gen, cfg, device),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """Random init from ``gen`` (a torch.Generator on ``device``). The
+    draws differ from the JAX package's keys; compare through
+    ``repro_torch.convert.params_from_numpy`` instead."""
+    dt = getattr(torch, cfg.param_dtype)
+    p: Params = {
+        "layers": [layer_init(gen, cfg, device)
+                   for _ in range(cfg.num_layers)],
+        "ln_f": norm_init(cfg.d_model, device),
+        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                             dtype=dt, device=device) * (1.0 / cfg.d_model**0.5),
+    }
+    return p
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+    """tokens (B, S) int -> (B, S, d). A QTensor table is gathered before
+    it is dequantized: elementwise the same values, without dequantizing
+    every row of the vocabulary."""
+    dt = getattr(torch, cfg.compute_dtype)
+    emb = params["embed"]
+    if isinstance(emb, QTensor):
+        x = (emb.values[tokens].to(torch.float32) * emb.scale).to(dt)
+    else:
+        x = emb.to(dt)[tokens]
+    return x
+
+
+def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    x = rms_norm(x, params["ln_f"])
+    # the tied head is a dequantized float matmul, as in the JAX package
+    return x @ asarray(params["embed"], x.dtype).T
+
+
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(params: Params, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            cfg: ModelConfig = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits, aux loss = 0)."""
+    b, s = tokens.shape[:2]
+    if positions is None:
+        positions = _positions(b, s, tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    for p in params["layers"]:
+        x = x + attention(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)
+        x = _ffn(p, x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits_from_hidden(params, x, cfg), aux
+
+
+def prefill_step(params: Params, tokens: torch.Tensor, caches: list,
+                 lengths: torch.Tensor, cfg: ModelConfig):
+    """Consume whole left-aligned prompts in one batched pass: each layer's
+    post-RoPE K/V go into the slot cache lanes, masked by ``lengths``.
+    Returns (logits (B, S, V), new caches) with ``pos = lengths``."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    new_caches = []
+    for p, cache in zip(params["layers"], caches):
+        h, (k, v) = attention(p["attn"], rms_norm(x, p["ln1"]), positions,
+                              cfg, return_kv=True)
+        x = _ffn(p, x + h, cfg)
+        new_caches.append(write_prefill_kv(cache, k, v, lengths))
+    return logits_from_hidden(params, x, cfg), new_caches
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                       device) -> list:
+    return [empty_kv_cache(cfg, batch, max_len, dtype, device)
+            for _ in range(cfg.num_layers)]
+
+
+def decode_step(params: Params, token: torch.Tensor, caches: list,
+                cfg: ModelConfig) -> tuple[torch.Tensor, Any]:
+    """One decode step; returns (logits (B, 1, V), new caches)."""
+    x = embed_tokens(params, token, cfg)
+    new_caches = []
+    for p, cache in zip(params["layers"], caches):
+        h, nc = attention_decode(p["attn"], rms_norm(x, p["ln1"]), cache,
+                                 cfg)
+        x = _ffn(p, x + h, cfg)
+        new_caches.append(nc)
+    return logits_from_hidden(params, x, cfg), new_caches

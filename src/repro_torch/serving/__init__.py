@@ -1,0 +1,3 @@
+"""Serving of the port: the slot-based continuous-batching engine."""
+
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401

@@ -1,0 +1,94 @@
+"""Rules of the port: it never imports JAX or the JAX package, its entry
+points run on CUDA unless asked for the CPU, and its CUDA wrappers never
+fall back to the plain version for CUDA work."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import dispatch
+from repro_torch.core.qtensor import quantize_tree
+from repro_torch.kernels import sorted_matmul
+from repro_torch.models.model import build_model
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_no_jax(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.serving, "
+            "repro_torch.convert, repro_torch.kernels.ops; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quantize_tree({"w": torch.zeros((256, 256))})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"ln_f": torch.zeros(4).numpy()})
+    model = build_model(cfg, device="cpu")  # asked for: runs on the CPU
+    assert model.device.type == "cpu"
+    from repro_torch.serving import ServingEngine
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, model.init(0), num_slots=1, max_len=8)
+
+
+def test_cuda_backend_refuses_cpu_tensors():
+    x = torch.zeros((2, 8), dtype=torch.int8)
+    w = torch.zeros((3, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch.pqs_dot(x, w, backend="cuda")
+    assert sorted_matmul.seq_policy_matmul(x, w).shape == (2, 3)  # plain
+
+
+def test_unported_engine_options_raise():
+    from repro_torch.serving import ServingEngine
+
+    model = build_model(get_config("qwen2-1.5b", smoke=True), device="cpu")
+    params = model.init(0)
+    for kw in ({"page_size": 8}, {"prefill_mode": "steps"},
+               {"census_watch": object()}):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(model, params, num_slots=1, max_len=8,
+                          device="cpu", **kw)

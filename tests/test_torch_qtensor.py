@@ -1,0 +1,151 @@
+"""Quantized weights and the integer linear of the port against the JAX
+package: identical int8 codes and f32 scales, and bit-identical
+``qtensor_dot`` outputs in float32 and bfloat16, dynamic and static."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dispatch as jd
+from repro.core import qtensor as jqt
+from repro.core.quant import activation_qparams, symmetric_activation_qparams
+from repro_torch.core import dispatch as td
+from repro_torch.core import qtensor as tqt
+from repro_torch.core.quant import QParams
+
+
+def _w(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32) * 0.1
+
+
+def _port_qt(jq, aq=None, corr=None):
+    return tqt.QTensor(torch.from_numpy(np.array(jq.values)),
+                       torch.from_numpy(np.array(jq.scale)), aq, corr)
+
+
+@pytest.mark.parametrize("n_keep", [None, 8])
+def test_quantize_weight(n_keep):
+    w = _w(1, (96, 40))
+    j = jqt.quantize_weight(jnp.asarray(w), 8, n_keep, 16)
+    t = tqt.quantize_weight(torch.from_numpy(w), 8, n_keep, 16)
+    assert t.values.dtype == torch.int8 and t.scale.dtype == torch.float32
+    np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
+    np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
+    np.testing.assert_array_equal(t.values_t.numpy(),
+                                  np.asarray(j.values).T)
+
+
+@pytest.mark.parametrize("n_keep", [None, 8])
+def test_quantize_tree(n_keep):
+    """Same skip rules and codes; stacked (L, in, out) leaves included."""
+    tree = {
+        "big": _w(2, (64, 48)),
+        "stacked": _w(3, (2, 64, 32)),
+        "ragged_in": _w(4, (40, 64)),  # in dim not a multiple of 16
+        "small": _w(5, (8, 8)),
+        "bias": _w(6, (64,)),
+    }
+    kw = dict(bits=8, n_keep=n_keep, m=16, min_size=1 << 10, min_dim=16)
+    j = jqt.quantize_tree({k: jnp.asarray(v) for k, v in tree.items()}, **kw)
+    t = tqt.quantize_tree({k: torch.from_numpy(v) for k, v in tree.items()},
+                          device="cpu", **kw)
+    for k in tree:
+        if isinstance(j[k], jqt.QTensor):
+            assert isinstance(t[k], tqt.QTensor), k
+            np.testing.assert_array_equal(t[k].values.numpy(),
+                                          np.asarray(j[k].values))
+            np.testing.assert_array_equal(t[k].scale.numpy(),
+                                          np.asarray(j[k].scale))
+        else:
+            assert isinstance(t[k], torch.Tensor), k
+    assert isinstance(t["big"], tqt.QTensor)
+    assert not isinstance(t["small"], tqt.QTensor)
+
+
+def test_quantize_tree_counts_one_layer():
+    """The port keeps one leaf per layer, so ``min_size`` counts one
+    layer's matrix: a stacked (2, 48, 48) leaf passes min_size 4096 in
+    both packages, each (48, 48) layer alone does not."""
+    w = _w(13, (2, 48, 48))
+    kw = dict(bits=8, n_keep=8, m=16, min_size=1 << 12, min_dim=16)
+    assert isinstance(jqt.quantize_tree({"wq": jnp.asarray(w)}, **kw)["wq"],
+                      jqt.QTensor)
+    assert isinstance(tqt.quantize_tree({"wq": torch.from_numpy(w)},
+                                        device="cpu", **kw)["wq"], tqt.QTensor)
+    layers = tqt.quantize_tree([{"wq": torch.from_numpy(a)} for a in w],
+                               device="cpu", **kw)
+    assert not any(isinstance(layer["wq"], tqt.QTensor) for layer in layers)
+
+
+def _x(seed, dtype):
+    x = np.random.default_rng(seed).standard_normal((2, 5, 96)).astype(
+        np.float32) * 3.0
+    return (jnp.asarray(x, getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def _check(jx, tx, jq, tq_, policy, site=None):
+    jcfg = jd.IntegerLinConfig(policy=policy, acc_bits=16, k_tile=32,
+                               backend="jnp")
+    tcfg = td.IntegerLinConfig(policy=policy, acc_bits=16, k_tile=32)
+    want = jd.qtensor_dot(jx, jq, jcfg, site=site)
+    got = td.qtensor_dot(tx, tq_, tcfg, site=site)
+    assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("policy", ["sorted_tiled_seq", "clip", "wide"])
+def test_qtensor_dot_dynamic(dtype, policy):
+    """bfloat16 pins the dtype trap: the absmax scale is computed in
+    bf16 and only then cast to f32."""
+    jq = jqt.quantize_weight(jnp.asarray(_w(7, (96, 40))), 8, 8, 16)
+    jx, tx = _x(8, dtype)
+    _check(jx, tx, jq, _port_qt(jq), policy)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_qtensor_dot_static(symmetric):
+    jq = jqt.quantize_weight(jnp.asarray(_w(9, (96, 40))), 8, None, 16)
+    lo, hi = jnp.float32(-2.5), jnp.float32(4.0)
+    qp = (symmetric_activation_qparams if symmetric
+          else activation_qparams)(lo, hi, 8)
+    jq = jqt.attach_act_qparams({"wq": jq}, {"wq": qp})["wq"]
+    aq = QParams(torch.from_numpy(np.array(jq.act_qparams.scale)),
+                 torch.from_numpy(np.array(jq.act_qparams.offset)),
+                 jq.act_qparams.bits, jq.act_qparams.symmetric)
+    corr = None if symmetric else torch.from_numpy(np.array(jq.act_corr))
+    jx, tx = _x(10, "float32")
+    _check(jx, tx, jq, _port_qt(jq, aq, corr), "sorted_tiled_seq",
+           site="wq")
+
+
+def test_site_overrides():
+    cfg = td.IntegerLinConfig(site_policies=(("w_out", "wide"),),
+                              site_acc_bits=(("wq", 24),))
+    assert cfg.policy_for("w_out") == "wide"
+    assert cfg.policy_for("wq") == "sorted_tiled_seq"
+    assert cfg.acc_bits_for("wq") == 24 and cfg.acc_bits_for("wk") == 16
+
+
+def test_integer_lin_context_routes_lin():
+    from repro_torch.models.layers import lin
+
+    jq = jqt.quantize_weight(jnp.asarray(_w(11, (96, 40))), 8, None, 16)
+    tq_ = _port_qt(jq)
+    _, tx = _x(12, "float32")
+    deq = lin(tx, tq_)
+    # outside the context: a float matmul; XLA and torch may sum it in
+    # another order, so f32 rounding (~1e-6 relative) is allowed
+    np.testing.assert_allclose(
+        deq.numpy(), np.asarray(jax.device_get(
+            jnp.asarray(tx.numpy()) @ jq.dequant(jnp.float32))),
+        rtol=1e-5, atol=1e-5)
+    with td.integer_lin(td.IntegerLinConfig(k_tile=32)) as cfg:
+        got = lin(tx, tq_, site="wq")
+    np.testing.assert_array_equal(got.numpy(),
+                                  td.qtensor_dot(tx, tq_, cfg).numpy())
