@@ -7,8 +7,11 @@ so nothing here imports JAX):
 - nested dicts of arrays, as ``repro`` keeps them;
 - a quantized weight as a dict holding ``values`` (in, out) int8 and
   ``scale`` (out,) f32 arrays, which becomes a port ``QTensor``;
+- a compressed weight as a dict holding ``values`` (out, G, n_keep) int8,
+  ``indices`` (out, G, n_keep) int32, ``scale`` (out,) f32 and the ints
+  ``m_group`` and ``k_dim``, which becomes a port ``SparseQTensor``;
 - ``"layers"`` stacked along axis 0, (L, ...), which becomes the port's
-  list of per-layer dicts.
+  list of per-layer dicts (the ints of a compressed weight are shared).
 """
 
 from __future__ import annotations
@@ -19,22 +22,21 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor import QTensor, SparseQTensor
 
-
-def _is_qtensor_dict(node: Any) -> bool:
-    return isinstance(node, dict) and set(node) == {"values", "scale"}
+_SPARSE_KEYS = {"values", "indices", "scale", "m_group", "k_dim"}
 
 
 def _unstack(node: Any, i: int) -> Any:
     if isinstance(node, dict):
         return {k: _unstack(v, i) for k, v in node.items()}
-    return node[i]
+    return node[i] if isinstance(node, np.ndarray) else node
 
 
 def _layer_count(node: Any) -> int:
     while isinstance(node, dict):
-        node = next(iter(node.values()))
+        node = next(v for v in node.values() if isinstance(v, (dict,
+                                                                np.ndarray)))
     return int(node.shape[0])
 
 
@@ -44,8 +46,12 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     device = resolve_device(device)
 
     def conv(node):
-        if _is_qtensor_dict(node):
+        if isinstance(node, dict) and set(node) == {"values", "scale"}:
             return QTensor(conv(node["values"]), conv(node["scale"]))
+        if isinstance(node, dict) and set(node) == _SPARSE_KEYS:
+            return SparseQTensor(conv(node["values"]), conv(node["indices"]),
+                                 conv(node["scale"]), int(node["m_group"]),
+                                 int(node["k_dim"]))
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, np.ndarray):

@@ -1,5 +1,5 @@
 """Unified accumulation-policy execution, torch port of
-``repro.core.dispatch`` for one device and dense storage.
+``repro.core.dispatch`` for one device, dense and N:M compressed storage.
 
 ``pqs_dot(x, w, ...)`` runs any of the six policies on one of two
 backends, bit-identical to each other:
@@ -12,31 +12,39 @@ The default follows the operands' device: ``cuda`` for CUDA tensors,
 ``torch`` for CPU tensors. K is zero-padded here by one rule for both
 backends, so order-sensitive policies see the same permutation domain.
 
+``storage="nm"`` takes the weight compressed (a ``SparseQTensor`` or a
+``(values, indices)`` pair with ``m_group=``): the ``torch`` backend
+decompresses it and runs the dense plain version, the ``cuda`` backend
+runs the policy on the slabs (``kernels.ops.nm_policy_matmul``, with
+``nm_impl`` picking the gather or the expand kernel). Both are
+bit-identical to the dense path on the decompressed weight.
+
 ``qtensor_dot`` + ``integer_lin`` put serving on this path: inside the
-context every ``models.layers.lin`` whose weight is a QTensor runs as an
-integer dot under the configured policy.
+context every ``models.layers.lin`` whose weight is a QTensor or a
+SparseQTensor runs as an integer dot under the configured policy.
 
 Not ported yet, and refused with ``NotImplementedError``: the overflow
 census (``with_census``, ``census_monitor``), meshes and K-sharding
-(``mesh``, ``k_shards``, ``k_axis``, ``defer_combine``) and compressed
-N:M storage (``storage="nm"``).
+(``mesh``, ``k_shards``, ``k_axis``, ``defer_combine``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.pruning import nm_decompress
+from repro_torch.core.qtensor import SparseQTensor
 from repro_torch.core.quant import qrange
 from repro_torch.kernels import ops
 from repro_torch.kernels.sorted_matmul import policy_accumulate_ref
 
 POLICIES = ops.POLICIES
 BACKENDS = ("torch", "cuda")
-STORAGES = ("dense",)
+STORAGES = ("dense", "nm")
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -50,10 +58,6 @@ def _validate(policy: str, backend: Optional[str], acc_bits: int,
         raise ValueError(f"unknown policy {policy!r}; expected {POLICIES}")
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
-    if storage == "nm":
-        raise NotImplementedError(
-            "storage='nm' (compressed N:M weights) waits for the N:M "
-            "kernels of a later slice of the port")
     if storage not in STORAGES:
         raise ValueError(f"unknown storage {storage!r}; expected {STORAGES}")
     if not 2 <= acc_bits <= 30:
@@ -65,9 +69,33 @@ def _validate(policy: str, backend: Optional[str], acc_bits: int,
         raise ValueError(f"k_tile must be a power of 2, got {k_tile}")
 
 
+def _unpack_nm(w: Any, m_group: Optional[int]):
+    """(values, indices, m_group, logical K) of a storage="nm" weight: a
+    ``SparseQTensor`` (m_group and k_dim ride along) or a bare
+    ``(values, indices)`` pair with an explicit ``m_group``."""
+    if isinstance(w, SparseQTensor):
+        if w.values.ndim != 3:
+            raise ValueError(
+                "pqs_dot needs an unstacked (out, G, n_keep) SparseQTensor; "
+                f"got values {tuple(w.values.shape)} (one layer at a time)")
+        return w.values, w.indices, w.m_group, w.k_dim
+    if isinstance(w, (tuple, list)) and len(w) == 2:
+        values, indices = w
+        if m_group is None:
+            raise ValueError("storage='nm' with a bare (values, indices) "
+                             "pair needs an explicit m_group=")
+        if values.ndim != 3 or values.shape != indices.shape:
+            raise ValueError(f"expected matching (N, G, n_keep) slabs, got "
+                             f"{tuple(values.shape)} / "
+                             f"{tuple(indices.shape)}")
+        return values, indices, m_group, values.shape[1] * m_group
+    raise ValueError("storage='nm' expects w to be a SparseQTensor or a "
+                     f"(values, indices) pair, got {type(w).__name__}")
+
+
 def _local_dot(
     x2: torch.Tensor,  # (M, Kp), K already padded by the shared rule
-    w: torch.Tensor,  # (N, Kp)
+    w: Any,  # (N, Kp) dense, or the (values, indices) compressed slabs
     *,
     acc_bits: int,
     policy: str,
@@ -76,32 +104,48 @@ def _local_dot(
     backend: str,
     batch_chunk: Optional[int],
     certified: bool = False,
+    m_group: Optional[int] = None,
+    nm_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Single-device policy matmul on pre-padded operands.
+
+    Compressed slabs (``m_group`` given): the ``torch`` backend
+    decompresses them to the dense plain version, padded to the Kp the
+    dense path would use (zero columns are inert); ``cuda`` runs
+    ``ops.nm_policy_matmul`` on the slabs.
 
     certified=True: a proof says no partial sum reaches the acc_bits
     caps, so both backends accumulate ``wide`` (bit-identical to the
     narrow result by the proof).
     """
     if backend == "torch":
+        if m_group is not None:
+            w = ops._pad_to(nm_decompress(w[0].to(torch.int32), w[1],
+                                          m_group), x2.shape[1], 1)
         return policy_accumulate_ref(
             x2, w, policy="wide" if certified else policy,
             acc_bits=acc_bits, k_tile=k_tile, rounds=rounds,
             batch_chunk=batch_chunk)
     m = x2.shape[0]
     chunk = m if (batch_chunk is None or batch_chunk >= m) else batch_chunk
-    outs = [
-        ops.policy_matmul(x2[i : i + chunk], w, policy=policy,
-                          acc_bits=acc_bits, k_tile=k_tile, rounds=rounds,
-                          census=not certified)
-        for i in range(0, m, max(chunk, 1))
-    ]
+    if m_group is not None:
+        def dot(xc):
+            return ops.nm_policy_matmul(
+                xc, w[0], w[1], m_group=m_group, policy=policy,
+                acc_bits=acc_bits, k_tile=k_tile, rounds=rounds,
+                nm_impl=nm_impl, census=not certified)
+    else:
+        def dot(xc):
+            return ops.policy_matmul(
+                xc, w, policy=policy, acc_bits=acc_bits, k_tile=k_tile,
+                rounds=rounds, census=not certified)
+    outs = [dot(x2[i : i + chunk]) for i in range(0, m, max(chunk, 1))]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def pqs_dot(
     x: torch.Tensor,  # (..., K) integer carrier (int8, or int32 of int8)
-    w: torch.Tensor,  # (N, K) integer carrier; rows = output channels
+    w: Any,  # (N, K) integer carrier, rows = output channels; or N:M slabs
     *,
     acc_bits: int = 16,
     policy: str = "wide",
@@ -114,6 +158,8 @@ def pqs_dot(
     k_shards: Optional[int] = None,
     k_axis: Optional[str] = None,
     storage: str = "dense",
+    m_group: Optional[int] = None,
+    nm_impl: Optional[str] = None,
     certified: bool = False,
     defer_combine: bool = False,
 ) -> torch.Tensor:
@@ -122,8 +168,19 @@ def pqs_dot(
     Returns (..., N) int32, each element a dot product accumulated into
     an acc_bits register under ``policy``. Any M/N/K: padding and batch
     chunking happen here. ``backend="cuda"`` on CPU tensors raises.
+
+    ``storage="nm"``: ``w`` is a ``SparseQTensor`` or a ``(values,
+    indices)`` pair plus ``m_group``; x carries the logical K or the
+    padded G * m_group. ``nm_impl`` (``auto``, ``expand``, ``gather``)
+    picks the CUDA kernel; the result is the same either way.
     """
     _validate(policy, backend, acc_bits, k_tile, storage)
+    if nm_impl is not None:
+        if storage != "nm":
+            raise ValueError("nm_impl= is only meaningful with storage='nm'")
+        if nm_impl not in ops.NM_IMPLS:
+            raise ValueError(
+                f"nm_impl must be one of {ops.NM_IMPLS}, got {nm_impl!r}")
     if with_census:
         raise NotImplementedError(
             "the overflow census is not ported yet (with_census=True)")
@@ -134,25 +191,47 @@ def pqs_dot(
             "meshes and K-sharded accumulation (mesh=, k_shards=, k_axis=, "
             "defer_combine=) are not ported yet")
     backend = backend or default_backend(x)
-    if backend == "cuda" and not (x.is_cuda and w.is_cuda):
-        raise ValueError("backend='cuda' needs CUDA tensors; CPU tensors "
-                         "take backend='torch'")
-    if x.shape[-1] != w.shape[-1]:
-        raise ValueError(f"contraction mismatch: {tuple(x.shape)} vs "
-                         f"{tuple(w.shape)}")
     lead = x.shape[:-1]
     k = x.shape[-1]
-    n = w.shape[0]
-    x2 = x.reshape(-1, k)
-    # one K-padding rule for both backends: order-sensitive policies must
-    # see the same (padded) permutation domain to be bit-identical
-    kp = ops.padded_k(k, policy, k_tile)
-    if kp != k:
-        x2 = ops._pad_to(x2, kp, 1)
-        w = ops._pad_to(w, kp, 1)
+    x2 = x.reshape(-1, k).contiguous()  # the kernels take dense rows
+    if storage == "nm":
+        values, indices, m_group, k_logical = _unpack_nm(w, m_group)
+        k_dense = values.shape[1] * m_group
+        if k not in (k_logical, k_dense):
+            raise ValueError(
+                f"contraction mismatch: x has K={k} but the compressed "
+                f"weights cover {k_logical} (logical) / {k_dense} (padded)")
+        if policy in ("sorted_tiled", "sorted_tiled_seq") and (
+                k_tile % m_group):
+            raise ValueError(
+                f"tiled policies on storage='nm' need k_tile % m_group == "
+                f"0 (tile boundaries must align with the compressed "
+                f"groups); got k_tile={k_tile}, m_group={m_group}")
+        x2 = ops._pad_to(x2, k_dense, 1)  # tail K -> whole groups
+        if backend == "torch":
+            # the plain version pads the dense weight, as the dense path
+            x2 = ops._pad_to(x2, ops.padded_k(k_dense, policy, k_tile), 1)
+        w, n, nm = (values, indices), values.shape[0], m_group
+        on_card = x.is_cuda and values.is_cuda and indices.is_cuda
+    else:
+        if x.shape[-1] != w.shape[-1]:
+            raise ValueError(f"contraction mismatch: {tuple(x.shape)} vs "
+                             f"{tuple(w.shape)}")
+        n, nm = w.shape[0], None
+        # one K-padding rule for both backends: order-sensitive policies
+        # must see the same (padded) permutation domain to be bit-identical
+        kp = ops.padded_k(k, policy, k_tile)
+        if kp != k:
+            x2 = ops._pad_to(x2, kp, 1)
+            w = ops._pad_to(w, kp, 1)
+        on_card = x.is_cuda and w.is_cuda
+    if backend == "cuda" and not on_card:
+        raise ValueError("backend='cuda' needs CUDA tensors; CPU tensors "
+                         "take backend='torch'")
     out = _local_dot(x2, w, acc_bits=acc_bits, policy=policy,
                      k_tile=k_tile, rounds=rounds, backend=backend,
-                     batch_chunk=batch_chunk, certified=certified)
+                     batch_chunk=batch_chunk, certified=certified,
+                     m_group=nm, nm_impl=nm_impl)
     return out.reshape(*lead, n)
 
 
@@ -168,7 +247,8 @@ class IntegerLinConfig:
     The defaults are the serving default of the JAX package: the paper's
     tiled sort (``sorted_tiled_seq``) at a 16-bit register, k_tile 256.
     ``use_static_acts`` picks a QTensor's calibrated ``act_qparams`` over
-    the dynamic per-call absmax when it carries them. ``site_policies`` /
+    the dynamic per-call absmax when it carries them. ``nm_impl`` picks
+    the kernel for SparseQTensor weights (None = ``auto``). ``site_policies`` /
     ``site_acc_bits`` are per-site overrides, ((site, value), ...).
     """
 
@@ -179,6 +259,7 @@ class IntegerLinConfig:
     act_bits: int = 8
     backend: Optional[str] = None  # None = by the operands' device
     use_static_acts: bool = True
+    nm_impl: Optional[str] = None  # compressed weights: auto|expand|gather
     site_policies: tuple = ()
     site_acc_bits: tuple = ()
 
@@ -210,7 +291,8 @@ def integer_lin(cfg: Optional[IntegerLinConfig] = None, **kw):
 def qtensor_dot(
     x: torch.Tensor, qt, cfg: IntegerLinConfig, site: Optional[str] = None
 ) -> torch.Tensor:
-    """x (..., in) float @ QTensor (in, out) as an integer PQS dot.
+    """x (..., in) float @ QTensor or SparseQTensor (in, out) as an integer
+    PQS dot; compressed slabs go to ``pqs_dot(storage="nm")`` as they are.
 
     Activations are quantized per tensor: with the QTensor's static
     ``act_qparams`` when present (and ``cfg.use_static_acts``), else
@@ -240,9 +322,13 @@ def qtensor_dot(
         xq = torch.clamp(torch.round(x.to(torch.float32) / s_x), qmin, qmax)
         act_bits = cfg.act_bits
     xq = xq.to(torch.int8 if act_bits <= 8 else torch.int32)
-    z = pqs_dot(xq, qt.values_t, acc_bits=cfg.acc_bits_for(site),
+    sparse = isinstance(qt, SparseQTensor)
+    z = pqs_dot(xq, qt if sparse else qt.values_t,
+                acc_bits=cfg.acc_bits_for(site),
                 policy=cfg.policy_for(site), k_tile=cfg.k_tile,
-                rounds=cfg.rounds, backend=cfg.backend)
+                rounds=cfg.rounds, backend=cfg.backend,
+                storage="nm" if sparse else "dense",
+                nm_impl=cfg.nm_impl if sparse else None)
     if static and not aq.symmetric:
         z = z - qt.act_corr  # Eq. (3) offset correction, frozen per weight
     zf = z.to(torch.float32) * (s_x * qt.scale)

@@ -1,12 +1,13 @@
-"""QTensor: int8 N:M-pruned weight carrier, torch port of
-``repro.core.qtensor`` (dense storage; the compressed ``SparseQTensor``
-waits for the N:M kernels).
+"""QTensor and SparseQTensor: int8 N:M-pruned weight carriers, torch port
+of ``repro.core.qtensor``.
 
-The public layout is the JAX package's: ``values`` (in, out) int8, the
-layout of the float weight it replaces. The integer dot consumes the
-weight as (out, in) rows, so each QTensor also keeps a contiguous
-``values_t`` copy, made once when the QTensor is built instead of a
-transpose and copy on every call.
+The public layout is the JAX package's. A dense ``QTensor`` keeps
+``values`` (in, out) int8, the layout of the float weight it replaces;
+the integer dot consumes the weight as (out, in) rows, so each QTensor
+also keeps a contiguous ``values_t`` copy, made once when the QTensor is
+built instead of a transpose and copy on every call. A ``SparseQTensor``
+keeps the compressed slabs (out, G, n_keep) that the N:M kernels stream
+(``core.pruning`` describes the format).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.pruning import nm_prune_mask
+from repro_torch.core.pruning import nm_compress, nm_decompress, nm_prune_mask
 from repro_torch.core.quant import QParams, qrange
 from repro_torch.core.tree import tree_map
 
@@ -55,6 +56,104 @@ class QTensor:
         return (self.values.to(torch.float32) * self.scale).to(dtype)
 
 
+@dataclasses.dataclass
+class SparseQTensor:
+    """N:M-compressed int8 weight: the P of PQS as a storage format.
+
+    values:  (..., out, G, n_keep) int8, G = ceil(in / m_group)
+    indices: (..., out, G, n_keep) int32 position in each m-group
+    scale:   (..., out) f32 per-output-channel scales
+    m_group, k_dim: group size and the logical contraction length
+        (k_dim <= G * m_group; a tail group is zero-padded)
+    act_qparams / act_corr: as on ``QTensor``; the kept-only sum is the
+        dense sum, so the Eq. (3) correction is unchanged.
+    """
+
+    values: torch.Tensor
+    indices: torch.Tensor
+    scale: torch.Tensor
+    m_group: int
+    k_dim: int
+    act_qparams: Optional[QParams] = None
+    act_corr: Optional[torch.Tensor] = None
+
+    @property
+    def shape(self):
+        """Logical dense (..., in, out) shape: what the float weight had."""
+        return (*self.values.shape[:-3], self.k_dim, self.values.shape[-3])
+
+    @property
+    def ndim(self):
+        return self.values.ndim - 1
+
+    def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """Dense (..., in, out), contiguous: elementwise and in layout what
+        ``QTensor.dequant`` gives for the same codes."""
+        dense = nm_decompress(self.values.to(torch.float32), self.indices,
+                              self.m_group, self.k_dim)  # (..., out, in)
+        dense = dense.transpose(-1, -2).contiguous()
+        return (dense * self.scale[..., None, :]).to(dtype)
+
+    def input_rows(self, pos: torch.Tensor) -> torch.Tensor:
+        """Integer codes of the logical rows ``pos`` (any shape of input
+        positions) -> pos.shape + (out,) int32, without decompressing the
+        rest: row t is sum_j values[:, t // m, j] * [indices[:, t // m, j]
+        == t % m] (2-D slabs only)."""
+        m = self.m_group
+        vals = self.values[:, pos // m].to(torch.int32)  # (out, *pos, n)
+        hit = self.indices[:, pos // m] == (pos % m)[..., None]
+        codes = torch.where(hit, vals, 0).sum(dim=-1, dtype=torch.int32)
+        # contiguous, as a dense table's rows are: later layers then see
+        # the same layouts (and float reduction orders) as the dense path
+        return torch.movedim(codes, 0, -1).contiguous()
+
+
+def qtensor_nm_compress(qt: QTensor, n_keep: int, m_group: int
+                        ) -> SparseQTensor:
+    """Pack an N:M-pruned ``QTensor`` into a ``SparseQTensor``; a dense
+    leaf with more than n_keep nonzeros in a group raises. Calibrated
+    ``act_qparams`` / ``act_corr`` ride along unchanged."""
+    vals, idx = nm_compress(qt.values.transpose(-1, -2), n_keep, m_group)
+    return SparseQTensor(vals.contiguous(), idx.contiguous(), qt.scale,
+                         m_group, qt.values.shape[-2], qt.act_qparams,
+                         qt.act_corr)
+
+
+def nm_compress_tree(params: Any, n_keep: int, m: int = 16) -> Any:
+    """Convert every n_keep:m-sparse QTensor leaf to a ``SparseQTensor``.
+
+    Leaves that are not that sparse stay dense QTensors (ragged in dims
+    quantize unpruned), so the tree may be mixed. Invalid (n_keep, m)
+    raise up front, and so does a tree in which no QTensor leaf matched
+    the pattern: it would otherwise serve fully dense, silently.
+    """
+    if m < 1:
+        raise ValueError(f"m_group must be >= 1, got {m}")
+    if not 1 <= n_keep <= m:
+        raise ValueError(f"n_keep={n_keep} out of range [1, {m}] for M={m}")
+    counts = {"dense": 0, "converted": 0}
+
+    def conv(leaf):
+        if not isinstance(leaf, QTensor):
+            return leaf
+        counts["dense"] += 1
+        try:
+            out = qtensor_nm_compress(leaf, n_keep, m)
+        except ValueError:
+            return leaf  # not n_keep:m sparse: keep the dense form
+        counts["converted"] += 1
+        return out
+
+    out = tree_map(conv, params)
+    if counts["dense"] and not counts["converted"]:
+        raise ValueError(
+            f"no QTensor leaf ({counts['dense']} seen) is {n_keep}:{m} "
+            "sparse — the tree was pruned with a different (n_keep, m) "
+            "pattern (or not pruned at all); compressing would silently "
+            "serve fully dense")
+    return out
+
+
 def quantize_weight(
     w: torch.Tensor,
     bits: int = 8,
@@ -86,12 +185,12 @@ def _quantize_stacked(leaf, bits, n_keep, m):
 
 
 def is_qtensor(x: Any) -> bool:
-    return isinstance(x, QTensor)
+    return isinstance(x, (QTensor, SparseQTensor))
 
 
 def asarray(w: Any, dtype) -> torch.Tensor:
     """Uniform accessor used by every matmul of the model."""
-    if isinstance(w, QTensor):
+    if is_qtensor(w):
         return w.dequant(dtype)
     return w.to(dtype)
 
@@ -108,24 +207,36 @@ def quantize_tree(
     """Replace every large >=2-D float leaf with a QTensor on ``device``
     (CUDA unless the caller asks for the CPU).
 
-    The skip rules are the JAX package's, applied to each leaf as it is
-    given: leaves under ``min_size`` elements or with a trailing dim under
-    ``min_dim`` stay float, and a leaf whose in dim is not a multiple of
-    ``m`` is quantized without pruning. The port keeps one leaf per layer
-    where the JAX package stacks (L, in, out), so ``min_size`` counts one
-    layer's matrix here.
+    The skip rules are the JAX package's: leaves under ``min_size``
+    elements or with a trailing dim under ``min_dim`` stay float, and a
+    leaf whose in dim is not a multiple of ``m`` is quantized without
+    pruning. The JAX package stacks the layers into (L, in, out) leaves,
+    the port keeps a list of per-layer dicts; so a leaf inside a list of
+    dicts counts ``min_size`` over the L layers of that list, as the
+    stacked leaf does, and both packages quantize the same leaves. The
+    one case this leaves apart: JAX takes a stacked 1-D leaf (L, out) for
+    a matrix once L >= min_dim; the port never quantizes a 1-D leaf.
     """
     device = resolve_device(device)
 
-    def conv(leaf):
+    def conv(leaf, layers):
         if not isinstance(leaf, torch.Tensor):
             return leaf  # QTensors and plain values pass through
         leaf = leaf.to(device)
-        if leaf.ndim < 2 or leaf.numel() < min_size:
+        if leaf.ndim < 2 or leaf.numel() * layers < min_size:
             return leaf
         if min(leaf.shape[-2:]) < min_dim or not leaf.is_floating_point():
             return leaf
         keep = n_keep if leaf.shape[-2] % m == 0 else None
         return _quantize_stacked(leaf, bits, keep, m)
 
-    return tree_map(conv, params)
+    def walk(node, layers):
+        if isinstance(node, dict):
+            return {k: walk(v, layers) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            if node and all(isinstance(v, dict) for v in node):
+                layers *= len(node)  # a layer stack: JAX's leading L axis
+            return type(node)(walk(v, layers) for v in node)
+        return conv(node, layers)
+
+    return walk(params, 1)

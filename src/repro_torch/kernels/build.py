@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a``), in
 ``src/repro_torch/_build/`` (listed in ``.gitignore``). A library is named
-after a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built on import: the first call that
+after a hash of its source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing is built on import: the first call that
 needs a library builds it, and ``build_all`` builds every source at once
 with one nvcc process each, all started together.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("seq_policy_matmul",)
+SOURCES = ("seq_policy_matmul", "nm_seq_policy_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,10 +48,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, Path]:
@@ -80,6 +83,28 @@ def build_all(names=SOURCES) -> dict[str, Path]:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets
+
+
+def register_report(log: str) -> list[tuple[str, str, str]]:
+    """(kernel<E,LT>, registers, spill stores/loads) for each entry
+    function in nvcc's ``-Xptxas -v`` output."""
+    rows, kernel = [], None
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E",
+                             entry[1])
+            kernel = f"{name[1]}<{name[2]},{name[3]}>" if name else entry[1]
+            spilled = "?"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and kernel:
+            spilled = f"{spill[1]}/{spill[2]}"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and kernel:
+            rows.append((kernel, regs[1], spilled))
+            kernel = None
+    return rows
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,0 +1,259 @@
+"""PQS accumulation policies on N:M compressed weights for Hopper:
+``nm_gather_seq_policy_matmul`` and ``nm_seq_policy_matmul``.
+
+Port of the K-streaming kernels of ``repro/kernels/nm_spmm.py``. Weights
+arrive compressed (``core.pruning``): values (N, G, n_keep) int8 and
+indices (N, G, n_keep) int32 in canonical form, against x (M, K) with
+K <= G * m_group. Both compute the (M, N) int32 register of
+``sorted_matmul.seq_policy_matmul`` on the decompressed weight, bit for
+bit, under ``wide`` / ``clip`` / ``wrap`` / ``sorted_tiled_seq``:
+
+  gather  forms only the kept products x[m, g*m_group + idx] * value, in
+          ascending dense position; for sorted_tiled_seq each dense
+          k_tile tile is its bg = k_tile / m_group groups' kept products,
+          zero-padded to a power of two (``pad_last_pow2``) and sorted.
+          Exact by the zero-product prefix property (the header of
+          ``csrc/nm_seq_policy_matmul.cu`` gives the argument).
+  expand  rebuilds each chunk's dense positions and runs the dense
+          kernel's body; the exactness oracle of the gather.
+
+Each wrapper launches its hand-written CUDA kernel
+(``csrc/nm_seq_policy_matmul.cu``) on CUDA tensors, counting the launch
+in ``.launches``, and takes its plain version (``*_ref``) only for
+tensors on the CPU. The kernels mask ragged M, N, K and G themselves;
+the plain versions pad G to whole sort tiles (``_pad_groups``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.overflow import accumulate
+from repro_torch.core.pruning import nm_decompress
+from repro_torch.kernels.sorted_matmul import (
+    KERNEL_K_TILES,
+    SEQ_POLICIES,
+    _as_int8,
+    row_chunk,
+    seq_policy_matmul_ref,
+)
+
+
+def expand_nm_slab(vals: torch.Tensor, idx: torch.Tensor, m_group: int
+                   ) -> torch.Tensor:
+    """(N, G, n_keep) compressed slab -> dense (N, G*m_group) int32."""
+    return nm_decompress(vals.to(torch.int32), idx, m_group)
+
+
+def pad_last_pow2(a: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last axis up to a power of two (bitonic-sortable);
+    zero products are inert through sort, saturation and wraparound."""
+    n = a.shape[-1]
+    p = 1 if n <= 1 else 1 << (n - 1).bit_length()
+    return a if p == n else torch.nn.functional.pad(a, (0, p - n))
+
+
+def gather_nm_products(xb: torch.Tensor, vals: torch.Tensor,
+                       idx: torch.Tensor, m_group: int) -> torch.Tensor:
+    """Kept-only partial products: xb (M, >= G*m_group), vals/idx
+    (N, G, n_keep) -> (M, N, G*n_keep) int32, product j of group g being
+    xb[i, g*m_group + idx[o, g, j]] * vals[o, g, j]."""
+    n, g, n_keep = vals.shape
+    base = torch.arange(g, device=idx.device, dtype=torch.int64) * m_group
+    pos = (idx.to(torch.int64) + base[:, None]).reshape(n, g * n_keep)
+    return xb.to(torch.int32)[:, pos] * vals.reshape(n, g * n_keep).to(
+        torch.int32)
+
+
+def _check(x, values, indices, m_group, policy, acc_bits, k_tile) -> None:
+    if policy not in SEQ_POLICIES:
+        raise ValueError(f"unknown seq policy {policy!r}; {SEQ_POLICIES}")
+    if x.ndim != 2 or values.ndim != 3 or values.shape != indices.shape:
+        raise ValueError(f"expected x (M, K) and matching (N, G, n_keep) "
+                         f"slabs, got {tuple(x.shape)}, "
+                         f"{tuple(values.shape)} and {tuple(indices.shape)}")
+    n_keep, g = values.shape[2], values.shape[1]
+    if m_group < 1 or not 1 <= n_keep <= m_group:
+        raise ValueError(f"n_keep={n_keep} out of range [1, m_group] for "
+                         f"m_group={m_group}")
+    if x.shape[1] > g * m_group:
+        raise ValueError(f"contraction mismatch: x has K={x.shape[1]} but "
+                         f"the slabs cover G*m = {g}*{m_group}")
+    if not 2 <= acc_bits <= 30:
+        raise ValueError(f"acc_bits={acc_bits} outside [2, 30]")
+    if policy == "sorted_tiled_seq" and (
+            k_tile <= 0 or k_tile & (k_tile - 1) or k_tile % m_group):
+        raise ValueError(f"k_tile must be a power of 2 and a multiple of "
+                         f"m_group={m_group}, got {k_tile}")
+
+
+def _pad_groups(x, values, indices, m_group, bg):
+    """Pad G up to a multiple of ``bg`` with zero groups and x up to the
+    padded G*m_group columns: zero products, inert under every policy."""
+    g = values.shape[1]
+    gp = g + (-g) % bg
+    if gp != g:
+        values = torch.nn.functional.pad(values, (0, 0, 0, gp - g))
+        indices = torch.nn.functional.pad(indices, (0, 0, 0, gp - g))
+    return (torch.nn.functional.pad(x, (0, gp * m_group - x.shape[1])),
+            values, indices)
+
+
+def nm_seq_policy_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    *,
+    m_group: int,
+    policy: str = "clip",
+    acc_bits: int = 16,
+    rounds: int = 1,
+    k_tile: int = 256,
+) -> torch.Tensor:
+    """Plain version of the expand kernel: decompress, then the dense
+    plain version."""
+    _check(x, values, indices, m_group, policy, acc_bits, k_tile)
+    w = expand_nm_slab(values, indices, m_group)
+    x = torch.nn.functional.pad(x, (0, w.shape[1] - x.shape[1]))
+    return seq_policy_matmul_ref(x, w, policy=policy, acc_bits=acc_bits,
+                                 rounds=rounds, k_tile=k_tile)
+
+
+def nm_gather_seq_policy_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    *,
+    m_group: int,
+    policy: str = "clip",
+    acc_bits: int = 16,
+    rounds: int = 1,
+    k_tile: int = 256,
+) -> torch.Tensor:
+    """Plain version of the gather kernel: the kept products formed
+    explicitly (``gather_nm_products``); for sorted_tiled_seq each tile of
+    bg = k_tile / m_group groups is padded to a power of two and sorted on
+    its own (``overflow.accumulate`` with that tile), then the register
+    steps through the stream."""
+    _check(x, values, indices, m_group, policy, acc_bits, k_tile)
+    bg = k_tile // m_group if policy == "sorted_tiled_seq" else 1
+    x, values, indices = _pad_groups(x, values, indices, m_group, bg)
+    n, g, n_keep = values.shape
+    tile = bg * n_keep
+    chunk = row_chunk(n, g * n_keep)
+    outs = []
+    for i in range(0, x.shape[0], chunk):
+        prods = gather_nm_products(x[i : i + chunk], values, indices,
+                                   m_group)
+        seg = k_tile
+        if policy == "sorted_tiled_seq":
+            tiles = pad_last_pow2(prods.reshape(*prods.shape[:2], -1, tile))
+            seg = tiles.shape[-1]
+            prods = tiles.reshape(*prods.shape[:2], -1)
+        outs.append(accumulate(prods, acc_bits, policy, seg, rounds))
+    if not outs:
+        return torch.zeros((0, n), dtype=torch.int32, device=x.device)
+    return torch.cat(outs, dim=0)
+
+
+def _lib_fn(name: str):
+    from repro_torch.kernels import build
+
+    fn = getattr(build.library("nm_seq_policy_matmul"), name)
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p]
+    return fn
+
+
+def _launch(name, x, values, indices, *, m_group, policy, acc_bits, rounds,
+            k_tile):
+    """Launch ``name`` of csrc/nm_seq_policy_matmul.cu on CUDA tensors.
+    Returns (out, whether a kernel was launched)."""
+    devices = {x.device, values.device, indices.device}
+    if len(devices) != 1 or not x.is_cuda:
+        raise ValueError(f"x, values and indices must share one CUDA "
+                         f"device, got {sorted(map(str, devices))}")
+    if policy == "sorted_tiled_seq" and k_tile not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernels sort tiles of up to {KERNEL_K_TILES[-1]} "
+            f"dense positions; k_tile={k_tile}")
+    if indices.dtype != torch.int32:
+        raise TypeError(f"indices must be int32, got {indices.dtype}")
+    x8, v8 = _as_int8(x, "x"), _as_int8(values, "values")
+    if not (x8.is_contiguous() and v8.is_contiguous()
+            and indices.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous operands")
+    m, k = x8.shape
+    n, g, n_keep = v8.shape
+    out = torch.empty((m, n), dtype=torch.int32, device=x8.device)
+    if m == 0 or n == 0:
+        return out, False
+    if k == 0 or g == 0:
+        return out.zero_(), False
+    stream = torch.cuda.current_stream(x8.device).cuda_stream
+    err = _lib_fn(name)(
+        x8.data_ptr(), v8.data_ptr(), indices.data_ptr(), out.data_ptr(), m,
+        n, k, g, n_keep, m_group, SEQ_POLICIES.index(policy), acc_bits,
+        rounds, k_tile, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out, True
+
+
+def nm_gather_seq_policy_matmul(
+    x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
+    values: torch.Tensor,  # (N, G, n_keep) int8, K <= G * m_group
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int,
+    policy: str = "clip",
+    acc_bits: int = 16,
+    rounds: int = 1,
+    k_tile: int = 256,
+) -> torch.Tensor:
+    """(M, N) int32 from the kept products only: the CUDA gather kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+              rounds=rounds, k_tile=k_tile)
+    if x.device.type == values.device.type == indices.device.type == "cpu":
+        return nm_gather_seq_policy_matmul_ref(x, values, indices, **kw)
+    _check(x, values, indices, m_group, policy, acc_bits, k_tile)
+    out, launched = _launch("pqs_nm_gather_seq_policy_matmul", x, values,
+                            indices, **kw)
+    if launched:
+        nm_gather_seq_policy_matmul.launches += 1
+    return out
+
+
+def nm_seq_policy_matmul(
+    x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
+    values: torch.Tensor,  # (N, G, n_keep) int8, K <= G * m_group
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int,
+    policy: str = "clip",
+    acc_bits: int = 16,
+    rounds: int = 1,
+    k_tile: int = 256,
+) -> torch.Tensor:
+    """(M, N) int32 with each chunk expanded to its dense positions: the
+    CUDA expand kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+              rounds=rounds, k_tile=k_tile)
+    if x.device.type == values.device.type == indices.device.type == "cpu":
+        return nm_seq_policy_matmul_ref(x, values, indices, **kw)
+    _check(x, values, indices, m_group, policy, acc_bits, k_tile)
+    out, launched = _launch("pqs_nm_seq_policy_matmul", x, values, indices,
+                            **kw)
+    if launched:
+        nm_seq_policy_matmul.launches += 1
+    return out
+
+
+nm_gather_seq_policy_matmul.launches = 0
+nm_seq_policy_matmul.launches = 0

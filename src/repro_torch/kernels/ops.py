@@ -2,17 +2,24 @@
 ``repro.kernels.ops`` for the K-streaming policies.
 
 ``policy_matmul`` pads K by the policy's rule (``padded_k``) and routes
-the K-streaming policies to ``sorted_matmul.seq_policy_matmul``. The
-global-sort policies have no CUDA kernel yet: on CPU tensors they run the
-plain version, on CUDA tensors they raise. The TPU block table, its
-environment overrides and the autotuner are not carried over — their
-numbers were VMEM budgets of the TPU.
+the K-streaming policies to ``sorted_matmul.seq_policy_matmul``;
+``nm_policy_matmul`` routes them on N:M compressed slabs to the gather or
+the expand kernel of ``nm_spmm`` (``resolve_nm_impl``). The global-sort
+policies have no CUDA kernel yet: on CPU tensors they run the plain
+version, on CUDA tensors they raise. The TPU block table, its environment
+overrides and the autotuner are not carried over — their numbers were
+VMEM budgets of the TPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.nm_spmm import (
+    expand_nm_slab,
+    nm_gather_seq_policy_matmul,
+    nm_seq_policy_matmul,
+)
 from repro_torch.kernels.sorted_matmul import (
     SEQ_POLICIES,
     SORT_POLICIES,
@@ -21,6 +28,11 @@ from repro_torch.kernels.sorted_matmul import (
 )
 
 POLICIES = SEQ_POLICIES + SORT_POLICIES
+NM_IMPLS = ("auto", "expand", "gather")
+# Below this many groups ``auto`` takes expand. The value is the JAX
+# package's, set on the TPU; the port keeps it until the card's own
+# gather/expand times (chip_smoke.py phase 5) re-derive it.
+GATHER_MIN_G = 8
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -84,3 +96,80 @@ def policy_matmul(
                                      rounds=rounds)
     return seq_policy_matmul(xp, wp, policy=policy, acc_bits=acc_bits,
                              rounds=rounds, k_tile=k_tile)
+
+
+def resolve_nm_impl(policy: str, g: int, n_keep: int, m_group: int,
+                    nm_impl: str | None = None) -> str:
+    """Which N:M kernel serves a compressed matmul: an explicit
+    ``expand``/``gather`` wins; ``auto`` (or None) takes gather unless
+    the storage is dense-as-sparse (n_keep >= m_group), the policy is
+    ``wide``, or there are fewer than ``GATHER_MIN_G`` groups. The JAX
+    package's ``REPRO_PQS_NM_IMPL`` environment override is not carried
+    over."""
+    impl = "auto" if nm_impl is None else nm_impl
+    if impl not in NM_IMPLS:
+        raise ValueError(f"nm_impl must be one of {NM_IMPLS}, got {impl!r}")
+    if impl != "auto":
+        return impl
+    if n_keep >= m_group or policy == "wide" or g < GATHER_MIN_G:
+        return "expand"
+    return "gather"
+
+
+def nm_policy_matmul(
+    x: torch.Tensor,  # (M, K) integer carrier, K <= G * m_group
+    values: torch.Tensor,  # (N, G, n_keep) int8 compressed weights
+    indices: torch.Tensor,  # (N, G, n_keep) int32 in-group positions
+    *,
+    m_group: int,
+    policy: str = "wide",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+    nm_impl: str | None = None,
+    census: bool = True,
+) -> torch.Tensor:
+    """(M, N) int32 under any policy, directly on N:M compressed slabs;
+    bit-identical to ``policy_matmul`` on the decompressed weight.
+
+    The K-streaming policies go to the kernel ``resolve_nm_impl`` picks.
+    Their sort tile is the dense one: for sorted_tiled_seq, bg = k_tile /
+    m_group groups, so k_tile must be a multiple of m_group. The kernels
+    mask a ragged last tile (groups past G, positions past K) themselves
+    and the plain versions pad G to whole tiles. ``census=False`` is the
+    certified route, as on ``policy_matmul``.
+    """
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}; expected {POLICIES}")
+    if not census:
+        policy = "wide"  # provably saturate-free -> exact wide body
+    if values.shape != indices.shape or values.ndim != 3:
+        raise ValueError(f"expected matching (N, G, n_keep) slabs, got "
+                         f"{tuple(values.shape)} / {tuple(indices.shape)}")
+    _, g, n_keep = values.shape
+    k_dense = g * m_group
+    if x.shape[1] > k_dense:
+        raise ValueError(
+            f"contraction mismatch: x has K={x.shape[1]} but the "
+            f"compressed weights cover G*m = {g}*{m_group} = {k_dense}")
+    if policy in ("sorted_tiled", "sorted_tiled_seq") and k_tile % m_group:
+        raise ValueError(
+            f"tiled policies need k_tile % m_group == 0 so tile "
+            f"boundaries align with the compressed groups; got "
+            f"k_tile={k_tile}, m_group={m_group}")
+    impl = resolve_nm_impl(policy, g, n_keep, m_group, nm_impl)
+    if policy in SORT_POLICIES:
+        if x.is_cuda:
+            raise NotImplementedError(
+                f"policy {policy!r} on compressed storage needs the "
+                "global-sort N:M kernels, which a later slice of the port "
+                "brings to CUDA; use backend='torch' for the plain version")
+        kp = padded_k(k_dense, policy, k_tile)
+        w = _pad_to(expand_nm_slab(values, indices, m_group), kp, 1)
+        return policy_accumulate_ref(_pad_to(x, kp, 1), w, policy=policy,
+                                     acc_bits=acc_bits, k_tile=k_tile,
+                                     rounds=rounds)
+    fn = nm_gather_seq_policy_matmul if impl == "gather" \
+        else nm_seq_policy_matmul
+    return fn(x, values, indices, m_group=m_group, policy=policy,
+              acc_bits=acc_bits, rounds=rounds, k_tile=k_tile)

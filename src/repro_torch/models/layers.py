@@ -3,8 +3,9 @@
 
 Plain functions on tensors. Params are dicts of tensors, one dict per
 layer. Activations flow in the compute dtype; norms and softmax run in
-f32. Any projection may be a QTensor: ``lin`` dequantizes it, or inside
-``core.dispatch.integer_lin`` runs it as an integer PQS dot. Attention is
+f32. Any projection may be a QTensor or a SparseQTensor: ``lin``
+dequantizes it, or inside ``core.dispatch.integer_lin`` runs it as an
+integer PQS dot. Attention is
 plain einsum/softmax, as the JAX package leaves it to XLA, and is never
 query-chunked here.
 """
@@ -18,15 +19,15 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
-from repro_torch.core.qtensor import QTensor, asarray
+from repro_torch.core.qtensor import asarray, is_qtensor
 
 Params = dict[str, Any]
 
 
 def lin(x: torch.Tensor, w: Any, site: Optional[str] = None) -> torch.Tensor:
-    """x @ w, with QTensor weights run as integer dots inside an
-    ``integer_lin`` context and dequantized otherwise."""
-    if isinstance(w, QTensor):
+    """x @ w, with QTensor and SparseQTensor weights run as integer dots
+    inside an ``integer_lin`` context and dequantized otherwise."""
+    if is_qtensor(w):
         cfg = dispatch.integer_lin_config()
         if cfg is not None:
             return dispatch.qtensor_dot(x, w, cfg, site=site)

@@ -13,7 +13,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qtensor import QTensor, asarray
+from repro_torch.core.qtensor import QTensor, SparseQTensor, asarray
 from repro_torch.models.layers import (
     Params,
     attention,
@@ -53,16 +53,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    """tokens (B, S) int -> (B, S, d). A QTensor table is gathered before
-    it is dequantized: elementwise the same values, without dequantizing
-    every row of the vocabulary."""
+    """tokens (B, S) int -> (B, S, d). A QTensor or compressed table is
+    gathered before it is dequantized: elementwise the same values,
+    without dequantizing every row of the vocabulary."""
     dt = getattr(torch, cfg.compute_dtype)
     emb = params["embed"]
-    if isinstance(emb, QTensor):
-        x = (emb.values[tokens].to(torch.float32) * emb.scale).to(dt)
-    else:
-        x = emb.to(dt)[tokens]
-    return x
+    if isinstance(emb, (QTensor, SparseQTensor)):
+        codes = emb.values[tokens] if isinstance(emb, QTensor) else \
+            emb.input_rows(tokens)
+        return (codes.to(torch.float32) * emb.scale).to(dt)
+    return emb.to(dt)[tokens]
 
 
 def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig):

@@ -66,18 +66,86 @@ def test_quantize_tree(n_keep):
 
 
 def test_quantize_tree_counts_one_layer():
-    """The port keeps one leaf per layer, so ``min_size`` counts one
-    layer's matrix: a stacked (2, 48, 48) leaf passes min_size 4096 in
-    both packages, each (48, 48) layer alone does not."""
+    """A per-layer list quantizes exactly when JAX's stacked (L, in, out)
+    leaf does: ``min_size`` counts all L layers in both packages. The
+    stacked (2, 48, 48) leaf has 4608 elements, one layer 2304, so at
+    min_size 4096 both quantize and at 8192 neither does."""
     w = _w(13, (2, 48, 48))
-    kw = dict(bits=8, n_keep=8, m=16, min_size=1 << 12, min_dim=16)
-    assert isinstance(jqt.quantize_tree({"wq": jnp.asarray(w)}, **kw)["wq"],
+    for min_size, quantized in ((1 << 12, True), (1 << 13, False)):
+        kw = dict(bits=8, n_keep=8, m=16, min_size=min_size, min_dim=16)
+        j = jqt.quantize_tree({"wq": jnp.asarray(w)}, **kw)["wq"]
+        layers = tqt.quantize_tree([{"wq": torch.from_numpy(a)} for a in w],
+                                   device="cpu", **kw)
+        assert isinstance(j, jqt.QTensor) == quantized
+        for i, layer in enumerate(layers):
+            assert isinstance(layer["wq"], tqt.QTensor) == quantized
+            if quantized:
+                np.testing.assert_array_equal(layer["wq"].values.numpy(),
+                                              np.asarray(j.values[i]))
+                np.testing.assert_array_equal(layer["wq"].scale.numpy(),
+                                              np.asarray(j.scale[i]))
+
+
+def test_quantize_tree_stacked_bias_stays_float():
+    """The one leaf the packages still treat apart: 16 layers of a (48,)
+    bias stack in JAX into a (16, 48) leaf, which passes min_dim 16 and is
+    quantized as a matrix; the port never quantizes a 1-D leaf."""
+    b = _w(14, (16, 48))
+    kw = dict(bits=8, min_size=1 << 8, min_dim=16)
+    assert isinstance(jqt.quantize_tree({"b": jnp.asarray(b)}, **kw)["b"],
                       jqt.QTensor)
-    assert isinstance(tqt.quantize_tree({"wq": torch.from_numpy(w)},
-                                        device="cpu", **kw)["wq"], tqt.QTensor)
-    layers = tqt.quantize_tree([{"wq": torch.from_numpy(a)} for a in w],
+    layers = tqt.quantize_tree([{"b": torch.from_numpy(a)} for a in b],
                                device="cpu", **kw)
-    assert not any(isinstance(layer["wq"], tqt.QTensor) for layer in layers)
+    for a, layer in zip(b, layers):
+        assert torch.equal(layer["b"], torch.from_numpy(a))
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def test_quantize_tree_smoke_model_matches_jax():
+    """The smoke model's float params, converted, quantize in the port to
+    the converted JAX ``quantize_tree`` result, leaf for leaf and bit for
+    bit: the same leaves quantized, the same codes and scales."""
+    from repro.configs import get_config
+    from repro.models.model import build_model
+    from repro_torch.convert import params_from_numpy
+
+    def to_numpy(tree):
+        if isinstance(tree, jqt.QTensor):
+            return {"values": np.array(tree.values),
+                    "scale": np.array(tree.scale)}
+        if isinstance(tree, dict):
+            return {k: to_numpy(v) for k, v in tree.items()}
+        return np.array(tree)
+
+    params = build_model(get_config("qwen2-1.5b", smoke=True)).init(
+        jax.random.PRNGKey(0))
+    kw = dict(bits=8, n_keep=8, m=16, min_size=1 << 12, min_dim=16)
+    want = params_from_numpy(to_numpy(jqt.quantize_tree(params, **kw)),
+                             device="cpu")
+    got = tqt.quantize_tree(params_from_numpy(to_numpy(params),
+                                              device="cpu"), device="cpu",
+                            **kw)
+    want, got = dict(_leaves(want)), dict(_leaves(got))
+    assert want.keys() == got.keys()
+    assert any(isinstance(v, tqt.QTensor) for v in want.values())
+    for path, w in want.items():
+        g = got[path]
+        assert type(g) is type(w), path
+        if isinstance(w, tqt.QTensor):
+            assert torch.equal(g.values, w.values), path
+            assert torch.equal(g.scale, w.scale), path
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), path
 
 
 def _x(seed, dtype):
