@@ -15,7 +15,10 @@ imports nothing of JAX or of the JAX package. Phases:
    ``seq_policy_matmul``, and the N:M ``nm_gather_seq_policy_matmul`` and
    ``nm_seq_policy_matmul`` on 8:16 slabs (plus ragged 3:16 and 2:4
    cases), which must also equal the dense kernel on the decompressed
-   weight;
+   weight; and the global-sort kernels ``sort_matmul``,
+   ``tile_sums_matmul``, ``paired_accum_matmul`` and
+   ``chunked_sort_matmul`` (with tied tile sums), the one-pass kernel
+   equal to the two-pass pipeline;
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -26,13 +29,21 @@ imports nothing of JAX or of the JAX package. Phases:
 3b. the same model served from N:M compressed storage
    (``nm_compress_tree``): every projection through the gather kernel,
    none through the dense one, and the same tokens as phase 3;
+3c. the model of phase 3 served under ``sorted_tiled``: 168
+   ``sort_matmul``, 28 ``tile_sums_matmul`` and 28 ``paired_accum_matmul``
+   launches a step (one-pass at K = 1536, two-pass at w_out's K = 8960);
+3d. and under ``sorted``: 168 ``sort_matmul`` and 28
+   ``chunked_sort_matmul`` launches a step;
 4. the same engine at 2 layers, full width: the dense kernel and its
    plain version, and the compressed weights through the gather and the
    expand kernel (the expand kernel's path), give identical tokens and
    decode logits;
+4b. at 2 layers under ``sorted_tiled`` and ``sorted``: kernels and plain
+   versions give identical tokens (8 new ones) and decode logits;
 5. kernel times at the decode shapes (CUDA events, L2 flushed before
-   each launch), beside the plain versions, ``torch._int_mm`` and, for
-   the N:M kernels, the dense kernel on the same dot.
+   each launch), beside the plain versions, ``torch._int_mm`` (and a
+   float32 ``bmm`` for the tile sums) and, for the N:M kernels, the
+   dense kernel on the same dot.
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -186,17 +197,18 @@ def model_params(cfg, seed, compressed):
 
 
 def serve(torch, cfg, seed, backend=None, new_tokens=16, compressed=False,
-          nm_impl=None):
-    """Build, quantize (and compress) and serve 4 greedy requests. Returns
-    (requests, engine, seconds of step 1 (admission, prefill, first
-    decode), seconds of the later decode steps)."""
+          nm_impl=None, policy="sorted_tiled_seq"):
+    """Build, quantize (and compress) and serve 4 greedy requests under
+    ``policy``. Returns (requests, engine, seconds of step 1 (admission,
+    prefill, first decode), seconds of the later decode steps)."""
     from repro_torch.core.dispatch import IntegerLinConfig
     from repro_torch.serving import Request, ServingEngine
 
     model, params = model_params(cfg, seed, compressed)
     torch.cuda.empty_cache()
     eng = ServingEngine(model, params, num_slots=4, max_len=128,
-                        int_lin=IntegerLinConfig(backend=backend,
+                        int_lin=IntegerLinConfig(policy=policy,
+                                                 backend=backend,
                                                  nm_impl=nm_impl))
     reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts(4, seed, cfg.vocab_size))]
@@ -219,45 +231,46 @@ def reset(counters):
         fn.launches = 0
 
 
-def phase_serve(torch, counters, cfg, seed, compressed, want_tokens=None):
-    """Serve the full-width model (dense or compressed storage) with every
-    launch count set to 0 just before and read just after. The dense
-    storage must go through ``seq_policy_matmul`` only, the compressed
-    storage through ``nm_gather_seq_policy_matmul`` only (and give
-    ``want_tokens``). Returns (launches by kernel, decode steps, tokens)."""
-    kernel = "nm_gather_seq_policy_matmul" if compressed else \
-        "seq_policy_matmul"
+def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
+                policy="sorted_tiled_seq", want_tokens=None):
+    """Serve the full-width model (dense or compressed storage) under
+    ``policy`` with every launch count set to 0 just before and read just
+    after. ``expect`` maps each kernel of the path to its launches per
+    layer and step; every other kernel must launch 0 times (and the tokens
+    must equal ``want_tokens`` when given). Returns (launches by kernel,
+    decode steps, tokens)."""
     reset(counters)
     reqs, eng, t_first, t_rest = serve(torch, cfg, seed,
-                                       compressed=compressed)
+                                       compressed=compressed, policy=policy)
     launches = {name: fn.launches for name, fn in counters.items()}
     steps = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
-    need = len(SITES) * cfg.num_layers * steps
+    need = {name: per * cfg.num_layers * steps
+            for name, per in expect.items()}
     decode_steps = eng.stats["decode_steps"]
     per_step = t_rest / max(decode_steps - 1, 1)
     tokens = sum(len(r.output) for r in reqs)
     print(f"  served {len(reqs)} requests, {tokens} tokens from "
-          f"{'compressed' if compressed else 'dense'} storage: prefill "
-          f"steps {eng.stats['prefill_steps']}, decode steps "
-          f"{decode_steps}", flush=True)
+          f"{'compressed' if compressed else 'dense'} storage under "
+          f"{policy}: prefill steps {eng.stats['prefill_steps']}, decode "
+          f"steps {decode_steps}", flush=True)
     print(f"  step 1 (prefill + first decode) {t_first:.3f} s; later decode "
           f"{t_rest:.3f} s over {decode_steps - 1} steps = {per_step:.4f} "
           f"s/step; prefill alone ~ {t_first - per_step:.3f} s", flush=True)
     print(f"  decode throughput {4 * (decode_steps - 1) / t_rest:.2f} "
           f"tokens/s (4 slots); end to end {tokens / (t_first + t_rest):.2f}"
           f" generated tokens/s", flush=True)
-    print(f"  launches {launches} (need {kernel} >= {need} = {len(SITES)} "
-          f"sites x {cfg.num_layers} layers x {steps} steps, the others 0)",
-          flush=True)
+    per = {name: n / steps for name, n in launches.items() if n}
+    print(f"  launches {launches}; need {need} (per layer and step "
+          f"{expect} x {cfg.num_layers} layers x {steps} steps), the "
+          f"others 0; per step {per}", flush=True)
     for r in reqs:
         if not r.done or len(r.output) != 16:
             raise AssertionError(f"request {r.uid} incomplete: {r.output}")
         if not all(0 <= t < cfg.vocab_size for t in r.output):
             raise AssertionError(f"request {r.uid}: token out of range")
-    if launches[kernel] < need:
-        raise AssertionError(f"{launches[kernel]} {kernel} launches < "
-                             f"{need}")
-    if any(n for name, n in launches.items() if name != kernel):
+    if any(launches[name] != n for name, n in need.items()):
+        raise AssertionError(f"launches {launches} != {need}")
+    if any(n for name, n in launches.items() if name not in need):
         raise AssertionError(f"another kernel ran on this path: {launches}")
     outputs = [r.output for r in reqs]
     print(f"  request 0 tokens {outputs[0]}", flush=True)
@@ -338,7 +351,6 @@ def phase_parity(torch, counters, cfg, seed):
     the same tokens and decode logits. The expand serve is that kernel's
     path: its counts are set to 0 just before and read just after. Returns
     the expand kernel's launches in it."""
-    from repro_torch.core import dispatch
     from repro_torch.core.qtensor import nm_compress_tree
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
@@ -365,32 +377,155 @@ def phase_parity(torch, counters, cfg, seed):
                                      f"launches < {need}, or gather ran")
     if any(o != outs["cuda"] for o in outs.values()):
         raise AssertionError(f"tokens differ: {outs}")
-    # logits of one decode after a prefill
     model, params = model_params(cfg2, seed, compressed=False)
     sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    check_logits(torch, model, cfg, seed, (
+        ("cuda", params, dict(backend="cuda")),
+        ("torch", params, dict(backend="torch")),
+        ("gather", sparse, dict(nm_impl="gather")),
+        ("expand", sparse, dict(nm_impl="expand"))))
+    return expand_launches
+
+
+def check_logits(torch, model, cfg, seed, runs):
+    """Logits of one decode after a prefill of 4 prompts, for each (name,
+    params, IntegerLinConfig keywords) of ``runs``: all must equal the
+    first run's, and be finite."""
+    from repro_torch.core import dispatch
+
     toks = torch.tensor([p[:16].tolist() for p in prompts(4, seed,
                                                           cfg.vocab_size)],
                         device="cuda", dtype=torch.int32)
     lengths = torch.full((4,), 16, device="cuda", dtype=torch.int32)
     logits = {}
-    for name, p, kw in (("cuda", params, dict(backend="cuda")),
-                        ("torch", params, dict(backend="torch")),
-                        ("gather", sparse, dict(nm_impl="gather")),
-                        ("expand", sparse, dict(nm_impl="expand"))):
+    for name, p, kw in runs:
         caches = model.init_caches(p, 4, 32, torch.float32)
         with torch.no_grad(), dispatch.integer_lin(
                 dispatch.IntegerLinConfig(**kw)):
             _, caches = model.prefill(p, toks, caches, lengths)
             logits[name], _ = model.decode(p, toks[:, -1:], caches)
-    ref = logits["cuda"].float()
+    first = runs[0][0]
+    ref = logits[first].float()
     finite = bool(torch.isfinite(ref).all())
     diffs = {name: float((lg.float() - ref).abs().max())
              for name, lg in logits.items()}
-    print(f"  decode logits {tuple(ref.shape)}: max |x - dense kernel| = "
+    print(f"  decode logits {tuple(ref.shape)}: max |x - {first}| = "
           f"{diffs}, finite={finite}", flush=True)
     if any(diffs.values()) or not finite:
         raise AssertionError("logits differ or are not finite")
-    return expand_launches
+
+
+SORT_KERNELS = ("sort_matmul", "tile_sums_matmul", "paired_accum_matmul",
+                "chunked_sort_matmul")
+# launches per layer and decode step of each global-sort policy at
+# qwen2-1.5b: the six K = 1536 sites one-pass, w_out (K = 8960) two-pass
+SORT_PATHS = {
+    "sorted_tiled": {"sort_matmul": 6, "tile_sums_matmul": 1,
+                     "paired_accum_matmul": 1},
+    "sorted": {"sort_matmul": 6, "chunked_sort_matmul": 1},
+}
+
+
+def sort_operands(torch, m, n, k, seed, k_tile=256):
+    """``operands`` with tied tile sums: row 1 of x all zero, and row 2 of
+    x and of w one k_tile pattern repeated."""
+    x, w = operands(torch, m, n, k, seed)
+    x[1] = 0
+    x[2] = x[2, :k_tile].repeat(k // k_tile)
+    w[2] = w[2, :k_tile].repeat(k // k_tile)
+    return x, w
+
+
+def phase_sort_kernels(torch, sm, ss, seed):
+    """The four global-sort kernels against their plain versions,
+    bit-exact, at every site shape at M = 4 and at (N, K) = (256, 1536) at
+    M = 64, rounds 1 and 2, with tied tile sums; and the one-pass kernel
+    equal to the two-pass pipeline under both policies (K = 1536 and 8960;
+    ``sorted`` over kp = 2048 and 16384, given, as on the main path, the
+    unpadded operands and kp). Returns the max |difference| of each kernel
+    against its plain version."""
+    from repro_torch.core.sorted_accum import pair_permutation
+    from repro_torch.kernels.ops import next_pow2
+
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    cases = [(4, n, k) for (n, k) in SHAPES] + [(64, 256, 1536)]
+    worst = dict.fromkeys(SORT_KERNELS, 0)
+    cross = 0
+    for i, (m, n, k) in enumerate(cases):
+        x, w = sort_operands(torch, m, n, k, seed + 100 + i)
+        kp = next_pow2(k)
+        for rounds in (1, 2):
+            kw = dict(acc_bits=16, rounds=rounds)
+            tk = dict(kw, k_tile=256)
+            skw = dict(kw, kp=kp)
+            one = sm.sort_matmul(x, w, policy="sorted_tiled", **tk)
+            sums = ss.tile_sums_matmul(x, w, k_tile=256)
+            perm = pair_permutation(sums).to(torch.int32)
+            two = ss.paired_accum_matmul(x, w, perm, **tk)
+            ones = sm.sort_matmul(x, w, policy="sorted", **skw)
+            chunked = ss.chunked_sort_matmul(x, w, **skw)
+            errs = {
+                "sort_matmul": max(
+                    diff(one, sm.sort_matmul_ref(x, w, policy="sorted_tiled",
+                                                 **tk)),
+                    diff(ones, sm.sort_matmul_ref(x, w, policy="sorted",
+                                                  **skw))),
+                "tile_sums_matmul": diff(
+                    sums, ss.tile_sums_matmul_ref(x, w, k_tile=256)),
+                "paired_accum_matmul": diff(
+                    two, ss.paired_accum_matmul_ref(x, w, perm, **tk)),
+                "chunked_sort_matmul": diff(
+                    chunked, ss.chunked_sort_matmul_ref(x, w, **skw)),
+            }
+            passes = max(
+                diff(one, ss.stream_sort_matmul(x, w, policy="sorted_tiled",
+                                                **tk)),
+                diff(ones, ss.stream_sort_matmul(x, w, policy="sorted",
+                                                 **skw)))
+            cross = max(cross, passes)
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            tied = float((sums[1] == sums[1, :, :1]).float().mean())
+            print(f"  sort kernels/plain M={m:3d} N={n:5d} K={k:5d} "
+                  f"(sorted at {kp}) rounds={rounds} max|diff| {errs}; "
+                  f"one-pass vs two-pass {passes}; tied sums in row 1 "
+                  f"{tied:.2f}", flush=True)
+    if any(worst.values()) or cross:
+        raise AssertionError(f"global-sort kernels disagree: {worst}, "
+                             f"one-pass vs two-pass {cross}")
+    return worst
+
+
+def phase_sort_parity(torch, counters, cfg, seed, new_tokens=8):
+    """2 layers at full width under ``sorted_tiled`` and under ``sorted``:
+    the kernels and their plain versions give the same tokens (8 new ones
+    each: the plain ``sorted`` path walks 16384 saturating adds in Python
+    at w_out) and the same decode logits."""
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model, params = model_params(cfg2, seed, compressed=False)
+    for policy in SORT_PATHS:
+        outs = {}
+        for backend in ("cuda", "torch"):
+            reset(counters)
+            t0 = time.perf_counter()
+            reqs, _, _, _ = serve(torch, cfg2, seed, backend=backend,
+                                  new_tokens=new_tokens, policy=policy)
+            outs[backend] = [r.output for r in reqs]
+            print(f"  2-layer serve, {policy}, {backend}: "
+                  f"{time.perf_counter() - t0:.1f} s; launches "
+                  f"{dict((k, f.launches) for k, f in counters.items())}",
+                  flush=True)
+        if outs["cuda"] != outs["torch"] or any(
+                len(o) != new_tokens for o in outs["cuda"]):
+            raise AssertionError(f"{policy} tokens differ: {outs}")
+        print(f"  {policy}: tokens identical, request 0 {outs['cuda'][0]}",
+              flush=True)
+        check_logits(torch, model, cfg, seed, (
+            ("cuda", params, dict(policy=policy, backend="cuda")),
+            ("torch", params, dict(policy=policy, backend="torch"))))
 
 
 def time_launches(torch, fn, iters, flush_buf):
@@ -497,21 +632,111 @@ def phase_nm_timing(torch, sm, nm):
     return table
 
 
-def kernel_record(name, source, replaces, rows, **extra):
-    """One entry of the ``kernels`` line: sums over the 7 decode sites."""
-    total = {key: sum(r[key] for r in rows) for key in rows[0]}
+def bound_row(m, n, k, nbytes):
+    """Bytes and operations bounds (ms) of a dot of m x n outputs over k
+    products that moves ``nbytes``."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms)
+
+
+def phase_sort_timing(torch, sm, ss):
+    """The global-sort kernels at the decode shapes (M = 4) of the sites
+    where the main path runs them: ``sort_matmul`` at the six K = 1536
+    sites under each policy, the two-pass pair and the chunked sort at
+    w_out. Each kernel is given what the main path gives it: the unpadded
+    operands and, for ``sorted``, kp = 2048 or 16384 (the zero tail is
+    masked in the kernel). Beside each: its plain version, its bound (the
+    bytes of the logical-K operands it reads and of what it writes, or
+    2 M N K int8 operations over the logical K) and, for pass 1, one
+    float32 ``torch.bmm`` (TF32 off; exact, since |sum| <= 256 * 16384 <
+    2^24). At w_out the one-pass kernel is timed too, beside the two-pass
+    path."""
+    from repro_torch.core.sorted_accum import pair_permutation
+    from repro_torch.kernels.ops import next_pow2
+
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    table = {name: [] for name in SORT_KERNELS + ("sort_matmul[sorted]",)}
+    m, kt = 4, 256
+    for site, (n, k) in SITES.items():
+        x, w = operands(torch, m, n, k, 11)
+        kp = next_pow2(k)
+        tk = dict(acc_bits=16, rounds=1, k_tile=kt)
+        one = dict(acc_bits=16, rounds=1, kp=kp)
+        runs = []  # (table key, kernel call, plain call, bytes, library)
+        if k <= 4096:
+            runs.append(("sort_matmul", lambda: sm.sort_matmul(
+                x, w, policy="sorted_tiled", **tk),
+                lambda: sm.sort_matmul_ref(x, w, policy="sorted_tiled", **tk),
+                m * k + n * k + 4 * m * n, None))
+            runs.append(("sort_matmul[sorted]", lambda: sm.sort_matmul(
+                x, w, policy="sorted", **one),
+                lambda: sm.sort_matmul_ref(x, w, policy="sorted", **one),
+                m * k + n * k + 4 * m * n, None))
+        else:
+            t = k // kt
+            perm = pair_permutation(ss.tile_sums_matmul(x, w, k_tile=kt)).to(
+                torch.int32)
+            xf = x.float().reshape(m, t, kt).transpose(0, 1).contiguous()
+            wf = w.float().reshape(n, t, kt).permute(1, 2, 0).contiguous()
+            bmm = torch.bmm(xf, wf).permute(1, 2, 0)
+            if not torch.equal(bmm.to(torch.int32),
+                               ss.tile_sums_matmul(x, w, k_tile=kt)):
+                raise AssertionError("float32 bmm tile sums are not exact")
+            runs.append(("tile_sums_matmul", lambda: ss.tile_sums_matmul(
+                x, w, k_tile=kt), lambda: ss.tile_sums_matmul_ref(
+                x, w, k_tile=kt), m * k + n * k + 4 * m * n * t,
+                lambda: torch.bmm(xf, wf)))
+            runs.append(("paired_accum_matmul",
+                         lambda: ss.paired_accum_matmul(x, w, perm, **tk),
+                         lambda: ss.paired_accum_matmul_ref(x, w, perm, **tk),
+                         m * k + n * k + 4 * m * n * t + 4 * m * n, None))
+            runs.append(("chunked_sort_matmul",
+                         lambda: ss.chunked_sort_matmul(x, w, **one),
+                         lambda: ss.chunked_sort_matmul_ref(x, w, **one),
+                         m * k + n * k + 4 * m * n, None))
+            for policy, pk in (("sorted_tiled", k), ("sorted", kp)):
+                ms = time_launches(torch, lambda: sm.sort_matmul(
+                    x, w, policy=policy, kp=pk, **tk), 10, flush_buf)
+                print(f"  time sort_matmul (one-pass, for comparison) "
+                      f"{policy} {site} M={m} N={n} K={k} kp={pk} "
+                      f"{ms:.4f} ms", flush=True)
+        for key, kernel, plain, nbytes, lib in runs:
+            row = dict(ms=time_launches(torch, kernel, 10, flush_buf),
+                       plain_ms=time_launches(torch, plain, 1, flush_buf),
+                       library_ms=lib and time_launches(torch, lib, 10,
+                                                        flush_buf),
+                       **bound_row(m, n, k, nbytes))
+            table[key].append(row)
+            print(f"  time {key:20s} {site:6s} M={m} N={n:5d} K={k:5d} "
+                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} "
+                  f"ms  bound {row['bound_ms']:.5f} ms" + (
+                      f"  float32 bmm {row['library_ms']:.4f} ms"
+                      if lib else ""), flush=True)
+    return table
+
+
+def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
+                  work="7 projection sites of one qwen2-1.5b layer at "
+                       "decode (M=4), acc_bits 16, k_tile 256", **extra):
+    """One entry of the ``kernels`` line: sums over the decode sites of
+    ``rows``."""
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    library = [r.get("library_ms") for r in rows]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        policy="sorted_tiled_seq",
-        work="7 projection sites of one qwen2-1.5b layer at decode (M=4), "
-             "acc_bits 16, k_tile 256",
+        policy=policy, work=work,
         ms=total["ms"], plain_ms=total["plain_ms"],
         bound_ms=total["bound_ms"],
         bound_by="bytes" if total["bytes_ms"] >= total["ops_ms"]
         else "operations",
-        # no one PyTorch call computes the sorted 16-bit register; the
-        # wide policy's torch._int_mm times are printed in phase 5
-        library_ms=None, **extra)
+        # no one PyTorch call computes a sorted 16-bit register; pass 1's
+        # exact sums are one float32 bmm (the wide policy's torch._int_mm
+        # times are printed in phase 5)
+        library_ms=sum(library) if all(v is not None for v in library)
+        else None, **extra)
 
 
 def main() -> int:
@@ -529,6 +754,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import nm_spmm as nm
     from repro_torch.kernels import sorted_matmul as sm
+    from repro_torch.kernels import sorted_stream as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -549,32 +775,48 @@ def main() -> int:
     cfg = get_config("qwen2-1.5b")
     counters = {"seq_policy_matmul": sm.seq_policy_matmul,
                 "nm_gather_seq_policy_matmul": nm.nm_gather_seq_policy_matmul,
-                "nm_seq_policy_matmul": nm.nm_seq_policy_matmul}
+                "nm_seq_policy_matmul": nm.nm_seq_policy_matmul,
+                "sort_matmul": sm.sort_matmul,
+                "tile_sums_matmul": ss.tile_sums_matmul,
+                "paired_accum_matmul": ss.paired_accum_matmul,
+                "chunked_sort_matmul": ss.chunked_sort_matmul}
     got = {}  # what each phase measured, for the kernels line
 
     def dense_serve():
         got["launches"], _, got["tokens"] = phase_serve(
-            torch, counters, cfg, args.seed, compressed=False)
+            torch, counters, cfg, args.seed, {"seq_policy_matmul": 7})
 
     def nm_serve():
         got["nm_launches"] = phase_serve(
-            torch, counters, cfg, args.seed, compressed=True,
+            torch, counters, cfg, args.seed,
+            {"nm_gather_seq_policy_matmul": 7}, compressed=True,
             want_tokens=got.get("tokens"))[0]
         if "tokens" not in got:
             raise AssertionError("no dense tokens to compare: phase 3 failed")
 
+    def sort_serve(policy):
+        got[policy] = phase_serve(torch, counters, cfg, args.seed,
+                                  SORT_PATHS[policy], policy=policy)[0]
+
     phases = [
         ("[2] kernel vs plain", lambda: got.update(
             err=phase_kernels(torch, sm, args.seed),
-            nm_err=phase_nm_kernels(torch, sm, nm, args.seed))),
+            nm_err=phase_nm_kernels(torch, sm, nm, args.seed),
+            sort_err=phase_sort_kernels(torch, sm, ss, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
+        ("[3c] serve qwen2-1.5b under sorted_tiled",
+         lambda: sort_serve("sorted_tiled")),
+        ("[3d] serve qwen2-1.5b under sorted", lambda: sort_serve("sorted")),
         ("[4] kernel vs plain serving, dense and compressed", lambda:
             got.update(expand_launches=phase_parity(torch, counters, cfg,
                                                     args.seed))),
+        ("[4b] kernel vs plain serving, sorted_tiled and sorted",
+         lambda: phase_sort_parity(torch, counters, cfg, args.seed)),
         ("[5] timing", lambda: got.update(
             timing=phase_timing(torch, sm),
-            nm_timing=phase_nm_timing(torch, sm, nm))),
+            nm_timing=phase_nm_timing(torch, sm, nm),
+            sort_timing=phase_sort_timing(torch, sm, ss))),
     ]
     for title, fn in phases:
         print(title, flush=True)
@@ -611,6 +853,54 @@ def main() -> int:
             max_abs_err=got["nm_err"]["nm_seq_policy_matmul"],
             path="phase 4, compressed storage with nm_impl='expand' "
                  "(2 layers)"),
+    ]
+    timing = got["sort_timing"]
+    tiled, srt = got["sorted_tiled"], got["sorted"]
+    six = ("the 6 K=1536 sites of one qwen2-1.5b layer at decode (M=4), "
+           "acc_bits 16")
+    w_out = "w_out (N=1536, K=8960) of one qwen2-1.5b layer at decode " \
+            "(M=4), acc_bits 16"
+    kernels += [
+        kernel_record(
+            "sort_matmul", csrc + "sort_matmul.cu",
+            "src/repro/kernels/sorted_matmul.py:204", timing["sort_matmul"],
+            policy="sorted_tiled", work=six + ", k_tile 256",
+            launches=tiled["sort_matmul"] + srt["sort_matmul"],
+            launches_by_path={"sorted_tiled": tiled["sort_matmul"],
+                              "sorted": srt["sort_matmul"]},
+            max_abs_err=got["sort_err"]["sort_matmul"],
+            sorted_policy=kernel_record(
+                "sort_matmul", csrc + "sort_matmul.cu",
+                "src/repro/kernels/sorted_matmul.py:204",
+                timing["sort_matmul[sorted]"], policy="sorted",
+                work=six + ", sorted over kp 2048 (the tail past K "
+                           "masked in the kernel)"),
+            path="phases 3c and 3d (one-pass at K = 1536)"),
+        kernel_record(
+            "tile_sums_matmul", csrc + "sorted_stream.cu",
+            "src/repro/kernels/sorted_stream.py:110",
+            timing["tile_sums_matmul"], policy="sorted_tiled",
+            work=w_out + ", k_tile 256",
+            launches=tiled["tile_sums_matmul"],
+            max_abs_err=got["sort_err"]["tile_sums_matmul"],
+            path="phase 3c (two-pass pass 1 at K = 8960)"),
+        kernel_record(
+            "paired_accum_matmul", csrc + "sorted_stream.cu",
+            "src/repro/kernels/sorted_stream.py:262",
+            timing["paired_accum_matmul"], policy="sorted_tiled",
+            work=w_out + ", k_tile 256",
+            launches=tiled["paired_accum_matmul"],
+            max_abs_err=got["sort_err"]["paired_accum_matmul"],
+            path="phase 3c (two-pass pass 2 at K = 8960)"),
+        kernel_record(
+            "chunked_sort_matmul", csrc + "sort_matmul.cu",
+            "src/repro/kernels/sorted_stream.py:372",
+            timing["chunked_sort_matmul"], policy="sorted",
+            work=w_out + ", sorted over kp 16384 (the tail past K "
+                         "masked in the kernel)",
+            launches=srt["chunked_sort_matmul"],
+            max_abs_err=got["sort_err"]["chunked_sort_matmul"],
+            path="phase 3d (two-pass at K = 8960)"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

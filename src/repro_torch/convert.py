@@ -11,7 +11,9 @@ so nothing here imports JAX):
   ``indices`` (out, G, n_keep) int32, ``scale`` (out,) f32 and the ints
   ``m_group`` and ``k_dim``, which becomes a port ``SparseQTensor``;
 - ``"layers"`` stacked along axis 0, (L, ...), which becomes the port's
-  list of per-layer dicts (the ints of a compressed weight are shared).
+  list of per-layer dicts (the ints of a compressed weight are shared,
+  and so is the (out,) scale of a quantized stacked vector, whose (L,
+  out) codes give each layer its row).
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ _SPARSE_KEYS = {"values", "indices", "scale", "m_group", "k_dim"}
 
 
 def _unstack(node: Any, i: int) -> Any:
+    if isinstance(node, dict) and set(node) == {"values", "scale"} and \
+            node["values"].ndim == 2:
+        # a quantized layer-stacked vector: (L, out) codes, one (out,)
+        # scale shared by the layers
+        return {"values": node["values"][i], "scale": node["scale"]}
     if isinstance(node, dict):
         return {k: _unstack(v, i) for k, v in node.items()}
     return node[i] if isinstance(node, np.ndarray) else node

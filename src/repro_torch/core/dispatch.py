@@ -9,8 +9,10 @@ backends, bit-identical to each other:
   - ``cuda``  — the hand-written CUDA kernels (``kernels/ops.py``).
 
 The default follows the operands' device: ``cuda`` for CUDA tensors,
-``torch`` for CPU tensors. K is zero-padded here by one rule for both
-backends, so order-sensitive policies see the same permutation domain.
+``torch`` for CPU tensors. K is zero-padded by one rule for both
+backends (``ops.padded_k``), so order-sensitive policies see the same
+permutation domain: here for ``torch``, in ``ops.policy_matmul`` for
+``cuda``, whose global-sort kernels mask the padding instead.
 
 ``storage="nm"`` takes the weight compressed (a ``SparseQTensor`` or a
 ``(values, indices)`` pair with ``m_group=``): the ``torch`` backend
@@ -45,6 +47,11 @@ from repro_torch.kernels.sorted_matmul import policy_accumulate_ref
 POLICIES = ops.POLICIES
 BACKENDS = ("torch", "cuda")
 STORAGES = ("dense", "nm")
+
+# Cap on the device-memory tile-sum + permutation statistic of the
+# two-pass sorted_tiled kernels (per M row 2 * 4 * N * K/k_tile bytes);
+# pqs_dot chunks M to stay under it. The JAX package's value.
+_SORT_STATS_BUDGET = 256 * 1024 * 1024
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -94,8 +101,8 @@ def _unpack_nm(w: Any, m_group: Optional[int]):
 
 
 def _local_dot(
-    x2: torch.Tensor,  # (M, Kp), K already padded by the shared rule
-    w: Any,  # (N, Kp) dense, or the (values, indices) compressed slabs
+    x2: torch.Tensor,  # (M, K); padded to Kp by the shared rule for torch
+    w: Any,  # (N, K) dense, or the (values, indices) compressed slabs
     *,
     acc_bits: int,
     policy: str,
@@ -106,8 +113,11 @@ def _local_dot(
     certified: bool = False,
     m_group: Optional[int] = None,
     nm_impl: Optional[str] = None,
+    sort_impl: str = "auto",
 ) -> torch.Tensor:
-    """Single-device policy matmul on pre-padded operands.
+    """Single-device policy matmul. The ``torch`` backend takes operands
+    pre-padded to the policy's K; ``cuda`` pads (or masks) in
+    ``ops.policy_matmul``.
 
     Compressed slabs (``m_group`` given): the ``torch`` backend
     decompresses them to the dense plain version, padded to the Kp the
@@ -138,7 +148,7 @@ def _local_dot(
         def dot(xc):
             return ops.policy_matmul(
                 xc, w, policy=policy, acc_bits=acc_bits, k_tile=k_tile,
-                rounds=rounds, census=not certified)
+                rounds=rounds, sort_impl=sort_impl, census=not certified)
     outs = [dot(x2[i : i + chunk]) for i in range(0, m, max(chunk, 1))]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
@@ -162,12 +172,18 @@ def pqs_dot(
     nm_impl: Optional[str] = None,
     certified: bool = False,
     defer_combine: bool = False,
+    sort_impl: str = "auto",
 ) -> torch.Tensor:
     """Quantized dot products with simulated narrow accumulation.
 
     Returns (..., N) int32, each element a dot product accumulated into
     an acc_bits register under ``policy``. Any M/N/K: padding and batch
     chunking happen here. ``backend="cuda"`` on CPU tensors raises.
+
+    ``sort_impl`` picks the CUDA kernels of the global-sort policies:
+    ``auto`` (the one-pass kernel up to ``ops.MAX_RESIDENT_K``, the
+    two-pass pipeline above), ``onepass`` or ``twopass``; the result is
+    the same either way.
 
     ``storage="nm"``: ``w`` is a ``SparseQTensor`` or a ``(values,
     indices)`` pair plus ``m_group``; x carries the logical K or the
@@ -208,9 +224,10 @@ def pqs_dot(
                 f"0 (tile boundaries must align with the compressed "
                 f"groups); got k_tile={k_tile}, m_group={m_group}")
         x2 = ops._pad_to(x2, k_dense, 1)  # tail K -> whole groups
+        kp = ops.padded_k(k_dense, policy, k_tile)
         if backend == "torch":
             # the plain version pads the dense weight, as the dense path
-            x2 = ops._pad_to(x2, ops.padded_k(k_dense, policy, k_tile), 1)
+            x2 = ops._pad_to(x2, kp, 1)
         w, n, nm = (values, indices), values.shape[0], m_group
         on_card = x.is_cuda and values.is_cuda and indices.is_cuda
     else:
@@ -219,19 +236,29 @@ def pqs_dot(
                              f"{tuple(w.shape)}")
         n, nm = w.shape[0], None
         # one K-padding rule for both backends: order-sensitive policies
-        # must see the same (padded) permutation domain to be bit-identical
+        # must see the same (padded) permutation domain to be bit-identical.
+        # The plain version pads here; on the card ops.policy_matmul
+        # applies the same rule (the global-sort kernels mask the padding
+        # instead of copying the weight)
         kp = ops.padded_k(k, policy, k_tile)
-        if kp != k:
+        if kp != k and backend == "torch":
             x2 = ops._pad_to(x2, kp, 1)
             w = ops._pad_to(w, kp, 1)
         on_card = x.is_cuda and w.is_cuda
     if backend == "cuda" and not on_card:
         raise ValueError("backend='cuda' needs CUDA tensors; CPU tensors "
                          "take backend='torch'")
+    if (batch_chunk is None and backend == "cuda"
+            and policy == "sorted_tiled" and sort_impl != "onepass"):
+        # the two-pass pass 1 keeps (chunk, N, K/k_tile) int32 tile sums
+        # and a permutation of the same shape in device memory: chunk M
+        # so they stay bounded (exact: every dot is independent)
+        per_row = 2 * 4 * n * max(kp // k_tile, 1)
+        batch_chunk = max(_SORT_STATS_BUDGET // per_row, 1)
     out = _local_dot(x2, w, acc_bits=acc_bits, policy=policy,
                      k_tile=k_tile, rounds=rounds, backend=backend,
                      batch_chunk=batch_chunk, certified=certified,
-                     m_group=nm, nm_impl=nm_impl)
+                     m_group=nm, nm_impl=nm_impl, sort_impl=sort_impl)
     return out.reshape(*lead, n)
 
 

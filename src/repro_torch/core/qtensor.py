@@ -41,7 +41,9 @@ class QTensor:
     values_t: Optional[torch.Tensor] = None
 
     def __post_init__(self):
-        if self.values_t is None:
+        # a 1-D QTensor is one layer's row of a quantized layer-stacked
+        # vector (quantize_tree); it has no (out, in) form
+        if self.values_t is None and self.values.ndim >= 2:
             self.values_t = self.values.transpose(-1, -2).contiguous()
 
     @property
@@ -126,6 +128,13 @@ def nm_compress_tree(params: Any, n_keep: int, m: int = 16) -> Any:
     quantize unpruned), so the tree may be mixed. Invalid (n_keep, m)
     raise up front, and so does a tree in which no QTensor leaf matched
     the pattern: it would otherwise serve fully dense, silently.
+
+    A 1-D QTensor row (one layer's row of a quantized layer-stacked
+    vector, ``quantize_tree``) stays dense on purpose and is not counted:
+    its N:M groups would run across the layers, and a layer reads only
+    its own row (``asarray``). The JAX package compresses the stacked
+    (L, out) leaf when L % m == 0 and counts it; compression is lossless,
+    so both trees serve the same values.
     """
     if m < 1:
         raise ValueError(f"m_group must be >= 1, got {m}")
@@ -134,8 +143,8 @@ def nm_compress_tree(params: Any, n_keep: int, m: int = 16) -> Any:
     counts = {"dense": 0, "converted": 0}
 
     def conv(leaf):
-        if not isinstance(leaf, QTensor):
-            return leaf
+        if not isinstance(leaf, QTensor) or leaf.ndim < 2:
+            return leaf  # a quantized bias row has no groups to compress
         counts["dense"] += 1
         try:
             out = qtensor_nm_compress(leaf, n_keep, m)
@@ -213,9 +222,12 @@ def quantize_tree(
     pruning. The JAX package stacks the layers into (L, in, out) leaves,
     the port keeps a list of per-layer dicts; so a leaf inside a list of
     dicts counts ``min_size`` over the L layers of that list, as the
-    stacked leaf does, and both packages quantize the same leaves. The
-    one case this leaves apart: JAX takes a stacked 1-D leaf (L, out) for
-    a matrix once L >= min_dim; the port never quantizes a 1-D leaf.
+    stacked leaf does, and both packages quantize the same leaves. A 1-D
+    leaf (out,) of such a list is, stacked, an (L, out) matrix: once it
+    passes the rules it is quantized as JAX quantizes that matrix (in =
+    L, one scale per column, pruned along the layers when L % m == 0),
+    and each layer holds its row: a QTensor of values (out,) and the
+    shared scale (out,).
     """
     device = resolve_device(device)
 
@@ -230,12 +242,44 @@ def quantize_tree(
         keep = n_keep if leaf.shape[-2] % m == 0 else None
         return _quantize_stacked(leaf, bits, keep, m)
 
+    def stacked_rows(rows, layers):
+        """The per-layer QTensor rows of one 1-D leaf across a layer list,
+        when JAX would quantize its stacked (L, out) matrix; else None."""
+        first = rows[0]
+        if not all(isinstance(r, torch.Tensor) and r.ndim == 1
+                   and r.is_floating_point() and r.shape == first.shape
+                   for r in rows):
+            return None
+        stack = torch.stack(rows).to(device)  # (L, out)
+        if (stack.numel() * (layers // len(rows)) < min_size
+                or min(stack.shape) < min_dim):
+            return None
+        keep = n_keep if stack.shape[0] % m == 0 else None
+        q = quantize_weight(stack, bits, keep, m)
+        return [QTensor(v, q.scale) for v in q.values]
+
+    def walk_stack(dicts, layers):
+        """The dicts of one layer list side by side: a key whose values are
+        all dicts recurses, a 1-D leaf may quantize across the layers."""
+        done = {}
+        for key in dicts[0]:
+            vals = [d.get(key) for d in dicts]
+            if all(isinstance(v, dict) for v in vals):
+                done[key] = walk_stack(vals, layers)
+            else:
+                rows = stacked_rows(vals, layers)
+                if rows is not None:
+                    done[key] = rows
+        return [{k: done[k][i] if k in done else walk(v, layers)
+                 for k, v in d.items()} for i, d in enumerate(dicts)]
+
     def walk(node, layers):
         if isinstance(node, dict):
             return {k: walk(v, layers) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             if node and all(isinstance(v, dict) for v in node):
-                layers *= len(node)  # a layer stack: JAX's leading L axis
+                # a layer stack: JAX's leading L axis
+                return type(node)(walk_stack(node, layers * len(node)))
             return type(node)(walk(v, layers) for v in node)
         return conv(node, layers)
 

@@ -100,15 +100,24 @@ def tiled_sorted_order(
     if n_tiles == 1:
         return ordered.reshape(prods.shape)
     perm = pair_permutation(ordered.sum(dim=-1, dtype=torch.int32))
+    return paired_order(ordered, perm)
+
+
+def paired_order(tiles: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """(..., n_tiles, k_tile) tiles -> (..., n_tiles * k_tile) stream in
+    the paired order ``perm`` (..., n_tiles) gives: tiles perm[2s] and
+    perm[2s+1] element-interleaved (a0, b0, a1, b1, ...), an odd last
+    tile perm[-1] appended."""
+    n_tiles, k_tile = tiles.shape[-2:]
     idx = perm[..., None].expand(*perm.shape, k_tile)
-    ordered = torch.gather(ordered, -2, idx)
+    ordered = torch.gather(tiles, -2, idx)
     n_pairs = n_tiles // 2
     lead = ordered.shape[:-2]
     main = ordered[..., : 2 * n_pairs, :].reshape(*lead, n_pairs, 2, k_tile)
     main = main.transpose(-1, -2).reshape(*lead, n_pairs * 2 * k_tile)
     if n_tiles % 2:
         return torch.cat([main, ordered[..., -1, :]], dim=-1)
-    return main.reshape(prods.shape)
+    return main
 
 
 def tiled_seq_order(

@@ -1,5 +1,7 @@
-// pqs_accum.cuh: the accumulation body shared by the port's K-streaming
-// kernels (seq_policy_matmul.cu, nm_seq_policy_matmul.cu).
+// pqs_accum.cuh: the accumulation bodies shared by the port's kernels:
+// the K-streaming one (seq_policy_matmul.cu, nm_seq_policy_matmul.cu) and,
+// at the end of this file, the global-sort ones (sort_matmul.cu,
+// sorted_stream.cu).
 //
 // A warp streams the products of one dot product in chunks of 32*E, E to
 // a lane in stream order (lane l holds elements l*E .. l*E + E-1), and
@@ -55,6 +57,41 @@ __device__ __forceinline__ Clamp clamp_then(Clamp f, Clamp g) {
 
 __device__ __forceinline__ int clamp_apply(Clamp f, int x) {
   return min(max(x + f.c, f.lo), f.hi);
+}
+
+// x -> x on the register's range [qmin, qmax]: where a composition
+// starts, and what a lane with no products contributes.
+__device__ __forceinline__ Clamp clamp_identity(int qmin, int qmax) {
+  return Clamp{0, qmin, qmax};
+}
+
+// The lanes' functions composed in lane order (lane 0 first), in lane 0.
+__device__ __forceinline__ Clamp warp_compose(Clamp f, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    Clamp g;
+    g.c = __shfl_down_sync(kFull, f.c, d);
+    g.lo = __shfl_down_sync(kFull, f.lo, d);
+    g.hi = __shfl_down_sync(kFull, f.hi, d);
+    // lane i (a multiple of 2d) covers [i, i+d); lane i+d follows it
+    if ((lane & (2 * d - 1)) == 0) f = clamp_then(f, g);
+  }
+  return f;
+}
+
+// The warps' functions (each in its lane 0) composed in warp order, in
+// thread 0. scratch holds one Clamp per warp in shared memory. Every
+// thread of the block calls it.
+__device__ __forceinline__ Clamp block_compose_warps(Clamp f,
+                                                     Clamp* scratch) {
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) scratch[warp] = f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i)
+      f = clamp_then(f, scratch[i]);
+  }
+  return f;
 }
 
 // Descending bitonic sort of segments of S = LT * E values. Lane l of a
@@ -140,16 +177,7 @@ __device__ __forceinline__ int accumulate_chunk(int (&v)[E], int acc,
   Clamp f = clamp_step(v[0], qmin, qmax);
 #pragma unroll
   for (int r = 1; r < E; ++r) f = clamp_then(f, clamp_step(v[r], qmin, qmax));
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    Clamp g;
-    g.c = __shfl_down_sync(kFull, f.c, d);
-    g.lo = __shfl_down_sync(kFull, f.lo, d);
-    g.hi = __shfl_down_sync(kFull, f.hi, d);
-    // lane i (a multiple of 2d) covers [i, i+d); lane i+d follows it
-    if ((lane & (2 * d - 1)) == 0) f = clamp_then(f, g);
-  }
-  return clamp_apply(f, acc);
+  return clamp_apply(warp_compose(f, lane), acc);
 }
 
 // The sort tile S = E * LT of a kernel instance: 32 lanes of E products
@@ -173,6 +201,185 @@ int dispatch_tile(int s, Fn&& fn) {
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// The global-sort policies (sort_matmul.cu, sorted_stream.cu). One block
+// computes one output element; every thread of the block calls these.
+
+// The block's dynamic shared memory, as an array of T.
+template <typename T>
+__device__ __forceinline__ T* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char pqs_smem[];
+  return reinterpret_cast<T*>(pqs_smem);
+}
+
+// Descending bitonic sort of s[0 .. kp) (kp a power of two) in shared
+// memory: each stage is kp/2 compare-exchanges spread over the block.
+__device__ __forceinline__ void smem_sort_desc(int16_t* s, int kp) {
+  for (int k = 2; k <= kp; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < (kp >> 1); i += blockDim.x) {
+        const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));  // bit j clear
+        const int b = a | j;
+        const int va = s[a], vb = s[b];
+        // descending inside a (a & k) == 0 block, ascending otherwise
+        if (((a & k) == 0) ? (va < vb) : (va > vb)) {
+          s[a] = static_cast<int16_t>(vb);
+          s[b] = static_cast<int16_t>(va);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The `sorted` policy for one output: the K products of x and w rows
+// extended by zero keys to kp (a power of two >= K; zero products are
+// inert, so the caller need not pad the operands), `rounds`
+// split/sort/pair rounds over the whole axis in shared memory `s` (kp
+// int16 keys), then the saturating adds in order. int16 keys are exact:
+// products of int8 carriers lie in [-16256, 16384], and a pair round adds
+// one positive and one negative key, which stays in that range. Returns
+// the register in thread 0.
+__device__ __forceinline__ int sorted_dot(const int8_t* __restrict__ xrow,
+                                          const int8_t* __restrict__ wrow,
+                                          int K, int kp, int16_t* s,
+                                          Clamp* scratch, int acc_bits,
+                                          int rounds) {
+  for (int i = threadIdx.x; i < kp; i += blockDim.x)
+    s[i] = i < K ? static_cast<int16_t>(static_cast<int>(xrow[i]) *
+                                        static_cast<int>(wrow[i]))
+                 : static_cast<int16_t>(0);
+  __syncthreads();
+  for (int rd = 0; rd < rounds; ++rd) {
+    smem_sort_desc(s, kp);
+    // out[i] = max(s[i], 0) + min(s[kp-1-i], 0), both ends of a pair at
+    // once, so the round runs in place
+    for (int i = threadIdx.x; i < (kp >> 1); i += blockDim.x) {
+      const int va = s[i], vb = s[kp - 1 - i];
+      s[i] = static_cast<int16_t>(max(va, 0) + min(vb, 0));
+      s[kp - 1 - i] = static_cast<int16_t>(max(vb, 0) + min(va, 0));
+    }
+    __syncthreads();
+  }
+  const int qmax = (1 << (acc_bits - 1)) - 1;
+  const int qmin = -qmax - 1;
+  // each thread composes a contiguous run of the ordered stream
+  const int per = (kp + blockDim.x - 1) / blockDim.x;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, kp);
+  const int hi = min(lo + per, kp);
+  Clamp f = clamp_identity(qmin, qmax);
+  for (int i = lo; i < hi; ++i) f = clamp_then(f, clamp_step(s[i], qmin, qmax));
+  f = block_compose_warps(warp_compose(f, threadIdx.x & 31), scratch);
+  return clamp_apply(f, 0);
+}
+
+// pair_permutation (core/sorted_accum.py) of T tile sums into perm:
+// `asc` is the stable ascending order of the sums and `desc` its reverse
+// (so among equal sums desc takes the higher tile index first); even
+// slots take desc[0 .. half), odd slots asc[0 .. T - half). Tile i's
+// stable ascending rank p counts the tiles below it, and the equal ones
+// before it; it lands in odd slot 2p + 1 if p < T - half, else in even
+// slot 2 (T - 1 - p).
+__device__ __forceinline__ void pair_permutation(const int* sums, int* perm,
+                                                 int T) {
+  const int half = (T + 1) >> 1;
+  for (int i = threadIdx.x; i < T; i += blockDim.x) {
+    const int si = sums[i];
+    int p = 0;
+    for (int j = 0; j < T; ++j) {
+      const int sj = sums[j];
+      p += (sj < si) | ((sj == si) & (j < i));
+    }
+    perm[p < T - half ? 2 * p + 1 : 2 * (T - 1 - p)] = i;
+  }
+  __syncthreads();
+}
+
+// Products of tile `tile` (S = E * LT long) that segment lane l holds;
+// positions at or past the row length K are zero products.
+template <int E, int LT>
+__device__ __forceinline__ void tile_products(int (&v)[E],
+                                              const int8_t* __restrict__ xrow,
+                                              const int8_t* __restrict__ wrow,
+                                              int K, int tile, int l) {
+  const int base = tile * (E * LT) + l * E;
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    v[r] = base + r < K ? static_cast<int>(xrow[base + r]) *
+                              static_cast<int>(wrow[base + r])
+                        : 0;
+}
+
+// The `sorted_tiled` stream of one output, level 2, as one block: tiles of
+// S = E * LT products of rows K long (the last tiles zero-extended past
+// K), T of them, paired by perm (T tile indices, in
+// shared or device memory). Pair slot s interleaves tiles perm[2s] and
+// perm[2s+1] (a0, b0, a1, b1, ...), each sorted `rounds` rounds first; an
+// odd last tile perm[T-1] follows un-interleaved. Warp w takes the
+// contiguous slots [w P / nw, (w+1) P / nw) of the P = T/2 pairs, and the
+// last warp the odd tile, so composing the warps in order is the stream
+// order. A lane holds a[r], b[r] for its E tile positions, which are its
+// 2E consecutive places in the interleaved stream. Tiles shorter than 32
+// (LT < 32) put 32 / LT slots in one warp step, one per LT-lane segment in
+// slot order; a segment with no slot holds zero products, which add
+// nothing. Returns the register in thread 0.
+template <int E, int LT>
+__device__ __forceinline__ int paired_dot(const int8_t* __restrict__ xrow,
+                                          const int8_t* __restrict__ wrow,
+                                          int K, const int* perm, int T,
+                                          Clamp* scratch, int acc_bits,
+                                          int rounds) {
+  constexpr int G = 32 / LT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int l = lane & (LT - 1);
+  const int g = lane / LT;
+  const int qmax = (1 << (acc_bits - 1)) - 1;
+  const int qmin = -qmax - 1;
+  const int pairs = T >> 1;
+  const int s1 = (warp + 1) * pairs / nw;
+  Clamp run = clamp_identity(qmin, qmax);
+  for (int s0 = warp * pairs / nw; s0 < s1; s0 += G) {
+    const int s = s0 + g;
+    int a[E], b[E];
+    if (s < s1) {
+      tile_products<E, LT>(a, xrow, wrow, K, perm[2 * s], l);
+      tile_products<E, LT>(b, xrow, wrow, K, perm[2 * s + 1], l);
+    } else {
+#pragma unroll
+      for (int r = 0; r < E; ++r) a[r] = b[r] = 0;
+    }
+    for (int rd = 0; rd < rounds; ++rd) {
+      pairwise_round<E, LT>(a, l);
+      pairwise_round<E, LT>(b, l);
+    }
+    Clamp f = clamp_identity(qmin, qmax);
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      f = clamp_then(f, clamp_step(a[r], qmin, qmax));
+      f = clamp_then(f, clamp_step(b[r], qmin, qmax));
+    }
+    f = warp_compose(f, lane);
+    run = clamp_then(run, f);  // meaningful in lane 0
+  }
+  if ((T & 1) && warp == nw - 1) {
+    int a[E];
+    if (g == 0) {
+      tile_products<E, LT>(a, xrow, wrow, K, perm[T - 1], l);
+    } else {
+#pragma unroll
+      for (int r = 0; r < E; ++r) a[r] = 0;
+    }
+    for (int rd = 0; rd < rounds; ++rd) pairwise_round<E, LT>(a, l);
+    Clamp f = clamp_identity(qmin, qmax);
+#pragma unroll
+    for (int r = 0; r < E; ++r) f = clamp_then(f, clamp_step(a[r], qmin, qmax));
+    run = clamp_then(run, warp_compose(f, lane));
+  }
+  return clamp_apply(block_compose_warps(run, scratch), 0);
 }
 
 }  // namespace pqs

@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("seq_policy_matmul", "nm_seq_policy_matmul")
+SOURCES = ("seq_policy_matmul", "nm_seq_policy_matmul", "sort_matmul",
+           "sorted_stream")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -94,7 +95,9 @@ def register_report(log: str) -> list[tuple[str, str, str]]:
         if entry:
             name = re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E",
                              entry[1])
-            kernel = f"{name[1]}<{name[2]},{name[3]}>" if name else entry[1]
+            plain = re.search(r"\d([a-z_]+_kernel)E", entry[1])
+            kernel = (f"{name[1]}<{name[2]},{name[3]}>" if name
+                      else plain[1] if plain else entry[1])
             spilled = "?"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)

@@ -26,8 +26,6 @@ the plain versions pad G to whole sort tiles (``_pad_groups``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.overflow import accumulate
@@ -36,8 +34,10 @@ from repro_torch.kernels.sorted_matmul import (
     KERNEL_K_TILES,
     SEQ_POLICIES,
     _as_int8,
+    lib_fn,
     row_chunk,
     seq_policy_matmul_ref,
+    stream_of,
 )
 
 
@@ -158,17 +158,6 @@ def nm_gather_seq_policy_matmul_ref(
     return torch.cat(outs, dim=0)
 
 
-def _lib_fn(name: str):
-    from repro_torch.kernels import build
-
-    fn = getattr(build.library("nm_seq_policy_matmul"), name)
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
-            ctypes.c_void_p]
-    return fn
-
-
 def _launch(name, x, values, indices, *, m_group, policy, acc_bits, rounds,
             k_tile):
     """Launch ``name`` of csrc/nm_seq_policy_matmul.cu on CUDA tensors.
@@ -194,11 +183,10 @@ def _launch(name, x, values, indices, *, m_group, policy, acc_bits, rounds,
         return out, False
     if k == 0 or g == 0:
         return out.zero_(), False
-    stream = torch.cuda.current_stream(x8.device).cuda_stream
-    err = _lib_fn(name)(
+    err = lib_fn("nm_seq_policy_matmul", name, 4, 10)(
         x8.data_ptr(), v8.data_ptr(), indices.data_ptr(), out.data_ptr(), m,
         n, k, g, n_keep, m_group, SEQ_POLICIES.index(policy), acc_bits,
-        rounds, k_tile, stream)
+        rounds, k_tile, stream_of(x8))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out, True

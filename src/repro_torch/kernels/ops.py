@@ -1,14 +1,20 @@
 """Padding and routing around the port's kernels, torch port of
-``repro.kernels.ops`` for the K-streaming policies.
+``repro.kernels.ops``.
 
 ``policy_matmul`` pads K by the policy's rule (``padded_k``) and routes
-the K-streaming policies to ``sorted_matmul.seq_policy_matmul``;
-``nm_policy_matmul`` routes them on N:M compressed slabs to the gather or
-the expand kernel of ``nm_spmm`` (``resolve_nm_impl``). The global-sort
-policies have no CUDA kernel yet: on CPU tensors they run the plain
-version, on CUDA tensors they raise. The TPU block table, its environment
-overrides and the autotuner are not carried over — their numbers were
-VMEM budgets of the TPU.
+the K-streaming policies to ``sorted_matmul.seq_policy_matmul`` and the
+global-sort policies (``sorted``, ``sorted_tiled``) to the one-pass
+``sorted_matmul.sort_matmul`` or the two-pass
+``sorted_stream.stream_sort_matmul`` (``resolve_sort_impl``); these take
+the padded K as ``kp`` and extend the rows with zero products themselves
+(the card kernels mask them), so no padded copy of the weight is made.
+``nm_policy_matmul`` routes the K-streaming policies on N:M compressed
+slabs to the gather or the expand kernel of ``nm_spmm``
+(``resolve_nm_impl``); the global-sort policies on compressed slabs have
+no CUDA kernel yet: on CPU tensors they run the plain version, on CUDA
+tensors they raise. The TPU block table, its environment overrides and
+the autotuner are not carried over — their numbers were VMEM budgets of
+the TPU.
 """
 
 from __future__ import annotations
@@ -23,9 +29,12 @@ from repro_torch.kernels.nm_spmm import (
 from repro_torch.kernels.sorted_matmul import (
     SEQ_POLICIES,
     SORT_POLICIES,
+    _as_int8,
     policy_accumulate_ref,
     seq_policy_matmul,
+    sort_matmul,
 )
+from repro_torch.kernels.sorted_stream import stream_sort_matmul
 
 POLICIES = SEQ_POLICIES + SORT_POLICIES
 NM_IMPLS = ("auto", "expand", "gather")
@@ -33,6 +42,15 @@ NM_IMPLS = ("auto", "expand", "gather")
 # package's, set on the TPU; the port keeps it until the card's own
 # gather/expand times (chip_smoke.py phase 5) re-derive it.
 GATHER_MIN_G = 8
+# ``auto`` takes the one-pass global-sort kernel up to MAX_RESIDENT_K
+# (padded) and the two-pass pipeline above it, which is refused past
+# MAX_STREAM_K. Both values are the JAX package's, sized for TPU VMEM; the
+# port keeps them for the cut until the card's own one-pass and two-pass
+# times re-derive it. The card kernels themselves reach further
+# (sorted_matmul.SORT_SMEM_BYTES, SORTED_MAX_K).
+MAX_RESIDENT_K = 4096
+MAX_STREAM_K = 65536
+SORT_IMPLS = ("auto", "onepass", "twopass")
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -60,6 +78,34 @@ def padded_k(k: int, policy: str, k_tile: int) -> int:
     return k
 
 
+def resolve_sort_impl(kp: int, interpret: bool,
+                      sort_impl: str = "auto") -> str:
+    """Which global-sort kernel serves a (padded-)K request: ``auto``
+    takes the one-pass kernel up to ``MAX_RESIDENT_K`` and the two-pass
+    pipeline above it. On the card (``interpret`` False) an explicit
+    ``onepass`` above ``MAX_RESIDENT_K`` and ``twopass`` above
+    ``MAX_STREAM_K`` raise; the plain versions on the CPU (``interpret``
+    True, as the JAX package's interpret mode) take any K."""
+    if sort_impl not in SORT_IMPLS:
+        raise ValueError(
+            f"sort_impl must be one of {SORT_IMPLS}, got {sort_impl!r}")
+    if sort_impl == "auto":
+        sort_impl = "onepass" if kp <= MAX_RESIDENT_K else "twopass"
+    if interpret:
+        return sort_impl
+    if sort_impl == "onepass" and kp > MAX_RESIDENT_K:
+        raise ValueError(
+            f"one-pass sort kernel needs K={kp} resident, above the "
+            f"bound {MAX_RESIDENT_K}; use sort_impl='twopass' (default "
+            "above the bound)")
+    if sort_impl == "twopass" and kp > MAX_STREAM_K:
+        raise ValueError(
+            f"two-pass sort pipeline takes K up to MAX_STREAM_K="
+            f"{MAX_STREAM_K}, got K={kp}; use policy='sorted_tiled_seq' "
+            "(fully K-streaming) or backend='torch'")
+    return sort_impl
+
+
 def policy_matmul(
     x: torch.Tensor,  # (M, K) integer carrier
     w: torch.Tensor,  # (N, K) integer carrier
@@ -68,32 +114,32 @@ def policy_matmul(
     acc_bits: int = 16,
     k_tile: int = 256,
     rounds: int = 1,
+    sort_impl: str = "auto",
     census: bool = True,
 ) -> torch.Tensor:
     """(M, N) int32 under any accumulation policy, any shape.
 
-    ``census=False`` is the certified route: a proof says no partial sum
-    reaches the acc_bits caps, so the request is served by the exact
-    ``wide`` body.
+    The global-sort policies go to the one-pass ``sort_matmul`` or the
+    two-pass ``stream_sort_matmul`` as ``resolve_sort_impl`` picks (the
+    two-pass slabs are narrowed to int8). ``census=False`` is the
+    certified route: a proof says no partial sum reaches the acc_bits
+    caps, so the request is served by the exact ``wide`` body.
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}; expected {POLICIES}")
     if not census:
         policy = "wide"  # provably saturate-free -> exact wide body
     kp = padded_k(x.shape[1], policy, k_tile)
+    if policy in SORT_POLICIES:
+        on_cpu = x.device.type == "cpu" and w.device.type == "cpu"
+        if resolve_sort_impl(kp, on_cpu, sort_impl) == "onepass":
+            return sort_matmul(x, w, policy=policy, acc_bits=acc_bits,
+                               k_tile=k_tile, rounds=rounds, kp=kp)
+        return stream_sort_matmul(_as_int8(x, "x"), _as_int8(w, "w"),
+                                  policy=policy, acc_bits=acc_bits,
+                                  k_tile=k_tile, rounds=rounds, kp=kp)
     xp = _pad_to(x, kp, 1)
     wp = _pad_to(w, kp, 1)
-    if policy in SORT_POLICIES:
-        if xp.is_cuda:
-            raise NotImplementedError(
-                f"policy {policy!r} needs the global-sort kernels "
-                "(sort_matmul and the two-pass sorted_stream pipeline), "
-                "which a later slice of the port brings to CUDA; use "
-                "backend='torch' for the plain version"
-            )
-        return policy_accumulate_ref(xp, wp, policy=policy,
-                                     acc_bits=acc_bits, k_tile=k_tile,
-                                     rounds=rounds)
     return seq_policy_matmul(xp, wp, policy=policy, acc_bits=acc_bits,
                              rounds=rounds, k_tile=k_tile)
 
@@ -162,8 +208,10 @@ def nm_policy_matmul(
         if x.is_cuda:
             raise NotImplementedError(
                 f"policy {policy!r} on compressed storage needs the "
-                "global-sort N:M kernels, which a later slice of the port "
-                "brings to CUDA; use backend='torch' for the plain version")
+                "global-sort N:M kernels (nm_sort_matmul, "
+                "nm_gather_sort_matmul, the nm two-pass and chunked "
+                "kernels), the next slice of the port; use backend='torch' "
+                "for the plain version")
         kp = padded_k(k_dense, policy, k_tile)
         w = _pad_to(expand_nm_slab(values, indices, m_group), kp, 1)
         return policy_accumulate_ref(_pad_to(x, kp, 1), w, policy=policy,

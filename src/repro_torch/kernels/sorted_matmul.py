@@ -1,8 +1,10 @@
-"""PQS accumulation-policy matmul for Hopper: ``seq_policy_matmul``.
+"""PQS accumulation-policy matmuls for Hopper: ``seq_policy_matmul`` and
+``sort_matmul``.
 
-Port of ``repro/kernels/sorted_matmul.py:seq_policy_matmul``. Computes
-Z = X Wᵀ for int8 X (M, K) and W (N, K) into an (M, N) int32 carrier that
-holds an ``acc_bits``-bit register under a K-streaming policy:
+Port of ``repro/kernels/sorted_matmul.py``. Both compute Z = X Wᵀ for int8
+X (M, K) and W (N, K) into an (M, N) int32 carrier that holds an
+``acc_bits``-bit register. ``seq_policy_matmul`` runs a K-streaming
+policy:
 
   wide             exact int32 dot
   clip             natural K order, saturating add at every step
@@ -10,11 +12,18 @@ holds an ``acc_bits``-bit register under a K-streaming policy:
   sorted_tiled_seq per-k_tile split/sort/pair rounds, then saturating
                    adds; tiles in natural order (paper section 6)
 
-``seq_policy_matmul`` launches the hand-written CUDA kernel
-(``csrc/seq_policy_matmul.cu``, whose header says how it is built and
-what bounds it) on CUDA tensors, and takes the plain version
-``seq_policy_matmul_ref`` only for tensors on the CPU. Each launch adds
-one to ``seq_policy_matmul.launches``.
+``sort_matmul`` a global-sort policy, with the whole K of each output at
+hand (the one-pass kernel):
+
+  sorted           split/sort/pair rounds over the whole K (a power of 2)
+  sorted_tiled     per-tile rounds, then tiles paired by their sums and
+                   element-interleaved (the paper's two-level sort)
+
+Each wrapper launches its hand-written CUDA kernel
+(``csrc/seq_policy_matmul.cu``, ``csrc/sort_matmul.cu``, whose headers say
+how they are built and what bounds them) on CUDA tensors, and takes its
+plain version (``*_ref``) only for tensors on the CPU. Each launch adds
+one to the wrapper's ``.launches``.
 """
 
 from __future__ import annotations
@@ -86,26 +95,51 @@ def seq_policy_matmul_ref(
 
 
 def _as_int8(a: torch.Tensor, what: str) -> torch.Tensor:
+    """Narrow an int32 carrier to the int8 the kernels read. Carriers hold
+    int8 values by the ``pqs_dot`` contract; a value outside int8 raises
+    rather than wrap (one reduction, and a wait for the device, only when
+    the carrier is not int8 already)."""
     if a.dtype == torch.int8:
         return a
     if a.dtype != torch.int32:
         raise TypeError(f"{what} must be int8 or an int32 carrier of int8 "
                         f"values, got {a.dtype}")
-    if a.numel() and (int(a.min()) < -128 or int(a.max()) > 127):
-        raise ValueError(f"{what}: int32 carrier holds values outside int8")
+    if a.numel():
+        lo, hi = int(a.min()), int(a.max())
+        if lo < -128 or hi > 127:
+            raise ValueError(f"{what}: carriers must hold int8 values "
+                             f"(pqs_dot contract); got range [{lo}, {hi}]")
     return a.to(torch.int8)
 
 
-def _lib():
+def lib_fn(source: str, name: str, n_ptrs: int, n_ints: int):
+    """The C function ``name`` of ``csrc/<source>.cu`` (built at first
+    use): ``n_ptrs`` pointers, ``n_ints`` ints, then the stream; it
+    returns a CUDA error code."""
     from repro_torch.kernels import build
 
-    lib = build.library("seq_policy_matmul")
-    fn = lib.pqs_seq_policy_matmul
+    fn = getattr(build.library(source), name)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
             ctypes.c_void_p]
     return fn
+
+
+def card_operands(what: str, x: torch.Tensor, w: torch.Tensor):
+    """x and w as contiguous int8 on one CUDA device; raises on anything
+    else (the kernels take int8 values, int8 or an int32 carrier)."""
+    if not (x.is_cuda and w.is_cuda) or x.device != w.device:
+        raise ValueError(f"x and w must share one CUDA device, got "
+                         f"{x.device} and {w.device}")
+    x8, w8 = _as_int8(x, "x"), _as_int8(w, "w")
+    if not (x8.is_contiguous() and w8.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous operands")
+    return x8, w8
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def seq_policy_matmul(
@@ -133,16 +167,11 @@ def seq_policy_matmul(
     if x.device.type == "cpu" and w.device.type == "cpu":
         return seq_policy_matmul_ref(x, w, policy=policy, acc_bits=acc_bits,
                                      rounds=rounds, k_tile=k_tile)
-    if not (x.is_cuda and w.is_cuda) or x.device != w.device:
-        raise ValueError(f"x and w must share one CUDA device, got "
-                         f"{x.device} and {w.device}")
     if policy == "sorted_tiled_seq" and k_tile not in KERNEL_K_TILES:
         raise NotImplementedError(
             f"the CUDA kernel sorts tiles of up to {KERNEL_K_TILES[-1]} "
             f"products; k_tile={k_tile}")
-    x8, w8 = _as_int8(x, "x"), _as_int8(w, "w")
-    if not (x8.is_contiguous() and w8.is_contiguous()):
-        raise ValueError("seq_policy_matmul needs contiguous operands")
+    x8, w8 = card_operands("seq_policy_matmul", x, w)
     m, k = x8.shape
     n = w8.shape[0]
     out = torch.empty((m, n), dtype=torch.int32, device=x8.device)
@@ -150,9 +179,10 @@ def seq_policy_matmul(
         return out
     if k == 0:
         return out.zero_()
-    stream = torch.cuda.current_stream(x8.device).cuda_stream
-    err = _lib()(x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k,
-                 SEQ_POLICIES.index(policy), acc_bits, rounds, k_tile, stream)
+    fn = lib_fn("seq_policy_matmul", "pqs_seq_policy_matmul", 3, 7)
+    err = fn(x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k,
+             SEQ_POLICIES.index(policy), acc_bits, rounds, k_tile,
+             stream_of(x8))
     if err != 0:
         raise RuntimeError(f"seq_policy_matmul launch failed: CUDA error {err}")
     seq_policy_matmul.launches += 1
@@ -160,3 +190,118 @@ def seq_policy_matmul(
 
 
 seq_policy_matmul.launches = 0
+
+
+def _check_sort(x, w, policy, acc_bits, k_tile, kp=None) -> int:
+    """The global-sort kernels' contract (as the JAX kernels assert it),
+    on ``kp``, the K the policy accumulates over: a power of two for
+    ``sorted``, whole power-of-two k_tile tiles for ``sorted_tiled``.
+    ``kp`` defaults to the operands' K; a larger one extends their rows
+    with zero products (the card kernels mask them, the plain versions
+    pad). Returns kp."""
+    if policy not in SORT_POLICIES:
+        raise ValueError(f"unknown sort policy {policy!r}; {SORT_POLICIES}")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"expected x (M, K) and w (N, K), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not 2 <= acc_bits <= 30:
+        raise ValueError(f"acc_bits={acc_bits} outside [2, 30]")
+    k = x.shape[1]
+    kp = k if kp is None else kp
+    if kp < k:
+        raise ValueError(f"kp={kp} below the operands' K={k}")
+    if policy == "sorted" and (kp <= 0 or kp & (kp - 1)):
+        raise ValueError(f"sorted needs K a power of 2, got {kp}")
+    if policy == "sorted_tiled" and (
+            k_tile <= 0 or k_tile & (k_tile - 1) or kp % k_tile):
+        raise ValueError(f"sorted_tiled needs a power-of-2 k_tile dividing "
+                         f"K, got K={kp}, k_tile={k_tile}")
+    return kp
+
+
+def pad_k(a: torch.Tensor, kp: int) -> torch.Tensor:
+    """Zero-extend the rows of ``a`` to ``kp`` columns (plain versions)."""
+    return torch.nn.functional.pad(a, (0, kp - a.shape[1]))
+
+
+def sort_matmul_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+    kp: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``sort_matmul`` (any device)."""
+    kp = _check_sort(x, w, policy, acc_bits, k_tile, kp)
+    return policy_accumulate_ref(pad_k(x, kp), pad_k(w, kp), policy=policy,
+                                 acc_bits=acc_bits, k_tile=k_tile,
+                                 rounds=rounds)
+
+
+# keys of the one-pass kernels in shared memory: kp int16 for sorted, two
+# int32 per tile for sorted_tiled; a block may use 227 KB
+SORT_SMEM_BYTES = 128 * 1024
+# the longest K the `sorted` kernel holds (int16 keys); chunked_sort_matmul
+# (the two-pass route of `sorted`) runs the same kernel to this K
+SORTED_MAX_K = SORT_SMEM_BYTES // 2
+
+
+def launch_sort(what, x, w, kp, policy, acc_bits, k_tile, rounds):
+    """Launch ``pqs_sort_matmul`` (csrc/sort_matmul.cu) on CUDA tensors;
+    (M, N) int32. The caller counts the launch."""
+    smem = 2 * kp if policy == "sorted" else 8 * (kp // k_tile)
+    if smem > SORT_SMEM_BYTES:
+        raise NotImplementedError(
+            f"the CUDA kernel keeps {smem} bytes of keys in shared memory, "
+            f"above {SORT_SMEM_BYTES}: K={kp}"
+            + (f" (at most {SORTED_MAX_K} for sorted)"
+               if policy == "sorted" else ""))
+    if policy == "sorted_tiled" and k_tile not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernel sorts tiles of up to {KERNEL_K_TILES[-1]} "
+            f"products; k_tile={k_tile}")
+    x8, w8 = card_operands(what, x, w)
+    m, k = x8.shape
+    n = w8.shape[0]
+    out = torch.empty((m, n), dtype=torch.int32, device=x8.device)
+    if m == 0 or n == 0:
+        return out
+    fn = lib_fn("sort_matmul", "pqs_sort_matmul", 3, 8)
+    err = fn(x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k, kp,
+             SORT_POLICIES.index(policy), acc_bits, rounds, k_tile,
+             stream_of(x8))
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    return out
+
+
+def sort_matmul(
+    x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
+    w: torch.Tensor,  # (N, K), rows = output channels
+    *,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+    kp: int | None = None,
+) -> torch.Tensor:
+    """(M, N) int32 under ``sorted`` (over kp, a power of two) or
+    ``sorted_tiled`` (kp a multiple of the power-of-two k_tile), the whole
+    K of each output at once: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors. ``kp`` (default K) is the policy's padded K:
+    the columns past K are zero products, so callers need not pad."""
+    kp = _check_sort(x, w, policy, acc_bits, k_tile, kp)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return sort_matmul_ref(x, w, policy=policy, acc_bits=acc_bits,
+                               k_tile=k_tile, rounds=rounds, kp=kp)
+    out = launch_sort("sort_matmul", x, w, kp, policy, acc_bits, k_tile,
+                      rounds)
+    if out.numel():
+        sort_matmul.launches += 1
+    return out
+
+
+sort_matmul.launches = 0

@@ -1,0 +1,232 @@
+"""Two-pass global-sort pipeline for long K on Hopper, torch port of
+``repro/kernels/sorted_stream.py`` (dense storage).
+
+``sorted_tiled`` in two passes over K:
+
+  pass 1  ``tile_sums_matmul``: the (M, N, K/k_tile) int32 sums of each
+          output's k_tile tiles. Sorting never changes a tile's sum, so
+          these raw-product sums are the ones the one-pass order ranks.
+  pairing ``core.sorted_accum.pair_permutation`` over the sums, in plain
+          torch between the kernels, as the JAX package runs it outside
+          its kernels.
+  pass 2  ``paired_accum_matmul``: each output's tiles in the paired
+          order its row of perm gives, each tile sorted, each pair
+          element-interleaved (a0, b0, a1, b1, ...), an odd last tile
+          appended, one saturating add per product.
+
+``sorted`` at long K (a power of two): ``chunked_sort_matmul``, one
+split/sort/pair stage over the whole K of each output. On the card one
+block holds all of an output's keys up to ``SORTED_MAX_K``, so it launches
+the one-pass ``sorted`` kernel of ``csrc/sort_matmul.cu``, counted here.
+
+``stream_sort_matmul`` is the entry point ``ops.policy_matmul`` routes K
+above ``ops.MAX_RESIDENT_K`` to. Each kernel wrapper launches its
+hand-written CUDA kernel (``csrc/sorted_stream.cu``, whose header says what
+bounds it) on CUDA tensors, counting the launch in ``.launches``, and takes
+its plain version (``*_ref``) only for tensors on the CPU. Each takes
+``kp``, the policy's padded K (default K): the columns past K are zero
+products, masked by the card kernels and padded by the plain versions.
+The TPU kernels' VMEM budgets (``CUBE_BUDGET``, ``_sort_chunk``) are not
+carried over: the card kernels choose their own working sets.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.overflow import partial_products
+from repro_torch.core.sorted_accum import (
+    monotone_accumulate,
+    pair_permutation,
+    paired_order,
+    sorted_order,
+)
+from repro_torch.kernels.sorted_matmul import (
+    KERNEL_K_TILES,
+    SORT_POLICIES,
+    _check_sort,
+    card_operands,
+    launch_sort,
+    lib_fn,
+    pad_k,
+    policy_accumulate_ref,
+    row_chunk,
+    stream_of,
+)
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _empty(x, *shape):
+    return torch.empty(shape, dtype=torch.int32, device=x.device)
+
+
+def tile_sums_matmul_ref(x: torch.Tensor, w: torch.Tensor, *,
+                         k_tile: int = 256, kp: int | None = None
+                         ) -> torch.Tensor:
+    """Plain version of ``tile_sums_matmul`` (any device)."""
+    kp = _check_sort(x, w, "sorted_tiled", 16, k_tile, kp)
+    x, w = pad_k(x, kp), pad_k(w, kp)
+    m, n, t = x.shape[0], w.shape[0], kp // k_tile
+    chunk = row_chunk(n, kp)
+    outs = [partial_products(w, x[i : i + chunk]).reshape(-1, n, t, k_tile)
+            .sum(dim=-1, dtype=torch.int32) for i in range(0, m, chunk)]
+    return torch.cat(outs, dim=0) if outs else _empty(x, 0, n, t)
+
+
+def tile_sums_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                     k_tile: int = 256, kp: int | None = None
+                     ) -> torch.Tensor:
+    """Pass 1: (M, N, kp/k_tile) int32, the exact sum of each output's
+    k_tile tiles; kp a multiple of k_tile (a power of two)."""
+    kp = _check_sort(x, w, "sorted_tiled", 16, k_tile, kp)
+    if _on_cpu(x, w):
+        return tile_sums_matmul_ref(x, w, k_tile=k_tile, kp=kp)
+    x8, w8 = card_operands("tile_sums_matmul", x, w)
+    m, k = x8.shape
+    n = w8.shape[0]
+    out = _empty(x8, m, n, kp // k_tile)
+    if out.numel() == 0:
+        return out
+    err = lib_fn("sorted_stream", "pqs_tile_sums", 3, 5)(
+        x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k, kp, k_tile,
+        stream_of(x8))
+    if err != 0:
+        raise RuntimeError(f"tile_sums_matmul launch failed: CUDA error {err}")
+    tile_sums_matmul.launches += 1
+    return out
+
+
+tile_sums_matmul.launches = 0
+
+
+def _check_perm(x, w, perm, kp, k_tile):
+    want = (x.shape[0], w.shape[0], kp // k_tile)
+    if tuple(perm.shape) != want:
+        raise ValueError(f"perm must be (M, N, kp/k_tile) = {want}, got "
+                         f"{tuple(perm.shape)}")
+
+
+def paired_accum_matmul_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    perm: torch.Tensor,
+    *,
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+    kp: int | None = None,
+) -> torch.Tensor:
+    """Plain version of ``paired_accum_matmul`` (any device): the products
+    as (rows, N, T, k_tile) tiles, each sorted, put in perm's paired
+    order, then added stepwise with saturation."""
+    kp = _check_sort(x, w, "sorted_tiled", acc_bits, k_tile, kp)
+    _check_perm(x, w, perm, kp, k_tile)
+    x, w = pad_k(x, kp), pad_k(w, kp)
+    m, n, t = x.shape[0], w.shape[0], kp // k_tile
+    chunk = row_chunk(n, kp)
+    outs = []
+    for i in range(0, m, chunk):
+        tiles = partial_products(w, x[i : i + chunk]).reshape(-1, n, t, k_tile)
+        ordered = paired_order(sorted_order(tiles, rounds),
+                               perm[i : i + chunk].long())
+        outs.append(monotone_accumulate(ordered, acc_bits)[0])
+    return torch.cat(outs, dim=0) if outs else _empty(x, 0, n)
+
+
+def paired_accum_matmul(
+    x: torch.Tensor,  # (M, K) int8 (or int32 carrying int8)
+    w: torch.Tensor,  # (N, K)
+    perm: torch.Tensor,  # (M, N, kp/k_tile) int32 pairing permutation
+    *,
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+    kp: int | None = None,
+) -> torch.Tensor:
+    """Pass 2: (M, N) int32, each output's kp in the paired order of its
+    row of ``perm`` (a permutation of its tile indices, as
+    ``pair_permutation`` gives)."""
+    kp = _check_sort(x, w, "sorted_tiled", acc_bits, k_tile, kp)
+    _check_perm(x, w, perm, kp, k_tile)
+    if _on_cpu(x, w, perm):
+        return paired_accum_matmul_ref(x, w, perm, acc_bits=acc_bits,
+                                       k_tile=k_tile, rounds=rounds, kp=kp)
+    if k_tile not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernel sorts tiles of up to {KERNEL_K_TILES[-1]} "
+            f"products; k_tile={k_tile}")
+    x8, w8 = card_operands("paired_accum_matmul", x, w)
+    if perm.device != x8.device or perm.dtype != torch.int32:
+        raise ValueError(f"perm must be int32 on {x8.device}, got "
+                         f"{perm.dtype} on {perm.device}")
+    perm = perm.contiguous()
+    m, k = x8.shape
+    n = w8.shape[0]
+    out = _empty(x8, m, n)
+    if out.numel() == 0:
+        return out
+    err = lib_fn("sorted_stream", "pqs_paired_accum", 4, 7)(
+        x8.data_ptr(), w8.data_ptr(), perm.data_ptr(), out.data_ptr(), m, n,
+        k, kp, acc_bits, rounds, k_tile, stream_of(x8))
+    if err != 0:
+        raise RuntimeError(
+            f"paired_accum_matmul launch failed: CUDA error {err}")
+    paired_accum_matmul.launches += 1
+    return out
+
+
+paired_accum_matmul.launches = 0
+
+
+def chunked_sort_matmul_ref(x: torch.Tensor, w: torch.Tensor, *,
+                            acc_bits: int = 16, rounds: int = 1,
+                            kp: int | None = None) -> torch.Tensor:
+    """Plain version of ``chunked_sort_matmul`` (any device)."""
+    kp = _check_sort(x, w, "sorted", acc_bits, 1, kp)
+    return policy_accumulate_ref(pad_k(x, kp), pad_k(w, kp), policy="sorted",
+                                 acc_bits=acc_bits, k_tile=kp, rounds=rounds)
+
+
+def chunked_sort_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                        acc_bits: int = 16, rounds: int = 1,
+                        kp: int | None = None) -> torch.Tensor:
+    """(M, N) int32 under ``sorted`` at long K (kp a power of two, at most
+    ``SORTED_MAX_K`` on the card)."""
+    kp = _check_sort(x, w, "sorted", acc_bits, 1, kp)
+    if _on_cpu(x, w):
+        return chunked_sort_matmul_ref(x, w, acc_bits=acc_bits, rounds=rounds,
+                                       kp=kp)
+    out = launch_sort("chunked_sort_matmul", x, w, kp, "sorted", acc_bits, 1,
+                      rounds)
+    if out.numel():
+        chunked_sort_matmul.launches += 1
+    return out
+
+
+chunked_sort_matmul.launches = 0
+
+
+def stream_sort_matmul(
+    x: torch.Tensor,  # (M, K) int8
+    w: torch.Tensor,  # (N, K)
+    *,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+    kp: int | None = None,
+) -> torch.Tensor:
+    """The streaming entry point for ``sorted`` | ``sorted_tiled``, with
+    ``sort_matmul``'s contract (``kp`` the policy's padded K)."""
+    if policy not in SORT_POLICIES:
+        raise ValueError(f"unknown sort policy {policy!r}; {SORT_POLICIES}")
+    if policy == "sorted":
+        return chunked_sort_matmul(x, w, acc_bits=acc_bits, rounds=rounds,
+                                   kp=kp)
+    sums = tile_sums_matmul(x, w, k_tile=k_tile, kp=kp)
+    perm = pair_permutation(sums).to(torch.int32)
+    return paired_accum_matmul(x, w, perm, acc_bits=acc_bits, k_tile=k_tile,
+                               rounds=rounds, kp=kp)

@@ -55,11 +55,12 @@ def norm_init(d: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+def rms_norm(x: torch.Tensor, gamma: Any, eps: float = 1e-6):
+    """gamma may be a QTensor row, as a bias may (``quantize_tree``)."""
     dt = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(x * x, dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * (1.0 + gamma.to(torch.float32))
+    out = x * torch.rsqrt(var + eps) * (1.0 + asarray(gamma, torch.float32))
     return out.to(dt)
 
 
@@ -144,9 +145,10 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
     k = lin(x, params["wk"], site="wk")
     v = lin(x, params["wv"], site="wv")
     if cfg.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
+        # asarray: a bias quantized with its layer stack is a QTensor row
+        q = q + asarray(params["bq"], x.dtype)
+        k = k + asarray(params["bk"], x.dtype)
+        v = v + asarray(params["bv"], x.dtype)
     return q, k, v
 
 

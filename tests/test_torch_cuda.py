@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.dispatch import pqs_dot
 from repro_torch.core.pruning import nm_compress, nm_prune_mask
+from repro_torch.core.sorted_accum import pair_permutation
 from repro_torch.kernels import nm_spmm, ops
 from repro_torch.kernels import sorted_matmul as sm
+from repro_torch.kernels import sorted_stream as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -78,7 +81,184 @@ def test_kernel_counts_launches_and_checks_inputs(card):
         sm.seq_policy_matmul(x, w, policy="sorted_tiled_seq", k_tile=2048)
 
 
-def test_engine_kernel_and_plain_agree(card):
+def _tied(x, w, k_tile):
+    """Row 1 of x all zero (every tile sum 0), row 2 of x and of w one
+    k_tile pattern repeated (every tile sum of output (2, 2) equal)."""
+    x[1] = 0
+    if x.shape[0] > 2 and w.shape[0] > 2:
+        x[2] = x[2, :k_tile].repeat(x.shape[1] // k_tile)
+        w[2] = w[2, :k_tile].repeat(w.shape[1] // k_tile)
+    return x, w
+
+
+# (M, K, N): K a power of 2 for sorted, a multiple of k_tile for sorted_tiled
+SORT_CASES = {
+    "sorted": ((5, 256, 70), (64, 2048, 256), (4, 2048, 1536), (3, 1, 9)),
+    "sorted_tiled": ((5, 320, 70), (64, 1536, 256), (4, 8960, 1536),
+                     (3, 256, 9)),
+}
+
+
+@pytest.mark.parametrize("policy", sm.SORT_POLICIES)
+@pytest.mark.parametrize("acc_bits", [12, 16, 24])
+def test_sort_matmul_matches_plain(card, policy, acc_bits):
+    for m, k, n in SORT_CASES[policy]:
+        k_tile = 64 if k == 320 else min(256, k)
+        x, w = _tied(*_xw(m, k, n, m + n + acc_bits, card), k_tile)
+        for rounds in (1, 2):
+            kw = dict(policy=policy, acc_bits=acc_bits, rounds=rounds,
+                      k_tile=k_tile)
+            got = sm.sort_matmul(x, w, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, sm.sort_matmul_ref(x, w, **kw)), (
+                policy, m, k, n, rounds)
+
+
+@pytest.mark.parametrize("k_tile", [1, 4, 16, 32, 64, 512, 1024])
+def test_tiled_kernels_every_k_tile(card, k_tile):
+    """sort_matmul and the two-pass pair, every tile size, odd tile
+    counts included (K = 3 * 1024)."""
+    x, w = _tied(*_xw(6, 3072, 40, k_tile, card), k_tile)
+    for rounds in (1, 2):
+        kw = dict(acc_bits=16, rounds=rounds, k_tile=k_tile)
+        want = sm.sort_matmul_ref(x, w, policy="sorted_tiled", **kw)
+        assert torch.equal(sm.sort_matmul(x, w, policy="sorted_tiled", **kw),
+                           want), (k_tile, rounds)
+        assert torch.equal(ss.stream_sort_matmul(x, w, policy="sorted_tiled",
+                                                 **kw), want), (k_tile, rounds)
+
+
+def test_stream_kernels_match_plain(card):
+    for m, k, n in ((5, 320, 70), (64, 1536, 256), (4, 8960, 1536)):
+        k_tile = 64 if k == 320 else 256
+        x, w = _tied(*_xw(m, k, n, m + n, card), k_tile)
+        sums = ss.tile_sums_matmul(x, w, k_tile=k_tile)
+        assert torch.equal(sums, ss.tile_sums_matmul_ref(x, w, k_tile=k_tile))
+        perm = pair_permutation(sums).to(torch.int32)
+        for rounds in (1, 2):
+            kw = dict(acc_bits=16, rounds=rounds, k_tile=k_tile)
+            got = ss.paired_accum_matmul(x, w, perm, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ss.paired_accum_matmul_ref(x, w, perm,
+                                                               **kw))
+    for m, k, n in ((5, 256, 70), (4, 16384, 1536), (64, 2048, 256),
+                    (3, 1, 9)):
+        x, w = _tied(*_xw(m, k, n, m + n, card), min(k, 256))
+        for rounds in (1, 2):
+            kw = dict(acc_bits=16, rounds=rounds)
+            got = ss.chunked_sort_matmul(x, w, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ss.chunked_sort_matmul_ref(x, w, **kw))
+            assert torch.equal(got, sm.sort_matmul(x, w, policy="sorted",
+                                                   **kw))
+
+
+def test_sort_kernels_count_launches_and_check_inputs(card):
+    x, w = _xw(4, 256, 8, 0, card)
+    perm = pair_permutation(ss.tile_sums_matmul(x, w, k_tile=64)).to(
+        torch.int32)
+    calls = (
+        (sm.sort_matmul, lambda: sm.sort_matmul(x, w, policy="sorted")),
+        (ss.tile_sums_matmul, lambda: ss.tile_sums_matmul(x, w, k_tile=64)),
+        (ss.paired_accum_matmul, lambda: ss.paired_accum_matmul(
+            x, w, perm, k_tile=64)),
+        (ss.chunked_sort_matmul, lambda: ss.chunked_sort_matmul(x, w)),
+    )
+    for kernel, call in calls:
+        before = kernel.launches
+        call()
+        assert kernel.launches == before + 1, kernel.__name__
+    with pytest.raises(ValueError):  # sorted needs a power-of-2 K
+        sm.sort_matmul(x[:, :200], w[:, :200], policy="sorted")
+    with pytest.raises(ValueError):  # k_tile must divide K
+        sm.sort_matmul(x, w, policy="sorted_tiled", k_tile=96)
+    with pytest.raises(ValueError):
+        sm.sort_matmul(x, w.cpu(), policy="sorted")
+    with pytest.raises(ValueError):
+        ss.chunked_sort_matmul(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError):  # perm of the wrong shape
+        ss.paired_accum_matmul(x, w, perm[:, :, :2], k_tile=64)
+    with pytest.raises(ValueError):
+        ss.paired_accum_matmul(x, w, perm.long(), k_tile=64)
+    with pytest.raises(ValueError):  # the two-pass slabs are int8
+        ops.policy_matmul(x.to(torch.int32) * 300, w, policy="sorted",
+                          sort_impl="twopass")
+    with pytest.raises(NotImplementedError):
+        ss.chunked_sort_matmul(torch.zeros((1, 1 << 17), dtype=torch.int8,
+                                           device=card),
+                               torch.zeros((1, 1 << 17), dtype=torch.int8,
+                                           device=card))
+
+
+# (M, K, N, k_tile) with K short of the policy's kp: a zero-extended tail
+# tile (word and byte loops of pass 1), and the decode sites' K = 1536 and
+# 8960 under sorted (kp 2048, 16384)
+MASK_CASES = {
+    "sort_matmul[sorted]": ((5, 300, 70, 1), (4, 1536, 1536, 1)),
+    "sort_matmul[sorted_tiled]": ((5, 1000, 70, 256), (3, 1001, 9, 64)),
+    "tile_sums_matmul": ((5, 1000, 70, 256), (3, 1001, 9, 64)),
+    "paired_accum_matmul": ((5, 1000, 70, 256), (3, 1001, 9, 64)),
+    "chunked_sort_matmul": ((4, 8960, 1536, 1), (3, 5000, 9, 1)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(MASK_CASES))
+def test_sort_kernels_mask_past_k(card, kernel):
+    """Each kernel given K short of kp (no padded copy) gives its plain
+    version on operands zero-padded to kp."""
+    policy = "sorted" if kernel in ("sort_matmul[sorted]",
+                                    "chunked_sort_matmul") else "sorted_tiled"
+    for m, k, n, k_tile in MASK_CASES[kernel]:
+        x, w = _xw(m, k, n, k + n, card)
+        x[1] = 0
+        kp = ops.padded_k(k, policy, k_tile)
+        px, pw = ops._pad_to(x, kp, 1), ops._pad_to(w, kp, 1)
+        for rounds in (1, 2):
+            kw = dict(acc_bits=16, rounds=rounds)
+            tk = dict(kw, k_tile=k_tile)
+            if kernel == "tile_sums_matmul":
+                got = ss.tile_sums_matmul(x, w, k_tile=k_tile, kp=kp)
+                want = ss.tile_sums_matmul_ref(px, pw, k_tile=k_tile)
+            elif kernel == "paired_accum_matmul":
+                perm = pair_permutation(ss.tile_sums_matmul_ref(
+                    px, pw, k_tile=k_tile)).to(torch.int32)
+                got = ss.paired_accum_matmul(x, w, perm, kp=kp, **tk)
+                want = ss.paired_accum_matmul_ref(px, pw, perm, **tk)
+            elif kernel == "chunked_sort_matmul":
+                got = ss.chunked_sort_matmul(x, w, kp=kp, **kw)
+                want = ss.chunked_sort_matmul_ref(px, pw, **kw)
+            else:
+                got = sm.sort_matmul(x, w, policy=policy, kp=kp, **tk)
+                want = sm.sort_matmul_ref(px, pw, policy=policy, **tk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kernel, m, k, n, rounds)
+
+
+@pytest.mark.parametrize("policy", sm.SORT_POLICIES)
+def test_pqs_dot_sort_impls_agree(card, policy):
+    """Every sort_impl gives the plain version's result, K ragged, and
+    auto launches the one-pass kernel at K <= MAX_RESIDENT_K, the two-pass
+    kernels above it; on the card onepass above the bound raises."""
+    for m, k, n in ((5, 300, 70), (4, 1536, 256), (3, 4500, 40)):
+        x, w = _xw(m, k, n, k, card)
+        want = pqs_dot(x, w, policy=policy, k_tile=256, backend="torch")
+        kp = ops.padded_k(k, policy, 256)
+        for impl in ("auto", "onepass", "twopass"):
+            if impl == "onepass" and kp > ops.MAX_RESIDENT_K:
+                with pytest.raises(ValueError):
+                    pqs_dot(x, w, policy=policy, sort_impl=impl)
+                continue
+            before = sm.sort_matmul.launches
+            got = pqs_dot(x, w, policy=policy, sort_impl=impl)
+            assert torch.equal(got, want), (policy, k, impl)
+            onepass = impl == "onepass" or (
+                impl == "auto" and kp <= ops.MAX_RESIDENT_K)
+            assert (sm.sort_matmul.launches == before + 1) == onepass
+
+
+@pytest.mark.parametrize("policy", ["sorted_tiled_seq", "sorted_tiled",
+                                    "sorted"])
+def test_engine_kernel_and_plain_agree(card, policy):
     from repro_torch.configs import get_config
     from repro_torch.core.dispatch import IntegerLinConfig
     from repro_torch.core.qtensor import quantize_tree
@@ -97,7 +277,7 @@ def test_engine_kernel_and_plain_agree(card):
     outs = {}
     for backend in ("cuda", "torch"):
         eng = ServingEngine(model, params, num_slots=3, max_len=64,
-                            int_lin=IntegerLinConfig(k_tile=64,
+                            int_lin=IntegerLinConfig(policy=policy, k_tile=64,
                                                      backend=backend))
         reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
                 for i, p in enumerate(prompts)]

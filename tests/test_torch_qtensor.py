@@ -86,18 +86,103 @@ def test_quantize_tree_counts_one_layer():
                                               np.asarray(j.scale[i]))
 
 
-def test_quantize_tree_stacked_bias_stays_float():
-    """The one leaf the packages still treat apart: 16 layers of a (48,)
-    bias stack in JAX into a (16, 48) leaf, which passes min_dim 16 and is
-    quantized as a matrix; the port never quantizes a 1-D leaf."""
+@pytest.mark.parametrize("n_keep", [None, 8])
+def test_quantize_tree_stacked_bias_matches_jax(n_keep):
+    """16 layers of a (48,) bias stack in JAX into a (16, 48) leaf, which
+    passes min_dim 16 and is quantized as a matrix (pruned 8:16 along the
+    layers when asked); the port quantizes the per-layer rows to the same
+    codes and the same scale, and the converted JAX tree is the port's."""
+    from repro_torch.convert import params_from_numpy
+
     b = _w(14, (16, 48))
-    kw = dict(bits=8, min_size=1 << 8, min_dim=16)
-    assert isinstance(jqt.quantize_tree({"b": jnp.asarray(b)}, **kw)["b"],
-                      jqt.QTensor)
-    layers = tqt.quantize_tree([{"b": torch.from_numpy(a)} for a in b],
-                               device="cpu", **kw)
-    for a, layer in zip(b, layers):
-        assert torch.equal(layer["b"], torch.from_numpy(a))
+    kw = dict(bits=8, n_keep=n_keep, m=16, min_size=1 << 8, min_dim=16)
+    j = jqt.quantize_tree({"layers": {"b": jnp.asarray(b)}}, **kw)
+    j = j["layers"]["b"]
+    assert isinstance(j, jqt.QTensor)
+    layers = tqt.quantize_tree(
+        {"layers": [{"b": torch.from_numpy(a)} for a in b]}, device="cpu",
+        **kw)["layers"]
+    conv = params_from_numpy(
+        {"layers": {"b": {"values": np.array(j.values),
+                          "scale": np.array(j.scale)}}}, device="cpu")
+    for i, layer in enumerate(layers):
+        for got in (layer["b"], conv["layers"][i]["b"]):
+            assert isinstance(got, tqt.QTensor)
+            np.testing.assert_array_equal(got.values.numpy(),
+                                          np.asarray(j.values[i]))
+            np.testing.assert_array_equal(got.scale.numpy(),
+                                          np.asarray(j.scale))
+        np.testing.assert_array_equal(
+            tqt.asarray(layer["b"], torch.float32).numpy(),
+            np.asarray(j.dequant(jnp.float32))[i])
+    if n_keep:
+        # JAX compresses the pruned stacked leaf and counts it, the port
+        # keeps the rows dense (uncounted); both serve the same values,
+        # and beside a sparse matrix leaf both trees convert it
+        w = _w(15, (16, 32, 48))
+        jt = jqt.nm_compress_tree(jqt.quantize_tree(
+            {"layers": {"b": jnp.asarray(b), "w": jnp.asarray(w)}}, **kw),
+            n_keep, 16)["layers"]
+        tt = tqt.nm_compress_tree(tqt.quantize_tree(
+            {"layers": [{"b": torch.from_numpy(b[i]),
+                         "w": torch.from_numpy(w[i])} for i in range(16)]},
+            device="cpu", **kw), n_keep, 16)["layers"]
+        assert isinstance(jt["b"], jqt.SparseQTensor)
+        assert isinstance(jt["w"], jqt.SparseQTensor)
+        for i, layer in enumerate(tt):
+            assert isinstance(layer["b"], tqt.QTensor)
+            assert isinstance(layer["w"], tqt.SparseQTensor)
+            for key in ("b", "w"):
+                np.testing.assert_array_equal(
+                    tqt.asarray(layer[key], torch.float32).numpy(),
+                    np.asarray(jqt.asarray(jt[key], jnp.float32))[i])
+        # a tree of rows alone: the port has nothing to convert, no raise
+        rows = tqt.nm_compress_tree(layers, n_keep, 16)
+        assert all(r["b"] is l["b"] for r, l in zip(rows, layers))
+    # below min_dim layers the stacked leaf stays float in both packages
+    few = tqt.quantize_tree([{"b": torch.from_numpy(a)} for a in b[:8]],
+                            device="cpu", **kw)
+    assert all(isinstance(layer["b"], torch.Tensor) for layer in few)
+
+
+def test_quantized_bias_serves_as_its_dequantized_value():
+    """A qkv bias (and a norm scale) quantized with its layer stack is
+    read through ``asarray``: the model gives the logits of the same model
+    whose quantized rows are the dequantized values as float tensors."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              num_layers=16, compute_dtype="float32")
+    assert cfg.qkv_bias
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(0)
+    for layer in params["layers"]:  # init zeroes them; make them count
+        for key in ("bq", "bk", "bv"):
+            layer["attn"][key] = torch.randn(layer["attn"][key].shape,
+                                             generator=gen)
+    q = tqt.quantize_tree(params, bits=8, min_size=1 << 8, min_dim=16,
+                          device="cpu")
+    assert isinstance(q["layers"][0]["attn"]["bq"], tqt.QTensor)
+    def rows_to_float(node):
+        if isinstance(node, dict):
+            return {k: rows_to_float(v) for k, v in node.items()}
+        if isinstance(node, tqt.QTensor) and node.ndim == 1:
+            return node.dequant(torch.float32)
+        return node
+
+    f = {**q, "layers": [rows_to_float(layer) for layer in q["layers"]]}
+    toks = torch.arange(12, dtype=torch.int32).reshape(2, 6)
+    lengths = torch.tensor([6, 4], dtype=torch.int32)
+    outs = []
+    for p in (q, f):
+        caches = model.init_caches(p, 2, 16, torch.float32)
+        outs.append(model.prefill(p, toks, caches, lengths)[0])
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
 
 
 def _leaves(tree, path=()):
