@@ -18,7 +18,11 @@ imports nothing of JAX or of the JAX package. Phases:
    weight; and the global-sort kernels ``sort_matmul``,
    ``tile_sums_matmul``, ``paired_accum_matmul`` and
    ``chunked_sort_matmul`` (with tied tile sums), the one-pass kernel
-   equal to the two-pass pipeline;
+   equal to the two-pass pipeline; and their N:M gather twins
+   ``nm_gather_sort_matmul``, ``nm_gather_tile_sums``,
+   ``nm_gather_paired_accum_matmul`` and ``nm_gather_chunked_sort_matmul``
+   on 8:16 slabs (plus ragged 3:16 and 2:4), which must also equal the
+   dense global-sort kernels on the decompressed weight;
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -34,6 +38,11 @@ imports nothing of JAX or of the JAX package. Phases:
    launches a step (one-pass at K = 1536, two-pass at w_out's K = 8960);
 3d. and under ``sorted``: 168 ``sort_matmul`` and 28
    ``chunked_sort_matmul`` launches a step;
+3e. the compressed model of phase 3b under ``sorted_tiled``: 168
+   ``nm_gather_sort_matmul``, 28 ``nm_gather_tile_sums`` and 28
+   ``nm_gather_paired_accum_matmul`` launches a step, the tokens of 3c;
+3f. and under ``sorted``: 168 ``nm_gather_sort_matmul`` and 28
+   ``nm_gather_chunked_sort_matmul`` launches a step, the tokens of 3d;
 4. the same engine at 2 layers, full width: the dense kernel and its
    plain version, and the compressed weights through the gather and the
    expand kernel (the expand kernel's path), give identical tokens and
@@ -41,9 +50,10 @@ imports nothing of JAX or of the JAX package. Phases:
 4b. at 2 layers under ``sorted_tiled`` and ``sorted``: kernels and plain
    versions give identical tokens (8 new ones) and decode logits;
 5. kernel times at the decode shapes (CUDA events, L2 flushed before
-   each launch), beside the plain versions, ``torch._int_mm`` (and a
+   each launch, the device kept busy while the host enqueues the
+   launch), beside the plain versions, ``torch._int_mm`` (and a
    float32 ``bmm`` for the tile sums) and, for the N:M kernels, the
-   dense kernel on the same dot.
+   dense kernel on the same dot (the decompressed weight).
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -95,12 +105,20 @@ def operands(torch, m, n, k, seed):
     return x, w
 
 
-def nm_operands(torch, m, n, k, seed, n_keep=N_KEEP, m_group=M_GROUP):
+def nm_operands(torch, m, n, k, seed, n_keep=N_KEEP, m_group=M_GROUP,
+                tied=False):
     """``operands`` with the weight pruned n_keep:m_group and compressed:
-    x, the dense pruned w, values, indices."""
+    x, the dense pruned w, values, indices. ``tied``: tied tile sums as
+    ``sort_operands`` makes them (the repeated tile where 256 divides
+    K), set before pruning."""
     from repro_torch.core.pruning import nm_compress, nm_prune_mask
 
-    x, w = operands(torch, m, n, k, seed)
+    if tied and k % 256 == 0:
+        x, w = sort_operands(torch, m, n, k, seed)
+    else:
+        x, w = operands(torch, m, n, k, seed)
+        if tied:
+            x[1] = 0
     kp = k + (-k) % m_group
     wp = torch.nn.functional.pad(w, (0, kp - k)).float()
     w = (wp * nm_prune_mask(wp, n_keep, m_group))[:, :k].to(torch.int8)
@@ -499,6 +517,102 @@ def phase_sort_kernels(torch, sm, ss, seed):
     return worst
 
 
+NM_SORT_KERNELS = ("nm_gather_sort_matmul", "nm_gather_tile_sums",
+                   "nm_gather_paired_accum_matmul",
+                   "nm_gather_chunked_sort_matmul")
+# launches per layer and decode step of each global-sort policy on N:M
+# compressed storage: every site takes gather (G = 96 and 560 >= 8 groups)
+NM_SORT_PATHS = {
+    "sorted_tiled": {"nm_gather_sort_matmul": 6, "nm_gather_tile_sums": 1,
+                     "nm_gather_paired_accum_matmul": 1},
+    "sorted": {"nm_gather_sort_matmul": 6,
+               "nm_gather_chunked_sort_matmul": 1},
+}
+
+
+def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
+    """The four gather global-sort kernels against their plain versions,
+    bit-exact, and against the dense global-sort kernels on the
+    decompressed weight over the same kp, at every site shape at M = 4
+    (8:16), at (N, K) = (256, 1536) at M = 64 and at ragged 3:16 and 2:4
+    slabs of K = 300, rounds 1 and 2, with tied tile sums; given, as on
+    the main path, the unpadded x and slabs. The one-pass kernel equals
+    the two-pass route under both policies. Returns the max |difference|
+    of each kernel against its plain version."""
+    from repro_torch.core.sorted_accum import pair_permutation
+    from repro_torch.kernels.sorted_matmul import padded_k
+
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    cases = [(4, n, k, N_KEEP, M_GROUP) for (n, k) in SHAPES] + [
+        (64, 256, 1536, N_KEEP, M_GROUP), (5, 70, 300, 3, 16),
+        (5, 70, 300, 2, 4)]
+    worst = dict.fromkeys(NM_SORT_KERNELS, 0)
+    cross = passes = 0
+    for i, (m, n, k, n_keep, m_group) in enumerate(cases):
+        x, w, vals, idx = nm_operands(torch, m, n, k, seed + 150 + i, n_keep,
+                                      m_group, tied=True)
+        g = vals.shape[1]
+        kt = padded_k(g * m_group, "sorted_tiled", 256)
+        ks = padded_k(g * m_group, "sorted", 256)
+        nk = dict(m_group=m_group)
+        sums = ss.nm_gather_tile_sums(x, vals, idx, k_tile=256, **nk)
+        perm = pair_permutation(sums).to(torch.int32)
+        for rounds in (1, 2):
+            kw = dict(acc_bits=16, rounds=rounds)
+            tk = dict(kw, k_tile=256)
+            one = nm.nm_gather_sort_matmul(x, vals, idx, policy="sorted_tiled",
+                                           **tk, **nk)
+            two = ss.nm_gather_paired_accum_matmul(x, vals, idx, perm, **tk,
+                                                   **nk)
+            ones = nm.nm_gather_sort_matmul(x, vals, idx, policy="sorted",
+                                            **kw, **nk)
+            chunked = ss.nm_gather_chunked_sort_matmul(x, vals, idx, **kw,
+                                                       **nk)
+            errs = {
+                "nm_gather_sort_matmul": max(
+                    diff(one, nm.nm_gather_sort_matmul_ref(
+                        x, vals, idx, policy="sorted_tiled", **tk, **nk)),
+                    diff(ones, nm.nm_gather_sort_matmul_ref(
+                        x, vals, idx, policy="sorted", **kw, **nk))),
+                "nm_gather_tile_sums": diff(sums, ss.nm_gather_tile_sums_ref(
+                    x, vals, idx, k_tile=256, **nk)),
+                "nm_gather_paired_accum_matmul": diff(
+                    two, ss.nm_gather_paired_accum_matmul_ref(
+                        x, vals, idx, perm, **tk, **nk)),
+                "nm_gather_chunked_sort_matmul": diff(
+                    chunked, ss.nm_gather_chunked_sort_matmul_ref(
+                        x, vals, idx, **kw, **nk)),
+            }
+            dense = max(
+                diff(one, sm.sort_matmul(x, w, policy="sorted_tiled", kp=kt,
+                                         **tk)),
+                diff(sums, ss.tile_sums_matmul(x, w, k_tile=256, kp=kt)),
+                diff(two, ss.paired_accum_matmul(x, w, perm, kp=kt, **tk)),
+                diff(ones, sm.sort_matmul(x, w, policy="sorted", kp=ks,
+                                          **kw)),
+                diff(chunked, ss.chunked_sort_matmul(x, w, kp=ks, **kw)))
+            route = max(diff(one, two), diff(ones, chunked), diff(
+                one, ss.nm_gather_stream_sort_matmul(
+                    x, vals, idx, policy="sorted_tiled", **tk, **nk)))
+            cross, passes = max(cross, dense), max(passes, route)
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            tied = float((sums[1] == sums[1, :, :1]).float().mean())
+            print(f"  nm sort kernels/plain M={m:3d} N={n:5d} K={k:5d} "
+                  f"{n_keep}:{m_group} (kp {kt} / {ks}) rounds={rounds} "
+                  f"max|diff| {errs}; vs dense kernels {dense}; one-pass vs "
+                  f"two-pass {route}; tied sums in row 1 {tied:.2f}",
+                  flush=True)
+    if any(worst.values()) or cross or passes:
+        raise AssertionError(f"gather global-sort kernels disagree: {worst}, "
+                             f"vs dense {cross}, one-pass vs two-pass "
+                             f"{passes}")
+    return worst
+
+
 def phase_sort_parity(torch, counters, cfg, seed, new_tokens=8):
     """2 layers at full width under ``sorted_tiled`` and under ``sorted``:
     the kernels and their plain versions give the same tokens (8 new ones
@@ -528,15 +642,25 @@ def phase_sort_parity(torch, counters, cfg, seed, new_tokens=8):
             ("torch", params, dict(policy=policy, backend="torch"))))
 
 
+# How time_launches reads ``ms``, ``plain_ms`` and ``library_ms``, named in
+# every record of the ``kernels`` line.
+TIMING = ("device-busy events: L2 flushed, about 1 ms device spin, CUDA "
+          "events around one call, mean of 10")
+
+
 def time_launches(torch, fn, iters, flush_buf):
     """Mean ms of ``fn`` over ``iters`` launches, each timed alone by CUDA
     events after the L2 cache is overwritten (the decode path finds the
-    weights cold)."""
+    weights cold). The device spins for about a millisecond before the
+    start event, so the host has enqueued ``fn``'s kernels by then: the
+    time is the device's, without the wrapper's host time (a plain
+    version, a host loop of many small launches, still includes it)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         flush_buf.add_(1)
+        torch.cuda._sleep(2_000_000)  # cycles: about 1 ms
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -717,6 +841,107 @@ def phase_sort_timing(torch, sm, ss):
     return table
 
 
+def phase_nm_sort_timing(torch, sm, ss, nm):
+    """The gather global-sort kernels at the decode shapes (M = 4, 8:16) of
+    the sites where the main path runs them, beside the dense kernel on
+    the decompressed weight over the same kp (``dense_ms``), their plain
+    versions and their bound: the bytes of x, the int8 values, the int32
+    indices and of what they write (and read: pass 2's perm) at the
+    logical K, or 2 M N (G n_keep) int8 operations over the kept products.
+    Pass 1 also beside one float32 ``torch.bmm`` on the decompressed
+    weight, as row 9. At w_out the one-pass kernel is timed too, beside
+    the two-pass path."""
+    from repro_torch.core.sorted_accum import pair_permutation
+    from repro_torch.kernels.sorted_matmul import padded_k
+
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    table = {name: [] for name in NM_SORT_KERNELS + (
+        "nm_gather_sort_matmul[sorted]",)}
+    m, kt = 4, 256
+    for site, (n, k) in SITES.items():
+        x, w, vals, idx = nm_operands(torch, m, n, k, 13)
+        kept = vals.numel()
+        kpt = padded_k(k, "sorted_tiled", kt)
+        kps = padded_k(k, "sorted", kt)
+        tk = dict(acc_bits=16, rounds=1, k_tile=kt, m_group=M_GROUP)
+        one = dict(acc_bits=16, rounds=1, m_group=M_GROUP)
+        dk = dict(acc_bits=16, rounds=1, k_tile=kt)
+        base = m * k + 5 * kept
+        runs = []  # (key, kernel, plain, dense, bytes, library)
+        if k <= 4096:
+            runs.append(("nm_gather_sort_matmul", lambda: nm.nm_gather_sort_matmul(
+                x, vals, idx, policy="sorted_tiled", **tk),
+                lambda: nm.nm_gather_sort_matmul_ref(
+                    x, vals, idx, policy="sorted_tiled", **tk),
+                lambda: sm.sort_matmul(x, w, policy="sorted_tiled", kp=kpt,
+                                       **dk), base + 4 * m * n, None))
+            runs.append(("nm_gather_sort_matmul[sorted]",
+                         lambda: nm.nm_gather_sort_matmul(
+                             x, vals, idx, policy="sorted", **one),
+                         lambda: nm.nm_gather_sort_matmul_ref(
+                             x, vals, idx, policy="sorted", **one),
+                         lambda: sm.sort_matmul(x, w, policy="sorted",
+                                                kp=kps, acc_bits=16),
+                         base + 4 * m * n, None))
+        else:
+            t = kpt // kt
+            perm = pair_permutation(ss.nm_gather_tile_sums(
+                x, vals, idx, k_tile=kt, m_group=M_GROUP)).to(torch.int32)
+            xf = x.float().reshape(m, t, kt).transpose(0, 1).contiguous()
+            wf = w.float().reshape(n, t, kt).permute(1, 2, 0).contiguous()
+            bmm = torch.bmm(xf, wf).permute(1, 2, 0)
+            if not torch.equal(bmm.to(torch.int32), ss.nm_gather_tile_sums(
+                    x, vals, idx, k_tile=kt, m_group=M_GROUP)):
+                raise AssertionError("float32 bmm tile sums are not exact")
+            runs.append(("nm_gather_tile_sums", lambda: ss.nm_gather_tile_sums(
+                x, vals, idx, k_tile=kt, m_group=M_GROUP),
+                lambda: ss.nm_gather_tile_sums_ref(x, vals, idx, k_tile=kt,
+                                                   m_group=M_GROUP),
+                lambda: ss.tile_sums_matmul(x, w, k_tile=kt, kp=kpt),
+                base + 4 * m * n * t, lambda: torch.bmm(xf, wf)))
+            runs.append(("nm_gather_paired_accum_matmul",
+                         lambda: ss.nm_gather_paired_accum_matmul(
+                             x, vals, idx, perm, **tk),
+                         lambda: ss.nm_gather_paired_accum_matmul_ref(
+                             x, vals, idx, perm, **tk),
+                         lambda: ss.paired_accum_matmul(x, w, perm, kp=kpt,
+                                                        **dk),
+                         base + 4 * m * n * t + 4 * m * n, None))
+            runs.append(("nm_gather_chunked_sort_matmul",
+                         lambda: ss.nm_gather_chunked_sort_matmul(
+                             x, vals, idx, **one),
+                         lambda: ss.nm_gather_chunked_sort_matmul_ref(
+                             x, vals, idx, **one),
+                         lambda: ss.chunked_sort_matmul(x, w, kp=kps,
+                                                        acc_bits=16),
+                         base + 4 * m * n, None))
+            for policy in ("sorted_tiled", "sorted"):
+                kw = tk if policy == "sorted_tiled" else one
+                ms = time_launches(torch, lambda: nm.nm_gather_sort_matmul(
+                    x, vals, idx, policy=policy, **kw), 10, flush_buf)
+                print(f"  time nm_gather_sort_matmul (one-pass, for "
+                      f"comparison) {policy} {site} M={m} N={n} K={k} "
+                      f"{ms:.4f} ms", flush=True)
+        for key, kernel, plain, dense, nbytes, lib in runs:
+            ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row = dict(ms=time_launches(torch, kernel, 10, flush_buf),
+                       dense_ms=time_launches(torch, dense, 10, flush_buf),
+                       plain_ms=time_launches(torch, plain, 1, flush_buf),
+                       library_ms=lib and time_launches(torch, lib, 10,
+                                                        flush_buf),
+                       bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                       ops_ms=ops_ms)
+            table[key].append(row)
+            print(f"  time {key:30s} {site:6s} M={m} N={n:5d} K={k:5d} "
+                  f"kernel {row['ms']:.4f} ms  dense kernel "
+                  f"{row['dense_ms']:.4f} ms  plain {row['plain_ms']:.2f} "
+                  f"ms  bound {row['bound_ms']:.5f} ms" + (
+                      f"  float32 bmm {row['library_ms']:.4f} ms"
+                      if lib else ""), flush=True)
+    return table
+
+
 def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
                   work="7 projection sites of one qwen2-1.5b layer at "
                        "decode (M=4), acc_bits 16, k_tile 256", **extra):
@@ -724,10 +949,12 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
     ``rows``."""
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    if all("dense_ms" in r for r in rows):
+        extra["dense_ms"] = sum(r["dense_ms"] for r in rows)
     library = [r.get("library_ms") for r in rows]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        policy=policy, work=work,
+        policy=policy, work=work, timing=TIMING,
         ms=total["ms"], plain_ms=total["plain_ms"],
         bound_ms=total["bound_ms"],
         bound_by="bytes" if total["bytes_ms"] >= total["ops_ms"]
@@ -779,7 +1006,13 @@ def main() -> int:
                 "sort_matmul": sm.sort_matmul,
                 "tile_sums_matmul": ss.tile_sums_matmul,
                 "paired_accum_matmul": ss.paired_accum_matmul,
-                "chunked_sort_matmul": ss.chunked_sort_matmul}
+                "chunked_sort_matmul": ss.chunked_sort_matmul,
+                "nm_gather_sort_matmul": nm.nm_gather_sort_matmul,
+                "nm_gather_tile_sums": ss.nm_gather_tile_sums,
+                "nm_gather_paired_accum_matmul":
+                    ss.nm_gather_paired_accum_matmul,
+                "nm_gather_chunked_sort_matmul":
+                    ss.nm_gather_chunked_sort_matmul}
     got = {}  # what each phase measured, for the kernels line
 
     def dense_serve():
@@ -795,19 +1028,35 @@ def main() -> int:
             raise AssertionError("no dense tokens to compare: phase 3 failed")
 
     def sort_serve(policy):
-        got[policy] = phase_serve(torch, counters, cfg, args.seed,
-                                  SORT_PATHS[policy], policy=policy)[0]
+        got[policy], _, got[policy + " tokens"] = phase_serve(
+            torch, counters, cfg, args.seed, SORT_PATHS[policy],
+            policy=policy)
+
+    def nm_sort_serve(policy):
+        got["nm " + policy] = phase_serve(
+            torch, counters, cfg, args.seed, NM_SORT_PATHS[policy],
+            compressed=True, policy=policy,
+            want_tokens=got.get(policy + " tokens"))[0]
+        if policy + " tokens" not in got:
+            raise AssertionError(f"no dense {policy} tokens to compare: "
+                                 "its dense phase failed")
 
     phases = [
         ("[2] kernel vs plain", lambda: got.update(
             err=phase_kernels(torch, sm, args.seed),
             nm_err=phase_nm_kernels(torch, sm, nm, args.seed),
-            sort_err=phase_sort_kernels(torch, sm, ss, args.seed))),
+            sort_err=phase_sort_kernels(torch, sm, ss, args.seed),
+            nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
+                                              args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
         ("[3c] serve qwen2-1.5b under sorted_tiled",
          lambda: sort_serve("sorted_tiled")),
         ("[3d] serve qwen2-1.5b under sorted", lambda: sort_serve("sorted")),
+        ("[3e] serve qwen2-1.5b from N:M compressed storage under "
+         "sorted_tiled", lambda: nm_sort_serve("sorted_tiled")),
+        ("[3f] serve qwen2-1.5b from N:M compressed storage under sorted",
+         lambda: nm_sort_serve("sorted")),
         ("[4] kernel vs plain serving, dense and compressed", lambda:
             got.update(expand_launches=phase_parity(torch, counters, cfg,
                                                     args.seed))),
@@ -816,7 +1065,8 @@ def main() -> int:
         ("[5] timing", lambda: got.update(
             timing=phase_timing(torch, sm),
             nm_timing=phase_nm_timing(torch, sm, nm),
-            sort_timing=phase_sort_timing(torch, sm, ss))),
+            sort_timing=phase_sort_timing(torch, sm, ss),
+            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm))),
     ]
     for title, fn in phases:
         print(title, flush=True)
@@ -901,6 +1151,54 @@ def main() -> int:
             launches=srt["chunked_sort_matmul"],
             max_abs_err=got["sort_err"]["chunked_sort_matmul"],
             path="phase 3d (two-pass at K = 8960)"),
+    ]
+    timing = got["nm_sort_timing"]
+    tiled, srt = got["nm sorted_tiled"], got["nm sorted"]
+    err = got["nm_sort_err"]
+    nm8 = ", 8:16 compressed slabs"
+    kernels += [
+        kernel_record(
+            "nm_gather_sort_matmul", csrc + "nm_sort_matmul.cu",
+            "src/repro/kernels/nm_spmm.py:465",
+            timing["nm_gather_sort_matmul"], policy="sorted_tiled",
+            work=six + nm8 + ", k_tile 256",
+            launches=tiled["nm_gather_sort_matmul"]
+            + srt["nm_gather_sort_matmul"],
+            launches_by_path={"sorted_tiled": tiled["nm_gather_sort_matmul"],
+                              "sorted": srt["nm_gather_sort_matmul"]},
+            max_abs_err=err["nm_gather_sort_matmul"],
+            sorted_policy=kernel_record(
+                "nm_gather_sort_matmul", csrc + "nm_sort_matmul.cu",
+                "src/repro/kernels/nm_spmm.py:465",
+                timing["nm_gather_sort_matmul[sorted]"], policy="sorted",
+                work=six + nm8 + ", sorted over next_pow2(G n_keep) = 1024 "
+                                 "kept keys"),
+            path="phases 3e and 3f (one-pass at K = 1536)"),
+        kernel_record(
+            "nm_gather_tile_sums", csrc + "nm_sort_matmul.cu",
+            "src/repro/kernels/sorted_stream.py:567",
+            timing["nm_gather_tile_sums"], policy="sorted_tiled",
+            work=w_out + nm8 + ", k_tile 256",
+            launches=tiled["nm_gather_tile_sums"],
+            max_abs_err=err["nm_gather_tile_sums"],
+            path="phase 3e (two-pass pass 1 at K = 8960)"),
+        kernel_record(
+            "nm_gather_paired_accum_matmul", csrc + "nm_sort_matmul.cu",
+            "src/repro/kernels/sorted_stream.py:670",
+            timing["nm_gather_paired_accum_matmul"], policy="sorted_tiled",
+            work=w_out + nm8 + ", k_tile 256",
+            launches=tiled["nm_gather_paired_accum_matmul"],
+            max_abs_err=err["nm_gather_paired_accum_matmul"],
+            path="phase 3e (two-pass pass 2 at K = 8960)"),
+        kernel_record(
+            "nm_gather_chunked_sort_matmul", csrc + "nm_sort_matmul.cu",
+            "src/repro/kernels/sorted_stream.py:735",
+            timing["nm_gather_chunked_sort_matmul"], policy="sorted",
+            work=w_out + nm8 + ", sorted over next_pow2(G n_keep) = 8192 "
+                               "kept keys",
+            launches=srt["nm_gather_chunked_sort_matmul"],
+            max_abs_err=err["nm_gather_chunked_sort_matmul"],
+            path="phase 3f (two-pass at K = 8960)"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

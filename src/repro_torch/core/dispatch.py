@@ -17,9 +17,11 @@ permutation domain: here for ``torch``, in ``ops.policy_matmul`` for
 ``storage="nm"`` takes the weight compressed (a ``SparseQTensor`` or a
 ``(values, indices)`` pair with ``m_group=``): the ``torch`` backend
 decompresses it and runs the dense plain version, the ``cuda`` backend
-runs the policy on the slabs (``kernels.ops.nm_policy_matmul``, with
-``nm_impl`` picking the gather or the expand kernel). Both are
-bit-identical to the dense path on the decompressed weight.
+runs the policy on the slabs (``kernels.ops.nm_policy_matmul``: ``nm_impl``
+picks the gather or the expand kernel, and ``sort_impl`` the one-pass or
+two-pass gather kernels of the global-sort policies, whose expand twins
+are not ported and raise). Both are bit-identical to the dense path on the
+decompressed weight.
 
 ``qtensor_dot`` + ``integer_lin`` put serving on this path: inside the
 context every ``models.layers.lin`` whose weight is a QTensor or a
@@ -143,7 +145,7 @@ def _local_dot(
             return ops.nm_policy_matmul(
                 xc, w[0], w[1], m_group=m_group, policy=policy,
                 acc_bits=acc_bits, k_tile=k_tile, rounds=rounds,
-                nm_impl=nm_impl, census=not certified)
+                sort_impl=sort_impl, nm_impl=nm_impl, census=not certified)
     else:
         def dot(xc):
             return ops.policy_matmul(
@@ -180,10 +182,10 @@ def pqs_dot(
     an acc_bits register under ``policy``. Any M/N/K: padding and batch
     chunking happen here. ``backend="cuda"`` on CPU tensors raises.
 
-    ``sort_impl`` picks the CUDA kernels of the global-sort policies:
-    ``auto`` (the one-pass kernel up to ``ops.MAX_RESIDENT_K``, the
-    two-pass pipeline above), ``onepass`` or ``twopass``; the result is
-    the same either way.
+    ``sort_impl`` picks the CUDA kernels of the global-sort policies, on
+    dense and on compressed storage: ``auto`` (the one-pass kernel up to
+    ``ops.MAX_RESIDENT_K`` of padded K, the two-pass pipeline above),
+    ``onepass`` or ``twopass``; the result is the same either way.
 
     ``storage="nm"``: ``w`` is a ``SparseQTensor`` or a ``(values,
     indices)`` pair plus ``m_group``; x carries the logical K or the

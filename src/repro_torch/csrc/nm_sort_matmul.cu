@@ -1,0 +1,284 @@
+// nm_sort_matmul.cu: the PQS global-sort policies (`sorted`,
+// `sorted_tiled`) on N:M compressed weights, from the kept products only;
+// four kernels.
+//
+// Replaces:
+//   nm_sort_sorted_kernel  <- repro/kernels/nm_spmm.py:nm_gather_sort_matmul
+//     under `sorted` (the Pallas _nm_gather_sort_kernel with
+//     gather_nm_products, pad_last_pow2 and bitonic.sorted_order_bitonic),
+//     and repro/kernels/sorted_stream.py:nm_gather_chunked_sort_matmul
+//     (`sorted` at long K, _nm_gather_chunked_sort_kernel): one block holds
+//     all of an output's kept keys, so the TPU's VMEM split into two
+//     kernels does not carry over, as for the dense sort_matmul.cu;
+//   nm_sort_tiled_kernel   <- nm_gather_sort_matmul under `sorted_tiled`
+//     (tiled_sorted_order over the pow2-padded kept tiles);
+//   nm_tile_sums_kernel    <- repro/kernels/sorted_stream.py:
+//     nm_gather_tile_sums (pass 1 of the two-pass `sorted_tiled`);
+//   nm_paired_accum_kernel <- repro/kernels/sorted_stream.py:
+//     nm_gather_paired_accum_matmul (pass 2, fed the pairing permutation).
+//
+// Operands: x (M, K) int8; values (N, G, n_keep) int8 and indices
+// (N, G, n_keep) int32 in canonical form (pruning.nm_compress); kp >= K and
+// kp >= G * m is the padded K of the dense path (a power of two for
+// `sorted`, whole k_tile tiles for `sorted_tiled`). Kept slot q of row n is
+// x[m, (q / n_keep) * m + idx[n, q]] * val[n, q]; a slot of a group past G,
+// at a position at or past K, or in the power-of-two pad of a tile is a zero
+// product, masked in the kernel (pqs_accum.cuh GatheredProducts), so
+// neither x nor the slabs are padded or copied on the host.
+//
+// Exactness: the dense product stream of a row is its kept products with
+// zeros at the pruned positions. A split/sort/pair round maps a stream with
+// extra zeros to the same ordered stream followed by zeros (the prefix
+// property), for any number of rounds; zeros add nothing to a saturating
+// register and nothing to a tile sum. So
+// - `sorted` sorts L = next_pow2(G * n_keep) kept keys (1024 at K = 1536
+//   and 8192 at K = 8960 under 8:16, against the dense kernel's kp = 2048
+//   and 16384), and its ordered stream is the dense one's prefix;
+// - `sorted_tiled` takes a k_tile tile as its lc = (k_tile / m) * n_keep
+//   kept slots, sorted as a tile of lp = next_pow2(lc) (128 at 8:16, k_tile
+//   256). The tile sums equal the dense ones, so the pairing permutation is
+//   the dense one, and each interleaved pair is the dense pair with zero
+//   pairs dropped.
+//
+// What bounds it on this card: as for the dense kernels, the integer work
+// of the sorts and of the ordered saturating adds, far above the bytes
+// bound at decode; pass 1 is an exact dot per tile over 5 bytes of slab
+// (int8 value, int32 index) a kept product, device memory. Gathering is
+// about n_keep / m of the dense work: half the sort length under 8:16.
+//
+// What the design does about it:
+// - The sort bodies are the dense kernels' (pqs_accum.cuh sorted_dot,
+//   sorted_tiled_dot, paired_dot), reading products through the gathered
+//   loader instead of the dense row pair: one block per output element.
+// - `sorted`: L / 8 threads (32 to 1024) sort L int16 keys in shared
+//   memory (2 KB at L = 1024, 16 KB at 8192).
+// - `sorted_tiled` one-pass: 4 warps rank the T = kp / k_tile tile sums in
+//   shared memory, then sort each pair slot's two kept tiles in registers.
+// - Pass 1: one warp per (n, tile); its lanes take consecutive kept slots
+//   of the tile (coalesced reads of the slab row) and reduce by shuffles,
+//   once per row of x, the slab's tile staying in L1 across the rows.
+// - Pass 2: 8 warps per output, the one-pass body fed perm.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "pqs_accum.cuh"
+
+namespace {
+
+constexpr int kTiledThreads = 128;
+constexpr int kPairThreads = 256;
+constexpr int kSumThreads = 256;
+
+// The kept products of output (m, n).
+__device__ __forceinline__ pqs::GatheredProducts gathered(
+    const int8_t* x, const int8_t* val, const int32_t* idx, int64_t m,
+    int64_t n, int K, int G, int n_keep, int m_group, int tile_len) {
+  const int kept = G * n_keep;
+  return pqs::GatheredProducts{x + m * K, val + n * kept, idx + n * kept, K,
+                               kept, n_keep, m_group, tile_len};
+}
+
+__global__ void nm_sort_sorted_kernel(const int8_t* __restrict__ x,
+                                      const int8_t* __restrict__ val,
+                                      const int32_t* __restrict__ idx,
+                                      int32_t* __restrict__ out, int N, int K,
+                                      int G, int n_keep, int m_group, int L,
+                                      int acc_bits, int rounds) {
+  __shared__ pqs::Clamp scratch[32];
+  const int64_t o = blockIdx.x;
+  const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
+                          G * n_keep);
+  const int r = pqs::sorted_dot(p, L, pqs::dynamic_smem<int16_t>(), scratch,
+                                acc_bits, rounds);
+  if (threadIdx.x == 0) out[o] = r;
+}
+
+template <int E, int LT>
+__global__ void nm_sort_tiled_kernel(const int8_t* __restrict__ x,
+                                     const int8_t* __restrict__ val,
+                                     const int32_t* __restrict__ idx,
+                                     int32_t* __restrict__ out, int N, int K,
+                                     int G, int n_keep, int m_group, int T,
+                                     int lc, int acc_bits, int rounds) {
+  __shared__ pqs::Clamp scratch[kTiledThreads / 32];
+  int* sums = pqs::dynamic_smem<int>();
+  const int64_t o = blockIdx.x;
+  const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
+                          lc);
+  const int r = pqs::sorted_tiled_dot<E, LT>(p, sums, sums + T, T, scratch,
+                                             acc_bits, rounds);
+  if (threadIdx.x == 0) out[o] = r;
+}
+
+__global__ void nm_tile_sums_kernel(const int8_t* __restrict__ x,
+                                    const int8_t* __restrict__ val,
+                                    const int32_t* __restrict__ idx,
+                                    int32_t* __restrict__ out, int M, int N,
+                                    int K, int G, int n_keep, int m_group,
+                                    int T, int lc) {
+  const int64_t nt = static_cast<int64_t>(blockIdx.x) * (kSumThreads / 32) +
+                     (threadIdx.x >> 5);
+  if (nt >= static_cast<int64_t>(N) * T) return;  // whole warp leaves
+  const int64_t n = nt / T;
+  const int t = static_cast<int>(nt % T);
+  for (int64_t m = 0; m < M; ++m) {
+    const int s = pqs::warp_tile_sum(
+        gathered(x, val, idx, m, n, K, G, n_keep, m_group, lc), t);
+    if ((threadIdx.x & 31) == 0) out[(m * N + n) * T + t] = s;
+  }
+}
+
+template <int E, int LT>
+__global__ void nm_paired_accum_kernel(const int8_t* __restrict__ x,
+                                       const int8_t* __restrict__ val,
+                                       const int32_t* __restrict__ idx,
+                                       const int32_t* __restrict__ perm,
+                                       int32_t* __restrict__ out, int N,
+                                       int K, int G, int n_keep, int m_group,
+                                       int T, int lc, int acc_bits,
+                                       int rounds) {
+  __shared__ pqs::Clamp scratch[kPairThreads / 32];
+  const int64_t o = blockIdx.x;
+  const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
+                          lc);
+  const int r = pqs::paired_dot<E, LT>(p, perm + o * T, T, scratch, acc_bits,
+                                       rounds);
+  if (threadIdx.x == 0) out[o] = r;
+}
+
+struct Slabs {
+  const int8_t* x;
+  const int8_t* val;
+  const int32_t* idx;
+  int M, N, K, G, n_keep, m_group;
+};
+
+struct TiledLaunch {
+  Slabs a;
+  int32_t* out;
+  int T, lc, acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int LT>
+  void operator()() const {
+    pqs::launch_smem(nm_sort_tiled_kernel<E, LT>,
+                     static_cast<int64_t>(a.M) * a.N, kTiledThreads,
+                     2 * sizeof(int) * static_cast<size_t>(T), s, a.x, a.val,
+                     a.idx, out, a.N, a.K, a.G, a.n_keep, a.m_group, T, lc,
+                     acc_bits, rounds);
+  }
+};
+
+struct PairedLaunch {
+  Slabs a;
+  const int32_t* perm;
+  int32_t* out;
+  int T, lc, acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int LT>
+  void operator()() const {
+    nm_paired_accum_kernel<E, LT>
+        <<<static_cast<unsigned>(static_cast<int64_t>(a.M) * a.N),
+           kPairThreads, 0, s>>>(a.x, a.val, a.idx, perm, out, a.N, a.K, a.G,
+                                 a.n_keep, a.m_group, T, lc, acc_bits,
+                                 rounds);
+  }
+};
+
+// The slabs and the tiling every entry point takes: n_keep in [1, m], K
+// and G * m within kp (x's columns past G * m are never read), whole
+// k_tile tiles of whole groups (k_tile <= 0 skips the tile checks, for
+// `sorted`), one block per output.
+bool valid(const Slabs& a, int kp, int k_tile) {
+  if (a.K < 0 || a.G < 0 || a.m_group < 1 || a.n_keep < 1 ||
+      a.n_keep > a.m_group)
+    return false;
+  const int64_t dense = static_cast<int64_t>(a.G) * a.m_group;
+  if (a.K > kp || dense > kp || static_cast<int64_t>(a.M) * a.N > 0x7fffffff)
+    return false;
+  return k_tile <= 0 || (kp % k_tile == 0 && k_tile % a.m_group == 0);
+}
+
+Slabs slabs(const void* x, const void* val, const void* idx, int M, int N,
+            int K, int G, int n_keep, int m_group) {
+  return Slabs{static_cast<const int8_t*>(x), static_cast<const int8_t*>(val),
+               static_cast<const int32_t*>(idx), M, N, K, G, n_keep, m_group};
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. x (M, K) int8, values and
+// indices (N, G, n_keep) int8 / int32, perm (M, N, kp/k_tile) int32 and the
+// outputs ((M, N) registers, (M, N, kp/k_tile) sums, int32) are contiguous
+// device buffers. Each returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take (the Python
+// wrappers check first).
+
+// policy 0: sorted (kp a power of two), 1: sorted_tiled.
+extern "C" int pqs_nm_gather_sort_matmul(const void* x, const void* val,
+                                         const void* idx, void* out, int M,
+                                         int N, int K, int G, int n_keep,
+                                         int m_group, int kp, int policy,
+                                         int acc_bits, int rounds, int k_tile,
+                                         void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
+  auto* op = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (acc_bits < 2 || acc_bits > 30 || rounds < 0 || kp <= 0)
+    return cudaErrorInvalidValue;
+  if (policy == 0) {
+    if (!valid(a, kp, 0) || (kp & (kp - 1))) return cudaErrorInvalidValue;
+    const int L = pqs::next_pow2(G * n_keep);
+    return pqs::launch_sorted(nm_sort_sorted_kernel,
+                              static_cast<int64_t>(M) * N, L, s, a.x, a.val,
+                              a.idx, op, N, K, G, n_keep, m_group, L,
+                              acc_bits, rounds);
+  }
+  if (policy != 1 || k_tile <= 0 || !valid(a, kp, k_tile))
+    return cudaErrorInvalidValue;
+  const int lc = (k_tile / m_group) * n_keep;
+  return pqs::dispatch_tile(
+      pqs::next_pow2(lc),
+      TiledLaunch{a, op, kp / k_tile, lc, acc_bits, rounds, s});
+}
+
+extern "C" int pqs_nm_gather_tile_sums(const void* x, const void* val,
+                                       const void* idx, void* out, int M,
+                                       int N, int K, int G, int n_keep,
+                                       int m_group, int kp, int k_tile,
+                                       void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
+  if (k_tile <= 0 || !valid(a, kp, k_tile)) return cudaErrorInvalidValue;
+  const int T = kp / k_tile;
+  const int64_t warps = static_cast<int64_t>(N) * T;
+  const int64_t blocks = (warps + kSumThreads / 32 - 1) / (kSumThreads / 32);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  nm_tile_sums_kernel<<<static_cast<unsigned>(blocks), kSumThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a.x, a.val, a.idx, static_cast<int32_t*>(out), M, N, K, G, n_keep,
+      m_group, T, (k_tile / m_group) * n_keep);
+  return cudaGetLastError();
+}
+
+extern "C" int pqs_nm_gather_paired_accum(const void* x, const void* val,
+                                          const void* idx, const void* perm,
+                                          void* out, int M, int N, int K,
+                                          int G, int n_keep, int m_group,
+                                          int kp, int acc_bits, int rounds,
+                                          int k_tile, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
+  if (k_tile <= 0 || !valid(a, kp, k_tile) || acc_bits < 2 || acc_bits > 30 ||
+      rounds < 0)
+    return cudaErrorInvalidValue;
+  const int lc = (k_tile / m_group) * n_keep;
+  return pqs::dispatch_tile(
+      pqs::next_pow2(lc),
+      PairedLaunch{a, static_cast<const int32_t*>(perm),
+                   static_cast<int32_t*>(out), kp / k_tile, lc, acc_bits,
+                   rounds, static_cast<cudaStream_t>(stream)});
+}

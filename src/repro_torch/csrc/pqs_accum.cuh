@@ -1,7 +1,7 @@
 // pqs_accum.cuh: the accumulation bodies shared by the port's kernels:
 // the K-streaming one (seq_policy_matmul.cu, nm_seq_policy_matmul.cu) and,
 // at the end of this file, the global-sort ones (sort_matmul.cu,
-// sorted_stream.cu).
+// sorted_stream.cu, nm_sort_matmul.cu).
 //
 // A warp streams the products of one dot product in chunks of 32*E, E to
 // a lane in stream order (lane l holds elements l*E .. l*E + E-1), and
@@ -204,8 +204,57 @@ int dispatch_tile(int s, Fn&& fn) {
 }
 
 // ---------------------------------------------------------------------
-// The global-sort policies (sort_matmul.cu, sorted_stream.cu). One block
-// computes one output element; every thread of the block calls these.
+// The global-sort policies (sort_matmul.cu, sorted_stream.cu,
+// nm_sort_matmul.cu). One block computes one output element; every thread
+// of the block calls these. The bodies read one output's products through
+// a product loader, so the dense kernels and their N:M gather twins run
+// the same sorts and adds:
+//   at(i)       product i of the output's stream, zero past its end;
+//   tile(t, j)  product j of k_tile tile t, zero in the power-of-two pad
+//               of the sort tile S (none for dense rows, where S is k_tile);
+//   tile_len    products of one k_tile tile (S is tile_len padded to a
+//               power of two).
+
+// The dense row pair x[m, :], w[n, :]: product i is x[i] * w[i], zero at
+// or past K (so kp > K needs no padded operand).
+struct DenseProducts {
+  const int8_t* x;
+  const int8_t* w;
+  int K;
+  int tile_len;  // k_tile
+  __device__ __forceinline__ int at(int i) const {
+    return i < K ? static_cast<int>(__ldg(x + i)) *
+                       static_cast<int>(__ldg(w + i))
+                 : 0;
+  }
+  __device__ __forceinline__ int tile(int t, int j) const {
+    return at(t * tile_len + j);
+  }
+};
+
+// The kept products of x[m, :] and compressed row n (canonical N:M slabs,
+// pruning.nm_compress): slot q of the row's kept = G * n_keep is
+// x[(q / n_keep) * m_group + idx[q]] * val[q]. A slot past kept (a group
+// past G) or at a position at or past K is a zero product, so neither x
+// nor the slabs are padded on the host. A k_tile tile is its k_tile /
+// m_group groups, tile_len = (k_tile / m_group) * n_keep kept slots.
+struct GatheredProducts {
+  const int8_t* x;
+  const int8_t* val;
+  const int32_t* idx;
+  int K, kept, n_keep, m_group;
+  int tile_len;
+  __device__ __forceinline__ int at(int q) const {
+    if (q >= kept) return 0;
+    const int pos = (q / n_keep) * m_group + __ldg(idx + q);
+    return pos < K ? static_cast<int>(__ldg(x + pos)) *
+                         static_cast<int>(__ldg(val + q))
+                   : 0;
+  }
+  __device__ __forceinline__ int tile(int t, int j) const {
+    return j < tile_len ? at(t * tile_len + j) : 0;
+  }
+};
 
 // The block's dynamic shared memory, as an array of T.
 template <typename T>
@@ -234,45 +283,65 @@ __device__ __forceinline__ void smem_sort_desc(int16_t* s, int kp) {
   }
 }
 
-// The `sorted` policy for one output: the K products of x and w rows
-// extended by zero keys to kp (a power of two >= K; zero products are
-// inert, so the caller need not pad the operands), `rounds`
-// split/sort/pair rounds over the whole axis in shared memory `s` (kp
-// int16 keys), then the saturating adds in order. int16 keys are exact:
-// products of int8 carriers lie in [-16256, 16384], and a pair round adds
-// one positive and one negative key, which stays in that range. Returns
-// the register in thread 0.
-__device__ __forceinline__ int sorted_dot(const int8_t* __restrict__ xrow,
-                                          const int8_t* __restrict__ wrow,
-                                          int K, int kp, int16_t* s,
+// The `sorted` policy for one output: products p.at(0 .. L) (L a power of
+// two; past the stream's end they are zero keys), `rounds` split/sort/pair
+// rounds over the whole axis in shared memory `s` (L int16 keys), then the
+// saturating adds in order. int16 keys are exact: products of int8
+// carriers lie in [-16256, 16384], and a pair round adds one positive and
+// one negative key, which stays in that range. Returns the register in
+// thread 0. Dense rows sort L = kp keys; kept products L =
+// next_pow2(G * n_keep), whose ordered stream is the dense one's prefix
+// (the rest of the dense stream is zeros, which add nothing).
+template <typename P>
+__device__ __forceinline__ int sorted_dot(const P& p, int L, int16_t* s,
                                           Clamp* scratch, int acc_bits,
                                           int rounds) {
-  for (int i = threadIdx.x; i < kp; i += blockDim.x)
-    s[i] = i < K ? static_cast<int16_t>(static_cast<int>(xrow[i]) *
-                                        static_cast<int>(wrow[i]))
-                 : static_cast<int16_t>(0);
+  for (int i = threadIdx.x; i < L; i += blockDim.x)
+    s[i] = static_cast<int16_t>(p.at(i));
   __syncthreads();
   for (int rd = 0; rd < rounds; ++rd) {
-    smem_sort_desc(s, kp);
-    // out[i] = max(s[i], 0) + min(s[kp-1-i], 0), both ends of a pair at
+    smem_sort_desc(s, L);
+    // out[i] = max(s[i], 0) + min(s[L-1-i], 0), both ends of a pair at
     // once, so the round runs in place
-    for (int i = threadIdx.x; i < (kp >> 1); i += blockDim.x) {
-      const int va = s[i], vb = s[kp - 1 - i];
+    for (int i = threadIdx.x; i < (L >> 1); i += blockDim.x) {
+      const int va = s[i], vb = s[L - 1 - i];
       s[i] = static_cast<int16_t>(max(va, 0) + min(vb, 0));
-      s[kp - 1 - i] = static_cast<int16_t>(max(vb, 0) + min(va, 0));
+      s[L - 1 - i] = static_cast<int16_t>(max(vb, 0) + min(va, 0));
     }
     __syncthreads();
   }
   const int qmax = (1 << (acc_bits - 1)) - 1;
   const int qmin = -qmax - 1;
   // each thread composes a contiguous run of the ordered stream
-  const int per = (kp + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, kp);
-  const int hi = min(lo + per, kp);
+  const int per = (L + blockDim.x - 1) / blockDim.x;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, L);
+  const int hi = min(lo + per, L);
   Clamp f = clamp_identity(qmin, qmax);
   for (int i = lo; i < hi; ++i) f = clamp_then(f, clamp_step(s[i], qmin, qmax));
   f = block_compose_warps(warp_compose(f, threadIdx.x & 31), scratch);
   return clamp_apply(f, 0);
+}
+
+// The exact sum of tile t's raw products, in every lane of the calling
+// warp: the lanes take consecutive products of the tile and reduce by
+// shuffles (sorting never changes a tile's sum).
+template <typename P>
+__device__ __forceinline__ int warp_tile_sum(const P& p, int t) {
+  int s = 0;
+  for (int j = threadIdx.x & 31; j < p.tile_len; j += 32) s += p.tile(t, j);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
+  return s;
+}
+
+// The sums of T tiles into sums[0 .. T), a warp a tile.
+template <typename P>
+__device__ __forceinline__ void tile_sums(const P& p, int* sums, int T) {
+  for (int t = threadIdx.x >> 5; t < T; t += blockDim.x >> 5) {
+    const int s = warp_tile_sum(p, t);
+    if ((threadIdx.x & 31) == 0) sums[t] = s;
+  }
+  __syncthreads();
 }
 
 // pair_permutation (core/sorted_accum.py) of T tile sums into perm:
@@ -297,38 +366,31 @@ __device__ __forceinline__ void pair_permutation(const int* sums, int* perm,
   __syncthreads();
 }
 
-// Products of tile `tile` (S = E * LT long) that segment lane l holds;
-// positions at or past the row length K are zero products.
-template <int E, int LT>
-__device__ __forceinline__ void tile_products(int (&v)[E],
-                                              const int8_t* __restrict__ xrow,
-                                              const int8_t* __restrict__ wrow,
-                                              int K, int tile, int l) {
-  const int base = tile * (E * LT) + l * E;
+// Products of tile `tile` (sort tile S = E * LT) that segment lane l holds.
+template <int E, int LT, typename P>
+__device__ __forceinline__ void tile_products(int (&v)[E], const P& p,
+                                              int tile, int l) {
 #pragma unroll
-  for (int r = 0; r < E; ++r)
-    v[r] = base + r < K ? static_cast<int>(xrow[base + r]) *
-                              static_cast<int>(wrow[base + r])
-                        : 0;
+  for (int r = 0; r < E; ++r) v[r] = p.tile(tile, l * E + r);
 }
 
-// The `sorted_tiled` stream of one output, level 2, as one block: tiles of
-// S = E * LT products of rows K long (the last tiles zero-extended past
-// K), T of them, paired by perm (T tile indices, in
-// shared or device memory). Pair slot s interleaves tiles perm[2s] and
-// perm[2s+1] (a0, b0, a1, b1, ...), each sorted `rounds` rounds first; an
-// odd last tile perm[T-1] follows un-interleaved. Warp w takes the
-// contiguous slots [w P / nw, (w+1) P / nw) of the P = T/2 pairs, and the
-// last warp the odd tile, so composing the warps in order is the stream
-// order. A lane holds a[r], b[r] for its E tile positions, which are its
-// 2E consecutive places in the interleaved stream. Tiles shorter than 32
-// (LT < 32) put 32 / LT slots in one warp step, one per LT-lane segment in
-// slot order; a segment with no slot holds zero products, which add
-// nothing. Returns the register in thread 0.
-template <int E, int LT>
-__device__ __forceinline__ int paired_dot(const int8_t* __restrict__ xrow,
-                                          const int8_t* __restrict__ wrow,
-                                          int K, const int* perm, int T,
+// The `sorted_tiled` stream of one output, level 2, as one block: T tiles
+// of sort tile S = E * LT (tile_len products, zero-extended), paired by
+// perm (T tile indices, in shared or device memory). Pair slot s
+// interleaves tiles perm[2s] and perm[2s+1] (a0, b0, a1, b1, ...), each
+// sorted `rounds` rounds first; an odd last tile perm[T-1] follows
+// un-interleaved. Warp w takes the contiguous slots [w P / nw, (w+1) P /
+// nw) of the P = T/2 pairs, and the last warp the odd tile, so composing
+// the warps in order is the stream order. A lane holds a[r], b[r] for its
+// E tile positions, which are its 2E consecutive places in the interleaved
+// stream. Tiles shorter than 32 (LT < 32) put 32 / LT slots in one warp
+// step, one per LT-lane segment in slot order; a segment with no slot
+// holds zero products, which add nothing. Returns the register in thread
+// 0. On kept products (S = next_pow2(tile_len) < k_tile) each sorted tile
+// is the sorted dense tile's prefix and the interleaved zero pairs dropped
+// add nothing, so the register is the dense one.
+template <int E, int LT, typename P>
+__device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
                                           Clamp* scratch, int acc_bits,
                                           int rounds) {
   constexpr int G = 32 / LT;
@@ -346,8 +408,8 @@ __device__ __forceinline__ int paired_dot(const int8_t* __restrict__ xrow,
     const int s = s0 + g;
     int a[E], b[E];
     if (s < s1) {
-      tile_products<E, LT>(a, xrow, wrow, K, perm[2 * s], l);
-      tile_products<E, LT>(b, xrow, wrow, K, perm[2 * s + 1], l);
+      tile_products<E, LT>(a, p, perm[2 * s], l);
+      tile_products<E, LT>(b, p, perm[2 * s + 1], l);
     } else {
 #pragma unroll
       for (int r = 0; r < E; ++r) a[r] = b[r] = 0;
@@ -368,7 +430,7 @@ __device__ __forceinline__ int paired_dot(const int8_t* __restrict__ xrow,
   if ((T & 1) && warp == nw - 1) {
     int a[E];
     if (g == 0) {
-      tile_products<E, LT>(a, xrow, wrow, K, perm[T - 1], l);
+      tile_products<E, LT>(a, p, perm[T - 1], l);
     } else {
 #pragma unroll
       for (int r = 0; r < E; ++r) a[r] = 0;
@@ -380,6 +442,58 @@ __device__ __forceinline__ int paired_dot(const int8_t* __restrict__ xrow,
     run = clamp_then(run, warp_compose(f, lane));
   }
   return clamp_apply(block_compose_warps(run, scratch), 0);
+}
+
+// The one-pass `sorted_tiled` of one output: T tile sums ranked in shared
+// memory (sums, perm: T ints each) with pair_permutation's tie rule, then
+// paired_dot. Returns the register in thread 0.
+template <int E, int LT, typename P>
+__device__ __forceinline__ int sorted_tiled_dot(const P& p, int* sums,
+                                                int* perm, int T,
+                                                Clamp* scratch, int acc_bits,
+                                                int rounds) {
+  tile_sums(p, sums, T);
+  pair_permutation(sums, perm, T);
+  return paired_dot<E, LT>(p, perm, T, scratch, acc_bits, rounds);
+}
+
+// ---------------------------------------------------------------------
+// Host side of the global-sort launches.
+
+inline int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Threads of a `sorted` block over L keys: 8 keys a thread, one warp to
+// 32 warps.
+inline int sorted_threads(int L) {
+  return L / 8 < 32 ? 32 : L / 8 > 1024 ? 1024 : L / 8;
+}
+
+// Launches kernel<<<blocks, threads, smem, s>>>(args...), first raising
+// the kernel's dynamic shared-memory limit where smem is above the
+// default 48 KB.
+template <typename... Params, typename... Args>
+void launch_smem(void (*kernel)(Params...), int64_t blocks, int threads,
+                 size_t smem, cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(args...);
+}
+
+// A `sorted` kernel (sorted_dot) over L int16 keys in shared memory, up to
+// 128 KB of the 227 KB a block may use; cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue above that.
+template <typename... Params, typename... Args>
+int launch_sorted(void (*kernel)(Params...), int64_t blocks, int L,
+                  cudaStream_t s, Args... args) {
+  const size_t smem = sizeof(int16_t) * static_cast<size_t>(L);
+  if (smem > 128 * 1024) return cudaErrorInvalidValue;
+  launch_smem(kernel, blocks, sorted_threads(L), smem, s, args...);
+  return cudaGetLastError();
 }
 
 }  // namespace pqs

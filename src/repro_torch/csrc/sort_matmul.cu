@@ -29,7 +29,9 @@
 // the bytes bound at decode, where the weights are about one byte per
 // product.
 //
-// What the design does about it (pqs_accum.cuh holds the bodies):
+// What the design does about it (pqs_accum.cuh holds the bodies, which
+// read the products through a loader, DenseProducts here; the N:M gather
+// twins in nm_sort_matmul.cu run the same bodies on kept products):
 // - One block per output element. The TPU kernel kept a (bm, bn, K)
 //   product cube in VMEM; here a block keeps only its own output's work.
 // - sorted: kp / 8 threads (32 to 1024) sort the kp products as int16
@@ -53,11 +55,6 @@ namespace {
 
 constexpr int kTiledThreads = 128;
 
-// threads of a `sorted` block: 8 keys a thread, one warp to 32 warps
-int sorted_threads(int kp) {
-  return kp / 8 < 32 ? 32 : kp / 8 > 1024 ? 1024 : kp / 8;
-}
-
 __global__ void sort_sorted_kernel(const int8_t* __restrict__ x,
                                    const int8_t* __restrict__ w,
                                    int32_t* __restrict__ out, int N, int K,
@@ -65,8 +62,8 @@ __global__ void sort_sorted_kernel(const int8_t* __restrict__ x,
   __shared__ pqs::Clamp scratch[32];
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
-  const int r = pqs::sorted_dot(x + m * K, w + n * K, K, kp,
-                                pqs::dynamic_smem<int16_t>(), scratch,
+  const pqs::DenseProducts p{x + m * K, w + n * K, K, kp};
+  const int r = pqs::sorted_dot(p, kp, pqs::dynamic_smem<int16_t>(), scratch,
                                 acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
@@ -80,24 +77,11 @@ __global__ void sort_tiled_kernel(const int8_t* __restrict__ x,
   __shared__ pqs::Clamp scratch[kTiledThreads / 32];
   const int T = kp / S;
   int* sums = pqs::dynamic_smem<int>();
-  int* perm = sums + T;
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
-  const int8_t* xrow = x + m * K;
-  const int8_t* wrow = w + n * K;
-  const int lane = threadIdx.x & 31;
-  for (int t = threadIdx.x >> 5; t < T; t += kTiledThreads / 32) {
-    int s = 0;
-    for (int i = t * S + lane; i < min((t + 1) * S, K); i += 32)
-      s += static_cast<int>(xrow[i]) * static_cast<int>(wrow[i]);
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(pqs::kFull, s, d);
-    if (lane == 0) sums[t] = s;
-  }
-  __syncthreads();
-  pqs::pair_permutation(sums, perm, T);
-  const int r = pqs::paired_dot<E, LT>(xrow, wrow, K, perm, T, scratch,
-                                       acc_bits, rounds);
+  const pqs::DenseProducts p{x + m * K, w + n * K, K, S};
+  const int r = pqs::sorted_tiled_dot<E, LT>(p, sums, sums + T, T, scratch,
+                                             acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -111,13 +95,9 @@ struct TiledLaunch {
   template <int E, int LT>
   void operator()() const {
     const int T = kp / (E * LT);
-    const size_t smem = 2 * sizeof(int) * static_cast<size_t>(T);
-    auto* kernel = sort_tiled_kernel<E, LT>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    kernel<<<static_cast<unsigned>(static_cast<int64_t>(M) * N),
-             kTiledThreads, smem, s>>>(x, w, out, N, K, kp, acc_bits, rounds);
+    pqs::launch_smem(sort_tiled_kernel<E, LT>, static_cast<int64_t>(M) * N,
+                     kTiledThreads, 2 * sizeof(int) * static_cast<size_t>(T),
+                     s, x, w, out, N, K, kp, acc_bits, rounds);
   }
 };
 
@@ -144,15 +124,9 @@ extern "C" int pqs_sort_matmul(const void* x, const void* w, void* out,
   const int64_t blocks = static_cast<int64_t>(M) * N;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   if (policy == 0) {
-    const size_t smem = sizeof(int16_t) * static_cast<size_t>(kp);
-    if ((kp & (kp - 1)) || smem > 128 * 1024) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(sort_sorted_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    sort_sorted_kernel<<<static_cast<unsigned>(blocks), sorted_threads(kp),
-                         smem, s>>>(xp, wp, op, N, K, kp, acc_bits, rounds);
-    return cudaGetLastError();
+    if (kp & (kp - 1)) return cudaErrorInvalidValue;
+    return pqs::launch_sorted(sort_sorted_kernel, blocks, kp, s, xp, wp, op,
+                              N, K, kp, acc_bits, rounds);
   }
   if (policy != 1 || k_tile <= 0 || kp % k_tile) return cudaErrorInvalidValue;
   return pqs::dispatch_tile(

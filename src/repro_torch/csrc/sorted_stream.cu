@@ -91,8 +91,9 @@ __global__ void paired_accum_kernel(const int8_t* __restrict__ x,
   const int T = kp / (E * LT);
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
-  const int r = pqs::paired_dot<E, LT>(x + m * K, w + n * K, K, perm + o * T,
-                                       T, scratch, acc_bits, rounds);
+  const pqs::DenseProducts p{x + m * K, w + n * K, K, E * LT};
+  const int r = pqs::paired_dot<E, LT>(p, perm + o * T, T, scratch, acc_bits,
+                                       rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 

@@ -1,27 +1,32 @@
-"""PQS accumulation policies on N:M compressed weights for Hopper:
-``nm_gather_seq_policy_matmul`` and ``nm_seq_policy_matmul``.
+"""PQS accumulation policies on N:M compressed weights for Hopper: the
+K-streaming ``nm_gather_seq_policy_matmul`` and ``nm_seq_policy_matmul``,
+and the one-pass global-sort ``nm_gather_sort_matmul``.
 
-Port of the K-streaming kernels of ``repro/kernels/nm_spmm.py``. Weights
-arrive compressed (``core.pruning``): values (N, G, n_keep) int8 and
-indices (N, G, n_keep) int32 in canonical form, against x (M, K) with
-K <= G * m_group. Both compute the (M, N) int32 register of
-``sorted_matmul.seq_policy_matmul`` on the decompressed weight, bit for
-bit, under ``wide`` / ``clip`` / ``wrap`` / ``sorted_tiled_seq``:
+Port of ``repro/kernels/nm_spmm.py``. Weights arrive compressed
+(``core.pruning``): values (N, G, n_keep) int8 and indices (N, G, n_keep)
+int32 in canonical form, against x (M, K) with K <= G * m_group. Each
+computes the (M, N) int32 register of the dense kernel on the decompressed
+weight, bit for bit:
 
   gather  forms only the kept products x[m, g*m_group + idx] * value, in
-          ascending dense position; for sorted_tiled_seq each dense
-          k_tile tile is its bg = k_tile / m_group groups' kept products,
-          zero-padded to a power of two (``pad_last_pow2``) and sorted.
-          Exact by the zero-product prefix property (the header of
-          ``csrc/nm_seq_policy_matmul.cu`` gives the argument).
+          ascending dense position; for sorted_tiled_seq and sorted_tiled
+          each dense k_tile tile is its bg = k_tile / m_group groups' kept
+          products, zero-padded to a power of two (``pad_last_pow2``) and
+          sorted; ``sorted`` sorts all G * n_keep kept products, padded to a
+          power of two. Exact by the zero-product prefix property (the
+          headers of ``csrc/nm_seq_policy_matmul.cu`` and
+          ``csrc/nm_sort_matmul.cu`` give the argument).
   expand  rebuilds each chunk's dense positions and runs the dense
-          kernel's body; the exactness oracle of the gather.
+          kernel's body; the exactness oracle of the gather (K-streaming
+          policies only so far).
 
 Each wrapper launches its hand-written CUDA kernel
-(``csrc/nm_seq_policy_matmul.cu``) on CUDA tensors, counting the launch
-in ``.launches``, and takes its plain version (``*_ref``) only for
-tensors on the CPU. The kernels mask ragged M, N, K and G themselves;
-the plain versions pad G to whole sort tiles (``_pad_groups``).
+(``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_sort_matmul.cu``) on CUDA
+tensors, counting the launch in ``.launches``, and takes its plain version
+(``*_ref``) only for tensors on the CPU. The kernels mask ragged M, N, K
+and G themselves; the plain versions pad G to whole sort tiles
+(``_cover``). The two-pass and chunked gather
+kernels of the global-sort policies are in ``sorted_stream``.
 """
 
 from __future__ import annotations
@@ -30,11 +35,21 @@ import torch
 
 from repro_torch.core.overflow import accumulate
 from repro_torch.core.pruning import nm_decompress
+from repro_torch.core.sorted_accum import (
+    monotone_accumulate,
+    sorted_order,
+    tiled_sorted_order,
+)
 from repro_torch.kernels.sorted_matmul import (
     KERNEL_K_TILES,
     SEQ_POLICIES,
+    SORT_POLICIES,
     _as_int8,
+    check_sort_smem,
     lib_fn,
+    next_pow2,
+    on_cpu,
+    padded_k,
     row_chunk,
     seq_policy_matmul_ref,
     stream_of,
@@ -89,16 +104,18 @@ def _check(x, values, indices, m_group, policy, acc_bits, k_tile) -> None:
                          f"m_group={m_group}, got {k_tile}")
 
 
-def _pad_groups(x, values, indices, m_group, bg):
-    """Pad G up to a multiple of ``bg`` with zero groups and x up to the
-    padded G*m_group columns: zero products, inert under every policy."""
+def _cover(x, values, indices, m_group, groups):
+    """The slabs padded with zero groups up to ``groups`` (none below G),
+    and x zero-extended to cover their columns: zero products, inert
+    under every policy (plain versions)."""
     g = values.shape[1]
-    gp = g + (-g) % bg
-    if gp != g:
-        values = torch.nn.functional.pad(values, (0, 0, 0, gp - g))
-        indices = torch.nn.functional.pad(indices, (0, 0, 0, gp - g))
-    return (torch.nn.functional.pad(x, (0, gp * m_group - x.shape[1])),
-            values, indices)
+    if groups > g:
+        values = torch.nn.functional.pad(values, (0, 0, 0, groups - g))
+        indices = torch.nn.functional.pad(indices, (0, 0, 0, groups - g))
+    width = max(groups, g) * m_group
+    if x.shape[1] < width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
+    return x, values, indices
 
 
 def nm_seq_policy_matmul_ref(
@@ -139,7 +156,8 @@ def nm_gather_seq_policy_matmul_ref(
     steps through the stream."""
     _check(x, values, indices, m_group, policy, acc_bits, k_tile)
     bg = k_tile // m_group if policy == "sorted_tiled_seq" else 1
-    x, values, indices = _pad_groups(x, values, indices, m_group, bg)
+    g = values.shape[1]
+    x, values, indices = _cover(x, values, indices, m_group, g + (-g) % bg)
     n, g, n_keep = values.shape
     tile = bg * n_keep
     chunk = row_chunk(n, g * n_keep)
@@ -158,38 +176,57 @@ def nm_gather_seq_policy_matmul_ref(
     return torch.cat(outs, dim=0)
 
 
-def _launch(name, x, values, indices, *, m_group, policy, acc_bits, rounds,
-            k_tile):
-    """Launch ``name`` of csrc/nm_seq_policy_matmul.cu on CUDA tensors.
-    Returns (out, whether a kernel was launched)."""
+def card_slabs(name, x, values, indices):
+    """x, values and indices as contiguous int8, int8 and int32 on one CUDA
+    device; raises on anything else (an int32 carrier of int8 values is
+    narrowed, as for the dense kernels)."""
     devices = {x.device, values.device, indices.device}
     if len(devices) != 1 or not x.is_cuda:
         raise ValueError(f"x, values and indices must share one CUDA "
                          f"device, got {sorted(map(str, devices))}")
-    if policy == "sorted_tiled_seq" and k_tile not in KERNEL_K_TILES:
-        raise NotImplementedError(
-            f"the CUDA kernels sort tiles of up to {KERNEL_K_TILES[-1]} "
-            f"dense positions; k_tile={k_tile}")
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     x8, v8 = _as_int8(x, "x"), _as_int8(values, "values")
     if not (x8.is_contiguous() and v8.is_contiguous()
             and indices.is_contiguous()):
         raise ValueError(f"{name} needs contiguous operands")
+    return x8, v8, indices
+
+
+def launch_slabs(source, name, x, values, indices, *, m_group, out_tail=(),
+                 ptrs=(), ints=()):
+    """Launch the C function ``name`` of csrc/<source>.cu on CUDA tensors:
+    x, the slabs, ``ptrs`` (tensors), the (M, N, *out_tail) int32 out, M,
+    N, K, G, n_keep, m_group, then ``ints``. Returns (out, whether a kernel
+    was launched)."""
+    x8, v8, indices = card_slabs(name, x, values, indices)
     m, k = x8.shape
     n, g, n_keep = v8.shape
-    out = torch.empty((m, n), dtype=torch.int32, device=x8.device)
-    if m == 0 or n == 0:
+    out = torch.empty((m, n, *out_tail), dtype=torch.int32, device=x8.device)
+    if out.numel() == 0:
         return out, False
     if k == 0 or g == 0:
         return out.zero_(), False
-    err = lib_fn("nm_seq_policy_matmul", name, 4, 10)(
-        x8.data_ptr(), v8.data_ptr(), indices.data_ptr(), out.data_ptr(), m,
-        n, k, g, n_keep, m_group, SEQ_POLICIES.index(policy), acc_bits,
-        rounds, k_tile, stream_of(x8))
+    fn = lib_fn(source, name, 4 + len(ptrs), 6 + len(ints))
+    err = fn(x8.data_ptr(), v8.data_ptr(), indices.data_ptr(),
+             *(t.data_ptr() for t in ptrs), out.data_ptr(), m, n, k, g,
+             n_keep, m_group, *ints, stream_of(x8))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out, True
+
+
+def _launch(name, x, values, indices, *, m_group, policy, acc_bits, rounds,
+            k_tile):
+    """Launch ``name`` of csrc/nm_seq_policy_matmul.cu on CUDA tensors.
+    Returns (out, whether a kernel was launched)."""
+    if policy == "sorted_tiled_seq" and k_tile not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernels sort tiles of up to {KERNEL_K_TILES[-1]} "
+            f"dense positions; k_tile={k_tile}")
+    return launch_slabs("nm_seq_policy_matmul", name, x, values, indices,
+                        m_group=m_group, ints=(SEQ_POLICIES.index(policy),
+                                               acc_bits, rounds, k_tile))
 
 
 def nm_gather_seq_policy_matmul(
@@ -245,3 +282,148 @@ def nm_seq_policy_matmul(
 
 nm_gather_seq_policy_matmul.launches = 0
 nm_seq_policy_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the global-sort policies on kept products
+# ---------------------------------------------------------------------------
+
+
+def check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile
+                  ) -> int:
+    """The gather global-sort kernels' contract (the JAX kernels'
+    asserts). Returns kp = ``padded_k(G * m_group)``, the dense path's
+    padded K: a power of two for ``sorted``, whole k_tile tiles for
+    ``sorted_tiled``. x may be up to kp wide; groups past G up to
+    kp/m_group are zero products (the JAX caller pads them; the kernels
+    mask them)."""
+    if policy not in SORT_POLICIES:
+        raise ValueError(f"unknown sort policy {policy!r}; {SORT_POLICIES}")
+    if x.ndim != 2 or values.ndim != 3 or values.shape != indices.shape:
+        raise ValueError(f"expected x (M, K) and matching (N, G, n_keep) "
+                         f"slabs, got {tuple(x.shape)}, "
+                         f"{tuple(values.shape)} and {tuple(indices.shape)}")
+    g, n_keep = values.shape[1], values.shape[2]
+    if m_group < 1 or not 1 <= n_keep <= m_group:
+        raise ValueError(f"n_keep={n_keep} out of range [1, m_group] for "
+                         f"m_group={m_group}")
+    if not 2 <= acc_bits <= 30:
+        raise ValueError(f"acc_bits={acc_bits} outside [2, 30]")
+    if policy == "sorted_tiled" and (
+            k_tile <= 0 or k_tile & (k_tile - 1) or k_tile % m_group):
+        raise ValueError(f"k_tile must be a power of 2 and a multiple of "
+                         f"m_group={m_group}, got {k_tile}")
+    kp = padded_k(g * m_group, policy, k_tile)
+    if x.shape[1] > kp:
+        raise ValueError(f"contraction mismatch: x has K={x.shape[1]}, "
+                         f"above the slabs' padded K {kp} (G*m = "
+                         f"{g}*{m_group})")
+    return kp
+
+
+def kept_tiles(x, values, indices, m_group, k_tile, kp):
+    """(M, N, kp/k_tile, lc) int32: each k_tile tile of the dense axis as
+    its lc = (k_tile/m_group) * n_keep kept products (groups past G are
+    zero products)."""
+    x, values, indices = _cover(x, values, indices, m_group, kp // m_group)
+    prods = gather_nm_products(x, values, indices, m_group)
+    return prods.reshape(*prods.shape[:2], kp // k_tile, -1)
+
+
+def _row_chunks(x, n, length, fn):
+    """The (M, N) registers of fn over row chunks of x (the plain versions
+    hold (rows, N, length) products at a time)."""
+    chunk = row_chunk(n, length)
+    outs = [fn(x[i : i + chunk]) for i in range(0, x.shape[0], chunk)]
+    if not outs:
+        return torch.zeros((0, n), dtype=torch.int32, device=x.device)
+    return torch.cat(outs, dim=0)
+
+
+def nm_gather_sort_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    *,
+    m_group: int,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """Plain version of ``nm_gather_sort_matmul`` (any device), from the
+    kept products (``gather_nm_products``): ``sorted`` orders all of them
+    padded to a power of two; ``sorted_tiled`` regroups them into the
+    kp/k_tile tiles of lc kept products, each padded to lp =
+    next_pow2(lc), and runs ``tiled_sorted_order`` over tiles of lp; then
+    the register steps through the stream."""
+    kp = check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile)
+    n, g, n_keep = values.shape
+    if policy == "sorted":
+        x, values, indices = _cover(x, values, indices, m_group, g)
+
+        def run(xc):
+            prods = pad_last_pow2(gather_nm_products(xc, values, indices,
+                                                     m_group))
+            return monotone_accumulate(sorted_order(prods, rounds),
+                                       acc_bits)[0]
+
+        return _row_chunks(x, n, next_pow2(g * n_keep), run)
+    lp = next_pow2((k_tile // m_group) * n_keep)
+
+    def run(xc):
+        tiles = pad_last_pow2(kept_tiles(xc, values, indices, m_group, k_tile,
+                                         kp))
+        ordered = tiled_sorted_order(tiles.reshape(*tiles.shape[:2], -1), lp,
+                                     rounds)
+        return monotone_accumulate(ordered, acc_bits)[0]
+
+    return _row_chunks(x, n, (kp // k_tile) * lp, run)
+
+
+def launch_nm_sort_matmul(x, values, indices, *, m_group, policy, acc_bits,
+                          k_tile, rounds, kp):
+    """``pqs_nm_gather_sort_matmul`` of csrc/nm_sort_matmul.cu (one block
+    per output, the whole kept stream at hand) under ``policy``, with the
+    shared-memory guard of the dense one-pass kernel; the caller counts
+    the launch."""
+    n_keep = values.shape[2]
+    if policy == "sorted":
+        check_sort_smem(policy, kp, 1, keys=next_pow2(values.shape[1] *
+                                                     n_keep))
+    else:
+        check_sort_smem(policy, kp, k_tile,
+                        tile=next_pow2((k_tile // m_group) * n_keep))
+    return launch_slabs("nm_sort_matmul", "pqs_nm_gather_sort_matmul", x,
+                        values, indices, m_group=m_group, ints=(
+                            kp, SORT_POLICIES.index(policy), acc_bits,
+                            rounds, k_tile))
+
+
+def nm_gather_sort_matmul(
+    x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
+    values: torch.Tensor,  # (N, G, n_keep) int8
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """(M, N) int32 under ``sorted`` or ``sorted_tiled`` from the kept
+    products, each output's whole stream at once: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors. Equal to ``sort_matmul`` on
+    the decompressed weight over kp, the policy's padded G * m_group."""
+    kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+              k_tile=k_tile, rounds=rounds)
+    kp = check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile)
+    if on_cpu(x, values, indices):
+        return nm_gather_sort_matmul_ref(x, values, indices, **kw)
+    out, launched = launch_nm_sort_matmul(x, values, indices, kp=kp, **kw)
+    if launched:
+        nm_gather_sort_matmul.launches += 1
+    return out
+
+
+nm_gather_sort_matmul.launches = 0

@@ -10,9 +10,12 @@ the padded K as ``kp`` and extend the rows with zero products themselves
 (the card kernels mask them), so no padded copy of the weight is made.
 ``nm_policy_matmul`` routes the K-streaming policies on N:M compressed
 slabs to the gather or the expand kernel of ``nm_spmm``
-(``resolve_nm_impl``); the global-sort policies on compressed slabs have
-no CUDA kernel yet: on CPU tensors they run the plain version, on CUDA
-tensors they raise. The TPU block table, its environment overrides and
+(``resolve_nm_impl``), and the global-sort policies to the gather kernels
+(``nm_spmm.nm_gather_sort_matmul`` one-pass,
+``sorted_stream.nm_gather_stream_sort_matmul`` two-pass, by
+``resolve_sort_impl`` on the dense path's padded K); their expand twins
+are not ported (the plain version on CPU tensors, a raise on CUDA
+tensors). The TPU block table, its environment overrides and
 the autotuner are not carried over — their numbers were VMEM budgets of
 the TPU.
 """
@@ -24,17 +27,24 @@ import torch
 from repro_torch.kernels.nm_spmm import (
     expand_nm_slab,
     nm_gather_seq_policy_matmul,
+    nm_gather_sort_matmul,
     nm_seq_policy_matmul,
 )
 from repro_torch.kernels.sorted_matmul import (
     SEQ_POLICIES,
     SORT_POLICIES,
     _as_int8,
+    next_pow2,
+    on_cpu,
+    padded_k,
     policy_accumulate_ref,
     seq_policy_matmul,
     sort_matmul,
 )
-from repro_torch.kernels.sorted_stream import stream_sort_matmul
+from repro_torch.kernels.sorted_stream import (
+    nm_gather_stream_sort_matmul,
+    stream_sort_matmul,
+)
 
 POLICIES = SEQ_POLICIES + SORT_POLICIES
 NM_IMPLS = ("auto", "expand", "gather")
@@ -61,21 +71,6 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     axis = axis % x.ndim
     widths = [0, 0] * (x.ndim - 1 - axis) + [0, pad]  # last axis first
     return torch.nn.functional.pad(x, widths)
-
-
-def next_pow2(n: int) -> int:
-    """Smallest power of two >= n (1 for n <= 1)."""
-    return 1 if n <= 1 else 1 << (n - 1).bit_length()
-
-
-def padded_k(k: int, policy: str, k_tile: int) -> int:
-    """The K length a policy accumulates over: a power of two for
-    ``sorted``, whole k_tile tiles for the tiled policies, else K."""
-    if policy == "sorted":
-        return next_pow2(k)
-    if policy in ("sorted_tiled", "sorted_tiled_seq"):
-        return k + ((-k) % k_tile)
-    return k
 
 
 def resolve_sort_impl(kp: int, interpret: bool,
@@ -131,8 +126,7 @@ def policy_matmul(
         policy = "wide"  # provably saturate-free -> exact wide body
     kp = padded_k(x.shape[1], policy, k_tile)
     if policy in SORT_POLICIES:
-        on_cpu = x.device.type == "cpu" and w.device.type == "cpu"
-        if resolve_sort_impl(kp, on_cpu, sort_impl) == "onepass":
+        if resolve_sort_impl(kp, on_cpu(x, w), sort_impl) == "onepass":
             return sort_matmul(x, w, policy=policy, acc_bits=acc_bits,
                                k_tile=k_tile, rounds=rounds, kp=kp)
         return stream_sort_matmul(_as_int8(x, "x"), _as_int8(w, "w"),
@@ -172,6 +166,7 @@ def nm_policy_matmul(
     acc_bits: int = 16,
     k_tile: int = 256,
     rounds: int = 1,
+    sort_impl: str = "auto",
     nm_impl: str | None = None,
     census: bool = True,
 ) -> torch.Tensor:
@@ -182,8 +177,17 @@ def nm_policy_matmul(
     Their sort tile is the dense one: for sorted_tiled_seq, bg = k_tile /
     m_group groups, so k_tile must be a multiple of m_group. The kernels
     mask a ragged last tile (groups past G, positions past K) themselves
-    and the plain versions pad G to whole tiles. ``census=False`` is the
-    certified route, as on ``policy_matmul``.
+    and the plain versions pad G to whole tiles.
+
+    The global-sort policies take the dense path's padded K, kp =
+    ``padded_k(G * m_group)``, and ``resolve_sort_impl``'s route: the
+    one-pass gather kernel ``nm_spmm.nm_gather_sort_matmul`` or the
+    two-pass ``sorted_stream.nm_gather_stream_sort_matmul`` (the slabs of
+    its x narrowed to int8); groups past G up to kp are masked in the
+    kernels, so nothing is padded. The expand twins of these kernels are
+    not ported: ``nm_impl="expand"`` under a global-sort policy runs the
+    plain version on CPU tensors and raises on CUDA tensors.
+    ``census=False`` is the certified route, as on ``policy_matmul``.
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}; expected {POLICIES}")
@@ -205,18 +209,27 @@ def nm_policy_matmul(
             f"k_tile={k_tile}, m_group={m_group}")
     impl = resolve_nm_impl(policy, g, n_keep, m_group, nm_impl)
     if policy in SORT_POLICIES:
-        if x.is_cuda:
-            raise NotImplementedError(
-                f"policy {policy!r} on compressed storage needs the "
-                "global-sort N:M kernels (nm_sort_matmul, "
-                "nm_gather_sort_matmul, the nm two-pass and chunked "
-                "kernels), the next slice of the port; use backend='torch' "
-                "for the plain version")
         kp = padded_k(k_dense, policy, k_tile)
-        w = _pad_to(expand_nm_slab(values, indices, m_group), kp, 1)
-        return policy_accumulate_ref(_pad_to(x, kp, 1), w, policy=policy,
-                                     acc_bits=acc_bits, k_tile=k_tile,
-                                     rounds=rounds)
+        cpu = on_cpu(x, values, indices)
+        route = resolve_sort_impl(kp, cpu, sort_impl)
+        kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+                  k_tile=k_tile, rounds=rounds)
+        if impl == "expand":
+            if not cpu:
+                raise NotImplementedError(
+                    f"policy {policy!r} with nm_impl='expand' needs the "
+                    "expand twins of the global-sort kernels (nm_sort_matmul,"
+                    " nm_tile_sums_matmul, nm_paired_accum_matmul, "
+                    "nm_chunked_sort_matmul), not ported yet; use "
+                    "nm_impl='gather' or backend='torch'")
+            w = _pad_to(expand_nm_slab(values, indices, m_group), kp, 1)
+            return policy_accumulate_ref(_pad_to(x, kp, 1), w, policy=policy,
+                                         acc_bits=acc_bits, k_tile=k_tile,
+                                         rounds=rounds)
+        if route == "onepass":
+            return nm_gather_sort_matmul(x, values, indices, **kw)
+        return nm_gather_stream_sort_matmul(_as_int8(x, "x"), values,
+                                            indices, **kw)
     fn = nm_gather_seq_policy_matmul if impl == "gather" \
         else nm_seq_policy_matmul
     return fn(x, values, indices, m_group=m_group, policy=policy,

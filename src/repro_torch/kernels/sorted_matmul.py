@@ -43,6 +43,27 @@ KERNEL_K_TILES = tuple(1 << i for i in range(11))
 PRODUCT_BUDGET = 1 << 28
 
 
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (1 for n <= 1)."""
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def on_cpu(*tensors) -> bool:
+    """Whether every tensor lies on the CPU (the wrappers then take their
+    plain versions)."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def padded_k(k: int, policy: str, k_tile: int) -> int:
+    """The K length a policy accumulates over: a power of two for
+    ``sorted``, whole k_tile tiles for the tiled policies, else K."""
+    if policy == "sorted":
+        return next_pow2(k)
+    if policy in ("sorted_tiled", "sorted_tiled_seq"):
+        return k + ((-k) % k_tile)
+    return k
+
+
 def row_chunk(n: int, k: int) -> int:
     """Rows per plain-version chunk for an (N, K) weight."""
     return max(1, PRODUCT_BUDGET // max(n * k, 1))
@@ -249,20 +270,31 @@ SORT_SMEM_BYTES = 128 * 1024
 SORTED_MAX_K = SORT_SMEM_BYTES // 2
 
 
-def launch_sort(what, x, w, kp, policy, acc_bits, k_tile, rounds):
-    """Launch ``pqs_sort_matmul`` (csrc/sort_matmul.cu) on CUDA tensors;
-    (M, N) int32. The caller counts the launch."""
-    smem = 2 * kp if policy == "sorted" else 8 * (kp // k_tile)
+def check_sort_smem(policy, kp, k_tile, keys=None, tile=None) -> None:
+    """Refuse (NotImplementedError) what the one-pass global-sort kernels
+    cannot hold: ``keys`` int16 keys of ``sorted`` (default kp) or two
+    int32 per k_tile tile of ``sorted_tiled`` in shared memory above
+    ``SORT_SMEM_BYTES``, or a sort tile (default k_tile) no kernel
+    instance covers."""
+    keys = kp if keys is None else keys
+    tile = k_tile if tile is None else tile
+    smem = 2 * keys if policy == "sorted" else 8 * (kp // k_tile)
     if smem > SORT_SMEM_BYTES:
         raise NotImplementedError(
             f"the CUDA kernel keeps {smem} bytes of keys in shared memory, "
             f"above {SORT_SMEM_BYTES}: K={kp}"
             + (f" (at most {SORTED_MAX_K} for sorted)"
                if policy == "sorted" else ""))
-    if policy == "sorted_tiled" and k_tile not in KERNEL_K_TILES:
+    if policy == "sorted_tiled" and tile not in KERNEL_K_TILES:
         raise NotImplementedError(
             f"the CUDA kernel sorts tiles of up to {KERNEL_K_TILES[-1]} "
             f"products; k_tile={k_tile}")
+
+
+def launch_sort(what, x, w, kp, policy, acc_bits, k_tile, rounds):
+    """Launch ``pqs_sort_matmul`` (csrc/sort_matmul.cu) on CUDA tensors;
+    (M, N) int32. The caller counts the launch."""
+    check_sort_smem(policy, kp, k_tile)
     x8, w8 = card_operands(what, x, w)
     m, k = x8.shape
     n = w8.shape[0]

@@ -1,5 +1,6 @@
 """Two-pass global-sort pipeline for long K on Hopper, torch port of
-``repro/kernels/sorted_stream.py`` (dense storage).
+``repro/kernels/sorted_stream.py``, on dense storage and on the kept
+products of N:M compressed storage.
 
 ``sorted_tiled`` in two passes over K:
 
@@ -20,14 +21,21 @@ block holds all of an output's keys up to ``SORTED_MAX_K``, so it launches
 the one-pass ``sorted`` kernel of ``csrc/sort_matmul.cu``, counted here.
 
 ``stream_sort_matmul`` is the entry point ``ops.policy_matmul`` routes K
-above ``ops.MAX_RESIDENT_K`` to. Each kernel wrapper launches its
-hand-written CUDA kernel (``csrc/sorted_stream.cu``, whose header says what
-bounds it) on CUDA tensors, counting the launch in ``.launches``, and takes
-its plain version (``*_ref``) only for tensors on the CPU. Each takes
-``kp``, the policy's padded K (default K): the columns past K are zero
-products, masked by the card kernels and padded by the plain versions.
-The TPU kernels' VMEM budgets (``CUBE_BUDGET``, ``_sort_chunk``) are not
-carried over: the card kernels choose their own working sets.
+above ``ops.MAX_RESIDENT_K`` to. On N:M compressed slabs the gather twins
+``nm_gather_tile_sums``, ``nm_gather_paired_accum_matmul`` and
+``nm_gather_chunked_sort_matmul`` (``csrc/nm_sort_matmul.cu``) form only
+the kept products, a k_tile tile being its (k_tile/m_group) * n_keep kept
+products; ``nm_gather_stream_sort_matmul`` is their entry point, which
+``ops.nm_policy_matmul`` routes to. Each kernel wrapper launches its
+hand-written CUDA kernel (``csrc/sorted_stream.cu``,
+``csrc/nm_sort_matmul.cu``, whose headers say what bounds them) on CUDA
+tensors, counting the launch in ``.launches``, and takes its plain version
+(``*_ref``) only for tensors on the CPU. The dense ones take ``kp``, the
+policy's padded K (default K); the gather ones accumulate over the padded
+G * m_group. The columns past K and the groups past G are zero products,
+masked by the card kernels and padded by the plain versions. The TPU kernels' VMEM budgets
+(``CUBE_BUDGET``, ``_sort_chunk``) are not carried over: the card kernels
+choose their own working sets.
 """
 
 from __future__ import annotations
@@ -41,6 +49,14 @@ from repro_torch.core.sorted_accum import (
     paired_order,
     sorted_order,
 )
+from repro_torch.kernels.nm_spmm import (
+    check_nm_sort,
+    kept_tiles,
+    launch_nm_sort_matmul,
+    launch_slabs,
+    nm_gather_sort_matmul_ref,
+    pad_last_pow2,
+)
 from repro_torch.kernels.sorted_matmul import (
     KERNEL_K_TILES,
     SORT_POLICIES,
@@ -48,15 +64,13 @@ from repro_torch.kernels.sorted_matmul import (
     card_operands,
     launch_sort,
     lib_fn,
+    next_pow2,
+    on_cpu,
     pad_k,
     policy_accumulate_ref,
     row_chunk,
     stream_of,
 )
-
-
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _empty(x, *shape):
@@ -82,7 +96,7 @@ def tile_sums_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """Pass 1: (M, N, kp/k_tile) int32, the exact sum of each output's
     k_tile tiles; kp a multiple of k_tile (a power of two)."""
     kp = _check_sort(x, w, "sorted_tiled", 16, k_tile, kp)
-    if _on_cpu(x, w):
+    if on_cpu(x, w):
         return tile_sums_matmul_ref(x, w, k_tile=k_tile, kp=kp)
     x8, w8 = card_operands("tile_sums_matmul", x, w)
     m, k = x8.shape
@@ -151,7 +165,7 @@ def paired_accum_matmul(
     ``pair_permutation`` gives)."""
     kp = _check_sort(x, w, "sorted_tiled", acc_bits, k_tile, kp)
     _check_perm(x, w, perm, kp, k_tile)
-    if _on_cpu(x, w, perm):
+    if on_cpu(x, w, perm):
         return paired_accum_matmul_ref(x, w, perm, acc_bits=acc_bits,
                                        k_tile=k_tile, rounds=rounds, kp=kp)
     if k_tile not in KERNEL_K_TILES:
@@ -196,7 +210,7 @@ def chunked_sort_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """(M, N) int32 under ``sorted`` at long K (kp a power of two, at most
     ``SORTED_MAX_K`` on the card)."""
     kp = _check_sort(x, w, "sorted", acc_bits, 1, kp)
-    if _on_cpu(x, w):
+    if on_cpu(x, w):
         return chunked_sort_matmul_ref(x, w, acc_bits=acc_bits, rounds=rounds,
                                        kp=kp)
     out = launch_sort("chunked_sort_matmul", x, w, kp, "sorted", acc_bits, 1,
@@ -230,3 +244,175 @@ def stream_sort_matmul(
     perm = pair_permutation(sums).to(torch.int32)
     return paired_accum_matmul(x, w, perm, acc_bits=acc_bits, k_tile=k_tile,
                                rounds=rounds, kp=kp)
+
+
+# ---------------------------------------------------------------------------
+# the gather twins on N:M compressed slabs
+# ---------------------------------------------------------------------------
+
+
+def nm_gather_tile_sums_ref(x: torch.Tensor, values: torch.Tensor,
+                            indices: torch.Tensor, *, m_group: int,
+                            k_tile: int = 256) -> torch.Tensor:
+    """Plain version of ``nm_gather_tile_sums`` (any device)."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", 16,
+                       k_tile)
+    n, t = values.shape[0], kp // k_tile
+    chunk = row_chunk(n, kp)
+    outs = [kept_tiles(x[i : i + chunk], values, indices, m_group, k_tile,
+                       kp).sum(dim=-1, dtype=torch.int32)
+            for i in range(0, x.shape[0], chunk)]
+    return torch.cat(outs, dim=0) if outs else _empty(x, 0, n, t)
+
+
+def nm_gather_tile_sums(x: torch.Tensor, values: torch.Tensor,
+                        indices: torch.Tensor, *, m_group: int,
+                        k_tile: int = 256) -> torch.Tensor:
+    """Pass 1 on kept products: (M, N, kp/k_tile) int32, equal to
+    ``tile_sums_matmul`` on the decompressed weight (pruned positions add
+    nothing to a sum)."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", 16,
+                       k_tile)
+    if on_cpu(x, values, indices):
+        return nm_gather_tile_sums_ref(x, values, indices, m_group=m_group,
+                                       k_tile=k_tile)
+    out, launched = launch_slabs(
+        "nm_sort_matmul", "pqs_nm_gather_tile_sums", x, values, indices,
+        m_group=m_group, out_tail=(kp // k_tile,), ints=(kp, k_tile))
+    if launched:
+        nm_gather_tile_sums.launches += 1
+    return out
+
+
+nm_gather_tile_sums.launches = 0
+
+
+def nm_gather_paired_accum_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    perm: torch.Tensor,
+    *,
+    m_group: int,
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """Plain version of ``nm_gather_paired_accum_matmul`` (any device):
+    the kept tiles padded to a power of two, each sorted, put in perm's
+    paired order, then added stepwise with saturation."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", acc_bits,
+                       k_tile)
+    _check_perm(x, values, perm, kp, k_tile)
+    n = values.shape[0]
+    chunk = row_chunk(n, kp)
+    outs = []
+    for i in range(0, x.shape[0], chunk):
+        tiles = pad_last_pow2(kept_tiles(x[i : i + chunk], values, indices,
+                                         m_group, k_tile, kp))
+        ordered = paired_order(sorted_order(tiles, rounds),
+                               perm[i : i + chunk].long())
+        outs.append(monotone_accumulate(ordered, acc_bits)[0])
+    return torch.cat(outs, dim=0) if outs else _empty(x, 0, n)
+
+
+def nm_gather_paired_accum_matmul(
+    x: torch.Tensor,  # (M, K) int8 (or int32 carrying int8)
+    values: torch.Tensor,  # (N, G, n_keep) int8
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    perm: torch.Tensor,  # (M, N, kp/k_tile) int32 pairing permutation
+    *,
+    m_group: int,
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """Pass 2 on kept products: (M, N) int32, each output's kept tiles in
+    the paired order of its row of ``perm``; equal to
+    ``paired_accum_matmul`` on the decompressed weight."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", acc_bits,
+                       k_tile)
+    _check_perm(x, values, perm, kp, k_tile)
+    if on_cpu(x, values, indices, perm):
+        return nm_gather_paired_accum_matmul_ref(
+            x, values, indices, perm, m_group=m_group, acc_bits=acc_bits,
+            k_tile=k_tile, rounds=rounds)
+    lp = next_pow2((k_tile // m_group) * values.shape[2])
+    if lp not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernel sorts tiles of up to {KERNEL_K_TILES[-1]} "
+            f"kept products; {lp} at k_tile={k_tile}")
+    if perm.device != x.device or perm.dtype != torch.int32:
+        raise ValueError(f"perm must be int32 on {x.device}, got "
+                         f"{perm.dtype} on {perm.device}")
+    out, launched = launch_slabs(
+        "nm_sort_matmul", "pqs_nm_gather_paired_accum", x, values, indices,
+        m_group=m_group, ptrs=(perm.contiguous(),),
+        ints=(kp, acc_bits, rounds, k_tile))
+    if launched:
+        nm_gather_paired_accum_matmul.launches += 1
+    return out
+
+
+nm_gather_paired_accum_matmul.launches = 0
+
+
+def nm_gather_chunked_sort_matmul_ref(
+        x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
+        m_group: int, acc_bits: int = 16, rounds: int = 1) -> torch.Tensor:
+    """Plain version of ``nm_gather_chunked_sort_matmul`` (any device)."""
+    return nm_gather_sort_matmul_ref(x, values, indices, m_group=m_group,
+                                     policy="sorted", acc_bits=acc_bits,
+                                     rounds=rounds)
+
+
+def nm_gather_chunked_sort_matmul(
+        x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
+        m_group: int, acc_bits: int = 16, rounds: int = 1) -> torch.Tensor:
+    """(M, N) int32 under ``sorted`` at long K from the kept products
+    (next_pow2(G * n_keep) keys an output, at most ``SORTED_MAX_K`` on
+    the card); equal to ``chunked_sort_matmul`` on the decompressed
+    weight."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted", acc_bits, 1)
+    if on_cpu(x, values, indices):
+        return nm_gather_chunked_sort_matmul_ref(
+            x, values, indices, m_group=m_group, acc_bits=acc_bits,
+            rounds=rounds)
+    out, launched = launch_nm_sort_matmul(
+        x, values, indices, m_group=m_group, policy="sorted",
+        acc_bits=acc_bits, k_tile=1, rounds=rounds, kp=kp)
+    if launched:
+        nm_gather_chunked_sort_matmul.launches += 1
+    return out
+
+
+nm_gather_chunked_sort_matmul.launches = 0
+
+
+def nm_gather_stream_sort_matmul(
+    x: torch.Tensor,  # (M, K) int8
+    values: torch.Tensor,  # (N, G, n_keep) int8
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """The streaming entry point for ``sorted`` | ``sorted_tiled`` on
+    compressed slabs, with ``nm_gather_sort_matmul``'s contract: the
+    chunked kernel for ``sorted``; for ``sorted_tiled`` pass 1, the
+    pairing in torch, pass 2."""
+    if policy not in SORT_POLICIES:
+        raise ValueError(f"unknown sort policy {policy!r}; {SORT_POLICIES}")
+    kw = dict(m_group=m_group)
+    if policy == "sorted":
+        return nm_gather_chunked_sort_matmul(x, values, indices,
+                                             acc_bits=acc_bits,
+                                             rounds=rounds, **kw)
+    sums = nm_gather_tile_sums(x, values, indices, k_tile=k_tile, **kw)
+    perm = pair_permutation(sums).to(torch.int32)
+    return nm_gather_paired_accum_matmul(x, values, indices, perm,
+                                         acc_bits=acc_bits, k_tile=k_tile,
+                                         rounds=rounds, **kw)

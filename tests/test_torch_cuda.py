@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core.dispatch import pqs_dot
-from repro_torch.core.pruning import nm_compress, nm_prune_mask
+from repro_torch.core.pruning import nm_compress, nm_decompress, nm_prune_mask
 from repro_torch.core.sorted_accum import pair_permutation
 from repro_torch.kernels import nm_spmm, ops
 from repro_torch.kernels import sorted_matmul as sm
@@ -286,14 +286,23 @@ def test_engine_kernel_and_plain_agree(card, policy):
     assert outs["cuda"] == outs["torch"]
 
 
-def _nm(m, k, n, n_keep, m_group, seed, card):
-    """Seeded x (m, k) and n_keep:m_group slabs of an (n, k) weight."""
+def _nm_w(m, k, n, n_keep, m_group, seed, card, k_tile=None):
+    """Seeded x (m, k), the n_keep:m_group pruned (n, k) weight and its
+    slabs; with ``k_tile`` (dividing k), tied tile sums as ``_tied``."""
     x, w = _xw(m, k, n, seed, card)
+    if k_tile is not None:
+        x, w = _tied(x, w, k_tile)
     kp = k + (-k) % m_group
     wp = torch.nn.functional.pad(w, (0, kp - k)).float()
     w = (wp * nm_prune_mask(wp, n_keep, m_group))[:, :k].to(torch.int8)
     vals, idx = nm_compress(w, n_keep, m_group)
-    return x, vals.contiguous(), idx.contiguous()
+    return x, w, vals.contiguous(), idx.contiguous()
+
+
+def _nm(m, k, n, n_keep, m_group, seed, card):
+    """Seeded x (m, k) and n_keep:m_group slabs of an (n, k) weight."""
+    x, _, vals, idx = _nm_w(m, k, n, n_keep, m_group, seed, card)
+    return x, vals, idx
 
 
 NM_KERNELS = (
@@ -357,10 +366,10 @@ def test_nm_kernels_count_launches_and_check_inputs(card):
         with pytest.raises(TypeError):
             kernel(x, vals, idx.long(), m_group=8)
         assert kernel.launches == before + 1
-    for policy in ("sorted", "sorted_tiled"):  # no global-sort N:M kernel
+    for policy in ("sorted", "sorted_tiled"):  # no global-sort expand twin
         with pytest.raises(NotImplementedError):
             ops.nm_policy_matmul(x, vals, idx, m_group=8, policy=policy,
-                                 k_tile=16)
+                                 k_tile=16, nm_impl="expand")
 
 
 def test_engine_compressed_kernels_and_plain_agree(card):
@@ -392,3 +401,237 @@ def test_engine_compressed_kernels_and_plain_agree(card):
         eng.drain(reqs)
         outs[impl] = [q.output for q in reqs]
     assert outs["gather"] == outs["expand"] == outs[None]
+
+
+# (M, K, N, n_keep, m_group, k_tile): ragged K and G (K = 300 under 3:16
+# and 2:4, a tail tile of groups past G), the decode sites' 8:16 slabs at
+# K = 1536 and 8960 with tied tile sums, and a prefill-sized M
+NM_SORT_CASES = ((5, 300, 70, 3, 16, 64), (5, 300, 70, 2, 4, 256),
+                 (64, 1536, 256, 8, 16, 256), (4, 1536, 1536, 8, 16, 256),
+                 (4, 8960, 1536, 8, 16, 256))
+
+
+def _nm_sort_case(case, seed, card):
+    m, k, n, n_keep, m_group, k_tile = case
+    x, w, vals, idx = _nm_w(m, k, n, n_keep, m_group, seed, card,
+                            k_tile if k % k_tile == 0 else None)
+    x[1] = 0
+    return x, w, vals, idx, m_group, k_tile
+
+
+@pytest.mark.parametrize("policy", sm.SORT_POLICIES)
+@pytest.mark.parametrize("acc_bits", [12, 16])
+def test_nm_gather_sort_matmul_matches_plain_and_dense(card, policy,
+                                                       acc_bits):
+    """The one-pass gather kernel equals its plain version, and the dense
+    kernel on the decompressed weight over the same kp, given the
+    unpadded x and slabs (groups past G and positions past K masked in
+    the kernel)."""
+    for i, case in enumerate(NM_SORT_CASES):
+        x, w, vals, idx, m_group, k_tile = _nm_sort_case(case, i + acc_bits,
+                                                         card)
+        kp = ops.padded_k(vals.shape[1] * m_group, policy, k_tile)
+        for rounds in (1, 2):
+            kw = dict(policy=policy, acc_bits=acc_bits, rounds=rounds,
+                      k_tile=k_tile)
+            got = nm_spmm.nm_gather_sort_matmul(x, vals, idx,
+                                                m_group=m_group, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, nm_spmm.nm_gather_sort_matmul_ref(
+                x, vals, idx, m_group=m_group, **kw)), (case, rounds)
+            assert torch.equal(got, sm.sort_matmul(x, w, kp=kp, **kw)), (
+                case, rounds)
+
+
+def test_nm_gather_stream_kernels_match_plain_and_dense(card):
+    """Pass 1, pass 2 and the chunked gather kernels against their plain
+    versions and the dense kernels on the decompressed weight; the
+    two-pass route equals the one-pass kernel under both policies."""
+    for i, case in enumerate(NM_SORT_CASES):
+        x, w, vals, idx, m_group, k_tile = _nm_sort_case(case, 40 + i, card)
+        g = vals.shape[1]
+        kt = ops.padded_k(g * m_group, "sorted_tiled", k_tile)
+        ks = ops.padded_k(g * m_group, "sorted", k_tile)
+        nkw = dict(m_group=m_group)
+        sums = ss.nm_gather_tile_sums(x, vals, idx, k_tile=k_tile, **nkw)
+        assert torch.equal(sums, ss.nm_gather_tile_sums_ref(
+            x, vals, idx, k_tile=k_tile, **nkw)), case
+        assert torch.equal(sums, ss.tile_sums_matmul(x, w, k_tile=k_tile,
+                                                     kp=kt)), case
+        perm = pair_permutation(sums).to(torch.int32)
+        for rounds in (1, 2):
+            tk = dict(acc_bits=16, rounds=rounds, k_tile=k_tile)
+            two = ss.nm_gather_paired_accum_matmul(x, vals, idx, perm,
+                                                   **tk, **nkw)
+            torch.cuda.synchronize()
+            assert torch.equal(two, ss.nm_gather_paired_accum_matmul_ref(
+                x, vals, idx, perm, **tk, **nkw)), (case, rounds)
+            assert torch.equal(two, ss.paired_accum_matmul(
+                x, w, perm, kp=kt, **tk)), (case, rounds)
+            assert torch.equal(two, nm_spmm.nm_gather_sort_matmul(
+                x, vals, idx, policy="sorted_tiled", **tk, **nkw))
+            assert torch.equal(two, ss.nm_gather_stream_sort_matmul(
+                x, vals, idx, policy="sorted_tiled", **tk, **nkw))
+            kw = dict(acc_bits=16, rounds=rounds)
+            chunked = ss.nm_gather_chunked_sort_matmul(x, vals, idx, **kw,
+                                                       **nkw)
+            torch.cuda.synchronize()
+            assert torch.equal(chunked, ss.nm_gather_chunked_sort_matmul_ref(
+                x, vals, idx, **kw, **nkw)), (case, rounds)
+            assert torch.equal(chunked, ss.chunked_sort_matmul(x, w, kp=ks,
+                                                               **kw))
+            assert torch.equal(chunked, nm_spmm.nm_gather_sort_matmul(
+                x, vals, idx, policy="sorted", **kw, **nkw))
+
+
+@pytest.mark.parametrize("kernel", ["sort_matmul[sorted]",
+                                    "sort_matmul[sorted_tiled]",
+                                    "tile_sums", "paired_accum",
+                                    "chunked_sort_matmul"])
+def test_nm_gather_kernels_mask_without_host_padding(card, kernel):
+    """Given x of K = 300 columns against 3:16 slabs of G = 19 groups (304
+    columns), each gather kernel accumulates over the policy's padded K
+    (320 under sorted_tiled at k_tile 64, 512 under sorted) and equals its
+    plain version on x zero-padded to kp and the slabs zero-padded to
+    kp / m groups, with no padded copy passed to the kernel."""
+    m_group, k_tile = 16, 64
+    x, _, vals, idx = _nm_w(5, 300, 70, 3, m_group, 9, card)
+    policy = "sorted" if kernel in ("sort_matmul[sorted]",
+                                    "chunked_sort_matmul") else "sorted_tiled"
+    kp = ops.padded_k(vals.shape[1] * m_group, policy, k_tile)
+    gp = kp // m_group - vals.shape[1]
+    assert gp > 0
+    px = ops._pad_to(x, kp, 1)
+    pv = torch.nn.functional.pad(vals, (0, 0, 0, gp))
+    pi = torch.nn.functional.pad(idx, (0, 0, 0, gp))
+    kw = dict(m_group=m_group)
+    for rounds in (1, 2):
+        tk = dict(acc_bits=13, rounds=rounds, k_tile=k_tile, **kw)
+        if kernel == "tile_sums":
+            got = ss.nm_gather_tile_sums(x, vals, idx, k_tile=k_tile, **kw)
+            want = ss.nm_gather_tile_sums_ref(px, pv, pi, k_tile=k_tile, **kw)
+        elif kernel == "paired_accum":
+            perm = pair_permutation(ss.nm_gather_tile_sums_ref(
+                px, pv, pi, k_tile=k_tile, **kw)).to(torch.int32)
+            got = ss.nm_gather_paired_accum_matmul(x, vals, idx, perm, **tk)
+            want = ss.nm_gather_paired_accum_matmul_ref(px, pv, pi, perm,
+                                                        **tk)
+        elif kernel == "chunked_sort_matmul":
+            got = ss.nm_gather_chunked_sort_matmul(x, vals, idx, acc_bits=13,
+                                                   rounds=rounds, **kw)
+            want = ss.nm_gather_chunked_sort_matmul_ref(
+                px, pv, pi, acc_bits=13, rounds=rounds, **kw)
+        else:
+            got = nm_spmm.nm_gather_sort_matmul(x, vals, idx, policy=policy,
+                                                **tk)
+            want = nm_spmm.nm_gather_sort_matmul_ref(px, pv, pi,
+                                                     policy=policy, **tk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kernel, rounds)
+
+
+def test_nm_gather_sort_kernels_count_launches_and_check_inputs(card):
+    x, vals, idx = _nm(4, 256, 8, 2, 8, 0, card)
+    perm = pair_permutation(ss.nm_gather_tile_sums(
+        x, vals, idx, m_group=8, k_tile=64)).to(torch.int32)
+    kw = dict(m_group=8)
+    calls = (
+        (nm_spmm.nm_gather_sort_matmul, lambda: nm_spmm.nm_gather_sort_matmul(
+            x, vals, idx, policy="sorted_tiled", k_tile=64, **kw)),
+        (ss.nm_gather_tile_sums, lambda: ss.nm_gather_tile_sums(
+            x, vals, idx, k_tile=64, **kw)),
+        (ss.nm_gather_paired_accum_matmul,
+         lambda: ss.nm_gather_paired_accum_matmul(x, vals, idx, perm,
+                                                  k_tile=64, **kw)),
+        (ss.nm_gather_chunked_sort_matmul,
+         lambda: ss.nm_gather_chunked_sort_matmul(x, vals, idx, **kw)),
+    )
+    for kernel, call in calls:
+        before = kernel.launches
+        call()
+        assert kernel.launches == before + 1, kernel.__name__
+    with pytest.raises(ValueError):  # x wider than the slabs' padded K
+        nm_spmm.nm_gather_sort_matmul(ops._pad_to(x, 257, 1), vals, idx,
+                                      **kw)
+    with pytest.raises(ValueError):  # k_tile % m_group != 0
+        ss.nm_gather_tile_sums(x, vals, idx, k_tile=4, **kw)
+    with pytest.raises(ValueError):
+        ss.nm_gather_tile_sums(x, vals, idx.cpu(), k_tile=64, **kw)
+    with pytest.raises(TypeError):
+        ss.nm_gather_chunked_sort_matmul(x, vals, idx.long(), **kw)
+    with pytest.raises(ValueError):  # perm of the wrong shape
+        ss.nm_gather_paired_accum_matmul(x, vals, idx, perm[:, :, :2],
+                                         k_tile=64, **kw)
+    with pytest.raises(ValueError):
+        ss.nm_gather_paired_accum_matmul(x, vals, idx, perm.long(),
+                                         k_tile=64, **kw)
+
+
+@pytest.mark.parametrize("policy", sm.SORT_POLICIES)
+def test_nm_policy_matmul_global_sort_on_card(card, policy):
+    """Every sort_impl of pqs_dot(storage="nm") runs a gather kernel and
+    gives the plain version's result, K ragged; auto takes the one-pass
+    kernel at padded K <= MAX_RESIDENT_K; onepass above it raises, as on
+    dense storage; nm_impl="expand" raises and launches nothing."""
+    for m, k, n in ((5, 300, 70), (4, 1536, 256), (3, 4500, 40)):
+        x, w, vals, idx = _nm_w(m, k, n, 8, 16, k, card)
+        want = pqs_dot(x, w, policy=policy, k_tile=256, backend="torch")
+        kp = ops.padded_k(vals.shape[1] * 16, policy, 256)
+        x = ops._pad_to(x, vals.shape[1] * 16, 1)  # a bare pair's K
+        kw = dict(policy=policy, k_tile=256, storage="nm", m_group=16)
+        for impl in ("auto", "onepass", "twopass"):
+            if impl == "onepass" and kp > ops.MAX_RESIDENT_K:
+                with pytest.raises(ValueError):
+                    pqs_dot(x, (vals, idx), sort_impl=impl, **kw)
+                continue
+            before = nm_spmm.nm_gather_sort_matmul.launches
+            got = pqs_dot(x, (vals, idx), sort_impl=impl, **kw)
+            assert torch.equal(got, want), (policy, k, impl)
+            onepass = impl == "onepass" or (
+                impl == "auto" and kp <= ops.MAX_RESIDENT_K)
+            assert (nm_spmm.nm_gather_sort_matmul.launches
+                    == before + 1) == onepass
+        launched = (nm_spmm.nm_gather_sort_matmul.launches,
+                    sm.sort_matmul.launches)
+        with pytest.raises(NotImplementedError):
+            pqs_dot(x, (vals, idx), nm_impl="expand", **kw)
+        assert (nm_spmm.nm_gather_sort_matmul.launches,
+                sm.sort_matmul.launches) == launched
+        dense = nm_decompress(vals.to(torch.int32), idx, 16)[:, :k]
+        assert torch.equal(dense.to(torch.int8), w)
+
+
+@pytest.mark.parametrize("policy", ["sorted_tiled", "sorted"])
+def test_engine_compressed_global_sort_kernels_and_plain_agree(card,
+                                                               policy):
+    from repro_torch.configs import get_config
+    from repro_torch.core.dispatch import IntegerLinConfig
+    from repro_torch.core.qtensor import nm_compress_tree, quantize_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              d_model=128, d_ff=256, num_heads=4,
+                              head_dim=32)
+    model = build_model(cfg)
+    params = quantize_tree(model.init(0), bits=8, n_keep=8, m=16,
+                           min_size=1 << 12, min_dim=16)
+    sparse = nm_compress_tree(params, 8, 16)
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, 256, size=int(r.integers(3, 12))).astype(
+        np.int32) for _ in range(4)]
+    outs = {}
+    for name, p, backend in (("gather", sparse, "cuda"),
+                             ("plain", sparse, "torch"),
+                             ("dense", params, "cuda")):
+        before = nm_spmm.nm_gather_sort_matmul.launches
+        eng = ServingEngine(model, p, num_slots=3, max_len=64,
+                            int_lin=IntegerLinConfig(policy=policy, k_tile=64,
+                                                     backend=backend))
+        reqs = [Request(uid=i, prompt=q, max_new_tokens=6)
+                for i, q in enumerate(prompts)]
+        eng.drain(reqs)
+        outs[name] = [q.output for q in reqs]
+        if name == "gather":
+            assert nm_spmm.nm_gather_sort_matmul.launches > before
+    assert outs["gather"] == outs["plain"] == outs["dense"]
