@@ -21,8 +21,12 @@ imports nothing of JAX or of the JAX package. Phases:
    equal to the two-pass pipeline; and their N:M gather twins
    ``nm_gather_sort_matmul``, ``nm_gather_tile_sums``,
    ``nm_gather_paired_accum_matmul`` and ``nm_gather_chunked_sort_matmul``
-   on 8:16 slabs (plus ragged 3:16 and 2:4), which must also equal the
-   dense global-sort kernels on the decompressed weight;
+   and their expand twins ``nm_sort_matmul``, ``nm_tile_sums_matmul``,
+   ``nm_paired_accum_matmul`` and ``nm_chunked_sort_matmul`` on 8:16 slabs
+   (plus ragged 3:16 and 2:4, and 16:16), which must also equal the dense
+   global-sort kernels on the decompressed weight (and expand the
+   gather); ``auto`` must launch the expand twins for a site of fewer than
+   ``GATHER_MIN_G`` groups and for 16:16 (dense-as-sparse) slabs;
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -43,17 +47,26 @@ imports nothing of JAX or of the JAX package. Phases:
    ``nm_gather_paired_accum_matmul`` launches a step, the tokens of 3c;
 3f. and under ``sorted``: 168 ``nm_gather_sort_matmul`` and 28
    ``nm_gather_chunked_sort_matmul`` launches a step, the tokens of 3d;
-4. the same engine at 2 layers, full width: the dense kernel and its
+3g. the compressed model with ``nm_impl="expand"`` under ``sorted_tiled``:
+   168 ``nm_sort_matmul``, 28 ``nm_tile_sums_matmul`` and 28
+   ``nm_paired_accum_matmul`` launches a step, no gather kernel, the
+   tokens of 3c (and so of 3e);
+3h. and under ``sorted``: 168 ``nm_sort_matmul`` and 28
+   ``nm_chunked_sort_matmul`` launches a step, the tokens of 3d and 3f;
+4. the same engine at 1 layer, full width: the dense kernel and its
    plain version, and the compressed weights through the gather and the
    expand kernel (the expand kernel's path), give identical tokens and
    decode logits;
-4b. at 2 layers under ``sorted_tiled`` and ``sorted``: kernels and plain
-   versions give identical tokens (8 new ones) and decode logits;
+4b. at 2 layers under ``sorted_tiled`` and ``sorted``: the dense kernels,
+   their plain versions and the compressed weights through the expand
+   kernels give identical tokens (8 new ones) and decode logits;
 5. kernel times at the decode shapes (CUDA events, L2 flushed before
    each launch, the device kept busy while the host enqueues the
    launch), beside the plain versions, ``torch._int_mm`` (and a
    float32 ``bmm`` for the tile sums) and, for the N:M kernels, the
-   dense kernel on the same dot (the decompressed weight).
+   dense kernel on the same dot (the decompressed weight) and, for the
+   expand kernels, the gather kernels; and the gather and expand one-pass
+   kernels at 4, 8 and 16 groups (``GATHER_MIN_G``).
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -250,16 +263,17 @@ def reset(counters):
 
 
 def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
-                policy="sorted_tiled_seq", want_tokens=None):
-    """Serve the full-width model (dense or compressed storage) under
-    ``policy`` with every launch count set to 0 just before and read just
-    after. ``expect`` maps each kernel of the path to its launches per
-    layer and step; every other kernel must launch 0 times (and the tokens
-    must equal ``want_tokens`` when given). Returns (launches by kernel,
-    decode steps, tokens)."""
+                policy="sorted_tiled_seq", want_tokens=None, nm_impl=None):
+    """Serve the full-width model (dense or compressed storage, through
+    the ``nm_impl`` kernels) under ``policy`` with every launch count set
+    to 0 just before and read just after. ``expect`` maps each kernel of
+    the path to its launches per layer and step; every other kernel must
+    launch 0 times (and the tokens must equal ``want_tokens`` when given).
+    Returns (launches by kernel, decode steps, tokens)."""
     reset(counters)
     reqs, eng, t_first, t_rest = serve(torch, cfg, seed,
-                                       compressed=compressed, policy=policy)
+                                       compressed=compressed, policy=policy,
+                                       nm_impl=nm_impl)
     launches = {name: fn.launches for name, fn in counters.items()}
     steps = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
     need = {name: per * cfg.num_layers * steps
@@ -268,9 +282,10 @@ def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
     per_step = t_rest / max(decode_steps - 1, 1)
     tokens = sum(len(r.output) for r in reqs)
     print(f"  served {len(reqs)} requests, {tokens} tokens from "
-          f"{'compressed' if compressed else 'dense'} storage under "
-          f"{policy}: prefill steps {eng.stats['prefill_steps']}, decode "
-          f"steps {decode_steps}", flush=True)
+          f"{'compressed' if compressed else 'dense'} storage "
+          f"(nm_impl {nm_impl}) under {policy}: prefill steps "
+          f"{eng.stats['prefill_steps']}, decode steps {decode_steps}",
+          flush=True)
     print(f"  step 1 (prefill + first decode) {t_first:.3f} s; later decode "
           f"{t_rest:.3f} s over {decode_steps - 1} steps = {per_step:.4f} "
           f"s/step; prefill alone ~ {t_first - per_step:.3f} s", flush=True)
@@ -364,14 +379,15 @@ def profile_decode(torch, eng, vocab):
 
 
 def phase_parity(torch, counters, cfg, seed):
-    """2 layers at full width: the dense kernel and its plain version, and
-    the compressed weights through the gather and the expand kernel, give
-    the same tokens and decode logits. The expand serve is that kernel's
-    path: its counts are set to 0 just before and read just after. Returns
-    the expand kernel's launches in it."""
+    """1 layer at full width (every site of the model; the depth is cut to
+    keep the plain version's serve short): the dense kernel and its plain
+    version, and the compressed weights through the gather and the expand
+    kernel, give the same tokens and decode logits. The expand serve is
+    that kernel's path: its counts are set to 0 just before and read just
+    after. Returns the expand kernel's launches in it."""
     from repro_torch.core.qtensor import nm_compress_tree
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
     outs = {}
     expand_launches = None
     for name, kw in (("cuda", dict(backend="cuda")),
@@ -380,14 +396,14 @@ def phase_parity(torch, counters, cfg, seed):
                      ("expand", dict(compressed=True, nm_impl="expand"))):
         reset(counters)
         t0 = time.perf_counter()
-        reqs, eng, _, _ = serve(torch, cfg2, seed, **kw)
+        reqs, eng, _, _ = serve(torch, cfg1, seed, **kw)
         outs[name] = [r.output for r in reqs]
-        print(f"  2-layer serve, {name}: {time.perf_counter() - t0:.1f} s; "
+        print(f"  1-layer serve, {name}: {time.perf_counter() - t0:.1f} s; "
               f"launches {dict((k, f.launches) for k, f in counters.items())}",
               flush=True)
         if name == "expand":
             steps = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
-            need = len(SITES) * cfg2.num_layers * steps
+            need = len(SITES) * cfg1.num_layers * steps
             expand_launches = counters["nm_seq_policy_matmul"].launches
             if expand_launches < need or counters[
                     "nm_gather_seq_policy_matmul"].launches:
@@ -395,7 +411,7 @@ def phase_parity(torch, counters, cfg, seed):
                                      f"launches < {need}, or gather ran")
     if any(o != outs["cuda"] for o in outs.values()):
         raise AssertionError(f"tokens differ: {outs}")
-    model, params = model_params(cfg2, seed, compressed=False)
+    model, params = model_params(cfg1, seed, compressed=False)
     sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
     check_logits(torch, model, cfg, seed, (
         ("cuda", params, dict(backend="cuda")),
@@ -517,28 +533,48 @@ def phase_sort_kernels(torch, sm, ss, seed):
     return worst
 
 
-NM_SORT_KERNELS = ("nm_gather_sort_matmul", "nm_gather_tile_sums",
-                   "nm_gather_paired_accum_matmul",
-                   "nm_gather_chunked_sort_matmul")
 # launches per layer and decode step of each global-sort policy on N:M
-# compressed storage: every site takes gather (G = 96 and 560 >= 8 groups)
+# compressed storage: every site takes gather (G = 96 and 560 >= 8 groups);
+# with nm_impl="expand" the same routes through the expand twins
 NM_SORT_PATHS = {
     "sorted_tiled": {"nm_gather_sort_matmul": 6, "nm_gather_tile_sums": 1,
                      "nm_gather_paired_accum_matmul": 1},
     "sorted": {"nm_gather_sort_matmul": 6,
                "nm_gather_chunked_sort_matmul": 1},
 }
+NM_EXPAND_PATHS = {
+    "sorted_tiled": {"nm_sort_matmul": 6, "nm_tile_sums_matmul": 1,
+                     "nm_paired_accum_matmul": 1},
+    "sorted": {"nm_sort_matmul": 6, "nm_chunked_sort_matmul": 1},
+}
+
+
+def nm_families(nm, ss):
+    """The N:M global-sort kernels by family: (one-pass, pass 1, pass 2,
+    chunked, the two-pass entry point)."""
+    return {
+        "gather": (nm.nm_gather_sort_matmul, ss.nm_gather_tile_sums,
+                   ss.nm_gather_paired_accum_matmul,
+                   ss.nm_gather_chunked_sort_matmul,
+                   ss.nm_gather_stream_sort_matmul),
+        "expand": (nm.nm_sort_matmul, ss.nm_tile_sums_matmul,
+                   ss.nm_paired_accum_matmul, ss.nm_chunked_sort_matmul,
+                   ss.nm_stream_sort_matmul)}
 
 
 def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
-    """The four gather global-sort kernels against their plain versions,
-    bit-exact, and against the dense global-sort kernels on the
-    decompressed weight over the same kp, at every site shape at M = 4
-    (8:16), at (N, K) = (256, 1536) at M = 64 and at ragged 3:16 and 2:4
-    slabs of K = 300, rounds 1 and 2, with tied tile sums; given, as on
-    the main path, the unpadded x and slabs. The one-pass kernel equals
-    the two-pass route under both policies. Returns the max |difference|
+    """The four gather global-sort kernels and their four expand twins
+    against their plain versions, bit-exact, and against the dense
+    global-sort kernels on the decompressed weight over the same kp, the
+    expand kernels also against the gather ones, at every site shape at
+    M = 4 (8:16), at (N, K) = (256, 1536) at M = 64, at ragged 3:16 and 2:4
+    slabs of K = 300 and at 16:16 (dense-as-sparse) slabs of K = 1536 and
+    8960, rounds 1 and 2, with tied tile sums; given, as on the main path,
+    the unpadded x and slabs. The one-pass kernel equals the two-pass route
+    under both policies. Then ``auto_expand``. Returns the max |difference|
     of each kernel against its plain version."""
+    import sys
+
     from repro_torch.core.sorted_accum import pair_permutation
     from repro_torch.kernels.sorted_matmul import padded_k
 
@@ -546,11 +582,15 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
         torch.cuda.synchronize()
         return int((a.long() - b.long()).abs().max())
 
+    def plain(fn):
+        return getattr(sys.modules[fn.__module__], fn.__name__ + "_ref")
+
+    families = nm_families(nm, ss)
     cases = [(4, n, k, N_KEEP, M_GROUP) for (n, k) in SHAPES] + [
         (64, 256, 1536, N_KEEP, M_GROUP), (5, 70, 300, 3, 16),
-        (5, 70, 300, 2, 4)]
-    worst = dict.fromkeys(NM_SORT_KERNELS, 0)
-    cross = passes = 0
+        (5, 70, 300, 2, 4), (4, 256, 1536, 16, 16), (4, 256, 8960, 16, 16)]
+    worst = {f.__name__: 0 for fns in families.values() for f in fns[:4]}
+    cross = passes = twins = 0
     for i, (m, n, k, n_keep, m_group) in enumerate(cases):
         x, w, vals, idx = nm_operands(torch, m, n, k, seed + 150 + i, n_keep,
                                       m_group, tied=True)
@@ -558,88 +598,148 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
         kt = padded_k(g * m_group, "sorted_tiled", 256)
         ks = padded_k(g * m_group, "sorted", 256)
         nk = dict(m_group=m_group)
-        sums = ss.nm_gather_tile_sums(x, vals, idx, k_tile=256, **nk)
-        perm = pair_permutation(sums).to(torch.int32)
         for rounds in (1, 2):
             kw = dict(acc_bits=16, rounds=rounds)
             tk = dict(kw, k_tile=256)
-            one = nm.nm_gather_sort_matmul(x, vals, idx, policy="sorted_tiled",
-                                           **tk, **nk)
-            two = ss.nm_gather_paired_accum_matmul(x, vals, idx, perm, **tk,
-                                                   **nk)
-            ones = nm.nm_gather_sort_matmul(x, vals, idx, policy="sorted",
-                                            **kw, **nk)
-            chunked = ss.nm_gather_chunked_sort_matmul(x, vals, idx, **kw,
-                                                       **nk)
-            errs = {
-                "nm_gather_sort_matmul": max(
-                    diff(one, nm.nm_gather_sort_matmul_ref(
-                        x, vals, idx, policy="sorted_tiled", **tk, **nk)),
-                    diff(ones, nm.nm_gather_sort_matmul_ref(
-                        x, vals, idx, policy="sorted", **kw, **nk))),
-                "nm_gather_tile_sums": diff(sums, ss.nm_gather_tile_sums_ref(
-                    x, vals, idx, k_tile=256, **nk)),
-                "nm_gather_paired_accum_matmul": diff(
-                    two, ss.nm_gather_paired_accum_matmul_ref(
-                        x, vals, idx, perm, **tk, **nk)),
-                "nm_gather_chunked_sort_matmul": diff(
-                    chunked, ss.nm_gather_chunked_sort_matmul_ref(
-                        x, vals, idx, **kw, **nk)),
-            }
-            dense = max(
-                diff(one, sm.sort_matmul(x, w, policy="sorted_tiled", kp=kt,
-                                         **tk)),
-                diff(sums, ss.tile_sums_matmul(x, w, k_tile=256, kp=kt)),
-                diff(two, ss.paired_accum_matmul(x, w, perm, kp=kt, **tk)),
-                diff(ones, sm.sort_matmul(x, w, policy="sorted", kp=ks,
-                                          **kw)),
-                diff(chunked, ss.chunked_sort_matmul(x, w, kp=ks, **kw)))
-            route = max(diff(one, two), diff(ones, chunked), diff(
-                one, ss.nm_gather_stream_sort_matmul(
-                    x, vals, idx, policy="sorted_tiled", **tk, **nk)))
-            cross, passes = max(cross, dense), max(passes, route)
+            outs, errs = {}, {}
+            for impl, (one_fn, sums_fn, two_fn, chunked_fn,
+                       stream_fn) in families.items():
+                sums = sums_fn(x, vals, idx, k_tile=256, **nk)
+                perm = pair_permutation(sums).to(torch.int32)
+                one = one_fn(x, vals, idx, policy="sorted_tiled", **tk, **nk)
+                two = two_fn(x, vals, idx, perm, **tk, **nk)
+                ones = one_fn(x, vals, idx, policy="sorted", **kw, **nk)
+                chunked = chunked_fn(x, vals, idx, **kw, **nk)
+                outs[impl] = (one, sums, two, ones, chunked)
+                errs[one_fn.__name__] = max(
+                    diff(one, plain(one_fn)(x, vals, idx,
+                                            policy="sorted_tiled", **tk,
+                                            **nk)),
+                    diff(ones, plain(one_fn)(x, vals, idx, policy="sorted",
+                                             **kw, **nk)))
+                errs[sums_fn.__name__] = diff(sums, plain(sums_fn)(
+                    x, vals, idx, k_tile=256, **nk))
+                errs[two_fn.__name__] = diff(two, plain(two_fn)(
+                    x, vals, idx, perm, **tk, **nk))
+                errs[chunked_fn.__name__] = diff(chunked, plain(chunked_fn)(
+                    x, vals, idx, **kw, **nk))
+                dense = max(
+                    diff(one, sm.sort_matmul(x, w, policy="sorted_tiled",
+                                             kp=kt, **tk)),
+                    diff(sums, ss.tile_sums_matmul(x, w, k_tile=256, kp=kt)),
+                    diff(two, ss.paired_accum_matmul(x, w, perm, kp=kt,
+                                                     **tk)),
+                    diff(ones, sm.sort_matmul(x, w, policy="sorted", kp=ks,
+                                              **kw)),
+                    diff(chunked, ss.chunked_sort_matmul(x, w, kp=ks, **kw)))
+                route = max(diff(one, two), diff(ones, chunked), diff(
+                    one, stream_fn(x, vals, idx, policy="sorted_tiled", **tk,
+                                   **nk)))
+                cross, passes = max(cross, dense), max(passes, route)
+                mine = {f.__name__: errs[f.__name__]
+                        for f in families[impl][:4]}
+                print(f"  nm {impl} kernels/plain M={m:3d} N={n:5d} "
+                      f"K={k:5d} {n_keep}:{m_group} (kp {kt} / {ks}) "
+                      f"rounds={rounds} max|diff| {mine}; vs dense kernels "
+                      f"{dense}; one-pass vs two-pass {route}", flush=True)
+            pair = max(diff(a, b) for a, b in zip(outs["gather"],
+                                                  outs["expand"]))
+            twins = max(twins, pair)
+            tied = float((outs["gather"][1][1] == outs["gather"][1][1, :, :1])
+                         .float().mean())
+            print(f"  expand vs gather kernels {pair}; tied sums in row 1 "
+                  f"{tied:.2f}", flush=True)
             for name, err in errs.items():
                 worst[name] = max(worst[name], err)
-            tied = float((sums[1] == sums[1, :, :1]).float().mean())
-            print(f"  nm sort kernels/plain M={m:3d} N={n:5d} K={k:5d} "
-                  f"{n_keep}:{m_group} (kp {kt} / {ks}) rounds={rounds} "
-                  f"max|diff| {errs}; vs dense kernels {dense}; one-pass vs "
-                  f"two-pass {route}; tied sums in row 1 {tied:.2f}",
-                  flush=True)
-    if any(worst.values()) or cross or passes:
-        raise AssertionError(f"gather global-sort kernels disagree: {worst}, "
+    auto = auto_expand(torch, sm, ss, nm, seed)
+    if any(worst.values()) or cross or passes or twins or auto:
+        raise AssertionError(f"N:M global-sort kernels disagree: {worst}, "
                              f"vs dense {cross}, one-pass vs two-pass "
-                             f"{passes}")
+                             f"{passes}, expand vs gather {twins}, auto "
+                             f"{auto}")
+    return worst
+
+
+def auto_expand(torch, sm, ss, nm, seed):
+    """``auto`` at G = 7 groups (K = 112, 8:16) and on 16:16 slabs (K =
+    1536, one-pass, and 8960, two-pass) under both policies: the expand
+    kernels of the route launch, no gather kernel does, and the result is
+    the dense kernel's. Returns the max |difference|."""
+    from repro_torch.kernels import ops
+
+    expand = (nm.nm_sort_matmul, ss.nm_tile_sums_matmul,
+              ss.nm_paired_accum_matmul, ss.nm_chunked_sort_matmul)
+    gathers = (nm.nm_gather_sort_matmul, ss.nm_gather_tile_sums,
+               ss.nm_gather_paired_accum_matmul,
+               ss.nm_gather_chunked_sort_matmul)
+    worst = 0
+    for i, (m, n, k, n_keep) in enumerate(((4, 1536, 112, 8),
+                                           (4, 256, 1536, 16),
+                                           (4, 256, 8960, 16))):
+        x, w, vals, idx = nm_operands(torch, m, n, k, seed + 250 + i, n_keep,
+                                      16, tied=True)
+        g = vals.shape[1]
+        for policy in ("sorted_tiled", "sorted"):
+            kp = ops.padded_k(g * 16, policy, 256)
+            impl = ops.resolve_nm_impl(policy, g, n_keep, 16)
+            before = [f.launches for f in expand + gathers]
+            got = ops.nm_policy_matmul(x, vals, idx, m_group=16,
+                                       policy=policy, k_tile=256)
+            want = sm.sort_matmul(x, w, policy=policy, kp=kp, k_tile=256)
+            torch.cuda.synchronize()
+            ran = [f.__name__ for f, b in zip(expand + gathers, before)
+                   if f.launches != b]
+            err = int((got.long() - want.long()).abs().max())
+            print(f"  auto at G={g} {n_keep}:16 K={k} {policy}: nm_impl "
+                  f"{impl}, launched {ran}, max|diff| vs dense kernel {err}",
+                  flush=True)
+            if impl != "expand" or not ran or any(
+                    f.__name__ in ran for f in gathers):
+                raise AssertionError(f"auto at G={g}, {n_keep}:16 did not "
+                                     f"launch the expand kernels: {ran}")
+            worst = max(worst, err)
     return worst
 
 
 def phase_sort_parity(torch, counters, cfg, seed, new_tokens=8):
     """2 layers at full width under ``sorted_tiled`` and under ``sorted``:
-    the kernels and their plain versions give the same tokens (8 new ones
-    each: the plain ``sorted`` path walks 16384 saturating adds in Python
-    at w_out) and the same decode logits."""
+    the dense kernels, their plain versions and the compressed weights
+    through the expand kernels (which must launch, and no gather kernel)
+    give the same tokens (8 new ones each: the plain ``sorted`` path walks
+    16384 saturating adds in Python at w_out) and the same decode
+    logits."""
+    from repro_torch.core.qtensor import nm_compress_tree
+
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     model, params = model_params(cfg2, seed, compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
     for policy in SORT_PATHS:
         outs = {}
-        for backend in ("cuda", "torch"):
+        for name, kw in (("cuda", dict(backend="cuda")),
+                         ("torch", dict(backend="torch")),
+                         ("expand", dict(compressed=True, nm_impl="expand"))):
             reset(counters)
             t0 = time.perf_counter()
-            reqs, _, _, _ = serve(torch, cfg2, seed, backend=backend,
-                                  new_tokens=new_tokens, policy=policy)
-            outs[backend] = [r.output for r in reqs]
-            print(f"  2-layer serve, {policy}, {backend}: "
-                  f"{time.perf_counter() - t0:.1f} s; launches "
-                  f"{dict((k, f.launches) for k, f in counters.items())}",
+            reqs, _, _, _ = serve(torch, cfg2, seed, new_tokens=new_tokens,
+                                  policy=policy, **kw)
+            outs[name] = [r.output for r in reqs]
+            launches = {k: f.launches for k, f in counters.items()}
+            print(f"  2-layer serve, {policy}, {name}: "
+                  f"{time.perf_counter() - t0:.1f} s; launches {launches}",
                   flush=True)
-        if outs["cuda"] != outs["torch"] or any(
+            if name == "expand" and (
+                    set(k for k, n in launches.items() if n)
+                    != set(NM_EXPAND_PATHS[policy])):
+                raise AssertionError(f"expand path ran {launches}")
+        if any(o != outs["cuda"] for o in outs.values()) or any(
                 len(o) != new_tokens for o in outs["cuda"]):
             raise AssertionError(f"{policy} tokens differ: {outs}")
         print(f"  {policy}: tokens identical, request 0 {outs['cuda'][0]}",
               flush=True)
         check_logits(torch, model, cfg, seed, (
             ("cuda", params, dict(policy=policy, backend="cuda")),
-            ("torch", params, dict(policy=policy, backend="torch"))))
+            ("torch", params, dict(policy=policy, backend="torch")),
+            ("expand", sparse, dict(policy=policy, nm_impl="expand"))))
 
 
 # How time_launches reads ``ms``, ``plain_ms`` and ``library_ms``, named in
@@ -841,22 +941,31 @@ def phase_sort_timing(torch, sm, ss):
     return table
 
 
+# the expand twin of each gather key of phase_nm_sort_timing
+EXPAND_OF = {"nm_gather_sort_matmul": "nm_sort_matmul",
+             "nm_gather_sort_matmul[sorted]": "nm_sort_matmul[sorted]",
+             "nm_gather_tile_sums": "nm_tile_sums_matmul",
+             "nm_gather_paired_accum_matmul": "nm_paired_accum_matmul",
+             "nm_gather_chunked_sort_matmul": "nm_chunked_sort_matmul"}
+
+
 def phase_nm_sort_timing(torch, sm, ss, nm):
-    """The gather global-sort kernels at the decode shapes (M = 4, 8:16) of
-    the sites where the main path runs them, beside the dense kernel on
-    the decompressed weight over the same kp (``dense_ms``), their plain
-    versions and their bound: the bytes of x, the int8 values, the int32
-    indices and of what they write (and read: pass 2's perm) at the
-    logical K, or 2 M N (G n_keep) int8 operations over the kept products.
-    Pass 1 also beside one float32 ``torch.bmm`` on the decompressed
-    weight, as row 9. At w_out the one-pass kernel is timed too, beside
-    the two-pass path."""
+    """The gather global-sort kernels and their expand twins at the decode
+    shapes (M = 4, 8:16) of the sites where the main path runs them, beside
+    the dense kernel on the decompressed weight over the same kp
+    (``dense_ms``; the expand rows also beside the gather kernel,
+    ``gather_ms``), their plain versions and their bound: the bytes of x,
+    the int8 values, the int32 indices and of what they write (and read:
+    pass 2's perm) at the logical K, or 2 M N (G n_keep) int8 operations
+    over the kept products (the same function for both twins). Pass 1 also
+    beside one float32 ``torch.bmm`` on the decompressed weight, as row 9.
+    At w_out the one-pass kernels are timed too, beside the two-pass
+    path."""
     from repro_torch.core.sorted_accum import pair_permutation
     from repro_torch.kernels.sorted_matmul import padded_k
 
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
-    table = {name: [] for name in NM_SORT_KERNELS + (
-        "nm_gather_sort_matmul[sorted]",)}
+    table = {name: [] for name in (*EXPAND_OF, *EXPAND_OF.values())}
     m, kt = 4, 256
     for site, (n, k) in SITES.items():
         x, w, vals, idx = nm_operands(torch, m, n, k, 13)
@@ -867,22 +976,29 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
         one = dict(acc_bits=16, rounds=1, m_group=M_GROUP)
         dk = dict(acc_bits=16, rounds=1, k_tile=kt)
         base = m * k + 5 * kept
-        runs = []  # (key, kernel, plain, dense, bytes, library)
+        # (gather key, {impl: (kernel, plain)}, dense, bytes, library)
+        runs = []
         if k <= 4096:
-            runs.append(("nm_gather_sort_matmul", lambda: nm.nm_gather_sort_matmul(
-                x, vals, idx, policy="sorted_tiled", **tk),
-                lambda: nm.nm_gather_sort_matmul_ref(
-                    x, vals, idx, policy="sorted_tiled", **tk),
+            runs.append(("nm_gather_sort_matmul", {
+                impl: (lambda f=f: f(x, vals, idx, policy="sorted_tiled",
+                                     **tk),
+                       lambda r=r: r(x, vals, idx, policy="sorted_tiled",
+                                     **tk))
+                for impl, f, r in (
+                    ("gather", nm.nm_gather_sort_matmul,
+                     nm.nm_gather_sort_matmul_ref),
+                    ("expand", nm.nm_sort_matmul, nm.nm_sort_matmul_ref))},
                 lambda: sm.sort_matmul(x, w, policy="sorted_tiled", kp=kpt,
                                        **dk), base + 4 * m * n, None))
-            runs.append(("nm_gather_sort_matmul[sorted]",
-                         lambda: nm.nm_gather_sort_matmul(
-                             x, vals, idx, policy="sorted", **one),
-                         lambda: nm.nm_gather_sort_matmul_ref(
-                             x, vals, idx, policy="sorted", **one),
-                         lambda: sm.sort_matmul(x, w, policy="sorted",
-                                                kp=kps, acc_bits=16),
-                         base + 4 * m * n, None))
+            runs.append(("nm_gather_sort_matmul[sorted]", {
+                impl: (lambda f=f: f(x, vals, idx, policy="sorted", **one),
+                       lambda r=r: r(x, vals, idx, policy="sorted", **one))
+                for impl, f, r in (
+                    ("gather", nm.nm_gather_sort_matmul,
+                     nm.nm_gather_sort_matmul_ref),
+                    ("expand", nm.nm_sort_matmul, nm.nm_sort_matmul_ref))},
+                lambda: sm.sort_matmul(x, w, policy="sorted", kp=kps,
+                                       acc_bits=16), base + 4 * m * n, None))
         else:
             t = kpt // kt
             perm = pair_permutation(ss.nm_gather_tile_sums(
@@ -893,52 +1009,80 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
             if not torch.equal(bmm.to(torch.int32), ss.nm_gather_tile_sums(
                     x, vals, idx, k_tile=kt, m_group=M_GROUP)):
                 raise AssertionError("float32 bmm tile sums are not exact")
-            runs.append(("nm_gather_tile_sums", lambda: ss.nm_gather_tile_sums(
-                x, vals, idx, k_tile=kt, m_group=M_GROUP),
-                lambda: ss.nm_gather_tile_sums_ref(x, vals, idx, k_tile=kt,
-                                                   m_group=M_GROUP),
+            runs.append(("nm_gather_tile_sums", {
+                impl: (lambda f=f: f(x, vals, idx, k_tile=kt,
+                                     m_group=M_GROUP),
+                       lambda r=r: r(x, vals, idx, k_tile=kt,
+                                     m_group=M_GROUP))
+                for impl, f, r in (
+                    ("gather", ss.nm_gather_tile_sums,
+                     ss.nm_gather_tile_sums_ref),
+                    ("expand", ss.nm_tile_sums_matmul,
+                     ss.nm_tile_sums_matmul_ref))},
                 lambda: ss.tile_sums_matmul(x, w, k_tile=kt, kp=kpt),
                 base + 4 * m * n * t, lambda: torch.bmm(xf, wf)))
-            runs.append(("nm_gather_paired_accum_matmul",
-                         lambda: ss.nm_gather_paired_accum_matmul(
-                             x, vals, idx, perm, **tk),
-                         lambda: ss.nm_gather_paired_accum_matmul_ref(
-                             x, vals, idx, perm, **tk),
-                         lambda: ss.paired_accum_matmul(x, w, perm, kp=kpt,
-                                                        **dk),
-                         base + 4 * m * n * t + 4 * m * n, None))
-            runs.append(("nm_gather_chunked_sort_matmul",
-                         lambda: ss.nm_gather_chunked_sort_matmul(
-                             x, vals, idx, **one),
-                         lambda: ss.nm_gather_chunked_sort_matmul_ref(
-                             x, vals, idx, **one),
-                         lambda: ss.chunked_sort_matmul(x, w, kp=kps,
-                                                        acc_bits=16),
-                         base + 4 * m * n, None))
+            runs.append(("nm_gather_paired_accum_matmul", {
+                impl: (lambda f=f: f(x, vals, idx, perm, **tk),
+                       lambda r=r: r(x, vals, idx, perm, **tk))
+                for impl, f, r in (
+                    ("gather", ss.nm_gather_paired_accum_matmul,
+                     ss.nm_gather_paired_accum_matmul_ref),
+                    ("expand", ss.nm_paired_accum_matmul,
+                     ss.nm_paired_accum_matmul_ref))},
+                lambda: ss.paired_accum_matmul(x, w, perm, kp=kpt, **dk),
+                base + 4 * m * n * t + 4 * m * n, None))
+            runs.append(("nm_gather_chunked_sort_matmul", {
+                impl: (lambda f=f: f(x, vals, idx, **one),
+                       lambda r=r: r(x, vals, idx, **one))
+                for impl, f, r in (
+                    ("gather", ss.nm_gather_chunked_sort_matmul,
+                     ss.nm_gather_chunked_sort_matmul_ref),
+                    ("expand", ss.nm_chunked_sort_matmul,
+                     ss.nm_chunked_sort_matmul_ref))},
+                lambda: ss.chunked_sort_matmul(x, w, kp=kps, acc_bits=16),
+                base + 4 * m * n, None))
             for policy in ("sorted_tiled", "sorted"):
                 kw = tk if policy == "sorted_tiled" else one
-                ms = time_launches(torch, lambda: nm.nm_gather_sort_matmul(
-                    x, vals, idx, policy=policy, **kw), 10, flush_buf)
-                print(f"  time nm_gather_sort_matmul (one-pass, for "
-                      f"comparison) {policy} {site} M={m} N={n} K={k} "
-                      f"{ms:.4f} ms", flush=True)
-        for key, kernel, plain, dense, nbytes, lib in runs:
-            ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
+                for fn in (nm.nm_gather_sort_matmul, nm.nm_sort_matmul):
+                    ms = time_launches(torch, lambda: fn(
+                        x, vals, idx, policy=policy, **kw), 10, flush_buf)
+                    print(f"  time {fn.__name__} (one-pass, for comparison) "
+                          f"{policy} {site} M={m} N={n} K={k} {ms:.4f} ms",
+                          flush=True)
+        ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
+        for key, impls, dense, nbytes, lib in runs:
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            row = dict(ms=time_launches(torch, kernel, 10, flush_buf),
-                       dense_ms=time_launches(torch, dense, 10, flush_buf),
-                       plain_ms=time_launches(torch, plain, 1, flush_buf),
-                       library_ms=lib and time_launches(torch, lib, 10,
-                                                        flush_buf),
-                       bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
-                       ops_ms=ops_ms)
-            table[key].append(row)
-            print(f"  time {key:30s} {site:6s} M={m} N={n:5d} K={k:5d} "
-                  f"kernel {row['ms']:.4f} ms  dense kernel "
-                  f"{row['dense_ms']:.4f} ms  plain {row['plain_ms']:.2f} "
-                  f"ms  bound {row['bound_ms']:.5f} ms" + (
-                      f"  float32 bmm {row['library_ms']:.4f} ms"
-                      if lib else ""), flush=True)
+            common = dict(
+                dense_ms=time_launches(torch, dense, 10, flush_buf),
+                library_ms=lib and time_launches(torch, lib, 10, flush_buf),
+                bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms)
+            rows = {impl: dict(
+                common, ms=time_launches(torch, kernel, 10, flush_buf),
+                plain_ms=time_launches(torch, plain, 1, flush_buf))
+                for impl, (kernel, plain) in impls.items()}
+            rows["expand"]["gather_ms"] = rows["gather"]["ms"]
+            table[key].append(rows["gather"])
+            table[EXPAND_OF[key]].append(rows["expand"])
+            for impl, row in rows.items():
+                name = key if impl == "gather" else EXPAND_OF[key]
+                print(f"  time {name:30s} {site:6s} M={m} N={n:5d} K={k:5d} "
+                      f"kernel {row['ms']:.4f} ms  dense kernel "
+                      f"{row['dense_ms']:.4f} ms  plain "
+                      f"{row['plain_ms']:.2f} ms  bound "
+                      f"{row['bound_ms']:.5f} ms" + (
+                          f"  float32 bmm {row['library_ms']:.4f} ms"
+                          if lib else ""), flush=True)
+    # the auto cut GATHER_MIN_G: both one-pass kernels at a few groups
+    for g in (4, 8, 16):
+        x, _, vals, idx = nm_operands(torch, m, 1536, g * M_GROUP, 14)
+        for policy, kw in (("sorted_tiled", tk), ("sorted", one)):
+            times = [time_launches(torch, lambda f=f: f(
+                x, vals, idx, policy=policy, **kw), 10, flush_buf)
+                for f in (nm.nm_gather_sort_matmul, nm.nm_sort_matmul)]
+            print(f"  time GATHER_MIN_G cut: G={g:2d} (K={g * M_GROUP}) "
+                  f"N=1536 M={m} {policy:12s} gather {times[0]:.4f} ms  "
+                  f"expand {times[1]:.4f} ms", flush=True)
     return table
 
 
@@ -949,8 +1093,9 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
     ``rows``."""
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
-    if all("dense_ms" in r for r in rows):
-        extra["dense_ms"] = sum(r["dense_ms"] for r in rows)
+    for key in ("dense_ms", "gather_ms"):
+        if all(key in r for r in rows):
+            extra[key] = sum(r[key] for r in rows)
     library = [r.get("library_ms") for r in rows]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -1012,7 +1157,11 @@ def main() -> int:
                 "nm_gather_paired_accum_matmul":
                     ss.nm_gather_paired_accum_matmul,
                 "nm_gather_chunked_sort_matmul":
-                    ss.nm_gather_chunked_sort_matmul}
+                    ss.nm_gather_chunked_sort_matmul,
+                "nm_sort_matmul": nm.nm_sort_matmul,
+                "nm_tile_sums_matmul": ss.nm_tile_sums_matmul,
+                "nm_paired_accum_matmul": ss.nm_paired_accum_matmul,
+                "nm_chunked_sort_matmul": ss.nm_chunked_sort_matmul}
     got = {}  # what each phase measured, for the kernels line
 
     def dense_serve():
@@ -1041,6 +1190,16 @@ def main() -> int:
             raise AssertionError(f"no dense {policy} tokens to compare: "
                                  "its dense phase failed")
 
+    def nm_expand_serve(policy):
+        gather = "nm " + policy
+        got["expand " + policy] = phase_serve(
+            torch, counters, cfg, args.seed, NM_EXPAND_PATHS[policy],
+            compressed=True, policy=policy, nm_impl="expand",
+            want_tokens=got.get(policy + " tokens"))[0]
+        if policy + " tokens" not in got or gather not in got:
+            raise AssertionError(f"no {policy} tokens of 3c-3f to compare: "
+                                 "a phase before failed")
+
     phases = [
         ("[2] kernel vs plain", lambda: got.update(
             err=phase_kernels(torch, sm, args.seed),
@@ -1057,10 +1216,16 @@ def main() -> int:
          "sorted_tiled", lambda: nm_sort_serve("sorted_tiled")),
         ("[3f] serve qwen2-1.5b from N:M compressed storage under sorted",
          lambda: nm_sort_serve("sorted")),
+        ("[3g] serve qwen2-1.5b from N:M compressed storage with "
+         "nm_impl='expand' under sorted_tiled",
+         lambda: nm_expand_serve("sorted_tiled")),
+        ("[3h] serve qwen2-1.5b from N:M compressed storage with "
+         "nm_impl='expand' under sorted", lambda: nm_expand_serve("sorted")),
         ("[4] kernel vs plain serving, dense and compressed", lambda:
             got.update(expand_launches=phase_parity(torch, counters, cfg,
                                                     args.seed))),
-        ("[4b] kernel vs plain serving, sorted_tiled and sorted",
+        ("[4b] kernel vs plain serving, sorted_tiled and sorted, dense "
+         "and expand",
          lambda: phase_sort_parity(torch, counters, cfg, args.seed)),
         ("[5] timing", lambda: got.update(
             timing=phase_timing(torch, sm),
@@ -1102,7 +1267,7 @@ def main() -> int:
             launches=got["expand_launches"],
             max_abs_err=got["nm_err"]["nm_seq_policy_matmul"],
             path="phase 4, compressed storage with nm_impl='expand' "
-                 "(2 layers)"),
+                 "(1 layer)"),
     ]
     timing = got["sort_timing"]
     tiled, srt = got["sorted_tiled"], got["sorted"]
@@ -1199,6 +1364,50 @@ def main() -> int:
             launches=srt["nm_gather_chunked_sort_matmul"],
             max_abs_err=err["nm_gather_chunked_sort_matmul"],
             path="phase 3f (two-pass at K = 8960)"),
+    ]
+    tiled, srt = got["expand sorted_tiled"], got["expand sorted"]
+    kernels += [
+        kernel_record(
+            "nm_sort_matmul", csrc + "nm_expand_sort.cu",
+            "src/repro/kernels/nm_spmm.py:249",
+            timing["nm_sort_matmul"], policy="sorted_tiled",
+            work=six + nm8 + ", k_tile 256, each row expanded to its 1536 "
+                             "dense positions",
+            launches=tiled["nm_sort_matmul"] + srt["nm_sort_matmul"],
+            launches_by_path={"sorted_tiled": tiled["nm_sort_matmul"],
+                              "sorted": srt["nm_sort_matmul"]},
+            max_abs_err=err["nm_sort_matmul"],
+            sorted_policy=kernel_record(
+                "nm_sort_matmul", csrc + "nm_expand_sort.cu",
+                "src/repro/kernels/nm_spmm.py:249",
+                timing["nm_sort_matmul[sorted]"], policy="sorted",
+                work=six + nm8 + ", sorted over kp 2048 expanded keys"),
+            path="phases 3g and 3h (one-pass at K = 1536, "
+                 "nm_impl='expand')"),
+        kernel_record(
+            "nm_tile_sums_matmul", csrc + "nm_expand_sort.cu",
+            "src/repro/kernels/sorted_stream.py:164",
+            timing["nm_tile_sums_matmul"], policy="sorted_tiled",
+            work=w_out + nm8 + ", k_tile 256",
+            launches=tiled["nm_tile_sums_matmul"],
+            max_abs_err=err["nm_tile_sums_matmul"],
+            path="phase 3g (two-pass pass 1 at K = 8960)"),
+        kernel_record(
+            "nm_paired_accum_matmul", csrc + "nm_expand_sort.cu",
+            "src/repro/kernels/sorted_stream.py:305",
+            timing["nm_paired_accum_matmul"], policy="sorted_tiled",
+            work=w_out + nm8 + ", k_tile 256",
+            launches=tiled["nm_paired_accum_matmul"],
+            max_abs_err=err["nm_paired_accum_matmul"],
+            path="phase 3g (two-pass pass 2 at K = 8960)"),
+        kernel_record(
+            "nm_chunked_sort_matmul", csrc + "nm_expand_sort.cu",
+            "src/repro/kernels/sorted_stream.py:431",
+            timing["nm_chunked_sort_matmul"], policy="sorted",
+            work=w_out + nm8 + ", sorted over kp 16384 expanded keys",
+            launches=srt["nm_chunked_sort_matmul"],
+            max_abs_err=err["nm_chunked_sort_matmul"],
+            path="phase 3h (two-pass at K = 8960)"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

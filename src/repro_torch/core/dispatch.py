@@ -18,10 +18,9 @@ permutation domain: here for ``torch``, in ``ops.policy_matmul`` for
 ``(values, indices)`` pair with ``m_group=``): the ``torch`` backend
 decompresses it and runs the dense plain version, the ``cuda`` backend
 runs the policy on the slabs (``kernels.ops.nm_policy_matmul``: ``nm_impl``
-picks the gather or the expand kernel, and ``sort_impl`` the one-pass or
-two-pass gather kernels of the global-sort policies, whose expand twins
-are not ported and raise). Both are bit-identical to the dense path on the
-decompressed weight.
+picks the gather or the expand kernels, and ``sort_impl`` the one-pass or
+two-pass kernels of the global-sort policies). Both are bit-identical to
+the dense path on the decompressed weight.
 
 ``qtensor_dot`` + ``integer_lin`` put serving on this path: inside the
 context every ``models.layers.lin`` whose weight is a QTensor or a

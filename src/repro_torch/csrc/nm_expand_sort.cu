@@ -1,0 +1,303 @@
+// nm_expand_sort.cu: the PQS global-sort policies (`sorted`,
+// `sorted_tiled`) on N:M compressed weights, each compressed row expanded
+// to its dense positions in shared memory; four kernels, the expand twins
+// of nm_sort_matmul.cu's gather kernels.
+//
+// Replaces:
+//   nm_expand_sorted_kernel <- repro/kernels/nm_spmm.py:nm_sort_matmul
+//     under `sorted` (the Pallas _nm_sort_kernel: expand_nm_slab, then
+//     _sort_body over kp), and repro/kernels/sorted_stream.py:
+//     nm_chunked_sort_matmul (`sorted` at long K, _nm_chunked_sort_kernel):
+//     one block holds all kp keys of an output up to 65536, so the TPU's
+//     VMEM split into two kernels does not carry over, as for the dense
+//     sort_matmul.cu;
+//   nm_expand_tiled_kernel  <- nm_sort_matmul under `sorted_tiled`;
+//   nm_expand_tile_sums_kernel <- repro/kernels/sorted_stream.py:
+//     nm_tile_sums_matmul (pass 1 of the two-pass `sorted_tiled`, the
+//     Pallas _nm_tile_sums_kernel);
+//   nm_expand_paired_kernel <- repro/kernels/sorted_stream.py:
+//     nm_paired_accum_matmul (pass 2, fed the pairing permutation; the
+//     Pallas _nm_paired_kernel).
+//
+// Operands: x (M, K) int8; values (N, G, n_keep) int8 and indices
+// (N, G, n_keep) int32 (pruning.nm_compress); kp >= K and kp >= G * m is the
+// padded K of the dense path (a power of two for `sorted`, whole k_tile
+// tiles for `sorted_tiled`). The kernels read the slabs from device memory
+// and rebuild the dense weight in shared memory by nm_decompress's
+// scatter-add (pqs_accum.cuh expand_slots): a position's weight is the sum
+// of the slots that name it, and a value-0 slot adds nothing, so a padded
+// slot (value 0, index 0) never disturbs a kept value at position 0 of its
+// group. Positions at or past K, groups past G and the kp tail are zero
+// products, masked in the kernel, so neither x nor the slabs are padded or
+// copied on the host. The product stream is then the dense kernels' own,
+// and so is the result, bit for bit, through the dense bodies of
+// pqs_accum.cuh (sorted_keys, sorted_tiled_dot, paired_dot, warp_tile_sum).
+//
+// What bounds it on this card: as for the dense kernels (sort_matmul.cu,
+// sorted_stream.cu), the integer work of sorting the dense stream and of
+// the ordered saturating adds, far above the bytes bound at decode; the
+// bytes are the gather twins' (5 bytes of slab a kept weight). Expanding
+// sorts the whole dense stream, m / n_keep times the gather's work: twice
+// at 8:16.
+//
+// The expansion target, and the shared memory it takes:
+// - `sorted`: the keys x[pos] * value are written straight into the kp int16
+//   keys that sorted_keys sorts (zeroed first; a value-0 slot writes
+//   nothing): 2 kp bytes, 4 KB at kp = 2048, 32 KB at 16384 and 128 KB at
+//   MAX_STREAM_K = 65536, under launch_sorted's cap of 128 KB. kp / 8
+//   threads (32 to 1024).
+// - `sorted_tiled` one-pass: the compressed row expanded into an int16 row
+//   of K weights beside the T tile sums and the pairing (8 T + 2 K bytes:
+//   3 KB at K = 1536; the wrapper refuses above 128 KB), then the dense
+//   body on x and the row; 4 warps.
+// - Pass 2: the same int16 row of K weights (2 K bytes: 17.5 KB at K =
+//   8960, 128 KB at 65536), then the dense pass-2 body fed perm; 8 warps.
+// - Pass 1: one warp per (n, tile) expands 256 dense positions of the tile
+//   at a time into its own int16 buffer (512 bytes a warp, 4 KB a block),
+//   then, for each row of x, its lanes take consecutive positions (x read
+//   coalesced) and reduce by shuffles.
+// int16 weights hold the scatter-add of up to 258 int8 values exactly
+// (canonical slabs: one).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "pqs_accum.cuh"
+
+namespace {
+
+using pqs::Slabs;
+using pqs::slabs;
+using pqs::valid_slabs;
+
+constexpr int kTiledThreads = 128;
+constexpr int kPairThreads = 256;
+constexpr int kSumThreads = 256;
+constexpr int kSumChunk = 256;  // dense positions a pass-1 warp expands
+
+// Row n's expanded weights w[0 .. K), by the whole block.
+__device__ __forceinline__ void expand_row(int16_t* w, const int8_t* val,
+                                           const int32_t* idx, int64_t n,
+                                           int K, int G, int n_keep,
+                                           int m_group) {
+  const int64_t kept = static_cast<int64_t>(G) * n_keep;
+  pqs::expand_slots<false>(w, K, 0, nullptr, val + n * kept, idx + n * kept,
+                           0, G * n_keep, K, n_keep, m_group, threadIdx.x,
+                           blockDim.x);
+}
+
+__global__ void nm_expand_sorted_kernel(const int8_t* __restrict__ x,
+                                        const int8_t* __restrict__ val,
+                                        const int32_t* __restrict__ idx,
+                                        int32_t* __restrict__ out, int N,
+                                        int K, int G, int n_keep, int m_group,
+                                        int kp, int acc_bits, int rounds) {
+  __shared__ pqs::Clamp scratch[32];
+  int16_t* keys = pqs::dynamic_smem<int16_t>();
+  const int64_t o = blockIdx.x;
+  const int64_t m = o / N, n = o % N;
+  const int64_t kept = static_cast<int64_t>(G) * n_keep;
+  pqs::expand_slots<false>(keys, kp, 0, x + m * K, val + n * kept,
+                           idx + n * kept, 0, G * n_keep, K, n_keep, m_group,
+                           threadIdx.x, blockDim.x);
+  const int r = pqs::sorted_keys(keys, kp, scratch, acc_bits, rounds);
+  if (threadIdx.x == 0) out[o] = r;
+}
+
+template <int E, int LT>
+__global__ void nm_expand_tiled_kernel(const int8_t* __restrict__ x,
+                                       const int8_t* __restrict__ val,
+                                       const int32_t* __restrict__ idx,
+                                       int32_t* __restrict__ out, int N,
+                                       int K, int G, int n_keep, int m_group,
+                                       int T, int acc_bits, int rounds) {
+  __shared__ pqs::Clamp scratch[kTiledThreads / 32];
+  int* sums = pqs::dynamic_smem<int>();
+  int16_t* w = reinterpret_cast<int16_t*>(sums + 2 * T);
+  const int64_t o = blockIdx.x;
+  const int64_t m = o / N, n = o % N;
+  expand_row(w, val, idx, n, K, G, n_keep, m_group);
+  const pqs::ExpandedProducts p{x + m * K, w, K, E * LT};
+  const int r = pqs::sorted_tiled_dot<E, LT>(p, sums, sums + T, T, scratch,
+                                             acc_bits, rounds);
+  if (threadIdx.x == 0) out[o] = r;
+}
+
+__global__ void nm_expand_tile_sums_kernel(const int8_t* __restrict__ x,
+                                           const int8_t* __restrict__ val,
+                                           const int32_t* __restrict__ idx,
+                                           int32_t* __restrict__ out, int M,
+                                           int N, int K, int G, int n_keep,
+                                           int m_group, int T, int k_tile) {
+  __shared__ int16_t buf[kSumThreads / 32][kSumChunk];
+  const int lane = threadIdx.x & 31;
+  const int64_t nt = static_cast<int64_t>(blockIdx.x) * (kSumThreads / 32) +
+                     (threadIdx.x >> 5);
+  if (nt >= static_cast<int64_t>(N) * T) return;  // whole warp leaves
+  const int64_t n = nt / T;
+  const int t = static_cast<int>(nt % T);
+  const int64_t kept = static_cast<int64_t>(G) * n_keep;
+  const int8_t* vrow = val + n * kept;
+  const int32_t* irow = idx + n * kept;
+  int16_t* w = buf[threadIdx.x >> 5];
+  const int t0 = t * k_tile;
+  const int end = min(t0 + k_tile, K);  // the tile's positions before K
+  if (end <= t0) {
+    if (lane == 0)
+      for (int64_t m = 0; m < M; ++m) out[(m * N + n) * T + t] = 0;
+    return;
+  }
+  const int len = min(k_tile, kSumChunk);
+  for (int c0 = t0; c0 < end; c0 += len) {
+    // the slots of the groups that reach into [c0, c0 + len)
+    const int q0 = min(G, c0 / m_group) * n_keep;
+    const int q1 = min(G, (c0 + len + m_group - 1) / m_group) * n_keep;
+    pqs::expand_slots<true>(w, len, c0, nullptr, vrow, irow, q0, q1, K,
+                            n_keep, m_group, lane, 32);
+    for (int64_t m = 0; m < M; ++m) {
+      const pqs::ExpandedProducts p{x + m * K + c0, w, end - c0, len};
+      const int s = pqs::warp_tile_sum(p, 0);
+      if (lane == 0) {
+        int32_t* o = out + (m * N + n) * T + t;
+        *o = (c0 == t0 ? 0 : *o) + s;
+      }
+    }
+    __syncwarp();  // every lane has read the chunk before it is zeroed
+  }
+}
+
+template <int E, int LT>
+__global__ void nm_expand_paired_kernel(const int8_t* __restrict__ x,
+                                        const int8_t* __restrict__ val,
+                                        const int32_t* __restrict__ idx,
+                                        const int32_t* __restrict__ perm,
+                                        int32_t* __restrict__ out, int N,
+                                        int K, int G, int n_keep,
+                                        int m_group, int T, int acc_bits,
+                                        int rounds) {
+  __shared__ pqs::Clamp scratch[kPairThreads / 32];
+  int16_t* w = pqs::dynamic_smem<int16_t>();
+  const int64_t o = blockIdx.x;
+  const int64_t m = o / N, n = o % N;
+  expand_row(w, val, idx, n, K, G, n_keep, m_group);
+  const pqs::ExpandedProducts p{x + m * K, w, K, E * LT};
+  const int r = pqs::paired_dot<E, LT>(p, perm + o * T, T, scratch, acc_bits,
+                                       rounds);
+  if (threadIdx.x == 0) out[o] = r;
+}
+
+// Shared memory of the tiled kernels: 2 T ints (sums, perm) for the
+// one-pass one, then the int16 row of K weights.
+size_t tiled_smem(int T, int K) {
+  return 2 * sizeof(int) * static_cast<size_t>(T) +
+         sizeof(int16_t) * static_cast<size_t>(K);
+}
+
+size_t row_smem(int K) { return sizeof(int16_t) * static_cast<size_t>(K); }
+
+struct TiledLaunch {
+  Slabs a;
+  int32_t* out;
+  int T, acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int LT>
+  void operator()() const {
+    pqs::launch_smem(nm_expand_tiled_kernel<E, LT>,
+                     static_cast<int64_t>(a.M) * a.N, kTiledThreads,
+                     tiled_smem(T, a.K), s, a.x, a.val, a.idx, out, a.N, a.K,
+                     a.G, a.n_keep, a.m_group, T, acc_bits, rounds);
+  }
+};
+
+struct PairedLaunch {
+  Slabs a;
+  const int32_t* perm;
+  int32_t* out;
+  int T, acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int LT>
+  void operator()() const {
+    pqs::launch_smem(nm_expand_paired_kernel<E, LT>,
+                     static_cast<int64_t>(a.M) * a.N, kPairThreads,
+                     row_smem(a.K), s, a.x, a.val, a.idx, perm, out, a.N,
+                     a.K, a.G, a.n_keep, a.m_group, T, acc_bits, rounds);
+  }
+};
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes, with the arguments of
+// nm_sort_matmul.cu's gather entry points. x (M, K) int8, values and
+// indices (N, G, n_keep) int8 / int32, perm (M, N, kp/k_tile) int32 and the
+// outputs ((M, N) registers, (M, N, kp/k_tile) sums, int32) are contiguous
+// device buffers. Each returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take, shared
+// memory above pqs::kSmemCap included (the Python wrappers check first).
+
+// policy 0: sorted (kp a power of two), 1: sorted_tiled (k_tile the sort
+// tile, a power of two up to 1024).
+extern "C" int pqs_nm_expand_sort_matmul(const void* x, const void* val,
+                                         const void* idx, void* out, int M,
+                                         int N, int K, int G, int n_keep,
+                                         int m_group, int kp, int policy,
+                                         int acc_bits, int rounds, int k_tile,
+                                         void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
+  auto* op = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (acc_bits < 2 || acc_bits > 30 || rounds < 0 || kp <= 0)
+    return cudaErrorInvalidValue;
+  if (policy == 0) {
+    if (!valid_slabs(a, kp, 0) || (kp & (kp - 1)))
+      return cudaErrorInvalidValue;
+    return pqs::launch_sorted(nm_expand_sorted_kernel,
+                              static_cast<int64_t>(M) * N, kp, s, a.x, a.val,
+                              a.idx, op, N, K, G, n_keep, m_group, kp,
+                              acc_bits, rounds);
+  }
+  if (policy != 1 || k_tile <= 0 || !valid_slabs(a, kp, k_tile) ||
+      tiled_smem(kp / k_tile, K) > pqs::kSmemCap)
+    return cudaErrorInvalidValue;
+  return pqs::dispatch_tile(
+      k_tile, TiledLaunch{a, op, kp / k_tile, acc_bits, rounds, s});
+}
+
+extern "C" int pqs_nm_expand_tile_sums(const void* x, const void* val,
+                                       const void* idx, void* out, int M,
+                                       int N, int K, int G, int n_keep,
+                                       int m_group, int kp, int k_tile,
+                                       void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
+  if (k_tile <= 0 || !valid_slabs(a, kp, k_tile))
+    return cudaErrorInvalidValue;
+  const int T = kp / k_tile;
+  const int64_t warps = static_cast<int64_t>(N) * T;
+  const int64_t blocks = (warps + kSumThreads / 32 - 1) / (kSumThreads / 32);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  nm_expand_tile_sums_kernel<<<static_cast<unsigned>(blocks), kSumThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      a.x, a.val, a.idx, static_cast<int32_t*>(out), M, N, K, G, n_keep,
+      m_group, T, k_tile);
+  return cudaGetLastError();
+}
+
+extern "C" int pqs_nm_expand_paired_accum(const void* x, const void* val,
+                                          const void* idx, const void* perm,
+                                          void* out, int M, int N, int K,
+                                          int G, int n_keep, int m_group,
+                                          int kp, int acc_bits, int rounds,
+                                          int k_tile, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
+  if (k_tile <= 0 || !valid_slabs(a, kp, k_tile) || acc_bits < 2 ||
+      acc_bits > 30 || rounds < 0 || row_smem(K) > pqs::kSmemCap)
+    return cudaErrorInvalidValue;
+  return pqs::dispatch_tile(
+      k_tile, PairedLaunch{a, static_cast<const int32_t*>(perm),
+                           static_cast<int32_t*>(out), kp / k_tile, acc_bits,
+                           rounds, static_cast<cudaStream_t>(stream)});
+}

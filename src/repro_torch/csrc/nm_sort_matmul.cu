@@ -66,6 +66,10 @@
 
 namespace {
 
+using pqs::Slabs;
+using pqs::slabs;
+using pqs::valid_slabs;
+
 constexpr int kTiledThreads = 128;
 constexpr int kPairThreads = 256;
 constexpr int kSumThreads = 256;
@@ -147,13 +151,6 @@ __global__ void nm_paired_accum_kernel(const int8_t* __restrict__ x,
   if (threadIdx.x == 0) out[o] = r;
 }
 
-struct Slabs {
-  const int8_t* x;
-  const int8_t* val;
-  const int32_t* idx;
-  int M, N, K, G, n_keep, m_group;
-};
-
 struct TiledLaunch {
   Slabs a;
   int32_t* out;
@@ -187,26 +184,6 @@ struct PairedLaunch {
   }
 };
 
-// The slabs and the tiling every entry point takes: n_keep in [1, m], K
-// and G * m within kp (x's columns past G * m are never read), whole
-// k_tile tiles of whole groups (k_tile <= 0 skips the tile checks, for
-// `sorted`), one block per output.
-bool valid(const Slabs& a, int kp, int k_tile) {
-  if (a.K < 0 || a.G < 0 || a.m_group < 1 || a.n_keep < 1 ||
-      a.n_keep > a.m_group)
-    return false;
-  const int64_t dense = static_cast<int64_t>(a.G) * a.m_group;
-  if (a.K > kp || dense > kp || static_cast<int64_t>(a.M) * a.N > 0x7fffffff)
-    return false;
-  return k_tile <= 0 || (kp % k_tile == 0 && k_tile % a.m_group == 0);
-}
-
-Slabs slabs(const void* x, const void* val, const void* idx, int M, int N,
-            int K, int G, int n_keep, int m_group) {
-  return Slabs{static_cast<const int8_t*>(x), static_cast<const int8_t*>(val),
-               static_cast<const int32_t*>(idx), M, N, K, G, n_keep, m_group};
-}
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. x (M, K) int8, values and
@@ -230,14 +207,15 @@ extern "C" int pqs_nm_gather_sort_matmul(const void* x, const void* val,
   if (acc_bits < 2 || acc_bits > 30 || rounds < 0 || kp <= 0)
     return cudaErrorInvalidValue;
   if (policy == 0) {
-    if (!valid(a, kp, 0) || (kp & (kp - 1))) return cudaErrorInvalidValue;
+    if (!valid_slabs(a, kp, 0) || (kp & (kp - 1)))
+      return cudaErrorInvalidValue;
     const int L = pqs::next_pow2(G * n_keep);
     return pqs::launch_sorted(nm_sort_sorted_kernel,
                               static_cast<int64_t>(M) * N, L, s, a.x, a.val,
                               a.idx, op, N, K, G, n_keep, m_group, L,
                               acc_bits, rounds);
   }
-  if (policy != 1 || k_tile <= 0 || !valid(a, kp, k_tile))
+  if (policy != 1 || k_tile <= 0 || !valid_slabs(a, kp, k_tile))
     return cudaErrorInvalidValue;
   const int lc = (k_tile / m_group) * n_keep;
   return pqs::dispatch_tile(
@@ -252,7 +230,8 @@ extern "C" int pqs_nm_gather_tile_sums(const void* x, const void* val,
                                        void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
-  if (k_tile <= 0 || !valid(a, kp, k_tile)) return cudaErrorInvalidValue;
+  if (k_tile <= 0 || !valid_slabs(a, kp, k_tile))
+    return cudaErrorInvalidValue;
   const int T = kp / k_tile;
   const int64_t warps = static_cast<int64_t>(N) * T;
   const int64_t blocks = (warps + kSumThreads / 32 - 1) / (kSumThreads / 32);
@@ -272,8 +251,8 @@ extern "C" int pqs_nm_gather_paired_accum(const void* x, const void* val,
                                           int k_tile, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
-  if (k_tile <= 0 || !valid(a, kp, k_tile) || acc_bits < 2 || acc_bits > 30 ||
-      rounds < 0)
+  if (k_tile <= 0 || !valid_slabs(a, kp, k_tile) || acc_bits < 2 ||
+      acc_bits > 30 || rounds < 0)
     return cudaErrorInvalidValue;
   const int lc = (k_tile / m_group) * n_keep;
   return pqs::dispatch_tile(

@@ -1,7 +1,7 @@
 // pqs_accum.cuh: the accumulation bodies shared by the port's kernels:
 // the K-streaming one (seq_policy_matmul.cu, nm_seq_policy_matmul.cu) and,
 // at the end of this file, the global-sort ones (sort_matmul.cu,
-// sorted_stream.cu, nm_sort_matmul.cu).
+// sorted_stream.cu, nm_sort_matmul.cu, nm_expand_sort.cu).
 //
 // A warp streams the products of one dot product in chunks of 32*E, E to
 // a lane in stream order (lane l holds elements l*E .. l*E + E-1), and
@@ -205,10 +205,10 @@ int dispatch_tile(int s, Fn&& fn) {
 
 // ---------------------------------------------------------------------
 // The global-sort policies (sort_matmul.cu, sorted_stream.cu,
-// nm_sort_matmul.cu). One block computes one output element; every thread
-// of the block calls these. The bodies read one output's products through
-// a product loader, so the dense kernels and their N:M gather twins run
-// the same sorts and adds:
+// nm_sort_matmul.cu, nm_expand_sort.cu). One block computes one output
+// element; every thread of the block calls these. The bodies read one
+// output's products through a product loader, so the dense kernels and
+// their N:M gather and expand twins run the same sorts and adds:
 //   at(i)       product i of the output's stream, zero past its end;
 //   tile(t, j)  product j of k_tile tile t, zero in the power-of-two pad
 //               of the sort tile S (none for dense rows, where S is k_tile);
@@ -256,6 +256,63 @@ struct GatheredProducts {
   }
 };
 
+// The dense row pair x[m, :], w[0 .. K) where w is a compressed row
+// expanded into shared memory (expand_slots): product i is x[i] * w[i],
+// zero at or past K, as DenseProducts.
+struct ExpandedProducts {
+  const int8_t* x;
+  const int16_t* w;
+  int K;
+  int tile_len;  // k_tile
+  __device__ __forceinline__ int at(int i) const {
+    return i < K ? static_cast<int>(__ldg(x + i)) * static_cast<int>(w[i])
+                 : 0;
+  }
+  __device__ __forceinline__ int tile(int t, int j) const {
+    return at(t * tile_len + j);
+  }
+};
+
+// *a += v in 16 bits, atomically (a compare-and-swap loop: shared memory
+// has no 16-bit atomicAdd). On canonical slabs no two nonzero slots name
+// one position, so the first swap succeeds.
+__device__ __forceinline__ void atomic_add_i16(int16_t* a, int v) {
+  auto* p = reinterpret_cast<unsigned short*>(a);
+  unsigned short seen = *p, want;
+  do {
+    want = seen;
+    seen = atomicCAS(p, want, static_cast<unsigned short>(want + v));
+  } while (seen != want);
+}
+
+// nm_decompress's scatter-add of a compressed row into w: w[0 .. len) is
+// zeroed, then each slot q in [q0, q1) (group q / n_keep, value val[q],
+// in-group position idx[q]) adds x[pos] * val[q] (with x null: val[q]) at
+// pos - base, pos its dense position, where pos lies in [base, base + len)
+// and below K. A value-0 slot (a padded one: value 0, index 0) adds
+// nothing, so it never disturbs a kept value at position 0 of its group.
+// The team of `size` threads, this one of rank `r`, runs it together;
+// kWarp says whether the team is one warp (else the whole block), which
+// is synchronised before and after the adds.
+template <bool kWarp>
+__device__ __forceinline__ void expand_slots(
+    int16_t* w, int len, int base, const int8_t* x, const int8_t* val,
+    const int32_t* idx, int q0, int q1, int K, int n_keep, int m_group,
+    int r, int size) {
+  for (int i = r; i < len; i += size) w[i] = 0;
+  if (kWarp) __syncwarp(); else __syncthreads();
+  for (int q = q0 + r; q < q1; q += size) {
+    const int v = __ldg(val + q);
+    if (v == 0) continue;
+    const int pos = (q / n_keep) * m_group + __ldg(idx + q);
+    if (pos < K && static_cast<unsigned>(pos - base) <
+                       static_cast<unsigned>(len))
+      atomic_add_i16(w + (pos - base),
+                     x ? static_cast<int>(__ldg(x + pos)) * v : v);
+  }
+  if (kWarp) __syncwarp(); else __syncthreads();
+}
+
 // The block's dynamic shared memory, as an array of T.
 template <typename T>
 __device__ __forceinline__ T* dynamic_smem() {
@@ -292,13 +349,10 @@ __device__ __forceinline__ void smem_sort_desc(int16_t* s, int kp) {
 // thread 0. Dense rows sort L = kp keys; kept products L =
 // next_pow2(G * n_keep), whose ordered stream is the dense one's prefix
 // (the rest of the dense stream is zeros, which add nothing).
-template <typename P>
-__device__ __forceinline__ int sorted_dot(const P& p, int L, int16_t* s,
-                                          Clamp* scratch, int acc_bits,
-                                          int rounds) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x)
-    s[i] = static_cast<int16_t>(p.at(i));
-  __syncthreads();
+// sorted_keys is sorted_dot without the fill: it takes the L keys already
+// in s (an expanded N:M row writes them itself, expand_slots).
+__device__ __forceinline__ int sorted_keys(int16_t* s, int L, Clamp* scratch,
+                                           int acc_bits, int rounds) {
   for (int rd = 0; rd < rounds; ++rd) {
     smem_sort_desc(s, L);
     // out[i] = max(s[i], 0) + min(s[L-1-i], 0), both ends of a pair at
@@ -320,6 +374,16 @@ __device__ __forceinline__ int sorted_dot(const P& p, int L, int16_t* s,
   for (int i = lo; i < hi; ++i) f = clamp_then(f, clamp_step(s[i], qmin, qmax));
   f = block_compose_warps(warp_compose(f, threadIdx.x & 31), scratch);
   return clamp_apply(f, 0);
+}
+
+template <typename P>
+__device__ __forceinline__ int sorted_dot(const P& p, int L, int16_t* s,
+                                          Clamp* scratch, int acc_bits,
+                                          int rounds) {
+  for (int i = threadIdx.x; i < L; i += blockDim.x)
+    s[i] = static_cast<int16_t>(p.at(i));
+  __syncthreads();
+  return sorted_keys(s, L, scratch, acc_bits, rounds);
 }
 
 // The exact sum of tile t's raw products, in every lane of the calling
@@ -484,16 +548,49 @@ void launch_smem(void (*kernel)(Params...), int64_t blocks, int threads,
   kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(args...);
 }
 
-// A `sorted` kernel (sorted_dot) over L int16 keys in shared memory, up to
-// 128 KB of the 227 KB a block may use; cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue above that.
+// The dynamic shared memory the global-sort kernels take at most, of the
+// 227 KB a block may use (sorted_matmul.SORT_SMEM_BYTES).
+constexpr size_t kSmemCap = 128 * 1024;
+
+// A `sorted` kernel (sorted_dot, sorted_keys) over L int16 keys in shared
+// memory, up to kSmemCap; cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue above that.
 template <typename... Params, typename... Args>
 int launch_sorted(void (*kernel)(Params...), int64_t blocks, int L,
                   cudaStream_t s, Args... args) {
   const size_t smem = sizeof(int16_t) * static_cast<size_t>(L);
-  if (smem > 128 * 1024) return cudaErrorInvalidValue;
+  if (smem > kSmemCap) return cudaErrorInvalidValue;
   launch_smem(kernel, blocks, sorted_threads(L), smem, s, args...);
   return cudaGetLastError();
+}
+
+// The operands of the N:M kernels (nm_sort_matmul.cu, nm_expand_sort.cu):
+// x (M, K) int8, values / indices (N, G, n_keep) int8 / int32.
+struct Slabs {
+  const int8_t* x;
+  const int8_t* val;
+  const int32_t* idx;
+  int M, N, K, G, n_keep, m_group;
+};
+
+inline Slabs slabs(const void* x, const void* val, const void* idx, int M,
+                   int N, int K, int G, int n_keep, int m_group) {
+  return Slabs{static_cast<const int8_t*>(x), static_cast<const int8_t*>(val),
+               static_cast<const int32_t*>(idx), M, N, K, G, n_keep, m_group};
+}
+
+// The slabs and the tiling every N:M global-sort entry point takes: n_keep
+// in [1, m], K and G * m within kp (x's columns past G * m are never
+// read), whole k_tile tiles of whole groups (k_tile <= 0 skips the tile
+// checks, for `sorted`), one block per output.
+inline bool valid_slabs(const Slabs& a, int kp, int k_tile) {
+  if (a.K < 0 || a.G < 0 || a.m_group < 1 || a.n_keep < 1 ||
+      a.n_keep > a.m_group)
+    return false;
+  const int64_t dense = static_cast<int64_t>(a.G) * a.m_group;
+  if (a.K > kp || dense > kp || static_cast<int64_t>(a.M) * a.N > 0x7fffffff)
+    return false;
+  return k_tile <= 0 || (kp % k_tile == 0 && k_tile % a.m_group == 0);
 }
 
 }  // namespace pqs

@@ -1,6 +1,7 @@
 """PQS accumulation policies on N:M compressed weights for Hopper: the
 K-streaming ``nm_gather_seq_policy_matmul`` and ``nm_seq_policy_matmul``,
-and the one-pass global-sort ``nm_gather_sort_matmul``.
+and the one-pass global-sort ``nm_gather_sort_matmul`` and
+``nm_sort_matmul``.
 
 Port of ``repro/kernels/nm_spmm.py``. Weights arrive compressed
 (``core.pruning``): values (N, G, n_keep) int8 and indices (N, G, n_keep)
@@ -16,17 +17,18 @@ weight, bit for bit:
           power of two. Exact by the zero-product prefix property (the
           headers of ``csrc/nm_seq_policy_matmul.cu`` and
           ``csrc/nm_sort_matmul.cu`` give the argument).
-  expand  rebuilds each chunk's dense positions and runs the dense
-          kernel's body; the exactness oracle of the gather (K-streaming
-          policies only so far).
+  expand  rebuilds the dense positions from the slabs (``nm_decompress``'s
+          scatter-add) and runs the dense kernel's body; the exactness
+          oracle of the gather. Its plain versions decompress and run the
+          dense plain version.
 
 Each wrapper launches its hand-written CUDA kernel
-(``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_sort_matmul.cu``) on CUDA
-tensors, counting the launch in ``.launches``, and takes its plain version
-(``*_ref``) only for tensors on the CPU. The kernels mask ragged M, N, K
-and G themselves; the plain versions pad G to whole sort tiles
-(``_cover``). The two-pass and chunked gather
-kernels of the global-sort policies are in ``sorted_stream``.
+(``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_sort_matmul.cu``,
+``csrc/nm_expand_sort.cu``) on CUDA tensors, counting the launch in
+``.launches``, and takes its plain version (``*_ref``) only for tensors on
+the CPU. The kernels mask ragged M, N, K and G themselves; the plain
+versions pad G to whole sort tiles (``_cover``) or K to kp. The two-pass
+and chunked kernels of the global-sort policies are in ``sorted_stream``.
 """
 
 from __future__ import annotations
@@ -49,9 +51,11 @@ from repro_torch.kernels.sorted_matmul import (
     lib_fn,
     next_pow2,
     on_cpu,
+    pad_k,
     padded_k,
     row_chunk,
     seq_policy_matmul_ref,
+    sort_matmul_ref,
     stream_of,
 )
 
@@ -291,7 +295,7 @@ nm_seq_policy_matmul.launches = 0
 
 def check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile
                   ) -> int:
-    """The gather global-sort kernels' contract (the JAX kernels'
+    """The N:M global-sort kernels' contract (the JAX kernels'
     asserts). Returns kp = ``padded_k(G * m_group)``, the dense path's
     padded K: a power of two for ``sorted``, whole k_tile tiles for
     ``sorted_tiled``. x may be up to kp wide; groups past G up to
@@ -427,3 +431,78 @@ def nm_gather_sort_matmul(
 
 
 nm_gather_sort_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the global-sort policies on expanded rows
+# ---------------------------------------------------------------------------
+
+
+def expanded_operands(x, values, indices, m_group, kp):
+    """x and the decompressed weight (``expand_nm_slab``: a scatter-add),
+    both zero-extended to kp columns: the dense operands the expand plain
+    versions run the dense plain versions on."""
+    return pad_k(x, kp), pad_k(expand_nm_slab(values, indices, m_group), kp)
+
+
+def nm_sort_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    *,
+    m_group: int,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """Plain version of ``nm_sort_matmul`` (any device): the slabs
+    decompressed, then ``sort_matmul_ref`` over kp."""
+    kp = check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile)
+    return sort_matmul_ref(*expanded_operands(x, values, indices, m_group, kp),
+                           policy=policy, acc_bits=acc_bits, k_tile=k_tile,
+                           rounds=rounds)
+
+
+def launch_nm_expand_sort(x, values, indices, *, m_group, policy, acc_bits,
+                          k_tile, rounds, kp):
+    """``pqs_nm_expand_sort_matmul`` of csrc/nm_expand_sort.cu (one block
+    per output, the row expanded in shared memory: kp int16 keys under
+    ``sorted``, an int16 row of K weights beside the tile sums under
+    ``sorted_tiled``) under ``policy``; the caller counts the launch."""
+    check_sort_smem(policy, kp, k_tile,
+                    row=0 if policy == "sorted" else 2 * x.shape[1])
+    return launch_slabs("nm_expand_sort", "pqs_nm_expand_sort_matmul", x,
+                        values, indices, m_group=m_group, ints=(
+                            kp, SORT_POLICIES.index(policy), acc_bits,
+                            rounds, k_tile))
+
+
+def nm_sort_matmul(
+    x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
+    values: torch.Tensor,  # (N, G, n_keep) int8
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """(M, N) int32 under ``sorted`` or ``sorted_tiled`` with each
+    compressed row expanded to its dense positions, each output's whole
+    stream at once: the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. Equal to ``sort_matmul`` on the decompressed weight over
+    kp, the policy's padded G * m_group, and to ``nm_gather_sort_matmul``."""
+    kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+              k_tile=k_tile, rounds=rounds)
+    kp = check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile)
+    if on_cpu(x, values, indices):
+        return nm_sort_matmul_ref(x, values, indices, **kw)
+    out, launched = launch_nm_expand_sort(x, values, indices, kp=kp, **kw)
+    if launched:
+        nm_sort_matmul.launches += 1
+    return out
+
+
+nm_sort_matmul.launches = 0

@@ -8,16 +8,14 @@ global-sort policies (``sorted``, ``sorted_tiled``) to the one-pass
 ``sorted_stream.stream_sort_matmul`` (``resolve_sort_impl``); these take
 the padded K as ``kp`` and extend the rows with zero products themselves
 (the card kernels mask them), so no padded copy of the weight is made.
-``nm_policy_matmul`` routes the K-streaming policies on N:M compressed
-slabs to the gather or the expand kernel of ``nm_spmm``
-(``resolve_nm_impl``), and the global-sort policies to the gather kernels
-(``nm_spmm.nm_gather_sort_matmul`` one-pass,
-``sorted_stream.nm_gather_stream_sort_matmul`` two-pass, by
-``resolve_sort_impl`` on the dense path's padded K); their expand twins
-are not ported (the plain version on CPU tensors, a raise on CUDA
-tensors). The TPU block table, its environment overrides and
-the autotuner are not carried over — their numbers were VMEM budgets of
-the TPU.
+``nm_policy_matmul`` routes every policy on N:M compressed slabs to the
+gather or the expand kernels (``resolve_nm_impl``): the K-streaming
+policies to those of ``nm_spmm``, the global-sort policies one-pass to
+``nm_spmm.nm_gather_sort_matmul`` / ``nm_sort_matmul`` and two-pass to
+``sorted_stream.nm_gather_stream_sort_matmul`` / ``nm_stream_sort_matmul``
+(``resolve_sort_impl`` on the dense path's padded K). The TPU block
+table, its environment overrides and the autotuner are not carried over —
+their numbers were VMEM budgets of the TPU.
 """
 
 from __future__ import annotations
@@ -25,10 +23,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.nm_spmm import (
-    expand_nm_slab,
     nm_gather_seq_policy_matmul,
     nm_gather_sort_matmul,
     nm_seq_policy_matmul,
+    nm_sort_matmul,
 )
 from repro_torch.kernels.sorted_matmul import (
     SEQ_POLICIES,
@@ -37,20 +35,21 @@ from repro_torch.kernels.sorted_matmul import (
     next_pow2,
     on_cpu,
     padded_k,
-    policy_accumulate_ref,
     seq_policy_matmul,
     sort_matmul,
 )
 from repro_torch.kernels.sorted_stream import (
     nm_gather_stream_sort_matmul,
+    nm_stream_sort_matmul,
     stream_sort_matmul,
 )
 
 POLICIES = SEQ_POLICIES + SORT_POLICIES
 NM_IMPLS = ("auto", "expand", "gather")
 # Below this many groups ``auto`` takes expand. The value is the JAX
-# package's, set on the TPU; the port keeps it until the card's own
-# gather/expand times (chip_smoke.py phase 5) re-derive it.
+# package's, set on the TPU; the port keeps the JAX rule so that ``auto``
+# picks the kernels the JAX package picks (chip_smoke.py phase 5 times
+# both families at a few groups on the card).
 GATHER_MIN_G = 8
 # ``auto`` takes the one-pass global-sort kernel up to MAX_RESIDENT_K
 # (padded) and the two-pass pipeline above it, which is refused past
@@ -181,12 +180,11 @@ def nm_policy_matmul(
 
     The global-sort policies take the dense path's padded K, kp =
     ``padded_k(G * m_group)``, and ``resolve_sort_impl``'s route: the
-    one-pass gather kernel ``nm_spmm.nm_gather_sort_matmul`` or the
-    two-pass ``sorted_stream.nm_gather_stream_sort_matmul`` (the slabs of
-    its x narrowed to int8); groups past G up to kp are masked in the
-    kernels, so nothing is padded. The expand twins of these kernels are
-    not ported: ``nm_impl="expand"`` under a global-sort policy runs the
-    plain version on CPU tensors and raises on CUDA tensors.
+    one-pass kernel (``nm_spmm.nm_gather_sort_matmul`` or, for expand,
+    ``nm_sort_matmul``) or the two-pass pipeline
+    (``sorted_stream.nm_gather_stream_sort_matmul`` or
+    ``nm_stream_sort_matmul``, its x narrowed to int8); groups past G up
+    to kp are masked in the kernels, so nothing is padded.
     ``census=False`` is the certified route, as on ``policy_matmul``.
     """
     if policy not in POLICIES:
@@ -210,26 +208,15 @@ def nm_policy_matmul(
     impl = resolve_nm_impl(policy, g, n_keep, m_group, nm_impl)
     if policy in SORT_POLICIES:
         kp = padded_k(k_dense, policy, k_tile)
-        cpu = on_cpu(x, values, indices)
-        route = resolve_sort_impl(kp, cpu, sort_impl)
+        route = resolve_sort_impl(kp, on_cpu(x, values, indices), sort_impl)
         kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
                   k_tile=k_tile, rounds=rounds)
-        if impl == "expand":
-            if not cpu:
-                raise NotImplementedError(
-                    f"policy {policy!r} with nm_impl='expand' needs the "
-                    "expand twins of the global-sort kernels (nm_sort_matmul,"
-                    " nm_tile_sums_matmul, nm_paired_accum_matmul, "
-                    "nm_chunked_sort_matmul), not ported yet; use "
-                    "nm_impl='gather' or backend='torch'")
-            w = _pad_to(expand_nm_slab(values, indices, m_group), kp, 1)
-            return policy_accumulate_ref(_pad_to(x, kp, 1), w, policy=policy,
-                                         acc_bits=acc_bits, k_tile=k_tile,
-                                         rounds=rounds)
+        gather = impl == "gather"
         if route == "onepass":
-            return nm_gather_sort_matmul(x, values, indices, **kw)
-        return nm_gather_stream_sort_matmul(_as_int8(x, "x"), values,
-                                            indices, **kw)
+            fn = nm_gather_sort_matmul if gather else nm_sort_matmul
+            return fn(x, values, indices, **kw)
+        fn = nm_gather_stream_sort_matmul if gather else nm_stream_sort_matmul
+        return fn(_as_int8(x, "x"), values, indices, **kw)
     fn = nm_gather_seq_policy_matmul if impl == "gather" \
         else nm_seq_policy_matmul
     return fn(x, values, indices, m_group=m_group, policy=policy,

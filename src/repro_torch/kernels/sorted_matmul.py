@@ -270,15 +270,16 @@ SORT_SMEM_BYTES = 128 * 1024
 SORTED_MAX_K = SORT_SMEM_BYTES // 2
 
 
-def check_sort_smem(policy, kp, k_tile, keys=None, tile=None) -> None:
+def check_sort_smem(policy, kp, k_tile, keys=None, tile=None, row=0
+                    ) -> None:
     """Refuse (NotImplementedError) what the one-pass global-sort kernels
     cannot hold: ``keys`` int16 keys of ``sorted`` (default kp) or two
-    int32 per k_tile tile of ``sorted_tiled`` in shared memory above
-    ``SORT_SMEM_BYTES``, or a sort tile (default k_tile) no kernel
-    instance covers."""
+    int32 per k_tile tile of ``sorted_tiled`` in shared memory, with ``row``
+    bytes beside them (an expanded N:M row), above ``SORT_SMEM_BYTES``, or
+    a sort tile (default k_tile) no kernel instance covers."""
     keys = kp if keys is None else keys
     tile = k_tile if tile is None else tile
-    smem = 2 * keys if policy == "sorted" else 8 * (kp // k_tile)
+    smem = (2 * keys if policy == "sorted" else 8 * (kp // k_tile)) + row
     if smem > SORT_SMEM_BYTES:
         raise NotImplementedError(
             f"the CUDA kernel keeps {smem} bytes of keys in shared memory, "

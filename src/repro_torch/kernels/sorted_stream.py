@@ -25,17 +25,22 @@ above ``ops.MAX_RESIDENT_K`` to. On N:M compressed slabs the gather twins
 ``nm_gather_tile_sums``, ``nm_gather_paired_accum_matmul`` and
 ``nm_gather_chunked_sort_matmul`` (``csrc/nm_sort_matmul.cu``) form only
 the kept products, a k_tile tile being its (k_tile/m_group) * n_keep kept
-products; ``nm_gather_stream_sort_matmul`` is their entry point, which
-``ops.nm_policy_matmul`` routes to. Each kernel wrapper launches its
-hand-written CUDA kernel (``csrc/sorted_stream.cu``,
-``csrc/nm_sort_matmul.cu``, whose headers say what bounds them) on CUDA
-tensors, counting the launch in ``.launches``, and takes its plain version
-(``*_ref``) only for tensors on the CPU. The dense ones take ``kp``, the
-policy's padded K (default K); the gather ones accumulate over the padded
-G * m_group. The columns past K and the groups past G are zero products,
-masked by the card kernels and padded by the plain versions. The TPU kernels' VMEM budgets
-(``CUBE_BUDGET``, ``_sort_chunk``) are not carried over: the card kernels
-choose their own working sets.
+products; the expand twins ``nm_tile_sums_matmul``,
+``nm_paired_accum_matmul`` and ``nm_chunked_sort_matmul``
+(``csrc/nm_expand_sort.cu``) rebuild each row's dense positions from the
+slabs in shared memory and run the dense bodies.
+``nm_gather_stream_sort_matmul`` and ``nm_stream_sort_matmul`` are their
+entry points, which ``ops.nm_policy_matmul`` routes to. Each kernel
+wrapper launches its hand-written CUDA kernel (``csrc/sorted_stream.cu``,
+``csrc/nm_sort_matmul.cu``, ``csrc/nm_expand_sort.cu``, whose headers say
+what bounds them) on CUDA tensors, counting the launch in ``.launches``,
+and takes its plain version (``*_ref``) only for tensors on the CPU. The
+dense ones take ``kp``, the policy's padded K (default K); the N:M ones
+accumulate over the padded G * m_group. The columns past K and the groups
+past G are zero products, masked by the card kernels and padded by the
+plain versions. The TPU kernels' VMEM budgets (``CUBE_BUDGET``,
+``_sort_chunk``) are not carried over: the card kernels choose their own
+working sets.
 """
 
 from __future__ import annotations
@@ -51,7 +56,9 @@ from repro_torch.core.sorted_accum import (
 )
 from repro_torch.kernels.nm_spmm import (
     check_nm_sort,
+    expanded_operands,
     kept_tiles,
+    launch_nm_expand_sort,
     launch_nm_sort_matmul,
     launch_slabs,
     nm_gather_sort_matmul_ref,
@@ -60,6 +67,7 @@ from repro_torch.kernels.nm_spmm import (
 from repro_torch.kernels.sorted_matmul import (
     KERNEL_K_TILES,
     SORT_POLICIES,
+    SORT_SMEM_BYTES,
     _check_sort,
     card_operands,
     launch_sort,
@@ -389,6 +397,22 @@ def nm_gather_chunked_sort_matmul(
 nm_gather_chunked_sort_matmul.launches = 0
 
 
+def _nm_stream(chunked, tile_sums, paired, x, values, indices, *, m_group,
+               policy, acc_bits, k_tile, rounds):
+    """The streaming route on compressed slabs through one family of
+    kernels: ``chunked`` for ``sorted``; for ``sorted_tiled`` pass 1
+    (``tile_sums``), the pairing in torch, pass 2 (``paired``)."""
+    if policy not in SORT_POLICIES:
+        raise ValueError(f"unknown sort policy {policy!r}; {SORT_POLICIES}")
+    if policy == "sorted":
+        return chunked(x, values, indices, m_group=m_group, acc_bits=acc_bits,
+                       rounds=rounds)
+    sums = tile_sums(x, values, indices, m_group=m_group, k_tile=k_tile)
+    perm = pair_permutation(sums).to(torch.int32)
+    return paired(x, values, indices, perm, m_group=m_group,
+                  acc_bits=acc_bits, k_tile=k_tile, rounds=rounds)
+
+
 def nm_gather_stream_sort_matmul(
     x: torch.Tensor,  # (M, K) int8
     values: torch.Tensor,  # (N, G, n_keep) int8
@@ -404,15 +428,166 @@ def nm_gather_stream_sort_matmul(
     compressed slabs, with ``nm_gather_sort_matmul``'s contract: the
     chunked kernel for ``sorted``; for ``sorted_tiled`` pass 1, the
     pairing in torch, pass 2."""
-    if policy not in SORT_POLICIES:
-        raise ValueError(f"unknown sort policy {policy!r}; {SORT_POLICIES}")
-    kw = dict(m_group=m_group)
-    if policy == "sorted":
-        return nm_gather_chunked_sort_matmul(x, values, indices,
-                                             acc_bits=acc_bits,
-                                             rounds=rounds, **kw)
-    sums = nm_gather_tile_sums(x, values, indices, k_tile=k_tile, **kw)
-    perm = pair_permutation(sums).to(torch.int32)
-    return nm_gather_paired_accum_matmul(x, values, indices, perm,
-                                         acc_bits=acc_bits, k_tile=k_tile,
-                                         rounds=rounds, **kw)
+    return _nm_stream(nm_gather_chunked_sort_matmul, nm_gather_tile_sums,
+                      nm_gather_paired_accum_matmul, x, values, indices,
+                      m_group=m_group, policy=policy, acc_bits=acc_bits,
+                      k_tile=k_tile, rounds=rounds)
+
+
+# ---------------------------------------------------------------------------
+# the expand twins on N:M compressed slabs
+# ---------------------------------------------------------------------------
+
+
+def nm_tile_sums_matmul_ref(x: torch.Tensor, values: torch.Tensor,
+                            indices: torch.Tensor, *, m_group: int,
+                            k_tile: int = 256) -> torch.Tensor:
+    """Plain version of ``nm_tile_sums_matmul`` (any device): the slabs
+    decompressed, then ``tile_sums_matmul_ref`` over kp."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", 16,
+                       k_tile)
+    return tile_sums_matmul_ref(
+        *expanded_operands(x, values, indices, m_group, kp), k_tile=k_tile,
+        kp=kp)
+
+
+def nm_tile_sums_matmul(x: torch.Tensor, values: torch.Tensor,
+                        indices: torch.Tensor, *, m_group: int,
+                        k_tile: int = 256) -> torch.Tensor:
+    """Pass 1 on expanded rows: (M, N, kp/k_tile) int32, equal to
+    ``tile_sums_matmul`` on the decompressed weight and to
+    ``nm_gather_tile_sums``."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", 16,
+                       k_tile)
+    if on_cpu(x, values, indices):
+        return nm_tile_sums_matmul_ref(x, values, indices, m_group=m_group,
+                                       k_tile=k_tile)
+    out, launched = launch_slabs(
+        "nm_expand_sort", "pqs_nm_expand_tile_sums", x, values, indices,
+        m_group=m_group, out_tail=(kp // k_tile,), ints=(kp, k_tile))
+    if launched:
+        nm_tile_sums_matmul.launches += 1
+    return out
+
+
+nm_tile_sums_matmul.launches = 0
+
+
+def nm_paired_accum_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    perm: torch.Tensor,
+    *,
+    m_group: int,
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """Plain version of ``nm_paired_accum_matmul`` (any device): the slabs
+    decompressed, then ``paired_accum_matmul_ref`` over kp."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", acc_bits,
+                       k_tile)
+    _check_perm(x, values, perm, kp, k_tile)
+    return paired_accum_matmul_ref(
+        *expanded_operands(x, values, indices, m_group, kp), perm,
+        acc_bits=acc_bits, k_tile=k_tile, rounds=rounds, kp=kp)
+
+
+def nm_paired_accum_matmul(
+    x: torch.Tensor,  # (M, K) int8 (or int32 carrying int8)
+    values: torch.Tensor,  # (N, G, n_keep) int8
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    perm: torch.Tensor,  # (M, N, kp/k_tile) int32 pairing permutation
+    *,
+    m_group: int,
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """Pass 2 on expanded rows: (M, N) int32, each output's dense tiles in
+    the paired order of its row of ``perm``; equal to
+    ``paired_accum_matmul`` on the decompressed weight and to
+    ``nm_gather_paired_accum_matmul``."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", acc_bits,
+                       k_tile)
+    _check_perm(x, values, perm, kp, k_tile)
+    if on_cpu(x, values, indices, perm):
+        return nm_paired_accum_matmul_ref(
+            x, values, indices, perm, m_group=m_group, acc_bits=acc_bits,
+            k_tile=k_tile, rounds=rounds)
+    if k_tile not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernel sorts tiles of up to {KERNEL_K_TILES[-1]} "
+            f"products; k_tile={k_tile}")
+    if 2 * x.shape[1] > SORT_SMEM_BYTES:
+        raise NotImplementedError(
+            f"the CUDA kernel expands a row of K int16 weights into shared "
+            f"memory, at most {SORT_SMEM_BYTES} bytes: K={x.shape[1]}")
+    if perm.device != x.device or perm.dtype != torch.int32:
+        raise ValueError(f"perm must be int32 on {x.device}, got "
+                         f"{perm.dtype} on {perm.device}")
+    out, launched = launch_slabs(
+        "nm_expand_sort", "pqs_nm_expand_paired_accum", x, values, indices,
+        m_group=m_group, ptrs=(perm.contiguous(),),
+        ints=(kp, acc_bits, rounds, k_tile))
+    if launched:
+        nm_paired_accum_matmul.launches += 1
+    return out
+
+
+nm_paired_accum_matmul.launches = 0
+
+
+def nm_chunked_sort_matmul_ref(
+        x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
+        m_group: int, acc_bits: int = 16, rounds: int = 1) -> torch.Tensor:
+    """Plain version of ``nm_chunked_sort_matmul`` (any device): the slabs
+    decompressed, then ``chunked_sort_matmul_ref`` over kp."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted", acc_bits, 1)
+    return chunked_sort_matmul_ref(
+        *expanded_operands(x, values, indices, m_group, kp),
+        acc_bits=acc_bits, rounds=rounds, kp=kp)
+
+
+def nm_chunked_sort_matmul(
+        x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor, *,
+        m_group: int, acc_bits: int = 16, rounds: int = 1) -> torch.Tensor:
+    """(M, N) int32 under ``sorted`` at long K on expanded rows (kp keys an
+    output, at most ``SORTED_MAX_K`` on the card: the `sorted` kernel of
+    ``nm_sort_matmul``, counted here); equal to ``chunked_sort_matmul`` on
+    the decompressed weight."""
+    kp = check_nm_sort(x, values, indices, m_group, "sorted", acc_bits, 1)
+    if on_cpu(x, values, indices):
+        return nm_chunked_sort_matmul_ref(x, values, indices,
+                                          m_group=m_group, acc_bits=acc_bits,
+                                          rounds=rounds)
+    out, launched = launch_nm_expand_sort(
+        x, values, indices, m_group=m_group, policy="sorted",
+        acc_bits=acc_bits, k_tile=1, rounds=rounds, kp=kp)
+    if launched:
+        nm_chunked_sort_matmul.launches += 1
+    return out
+
+
+nm_chunked_sort_matmul.launches = 0
+
+
+def nm_stream_sort_matmul(
+    x: torch.Tensor,  # (M, K) int8
+    values: torch.Tensor,  # (N, G, n_keep) int8
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int,
+    policy: str = "sorted",
+    acc_bits: int = 16,
+    k_tile: int = 256,
+    rounds: int = 1,
+) -> torch.Tensor:
+    """The streaming entry point for ``sorted`` | ``sorted_tiled`` on
+    compressed slabs through the expand twins, with ``nm_sort_matmul``'s
+    contract (the JAX package's ``nm_stream_sort_matmul``)."""
+    return _nm_stream(nm_chunked_sort_matmul, nm_tile_sums_matmul,
+                      nm_paired_accum_matmul, x, values, indices,
+                      m_group=m_group, policy=policy, acc_bits=acc_bits,
+                      k_tile=k_tile, rounds=rounds)

@@ -366,10 +366,16 @@ def test_nm_kernels_count_launches_and_check_inputs(card):
         with pytest.raises(TypeError):
             kernel(x, vals, idx.long(), m_group=8)
         assert kernel.launches == before + 1
-    for policy in ("sorted", "sorted_tiled"):  # no global-sort expand twin
-        with pytest.raises(NotImplementedError):
-            ops.nm_policy_matmul(x, vals, idx, m_group=8, policy=policy,
-                                 k_tile=16, nm_impl="expand")
+    for policy in ("sorted", "sorted_tiled"):  # the global-sort expand twin
+        before = (nm_spmm.nm_sort_matmul.launches,
+                  nm_spmm.nm_gather_sort_matmul.launches)
+        got = ops.nm_policy_matmul(x, vals, idx, m_group=8, policy=policy,
+                                   k_tile=16, nm_impl="expand")
+        assert torch.equal(got, nm_spmm.nm_sort_matmul_ref(
+            x, vals, idx, m_group=8, policy=policy, k_tile=16)), policy
+        assert (nm_spmm.nm_sort_matmul.launches,
+                nm_spmm.nm_gather_sort_matmul.launches) == (
+                    before[0] + 1, before[1]), policy
 
 
 def test_engine_compressed_kernels_and_plain_agree(card):
@@ -567,12 +573,34 @@ def test_nm_gather_sort_kernels_count_launches_and_check_inputs(card):
                                          k_tile=64, **kw)
 
 
+def _expand_launches():
+    return {f.__name__: f.launches for f in (
+        nm_spmm.nm_sort_matmul, ss.nm_tile_sums_matmul,
+        ss.nm_paired_accum_matmul, ss.nm_chunked_sort_matmul)}
+
+
+def _expand_route(policy, kp, sort_impl):
+    """The expand kernels one call of ``policy`` over padded K ``kp``
+    launches, each once."""
+    if sort_impl == "onepass" or (sort_impl == "auto"
+                                  and kp <= ops.MAX_RESIDENT_K):
+        return {"nm_sort_matmul"}
+    if policy == "sorted":
+        return {"nm_chunked_sort_matmul"}
+    return {"nm_tile_sums_matmul", "nm_paired_accum_matmul"}
+
+
+def _launched(before, after):
+    return {name for name in after if after[name] != before[name]}
+
+
 @pytest.mark.parametrize("policy", sm.SORT_POLICIES)
 def test_nm_policy_matmul_global_sort_on_card(card, policy):
     """Every sort_impl of pqs_dot(storage="nm") runs a gather kernel and
     gives the plain version's result, K ragged; auto takes the one-pass
     kernel at padded K <= MAX_RESIDENT_K; onepass above it raises, as on
-    dense storage; nm_impl="expand" raises and launches nothing."""
+    dense storage; nm_impl="expand" gives the same result through the
+    expand kernels of its route, and launches no gather or dense one."""
     for m, k, n in ((5, 300, 70), (4, 1536, 256), (3, 4500, 40)):
         x, w, vals, idx = _nm_w(m, k, n, 8, 16, k, card)
         want = pqs_dot(x, w, policy=policy, k_tile=256, backend="torch")
@@ -592,10 +620,22 @@ def test_nm_policy_matmul_global_sort_on_card(card, policy):
             assert (nm_spmm.nm_gather_sort_matmul.launches
                     == before + 1) == onepass
         launched = (nm_spmm.nm_gather_sort_matmul.launches,
+                    ss.nm_gather_tile_sums.launches,
+                    ss.nm_gather_chunked_sort_matmul.launches,
                     sm.sort_matmul.launches)
-        with pytest.raises(NotImplementedError):
-            pqs_dot(x, (vals, idx), nm_impl="expand", **kw)
+        for impl in ("auto", "twopass"):
+            before = _expand_launches()
+            got = pqs_dot(x, (vals, idx), nm_impl="expand", sort_impl=impl,
+                          **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (policy, k, impl)
+            after = _expand_launches()
+            route = _expand_route(policy, kp, impl)
+            assert _launched(before, after) == route, (k, impl, after)
+            assert all(after[n] == before[n] + 1 for n in route)
         assert (nm_spmm.nm_gather_sort_matmul.launches,
+                ss.nm_gather_tile_sums.launches,
+                ss.nm_gather_chunked_sort_matmul.launches,
                 sm.sort_matmul.launches) == launched
         dense = nm_decompress(vals.to(torch.int32), idx, 16)[:, :k]
         assert torch.equal(dense.to(torch.int8), w)
@@ -621,17 +661,240 @@ def test_engine_compressed_global_sort_kernels_and_plain_agree(card,
     prompts = [r.integers(0, 256, size=int(r.integers(3, 12))).astype(
         np.int32) for _ in range(4)]
     outs = {}
-    for name, p, backend in (("gather", sparse, "cuda"),
-                             ("plain", sparse, "torch"),
-                             ("dense", params, "cuda")):
-        before = nm_spmm.nm_gather_sort_matmul.launches
+    for name, p, backend, impl in (("gather", sparse, "cuda", None),
+                                   ("expand", sparse, "cuda", "expand"),
+                                   ("plain", sparse, "torch", None),
+                                   ("dense", params, "cuda", None)):
+        before = (nm_spmm.nm_gather_sort_matmul.launches,
+                  nm_spmm.nm_sort_matmul.launches)
         eng = ServingEngine(model, p, num_slots=3, max_len=64,
                             int_lin=IntegerLinConfig(policy=policy, k_tile=64,
-                                                     backend=backend))
+                                                     backend=backend,
+                                                     nm_impl=impl))
         reqs = [Request(uid=i, prompt=q, max_new_tokens=6)
                 for i, q in enumerate(prompts)]
         eng.drain(reqs)
         outs[name] = [q.output for q in reqs]
+        after = (nm_spmm.nm_gather_sort_matmul.launches,
+                 nm_spmm.nm_sort_matmul.launches)
         if name == "gather":
-            assert nm_spmm.nm_gather_sort_matmul.launches > before
-    assert outs["gather"] == outs["plain"] == outs["dense"]
+            assert after[0] > before[0] and after[1] == before[1]
+        if name == "expand":
+            assert after[1] > before[1] and after[0] == before[0]
+    assert outs["gather"] == outs["expand"] == outs["plain"] == outs["dense"]
+
+
+# NM_SORT_CASES and a dense-as-sparse 16:16 case at the decode site shape
+NM_EXPAND_CASES = NM_SORT_CASES + ((4, 1536, 256, 16, 16, 256),)
+
+
+@pytest.mark.parametrize("policy", sm.SORT_POLICIES)
+@pytest.mark.parametrize("acc_bits", [12, 16])
+def test_nm_expand_sort_matmul_matches_plain_gather_and_dense(card, policy,
+                                                              acc_bits):
+    """The one-pass expand kernel equals its plain version, the gather
+    kernel and the dense kernel on the decompressed weight over the same
+    kp, given the unpadded x and slabs."""
+    for i, case in enumerate(NM_EXPAND_CASES):
+        x, w, vals, idx, m_group, k_tile = _nm_sort_case(
+            case, 60 + i + acc_bits, card)
+        kp = ops.padded_k(vals.shape[1] * m_group, policy, k_tile)
+        for rounds in (1, 2):
+            kw = dict(policy=policy, acc_bits=acc_bits, rounds=rounds,
+                      k_tile=k_tile)
+            got = nm_spmm.nm_sort_matmul(x, vals, idx, m_group=m_group, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, nm_spmm.nm_sort_matmul_ref(
+                x, vals, idx, m_group=m_group, **kw)), (case, rounds)
+            assert torch.equal(got, nm_spmm.nm_gather_sort_matmul(
+                x, vals, idx, m_group=m_group, **kw)), (case, rounds)
+            assert torch.equal(got, sm.sort_matmul(x, w, kp=kp, **kw)), (
+                case, rounds)
+
+
+def test_nm_expand_stream_kernels_match_plain_gather_and_dense(card):
+    """Pass 1, pass 2 and the chunked expand kernels against their plain
+    versions, the gather twins and the dense kernels on the decompressed
+    weight; the two-pass route equals the one-pass kernel under both
+    policies."""
+    for i, case in enumerate(NM_EXPAND_CASES):
+        x, w, vals, idx, m_group, k_tile = _nm_sort_case(case, 80 + i, card)
+        g = vals.shape[1]
+        kt = ops.padded_k(g * m_group, "sorted_tiled", k_tile)
+        ks = ops.padded_k(g * m_group, "sorted", k_tile)
+        nkw = dict(m_group=m_group)
+        sums = ss.nm_tile_sums_matmul(x, vals, idx, k_tile=k_tile, **nkw)
+        torch.cuda.synchronize()
+        for want in (ss.nm_tile_sums_matmul_ref(x, vals, idx, k_tile=k_tile,
+                                                **nkw),
+                     ss.nm_gather_tile_sums(x, vals, idx, k_tile=k_tile,
+                                            **nkw),
+                     ss.tile_sums_matmul(x, w, k_tile=k_tile, kp=kt)):
+            assert torch.equal(sums, want), case
+        perm = pair_permutation(sums).to(torch.int32)
+        for rounds in (1, 2):
+            tk = dict(acc_bits=16, rounds=rounds, k_tile=k_tile)
+            two = ss.nm_paired_accum_matmul(x, vals, idx, perm, **tk, **nkw)
+            torch.cuda.synchronize()
+            for want in (
+                    ss.nm_paired_accum_matmul_ref(x, vals, idx, perm, **tk,
+                                                  **nkw),
+                    ss.nm_gather_paired_accum_matmul(x, vals, idx, perm,
+                                                     **tk, **nkw),
+                    ss.paired_accum_matmul(x, w, perm, kp=kt, **tk),
+                    nm_spmm.nm_sort_matmul(x, vals, idx, policy="sorted_tiled",
+                                           **tk, **nkw),
+                    ss.nm_stream_sort_matmul(x, vals, idx,
+                                             policy="sorted_tiled", **tk,
+                                             **nkw)):
+                assert torch.equal(two, want), (case, rounds)
+            kw = dict(acc_bits=16, rounds=rounds)
+            chunked = ss.nm_chunked_sort_matmul(x, vals, idx, **kw, **nkw)
+            torch.cuda.synchronize()
+            for want in (
+                    ss.nm_chunked_sort_matmul_ref(x, vals, idx, **kw, **nkw),
+                    ss.nm_gather_chunked_sort_matmul(x, vals, idx, **kw,
+                                                     **nkw),
+                    ss.chunked_sort_matmul(x, w, kp=ks, **kw),
+                    nm_spmm.nm_sort_matmul(x, vals, idx, policy="sorted",
+                                           **kw, **nkw)):
+                assert torch.equal(chunked, want), (case, rounds)
+
+
+@pytest.mark.parametrize("kernel", ["sort_matmul[sorted]",
+                                    "sort_matmul[sorted_tiled]",
+                                    "tile_sums", "paired_accum",
+                                    "chunked_sort_matmul"])
+def test_nm_expand_kernels_mask_without_host_padding(card, kernel):
+    """Given x of K = 300 columns against 3:16 slabs of G = 19 groups (304
+    columns), each expand kernel accumulates over the policy's padded K
+    (320 under sorted_tiled at k_tile 64, 512 under sorted) and equals its
+    plain version on x zero-padded to kp and the slabs zero-padded to
+    kp / m groups, with no padded copy passed to the kernel."""
+    m_group, k_tile = 16, 64
+    x, _, vals, idx = _nm_w(5, 300, 70, 3, m_group, 10, card)
+    policy = "sorted" if kernel in ("sort_matmul[sorted]",
+                                    "chunked_sort_matmul") else "sorted_tiled"
+    kp = ops.padded_k(vals.shape[1] * m_group, policy, k_tile)
+    gp = kp // m_group - vals.shape[1]
+    assert gp > 0
+    px = ops._pad_to(x, kp, 1)
+    pv = torch.nn.functional.pad(vals, (0, 0, 0, gp))
+    pi = torch.nn.functional.pad(idx, (0, 0, 0, gp))
+    kw = dict(m_group=m_group)
+    for rounds in (1, 2):
+        tk = dict(acc_bits=13, rounds=rounds, k_tile=k_tile, **kw)
+        if kernel == "tile_sums":
+            got = ss.nm_tile_sums_matmul(x, vals, idx, k_tile=k_tile, **kw)
+            want = ss.nm_tile_sums_matmul_ref(px, pv, pi, k_tile=k_tile, **kw)
+        elif kernel == "paired_accum":
+            perm = pair_permutation(ss.nm_tile_sums_matmul_ref(
+                px, pv, pi, k_tile=k_tile, **kw)).to(torch.int32)
+            got = ss.nm_paired_accum_matmul(x, vals, idx, perm, **tk)
+            want = ss.nm_paired_accum_matmul_ref(px, pv, pi, perm, **tk)
+        elif kernel == "chunked_sort_matmul":
+            got = ss.nm_chunked_sort_matmul(x, vals, idx, acc_bits=13,
+                                            rounds=rounds, **kw)
+            want = ss.nm_chunked_sort_matmul_ref(px, pv, pi, acc_bits=13,
+                                                 rounds=rounds, **kw)
+        else:
+            got = nm_spmm.nm_sort_matmul(x, vals, idx, policy=policy, **tk)
+            want = nm_spmm.nm_sort_matmul_ref(px, pv, pi, policy=policy,
+                                              **tk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kernel, rounds)
+
+
+def test_nm_expand_kernels_keep_position_0_under_padded_slots(card):
+    """Slot 0 of every group keeps a value at position 0 and the other
+    slots are padding (value 0, index 0): the kernels' scatter-add leaves
+    the kept value standing (a plain store of the padding would zero it),
+    so each expand kernel equals the dense kernel on that weight."""
+    m_group = 16
+    x, _, vals, idx = _nm_w(4, 1536, 64, 8, m_group, 11, card)
+    vals[:, :, 1:] = 0
+    idx.zero_()
+    w = torch.zeros((64, 1536), dtype=torch.int8, device=card)
+    w[:, ::m_group] = vals[:, :, 0]
+    assert bool((w != 0).any())
+    kt = ops.padded_k(1536, "sorted_tiled", 256)
+    perm = pair_permutation(ss.tile_sums_matmul(x, w, k_tile=256)).to(
+        torch.int32)
+    kw = dict(acc_bits=16, m_group=m_group)
+    for got, want in (
+            (nm_spmm.nm_sort_matmul(x, vals, idx, policy="sorted", **kw),
+             sm.sort_matmul(x, w, policy="sorted", kp=2048)),
+            (nm_spmm.nm_sort_matmul(x, vals, idx, policy="sorted_tiled", **kw),
+             sm.sort_matmul(x, w, policy="sorted_tiled")),
+            (ss.nm_tile_sums_matmul(x, vals, idx, m_group=m_group),
+             ss.tile_sums_matmul(x, w, k_tile=256, kp=kt)),
+            (ss.nm_paired_accum_matmul(x, vals, idx, perm, **kw),
+             ss.paired_accum_matmul(x, w, perm)),
+            (ss.nm_chunked_sort_matmul(x, vals, idx, **kw),
+             ss.chunked_sort_matmul(x, w, kp=2048))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_nm_expand_sort_kernels_count_launches_and_check_inputs(card):
+    x, vals, idx = _nm(4, 256, 8, 2, 8, 0, card)
+    perm = pair_permutation(ss.nm_tile_sums_matmul(
+        x, vals, idx, m_group=8, k_tile=64)).to(torch.int32)
+    kw = dict(m_group=8)
+    calls = (
+        (nm_spmm.nm_sort_matmul, lambda: nm_spmm.nm_sort_matmul(
+            x, vals, idx, policy="sorted_tiled", k_tile=64, **kw)),
+        (ss.nm_tile_sums_matmul, lambda: ss.nm_tile_sums_matmul(
+            x, vals, idx, k_tile=64, **kw)),
+        (ss.nm_paired_accum_matmul, lambda: ss.nm_paired_accum_matmul(
+            x, vals, idx, perm, k_tile=64, **kw)),
+        (ss.nm_chunked_sort_matmul, lambda: ss.nm_chunked_sort_matmul(
+            x, vals, idx, **kw)),
+    )
+    for kernel, call in calls:
+        before = kernel.launches
+        call()
+        assert kernel.launches == before + 1, kernel.__name__
+    with pytest.raises(ValueError):  # x wider than the slabs' padded K
+        nm_spmm.nm_sort_matmul(ops._pad_to(x, 257, 1), vals, idx, **kw)
+    with pytest.raises(ValueError):  # k_tile % m_group != 0
+        ss.nm_tile_sums_matmul(x, vals, idx, k_tile=4, **kw)
+    with pytest.raises(ValueError):
+        ss.nm_tile_sums_matmul(x, vals, idx.cpu(), k_tile=64, **kw)
+    with pytest.raises(TypeError):
+        ss.nm_chunked_sort_matmul(x, vals, idx.long(), **kw)
+    with pytest.raises(ValueError):  # perm of the wrong shape
+        ss.nm_paired_accum_matmul(x, vals, idx, perm[:, :, :2], k_tile=64,
+                                  **kw)
+    with pytest.raises(ValueError):
+        ss.nm_paired_accum_matmul(x, vals, idx, perm.long(), k_tile=64,
+                                  **kw)
+
+
+@pytest.mark.parametrize("policy", sm.SORT_POLICIES)
+def test_nm_auto_takes_expand_twins_on_card(card, policy):
+    """``auto`` resolves to expand below GATHER_MIN_G groups (K = 112 at
+    8:16: G = 7) and for dense-as-sparse 16:16 storage (one-pass at K =
+    1536, two-pass at K = 8960), and pqs_dot(storage="nm") then launches
+    the expand kernels of its route and no gather kernel, with the dense
+    plain version's result."""
+    for m, k, n, n_keep in ((4, 112, 40, 8), (4, 1536, 64, 16),
+                            (3, 8960, 24, 16)):
+        x, w, vals, idx = _nm_w(m, k, n, n_keep, 16, k + n_keep, card)
+        g = vals.shape[1]
+        assert ops.resolve_nm_impl(policy, g, n_keep, 16) == "expand"
+        want = pqs_dot(x, w, policy=policy, k_tile=256, backend="torch")
+        gather = (nm_spmm.nm_gather_sort_matmul.launches,
+                  ss.nm_gather_tile_sums.launches,
+                  ss.nm_gather_chunked_sort_matmul.launches)
+        before = _expand_launches()
+        got = pqs_dot(ops._pad_to(x, g * 16, 1), (vals, idx), storage="nm",
+                      m_group=16, policy=policy, k_tile=256)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (policy, k, n_keep)
+        kp = ops.padded_k(g * 16, policy, 256)
+        assert _launched(before, _expand_launches()) == _expand_route(
+            policy, kp, "auto"), (k, n_keep)
+        assert (nm_spmm.nm_gather_sort_matmul.launches,
+                ss.nm_gather_tile_sums.launches,
+                ss.nm_gather_chunked_sort_matmul.launches) == gather
