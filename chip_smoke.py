@@ -26,7 +26,11 @@ imports nothing of JAX or of the JAX package. Phases:
    (plus ragged 3:16 and 2:4, and 16:16), which must also equal the dense
    global-sort kernels on the decompressed weight (and expand the
    gather); ``auto`` must launch the expand twins for a site of fewer than
-   ``GATHER_MIN_G`` groups and for 16:16 (dense-as-sparse) slabs;
+   ``GATHER_MIN_G`` groups and for 16:16 (dense-as-sparse) slabs; and the
+   wide ``quant_matmul`` (w (K, N)) and ``nm_spmm`` at edge shapes (M 1,
+   4, 17, 128, ragged N and K, K = 8960, int8 extremes; 8:16, 4:16, 2:8,
+   16:16 and padded slots), ``nm_spmm`` also equal to ``quant_matmul`` on
+   the decompressed weight;
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -53,6 +57,8 @@ imports nothing of JAX or of the JAX package. Phases:
    tokens of 3c (and so of 3e);
 3h. and under ``sorted``: 168 ``nm_sort_matmul`` and 28
    ``nm_chunked_sort_matmul`` launches a step, the tokens of 3d and 3f;
+3i. one 28-layer decode's logits bit for bit within each group: 3 / 3b,
+   3c / 3e / 3g, 3d / 3f / 3h;
 4. the same engine at 1 layer, full width: the dense kernel and its
    plain version, and the compressed weights through the gather and the
    expand kernel (the expand kernel's path), give identical tokens and
@@ -60,13 +66,24 @@ imports nothing of JAX or of the JAX package. Phases:
 4b. at 2 layers under ``sorted_tiled`` and ``sorted``: the dense kernels,
    their plain versions and the compressed weights through the expand
    kernels give identical tokens (8 new ones) and decode logits;
+4c. the torch quickstart (``repro_torch.quickstart.run``) on the card:
+   it launches ``quant_matmul``, ``nm_spmm`` and ``seq_policy_matmul``,
+   prints what it prints on the CPU, and each of its matmuls' results
+   equals the plain version's on the same inputs, element by element;
+4d. ``quant_matmul`` on the ``QTensor.values`` and ``nm_spmm`` on the
+   ``SparseQTensor`` slabs of layer 0's 7 full-width sites at M = 4 and
+   128, against their plain versions, ``seq_policy_matmul`` under
+   ``wide`` and each other;
 5. kernel times at the decode shapes (CUDA events, L2 flushed before
    each launch, the device kept busy while the host enqueues the
    launch), beside the plain versions, ``torch._int_mm`` (and a
    float32 ``bmm`` for the tile sums) and, for the N:M kernels, the
    dense kernel on the same dot (the decompressed weight) and, for the
-   expand kernels, the gather kernels; and the gather and expand one-pass
-   kernels at 4, 8 and 16 groups (``GATHER_MIN_G``).
+   expand kernels, the gather kernels; the gather and expand one-pass
+   kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); and ``quant_matmul``
+   and ``nm_spmm`` at the 7 site shapes at M = 4 and 128 beside
+   ``torch._int_mm`` with the weight stored (N, K) and as the kernel's
+   (K, N).
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -203,6 +220,75 @@ def phase_nm_kernels(torch, sm, nm, seed):
     if any(worst.values()) or cross:
         raise AssertionError(f"N:M kernels disagree: {worst}, vs dense "
                              f"{cross}")
+    return worst
+
+
+# (M, K, N) edge shapes of the wide kernels (rows 3 and 4): decode and
+# prefill M, ragged N and K (no multiple of 8, 16 or 32), K = 8960, and
+# the quickstart's matmul
+WIDE_EDGES = ((1, 1536, 256), (4, 8960, 1536), (17, 300, 70),
+              (128, 1536, 8960), (4, 33, 129), (128, 77, 5), (32, 512, 64))
+WIDE_SLABS = ((8, 16), (4, 16), (2, 8), (16, 16))  # (n_keep, m_group)
+
+
+def phase_wide_kernels(torch, qm, nm, seed):
+    """Rows 3 (``quant_matmul``, w (K, N)) and 4 (``nm_spmm``) against
+    their plain versions, bit-exact, at ``WIDE_EDGES`` with the int8
+    extremes at a corner (row 0 of x and column 0 of w all -128, the
+    last ones all 127); row 4 on 8:16, 4:16, 2:8 and 16:16 slabs, and on
+    slabs whose padded (0, 0) slots follow a kept value at position 0,
+    each equal to row 3 on the decompressed weight. Returns the max
+    |difference| of each kernel against its plain version."""
+    from repro_torch.core.pruning import nm_decompress
+
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    worst = {"quant_matmul": 0, "nm_spmm": 0}
+    cross = corner = 0
+    for i, (m, k, n) in enumerate(WIDE_EDGES):
+        x, wt = operands(torch, m, n, k, seed + 300 + i)
+        w = wt.t().contiguous()
+        x[0], w[:, 0] = -128, -128
+        if m > 1:
+            x[-1] = 127
+        if n > 1:
+            w[:, -1] = 127
+        got = qm.quant_matmul(x, w)
+        err = diff(got, qm.quant_matmul_ref(x, w))
+        worst["quant_matmul"] = max(worst["quant_matmul"], err)
+        corner = max(corner, abs(int(got[0, 0]) - 128 * 128 * k))
+        errs = []
+        for j, (n_keep, m_group) in enumerate(WIDE_SLABS):
+            xs, ws, vals, idx = nm_operands(torch, m, n, k, seed + 310 + j,
+                                            n_keep, m_group)
+            got = nm.nm_spmm(xs, vals, idx, m_group=m_group)
+            errs.append(diff(got, nm.nm_spmm_ref(xs, vals, idx,
+                                                 m_group=m_group)))
+            cross = max(cross, diff(got, qm.quant_matmul(
+                xs, ws.t().contiguous())))
+        worst["nm_spmm"] = max(worst["nm_spmm"], *errs)
+        print(f"  wide kernels/plain M={m:3d} N={n:5d} K={k:5d} max|diff| "
+              f"quant_matmul={err} nm_spmm at "
+              f"{'/'.join(f'{a}:{b}' for a, b in WIDE_SLABS)}={errs}; "
+              f"nm_spmm vs quant_matmul {cross}", flush=True)
+    x, _, vals, idx = nm_operands(torch, 4, 1536, 1536, seed + 320)
+    vals[:, :, 1:] = 0  # padded slots (0, 0) behind a kept value at 0
+    idx.zero_()
+    vals[:, :, 0] = -128
+    dense = nm_decompress(vals, idx, M_GROUP)
+    got = nm.nm_spmm(x, vals, idx, m_group=M_GROUP)
+    pad = diff(got, nm.nm_spmm_ref(x, vals, idx, m_group=M_GROUP))
+    worst["nm_spmm"] = max(worst["nm_spmm"], pad)
+    cross = max(cross, diff(got, qm.quant_matmul(x, dense.t().contiguous())))
+    kept = bool((dense[:, ::M_GROUP] == -128).all())
+    print(f"  nm_spmm on padded slots: max|diff| {pad}, vs quant_matmul "
+          f"{cross}, kept values at position 0 intact {kept}", flush=True)
+    if any(worst.values()) or cross or corner or not kept:
+        raise AssertionError(f"wide kernels disagree: {worst}, nm_spmm vs "
+                             f"quant_matmul {cross}, corner off by {corner}, "
+                             f"kept {kept}")
     return worst
 
 
@@ -447,6 +533,150 @@ def check_logits(torch, model, cfg, seed, runs):
           f"{diffs}, finite={finite}", flush=True)
     if any(diffs.values()) or not finite:
         raise AssertionError("logits differ or are not finite")
+
+
+def phase_logits_28(torch, cfg, seed):
+    """One full-depth (28-layer) decode's logits, after a prefill of 4 x
+    16 tokens, bit for bit within each group the serve phases compare by
+    tokens: dense and compressed (``auto``: gather) storage under
+    ``sorted_tiled_seq`` (3 / 3b); dense, gather and expand under
+    ``sorted_tiled`` (3c / 3e / 3g) and under ``sorted`` (3d / 3f / 3h).
+    The tokens of a 28-layer serve compare about one argmax a request;
+    the logits compare every value."""
+    from repro_torch.core.qtensor import nm_compress_tree
+
+    model, params = model_params(cfg, seed, compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    for policy, impls in (("sorted_tiled_seq", (None,)),
+                          ("sorted_tiled", (None, "expand")),
+                          ("sorted", (None, "expand"))):
+        t0 = time.perf_counter()
+        check_logits(torch, model, cfg, seed, [
+            ("dense", params, dict(policy=policy))] + [
+            (f"compressed {impl or 'auto (gather)'}", sparse,
+             dict(policy=policy, nm_impl=impl)) for impl in impls])
+        print(f"  {policy}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# the kernel behind each result of the quickstart's matmuls
+QUICKSTART_OUTPUTS = {"wide": "quant_matmul",
+                      "dense_on_pruned": "quant_matmul", "nm_spmm": "nm_spmm",
+                      "sorted": "seq_policy_matmul",
+                      "clip": "seq_policy_matmul"}
+
+
+def phase_quickstart(torch, counters):
+    """``repro_torch.quickstart.run()`` on the card, every launch count
+    set to 0 just before and read just after: it must launch
+    ``quant_matmul``, ``nm_spmm`` and ``seq_policy_matmul``, print and
+    return what ``run(device="cpu")`` does (the plain versions), but for
+    the device label, and give each matmul's result (the wide and
+    dense-on-pruned products, the compressed one, the sorted and clip
+    registers at 18 bits) equal element by element to the plain version's
+    on the same inputs. Returns the launches and the max |difference| of
+    each kernel's results against their plain versions."""
+    import contextlib
+    import io
+
+    from repro_torch import quickstart
+
+    reset(counters)
+    card_out = io.StringIO()
+    with contextlib.redirect_stdout(card_out):
+        on_card, card_t = quickstart.run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    cpu_out = io.StringIO()
+    with contextlib.redirect_stdout(cpu_out):
+        on_cpu, cpu_t = quickstart.run(device="cpu")
+    for line in card_out.getvalue().splitlines():
+        print(f"  | {line}", flush=True)
+    ran = {name: n for name, n in launches.items() if n}
+    inputs = all(torch.equal(card_t[k].cpu(), cpu_t[k])
+                 for k in ("x", "w", "pruned", "values", "indices"))
+    err = dict.fromkeys(QUICKSTART_OUTPUTS.values(), 0)
+    for key, kernel in QUICKSTART_OUTPUTS.items():
+        e = int((card_t[key].cpu().long() - cpu_t[key].long()).abs().max())
+        err[kernel] = max(err[kernel], e)
+        print(f"  {key:15s} ({kernel}) on the card vs the plain version: "
+              f"max|diff| {e}", flush=True)
+    print(f"  launches {ran}; same inputs {inputs}; same numbers on the "
+          f"CPU: {on_card == on_cpu}", flush=True)
+    same = card_out.getvalue().replace("(kernel, cuda)", "(kernel, cpu)") \
+        == cpu_out.getvalue()
+    if on_card != on_cpu or not same or not inputs or any(err.values()):
+        raise AssertionError(f"the quickstart differs on the card: "
+                             f"{on_card} against {on_cpu}, same inputs "
+                             f"{inputs}, max|diff| {err}")
+    if set(ran) != {"quant_matmul", "nm_spmm", "seq_policy_matmul"}:
+        raise AssertionError(f"the quickstart's kernels did not launch "
+                             f"(or others did): {launches}")
+    return launches, err
+
+
+# the section of each projection site in a layer's params
+SITE_SECTION = {"wq": "attn", "wk": "attn", "wv": "attn", "wo": "attn",
+                "w_gate": "mlp", "w_up": "mlp", "w_out": "mlp"}
+
+
+def layer0_weights(cfg, seed):
+    """{site: (QTensor, SparseQTensor)} of layer 0 of the model phases 3
+    and 3b serve: a layer's weights are drawn before the next layer's,
+    so a 1-layer build of the same seed holds them."""
+    from repro_torch.core.qtensor import nm_compress_tree
+
+    _, params = model_params(dataclasses.replace(cfg, num_layers=1), seed,
+                             compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    dense, comp = params["layers"][0], sparse["layers"][0]
+    return {site: (dense[sec][site], comp[sec][site])
+            for site, sec in SITE_SECTION.items()}
+
+
+def phase_wide_full_width(torch, sm, qm, nm, cfg, seed):
+    """Rows 3 and 4 at the 7 projection sites of layer 0, at decode (M =
+    4) and a prefill cohort (M = 128): row 3 on ``QTensor.values`` (K, N),
+    fed as stored, equals its plain version and row 1 under ``wide`` on
+    ``values_t``; row 4 on the ``SparseQTensor`` slabs equals its plain
+    version and row 3 on the decompressed weight, bit for bit. Returns the
+    max |difference| of each kernel against its plain version."""
+    from repro_torch.core.pruning import nm_decompress
+
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    worst = {"quant_matmul": 0, "nm_spmm": 0}
+    cross = 0
+    for site, (qt, sq) in layer0_weights(cfg, seed).items():
+        k, n = qt.values.shape
+        if (n, k) != SITES[site] or sq.values.shape[0] != n:
+            raise AssertionError(f"{site}: shapes {tuple(qt.values.shape)}, "
+                                 f"{tuple(sq.values.shape)}")
+        decomp = nm_decompress(sq.values, sq.indices, sq.m_group,
+                               sq.k_dim).t().contiguous()
+        for m in (4, 128):
+            x = operands(torch, m, 1, k, seed + 400 + m)[0]
+            row3 = qm.quant_matmul(x, qt.values)
+            row4 = nm.nm_spmm(x, sq.values, sq.indices, m_group=sq.m_group)
+            errs = (diff(row3, qm.quant_matmul_ref(x, qt.values)),
+                    diff(row4, nm.nm_spmm_ref(x, sq.values, sq.indices,
+                                              m_group=sq.m_group)))
+            checks = (diff(row3, sm.seq_policy_matmul(x, qt.values_t,
+                                                      policy="wide")),
+                      diff(row4, qm.quant_matmul(x, decomp)),
+                      int(not torch.equal(decomp, qt.values)))
+            worst = {key: max(worst[key], e) for key, e in zip(worst, errs)}
+            cross = max(cross, *checks)
+            print(f"  full width {site:6s} M={m:3d} N={n:5d} K={k:5d}: "
+                  f"max|diff| vs plain quant_matmul={errs[0]} "
+                  f"nm_spmm={errs[1]}; quant_matmul vs wide policy "
+                  f"{checks[0]}, nm_spmm vs quant_matmul on the "
+                  f"decompressed weight {checks[1]}", flush=True)
+    if any(worst.values()) or cross:
+        raise AssertionError(f"wide kernels at full width disagree: "
+                             f"{worst}, cross-checks {cross}")
+    return worst
 
 
 SORT_KERNELS = ("sort_matmul", "tile_sums_matmul", "paired_accum_matmul",
@@ -1086,6 +1316,62 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
     return table
 
 
+def phase_wide_timing(torch, qm, nm):
+    """Rows 3 and 4 at the 7 site shapes at decode (M = 4) and at a
+    prefill cohort (M = 128); row 4 on 8:16 slabs and row 3 on their
+    decompressed weight (K, N), the same dot (``dense_ms`` of row 4).
+    Beside each: its plain version; its bound, the bytes of x, the
+    weight (row 4: int8 values and int32 indices) and the int32 out, or
+    2 M N K int8 operations (row 4: over the kept products); and
+    ``torch._int_mm`` on the same dot (row 4: on the decompressed weight),
+    at M = 128 and, since it refuses M <= 16, at M = 32 beside the decode
+    rows: ``library_ms`` (``int_mm_m32_ms``) with the weight stored (N,
+    K), the column-major B that cuBLAS takes without a transpose and the
+    faster layout (the port keeps that copy as ``QTensor.values_t``), and
+    ``int_mm_kn_ms`` (``int_mm_m32_kn_ms``) on the kernel's own (K, N)
+    inputs. Returns {(kernel, M): rows}."""
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    table = {(name, m): [] for name in ("quant_matmul", "nm_spmm")
+             for m in (4, 128)}
+    for site, (n, k) in SITES.items():
+        x, wt, vals, idx = nm_operands(torch, 128, n, k, 15)
+        w = wt.t().contiguous()  # (K, N), as QTensor.values
+        kept = vals.shape[1] * vals.shape[2]  # kept products a row
+        for m in (4, 128):
+            xm, xl = x[:m], x[:max(m, 32)]
+            lib = time_launches(torch, lambda: torch._int_mm(xl, wt.t()),
+                                10, flush_buf)
+            lib_kn = time_launches(torch, lambda: torch._int_mm(xl, w), 10,
+                                   flush_buf)
+            libs = ({"library_ms": lib, "int_mm_kn_ms": lib_kn}
+                    if m == xl.shape[0] else
+                    {"int_mm_m32_ms": lib, "int_mm_m32_kn_ms": lib_kn})
+            row3 = dict(
+                ms=time_launches(torch, lambda: qm.quant_matmul(xm, w), 10,
+                                 flush_buf),
+                plain_ms=time_launches(
+                    torch, lambda: qm.quant_matmul_ref(xm, w), 1, flush_buf),
+                **libs, **bound_row(m, n, k, m * k + k * n + 4 * m * n))
+            row4 = dict(
+                ms=time_launches(torch, lambda: nm.nm_spmm(
+                    xm, vals, idx, m_group=M_GROUP), 10, flush_buf),
+                plain_ms=time_launches(torch, lambda: nm.nm_spmm_ref(
+                    xm, vals, idx, m_group=M_GROUP), 1, flush_buf),
+                dense_ms=row3["ms"], **libs,
+                **bound_row(m, n, kept, m * k + 5 * n * kept + 4 * m * n))
+            table[("quant_matmul", m)].append(row3)
+            table[("nm_spmm", m)].append(row4)
+            for name, row in (("quant_matmul", row3), ("nm_spmm", row4)):
+                print(f"  time {name:12s} {site:6s} M={m:3d} N={n:5d} "
+                      f"K={k:5d} kernel {row['ms']:.4f} ms  plain "
+                      f"{row['plain_ms']:.2f} ms  bound "
+                      f"{row['bound_ms']:.5f} ms  _int_mm at M="
+                      f"{xl.shape[0]} {lib:.4f} ms (weight stored (N, K); "
+                      f"(K, N) as the kernel's: {lib_kn:.4f} ms)",
+                      flush=True)
+    return table
+
+
 def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
                   work="7 projection sites of one qwen2-1.5b layer at "
                        "decode (M=4), acc_bits 16, k_tile 256", **extra):
@@ -1093,7 +1379,8 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
     ``rows``."""
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
-    for key in ("dense_ms", "gather_ms"):
+    for key in ("dense_ms", "gather_ms", "int_mm_kn_ms", "int_mm_m32_ms",
+                "int_mm_m32_kn_ms"):
         if all(key in r for r in rows):
             extra[key] = sum(r[key] for r in rows)
     library = [r.get("library_ms") for r in rows]
@@ -1105,8 +1392,9 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
         bound_by="bytes" if total["bytes_ms"] >= total["ops_ms"]
         else "operations",
         # no one PyTorch call computes a sorted 16-bit register; pass 1's
-        # exact sums are one float32 bmm (the wide policy's torch._int_mm
-        # times are printed in phase 5)
+        # exact sums are one float32 bmm, and rows 3 and 4's wide sums one
+        # torch._int_mm on the weight stored (N, K) (the wide policy's
+        # _int_mm times are printed in phase 5)
         library_ms=sum(library) if all(v is not None for v in library)
         else None, **extra)
 
@@ -1125,6 +1413,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import nm_spmm as nm
+    from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import sorted_matmul as sm
     from repro_torch.kernels import sorted_stream as ss
 
@@ -1161,7 +1450,9 @@ def main() -> int:
                 "nm_sort_matmul": nm.nm_sort_matmul,
                 "nm_tile_sums_matmul": ss.nm_tile_sums_matmul,
                 "nm_paired_accum_matmul": ss.nm_paired_accum_matmul,
-                "nm_chunked_sort_matmul": ss.nm_chunked_sort_matmul}
+                "nm_chunked_sort_matmul": ss.nm_chunked_sort_matmul,
+                "quant_matmul": qm.quant_matmul,
+                "nm_spmm": nm.nm_spmm}
     got = {}  # what each phase measured, for the kernels line
 
     def dense_serve():
@@ -1206,7 +1497,8 @@ def main() -> int:
             nm_err=phase_nm_kernels(torch, sm, nm, args.seed),
             sort_err=phase_sort_kernels(torch, sm, ss, args.seed),
             nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
-                                              args.seed))),
+                                              args.seed),
+            wide_err=phase_wide_kernels(torch, qm, nm, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
         ("[3c] serve qwen2-1.5b under sorted_tiled",
@@ -1221,17 +1513,26 @@ def main() -> int:
          lambda: nm_expand_serve("sorted_tiled")),
         ("[3h] serve qwen2-1.5b from N:M compressed storage with "
          "nm_impl='expand' under sorted", lambda: nm_expand_serve("sorted")),
+        ("[3i] 28-layer decode logits, bit for bit within 3/3b, 3c/3e/3g "
+         "and 3d/3f/3h", lambda: phase_logits_28(torch, cfg, args.seed)),
         ("[4] kernel vs plain serving, dense and compressed", lambda:
             got.update(expand_launches=phase_parity(torch, counters, cfg,
                                                     args.seed))),
         ("[4b] kernel vs plain serving, sorted_tiled and sorted, dense "
          "and expand",
          lambda: phase_sort_parity(torch, counters, cfg, args.seed)),
+        ("[4c] the torch quickstart on the card", lambda: got.update(
+            zip(("quickstart", "quickstart_err"),
+                phase_quickstart(torch, counters)))),
+        ("[4d] quant_matmul and nm_spmm at the full-width qwen2-1.5b sites",
+         lambda: got.update(full_width_err=phase_wide_full_width(
+             torch, sm, qm, nm, cfg, args.seed))),
         ("[5] timing", lambda: got.update(
             timing=phase_timing(torch, sm),
             nm_timing=phase_nm_timing(torch, sm, nm),
             sort_timing=phase_sort_timing(torch, sm, ss),
-            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm))),
+            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm),
+            wide_timing=phase_wide_timing(torch, qm, nm))),
     ]
     for title, fn in phases:
         print(title, flush=True)
@@ -1252,7 +1553,9 @@ def main() -> int:
             "src/repro/kernels/sorted_matmul.py:155",
             got["timing"]["sorted_tiled_seq"],
             launches=got["launches"]["seq_policy_matmul"],
-            max_abs_err=got["err"], path="phase 3, dense storage"),
+            max_abs_err=max(got["err"],
+                            got["quickstart_err"]["seq_policy_matmul"]),
+            path="phase 3, dense storage"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
@@ -1409,6 +1712,27 @@ def main() -> int:
             max_abs_err=err["nm_chunked_sort_matmul"],
             path="phase 3h (two-pass at K = 8960)"),
     ]
+    timing, launches = got["wide_timing"], got["quickstart"]
+    sites = "7 projection sites of one qwen2-1.5b layer"
+    for name, replaces, weight in (
+            ("quant_matmul", "src/repro/kernels/quant_matmul.py:50",
+             "int8 (K, N) weights, as QTensor.values stores them"),
+            ("nm_spmm", "src/repro/kernels/nm_spmm.py:113",
+             "8:16 compressed slabs, expanded in shared memory")):
+        kernels.append(kernel_record(
+            name, csrc + "quant_matmul.cu", replaces, timing[(name, 128)],
+            policy="wide", work=f"{sites} at a prefill cohort (M=128), "
+                                f"{weight}",
+            launches=launches[name],
+            max_abs_err=max(got["wide_err"][name],
+                            got["full_width_err"][name],
+                            got["quickstart_err"][name]),
+            decode=kernel_record(
+                name, csrc + "quant_matmul.cu", replaces, timing[(name, 4)],
+                policy="wide", work=f"{sites} at decode (M=4), {weight}; "
+                                    "torch._int_mm refuses M=4"),
+            path="phase 4c, the torch quickstart (repro_torch.quickstart."
+                 "run on the card)"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

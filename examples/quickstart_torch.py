@@ -1,0 +1,16 @@
+"""PQS quickstart on the PyTorch port (``repro_torch.quickstart``): the
+steps of ``examples/quickstart.py`` on the CUDA card, or on the CPU with
+``--device cpu``.
+
+  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
+"""
+
+import argparse
+
+from repro_torch.quickstart import main
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    main(ap.parse_args().device)

@@ -1,5 +1,6 @@
-"""N:M semi-structured pruning (paper section 2.2) and the compressed
-storage format, torch port of ``repro.core.pruning``.
+"""N:M semi-structured pruning (paper section 2.2), the compressed
+storage format, and the filter-pruning and low-rank baselines (paper
+Figs 3-4), torch port of ``repro.core.pruning``.
 
 Compressed form of an (..., rows, K) matrix with at most n_keep nonzeros
 in every m-group along K:
@@ -42,6 +43,48 @@ def nm_prune_mask(w: torch.Tensor, n_keep: int, m: int) -> torch.Tensor:
     ranks = torch.argsort(order, dim=-1, stable=True)  # 0 = largest
     mask = (ranks < n_keep).to(w.dtype)
     return mask.reshape(w.shape)
+
+
+def sparsity(mask: torch.Tensor) -> torch.Tensor:
+    """Fraction of zeros in a mask or tensor (float32)."""
+    return 1.0 - (mask != 0).to(torch.float32).mean()
+
+
+def iterative_nm_schedule(total_epochs: int, prune_every: int, m: int,
+                          target_sparsity: float) -> list[tuple[int, int]]:
+    """Paper section 5.0.2: every ``prune_every`` epochs prune about 10 %
+    more of each m-group, the last step jumping to the target. Returns
+    [(epoch, n_keep), ...]; e.g. m = 16 at 30 %: epochs 10/20/30 keep
+    14/13/11."""
+    steps = []
+    spars = 0.0
+    epoch = prune_every
+    while spars + 1e-9 < target_sparsity and epoch <= total_epochs:
+        spars = min(spars + 0.10, target_sparsity)
+        if epoch + prune_every > total_epochs:
+            spars = target_sparsity  # last chance: jump to target
+        steps.append((epoch, max(int(round(m * (1.0 - spars))), 0)))
+        epoch += prune_every
+    return steps
+
+
+def filter_prune_mask(w: torch.Tensor, keep_frac: float) -> torch.Tensor:
+    """Structured filter pruning baseline (paper Fig 4): zero the whole
+    output rows (filters) of w (out, in...) with the smallest L2 norms,
+    keeping round(out * keep_frac) of them (at least one; rows tied with
+    the threshold norm stay)."""
+    norms = torch.linalg.vector_norm(w.reshape(w.shape[0], -1), dim=1)
+    k = max(int(round(w.shape[0] * keep_frac)), 1)
+    thresh = torch.sort(norms).values[-k]
+    rows = (norms >= thresh).to(w.dtype)
+    return rows.reshape((-1,) + (1,) * (w.ndim - 1)) * torch.ones_like(w)
+
+
+def low_rank_approx(w: torch.Tensor, rank: int) -> torch.Tensor:
+    """Rank-k SVD approximation of a 2-D weight matrix (paper Fig 3)."""
+    u, s, vh = torch.linalg.svd(w, full_matrices=False)
+    k = min(rank, s.shape[0])
+    return (u[:, :k] * s[:k]) @ vh[:k, :]
 
 
 def _check_nm_args(k: int, n_keep: int, m: int) -> None:

@@ -35,12 +35,36 @@ def pairwise_round(prods: torch.Tensor) -> torch.Tensor:
     return pos + neg
 
 
+def alg1_sorted_dot(prods: torch.Tensor, max_rounds: int | None = None
+                    ) -> torch.Tensor:
+    """The paper's multi-round Algorithm 1: the exact dot (int32 sum).
+
+    Rounds repeat while both signs are present, up to ceil(log2 K) + 1
+    (each round at least halves the mixed-sign values). The predicate is
+    global over the whole batch, as the JAX package's ``jnp.any`` with no
+    axis: every dot takes a round while any dot still holds both signs.
+    """
+    k = prods.shape[-1]
+    if max_rounds is None:
+        max_rounds = max(k.bit_length(), 1)
+    out = prods
+    for _ in range(max_rounds):
+        if bool((out > 0).any()) and bool((out < 0).any()):
+            out = pairwise_round(out)
+    return out.sum(dim=-1, dtype=torch.int32)
+
+
 def sorted_order(prods: torch.Tensor, rounds: int = 2) -> torch.Tensor:
     """Accumulation-ready array after ``rounds`` sorting rounds."""
     out = prods
     for _ in range(rounds):
         out = pairwise_round(out)
     return out
+
+
+def sorted_single_round_order(prods: torch.Tensor) -> torch.Tensor:
+    """One-round variant (the paper's 'single sorting round' claim)."""
+    return sorted_order(prods, rounds=1)
 
 
 def monotone_accumulate(
@@ -118,6 +142,12 @@ def paired_order(tiles: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     if n_tiles % 2:
         return torch.cat([main, ordered[..., -1, :]], dim=-1)
     return main
+
+
+def tiled_pairwise_order(prods: torch.Tensor, k_tile: int) -> torch.Tensor:
+    """The two-level tiled order at two rounds (the JAX package's
+    back-compat alias)."""
+    return tiled_sorted_order(prods, k_tile, rounds=2)
 
 
 def tiled_seq_order(

@@ -27,11 +27,13 @@
 // scatter-add (pqs_accum.cuh expand_slots): a position's weight is the sum
 // of the slots that name it, and a value-0 slot adds nothing, so a padded
 // slot (value 0, index 0) never disturbs a kept value at position 0 of its
-// group. Positions at or past K, groups past G and the kp tail are zero
-// products, masked in the kernel, so neither x nor the slabs are padded or
-// copied on the host. The product stream is then the dense kernels' own,
-// and so is the result, bit for bit, through the dense bodies of
-// pqs_accum.cuh (sorted_keys, sorted_tiled_dot, paired_dot, warp_tile_sum).
+// group; a slot whose index leaves its group adds nothing, as the
+// reference's one-hot expansion drops it. Positions at or past K, groups
+// past G and the kp tail are zero products, masked in the kernel, so
+// neither x nor the slabs are padded or copied on the host. The product
+// stream is then the dense kernels' own, and so is the result, bit for
+// bit, through the dense bodies of pqs_accum.cuh (sorted_keys,
+// sorted_tiled_dot, paired_dot, warp_tile_sum).
 //
 // What bounds it on this card: as for the dense kernels (sort_matmul.cu,
 // sorted_stream.cu), the integer work of sorting the dense stream and of

@@ -285,30 +285,53 @@ __device__ __forceinline__ void atomic_add_i16(int16_t* a, int v) {
   } while (seen != want);
 }
 
-// nm_decompress's scatter-add of a compressed row into w: w[0 .. len) is
-// zeroed, then each slot q in [q0, q1) (group q / n_keep, value val[q],
-// in-group position idx[q]) adds x[pos] * val[q] (with x null: val[q]) at
-// pos - base, pos its dense position, where pos lies in [base, base + len)
-// and below K. A value-0 slot (a padded one: value 0, index 0) adds
-// nothing, so it never disturbs a kept value at position 0 of its group.
-// The team of `size` threads, this one of rank `r`, runs it together;
-// kWarp says whether the team is one warp (else the whole block), which
-// is synchronised before and after the adds.
-template <bool kWarp>
+// nm_decompress's scatter-add of compressed rows into w: w[0 .. kRows len)
+// is zeroed, then each slot q in [q0, q1) of each row r < rows (group
+// q / n_keep, value val[r stride + q], in-group position idx[r stride + q])
+// adds x[pos] * value (with x null: the value) at r len + pos - base, pos
+// its dense position, where pos lies in [base, base + len) and below K.
+// A value-0 slot (a padded one: value 0, index 0) adds nothing, so it never
+// disturbs a kept value at position 0 of its group; nor does a slot whose
+// index lies outside [0, m_group), which the reference's one-hot expansion
+// drops. The team of `size` threads, this one of rank `r`, runs it
+// together, kChunk slots a thread with their loads in flight together (one
+// slot reads its index only for a nonzero value); kWarp says whether the
+// team is one warp (else the whole block), which is synchronised before
+// and after the adds.
+template <bool kWarp, int kRows = 1, int kChunk = 1>
 __device__ __forceinline__ void expand_slots(
     int16_t* w, int len, int base, const int8_t* x, const int8_t* val,
     const int32_t* idx, int q0, int q1, int K, int n_keep, int m_group,
-    int r, int size) {
-  for (int i = r; i < len; i += size) w[i] = 0;
+    int r, int size, int rows = 1, int64_t stride = 0) {
+  for (int i = r; i < kRows * len; i += size) w[i] = 0;
   if (kWarp) __syncwarp(); else __syncthreads();
-  for (int q = q0 + r; q < q1; q += size) {
-    const int v = __ldg(val + q);
-    if (v == 0) continue;
-    const int pos = (q / n_keep) * m_group + __ldg(idx + q);
-    if (pos < K && static_cast<unsigned>(pos - base) <
-                       static_cast<unsigned>(len))
-      atomic_add_i16(w + (pos - base),
-                     x ? static_cast<int>(__ldg(x + pos)) * v : v);
+  const int per = q1 - q0;  // slots of a row
+  const int total = (kRows == 1 ? 1 : rows) * per;
+  for (int i0 = r; i0 < total; i0 += size * kChunk) {
+    int v[kChunk], pos[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int i = i0 + c * size;
+      const int q = q0 + (kRows == 1 ? i : i % per);
+      const int64_t s = (kRows == 1 ? 0 : i / per) * stride + q;
+      v[c] = i < total ? __ldg(val + s) : 0;
+      pos[c] = K;
+      if (i < total && (kChunk > 1 || v[c] != 0)) {
+        const int j = __ldg(idx + s);
+        pos[c] = (q / n_keep) * m_group + j;
+        v[c] = static_cast<unsigned>(j) < static_cast<unsigned>(m_group)
+                   ? v[c] : 0;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int row = kRows == 1 ? 0 : (i0 + c * size) / per;
+      if (v[c] != 0 && pos[c] < K &&
+          static_cast<unsigned>(pos[c] - base) < static_cast<unsigned>(len))
+        atomic_add_i16(w + row * len + (pos[c] - base),
+                       x ? static_cast<int>(__ldg(x + pos[c])) * v[c]
+                         : v[c]);
+    }
   }
   if (kWarp) __syncwarp(); else __syncthreads();
 }

@@ -1,7 +1,7 @@
 """PQS accumulation policies on N:M compressed weights for Hopper: the
 K-streaming ``nm_gather_seq_policy_matmul`` and ``nm_seq_policy_matmul``,
-and the one-pass global-sort ``nm_gather_sort_matmul`` and
-``nm_sort_matmul``.
+the one-pass global-sort ``nm_gather_sort_matmul`` and ``nm_sort_matmul``,
+and the wide ``nm_spmm``.
 
 Port of ``repro/kernels/nm_spmm.py``. Weights arrive compressed
 (``core.pruning``): values (N, G, n_keep) int8 and indices (N, G, n_keep)
@@ -24,18 +24,19 @@ weight, bit for bit:
 
 Each wrapper launches its hand-written CUDA kernel
 (``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_sort_matmul.cu``,
-``csrc/nm_expand_sort.cu``) on CUDA tensors, counting the launch in
-``.launches``, and takes its plain version (``*_ref``) only for tensors on
-the CPU. The kernels mask ragged M, N, K and G themselves; the plain
-versions pad G to whole sort tiles (``_cover``) or K to kp. The two-pass
-and chunked kernels of the global-sort policies are in ``sorted_stream``.
+``csrc/nm_expand_sort.cu``, ``csrc/quant_matmul.cu``) on CUDA tensors,
+counting the launch in ``.launches``, and takes its plain version
+(``*_ref``) only for tensors on the CPU. The kernels mask ragged M, N, K
+and G themselves; the plain versions pad G to whole sort tiles
+(``_cover``) or K to kp. The two-pass and chunked kernels of the
+global-sort policies are in ``sorted_stream``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.overflow import accumulate
+from repro_torch.core.overflow import accumulate, nm_partial_products
 from repro_torch.core.pruning import nm_decompress
 from repro_torch.core.sorted_accum import (
     monotone_accumulate,
@@ -76,14 +77,9 @@ def pad_last_pow2(a: torch.Tensor) -> torch.Tensor:
 
 def gather_nm_products(xb: torch.Tensor, vals: torch.Tensor,
                        idx: torch.Tensor, m_group: int) -> torch.Tensor:
-    """Kept-only partial products: xb (M, >= G*m_group), vals/idx
-    (N, G, n_keep) -> (M, N, G*n_keep) int32, product j of group g being
-    xb[i, g*m_group + idx[o, g, j]] * vals[o, g, j]."""
-    n, g, n_keep = vals.shape
-    base = torch.arange(g, device=idx.device, dtype=torch.int64) * m_group
-    pos = (idx.to(torch.int64) + base[:, None]).reshape(n, g * n_keep)
-    return xb.to(torch.int32)[:, pos] * vals.reshape(n, g * n_keep).to(
-        torch.int32)
+    """Kept-only partial products: xb (M, K), vals/idx (N, G, n_keep) ->
+    (M, N, G*n_keep) int32 (``overflow.nm_partial_products``)."""
+    return nm_partial_products(vals, idx, xb, m_group)
 
 
 def _check(x, values, indices, m_group, policy, acc_bits, k_tile) -> None:
@@ -286,6 +282,52 @@ def nm_seq_policy_matmul(
 
 nm_gather_seq_policy_matmul.launches = 0
 nm_seq_policy_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the wide matmul on compressed slabs
+# ---------------------------------------------------------------------------
+
+
+def nm_spmm_ref(x: torch.Tensor, values: torch.Tensor,
+                indices: torch.Tensor, *, m_group: int = 16) -> torch.Tensor:
+    """Plain version of ``nm_spmm`` (any device): the expand kernel's plain
+    version under ``wide`` (decompress by scatter-add, then the row-chunked
+    int32 sum of ``quant_matmul_ref``)."""
+    return nm_seq_policy_matmul_ref(x, values, indices, m_group=m_group,
+                                    policy="wide")
+
+
+def nm_spmm(
+    x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
+    values: torch.Tensor,  # (N, G, n_keep) int8, K <= G * m_group
+    indices: torch.Tensor,  # (N, G, n_keep) int32
+    *,
+    m_group: int = 16,
+) -> torch.Tensor:
+    """(M, N) int32 exact sums on compressed slabs, equal to
+    ``quant_matmul`` on the decompressed weight: the CUDA kernel of
+    ``csrc/quant_matmul.cu`` (each slab expanded in shared memory, then the
+    tensor-core body of ``quant_matmul``) on CUDA tensors, the plain version
+    on CPU tensors. The kernel masks ragged M, N, K and G.
+
+    The slabs must be canonical (``pruning.nm_compress``'s; checked by
+    ``nm_assert_canonical``, never here): indices in [0, m_group) and at
+    most one nonzero slot at a dense position. On other slabs the kernel
+    drops a slot whose index leaves its group, as the JAX kernel's one-hot
+    does, and wraps two values at one position to int8, where the plain
+    version and the JAX kernel sum them in int32."""
+    _check(x, values, indices, m_group, "wide", 16, 256)
+    if on_cpu(x, values, indices):
+        return nm_spmm_ref(x, values, indices, m_group=m_group)
+    out, launched = launch_slabs("quant_matmul", "pqs_nm_spmm", x, values,
+                                 indices, m_group=m_group)
+    if launched:
+        nm_spmm.launches += 1
+    return out
+
+
+nm_spmm.launches = 0
 
 
 # ---------------------------------------------------------------------------

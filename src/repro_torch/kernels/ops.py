@@ -13,21 +13,30 @@ gather or the expand kernels (``resolve_nm_impl``): the K-streaming
 policies to those of ``nm_spmm``, the global-sort policies one-pass to
 ``nm_spmm.nm_gather_sort_matmul`` / ``nm_sort_matmul`` and two-pass to
 ``sorted_stream.nm_gather_stream_sort_matmul`` / ``nm_stream_sort_matmul``
-(``resolve_sort_impl`` on the dense path's padded K). The TPU block
-table, its environment overrides and the autotuner are not carried over —
-their numbers were VMEM budgets of the TPU.
+(``resolve_sort_impl`` on the dense path's padded K). The quickstart's
+entry points sit beside them: the wide ``quant_matmul`` and ``nm_spmm``
+(the kernels' own wrappers: they mask every edge, so nothing is padded),
+``sorted_matmul`` and ``clip_matmul`` (``policy_matmul`` under
+``sorted_tiled_seq`` and ``clip``) and the host packer
+``compress_nm_weights``. The TPU block table and block keywords (``bm``,
+``bn``, ``bg``, ``quant_matmul``'s ``bk``), its environment overrides and
+the autotuner are not carried over — their numbers were VMEM budgets of
+the TPU — and neither is ``interpret``: the tensors' device decides.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.nm_spmm import (
+from repro_torch.core.pruning import nm_compress
+from repro_torch.kernels.nm_spmm import (  # noqa: F401 (nm_spmm: entry point)
     nm_gather_seq_policy_matmul,
     nm_gather_sort_matmul,
     nm_seq_policy_matmul,
     nm_sort_matmul,
+    nm_spmm,
 )
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: F401
 from repro_torch.kernels.sorted_matmul import (
     SEQ_POLICIES,
     SORT_POLICIES,
@@ -221,3 +230,25 @@ def nm_policy_matmul(
         else nm_seq_policy_matmul
     return fn(x, values, indices, m_group=m_group, policy=policy,
               acc_bits=acc_bits, rounds=rounds, k_tile=k_tile)
+
+
+def sorted_matmul(x: torch.Tensor, w: torch.Tensor, *, acc_bits: int = 16,
+                  rounds: int = 1, bk: int = 256) -> torch.Tensor:
+    """PQS tiled-sort matmul: (M, K) x (N, K) -> (M, N) int32 at
+    acc_bits, ``bk`` the sort tile (``sorted_tiled_seq``)."""
+    return policy_matmul(x, w, policy="sorted_tiled_seq", acc_bits=acc_bits,
+                         k_tile=bk, rounds=rounds)
+
+
+def clip_matmul(x: torch.Tensor, w: torch.Tensor, *, acc_bits: int = 16,
+                bk: int = 256) -> torch.Tensor:
+    """Natural-order saturating matmul: (M, K) x (N, K) -> (M, N) int32."""
+    return policy_matmul(x, w, policy="clip", acc_bits=acc_bits, k_tile=bk)
+
+
+def compress_nm_weights(w, n_keep: int, m: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host packer: dense (N, K) (an array or a tensor, which keeps its
+    device) -> (int8 values, int32 indices) for ``nm_spmm``."""
+    vals, idx = nm_compress(torch.as_tensor(w), n_keep, m)
+    return vals.to(torch.int8), idx

@@ -17,6 +17,7 @@ from repro_torch.core.dispatch import pqs_dot
 from repro_torch.core.pruning import nm_compress, nm_decompress, nm_prune_mask
 from repro_torch.core.sorted_accum import pair_permutation
 from repro_torch.kernels import nm_spmm, ops
+from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import sorted_matmul as sm
 from repro_torch.kernels import sorted_stream as ss
 
@@ -898,3 +899,129 @@ def test_nm_auto_takes_expand_twins_on_card(card, policy):
         assert (nm_spmm.nm_gather_sort_matmul.launches,
                 ss.nm_gather_tile_sums.launches,
                 ss.nm_gather_chunked_sort_matmul.launches) == gather
+
+
+# (M, K, N) edge shapes of the wide kernels: decode and prefill M, ragged
+# N and K (no multiple of 8, 16 or 32), K = 8960, and the quickstart's
+# matmul
+WIDE_SHAPES = ((1, 1536, 256), (4, 8960, 1536), (17, 300, 70),
+               (128, 1536, 8960), (4, 33, 129), (128, 77, 5), (32, 512, 64))
+
+
+def _extremes(x, w):
+    """Rows of x and columns of w (K, N) at the int8 corners."""
+    x[0], w[:, 0] = -128, -128
+    if x.shape[0] > 1:
+        x[-1] = 127
+    if w.shape[1] > 1:
+        w[:, -1] = 127
+    return x, w
+
+
+@pytest.mark.parametrize("m,k,n", WIDE_SHAPES)
+def test_quant_matmul_matches_plain_and_wide_policy(card, m, k, n):
+    """Row 3 (``quant_matmul``, w (K, N)) bit-exact against its plain
+    version and against ``seq_policy_matmul`` under ``wide`` on wᵀ, with
+    the int8 extremes at a corner; one launch each call."""
+    x, wt = _xw(m, k, n, m + k + n, card)
+    x, w = _extremes(x, wt.t().contiguous())
+    before = qm.quant_matmul.launches
+    got = qm.quant_matmul(x, w)
+    want = qm.quant_matmul_ref(x, w)
+    wide = sm.seq_policy_matmul(x, w.t().contiguous(), policy="wide")
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == before + 1
+    assert torch.equal(got, want) and torch.equal(got, wide), (m, k, n)
+    assert int(got[0, 0]) == 128 * 128 * k
+
+
+@pytest.mark.parametrize("n_keep,m_group", [(8, 16), (4, 16), (2, 8),
+                                            (16, 16)])
+def test_nm_spmm_matches_plain_and_quant_matmul(card, n_keep, m_group):
+    """Row 4 (``nm_spmm``) bit-exact against its plain version and row 3
+    on the decompressed weight, at the edge shapes; then with padded
+    slots (value 0, index 0) behind a kept value at position 0 of each
+    group, which the in-kernel scatter-add must keep."""
+    for m, k, n in WIDE_SHAPES:
+        x, w, vals, idx = _nm_w(m, k, n, n_keep, m_group, m + k + n_keep,
+                                card)
+        before = nm_spmm.nm_spmm.launches
+        got = nm_spmm.nm_spmm(x, vals, idx, m_group=m_group)
+        want = nm_spmm.nm_spmm_ref(x, vals, idx, m_group=m_group)
+        dense = qm.quant_matmul(x, w.t().contiguous())
+        torch.cuda.synchronize()
+        assert nm_spmm.nm_spmm.launches == before + 1
+        assert torch.equal(got, want) and torch.equal(got, dense), (m, k, n)
+    vals[:, :, 1:] = 0
+    idx.zero_()
+    vals[:, :, 0] = -128
+    dense = nm_decompress(vals, idx, m_group)[:, :k]
+    got = nm_spmm.nm_spmm(x, vals, idx, m_group=m_group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qm.quant_matmul(x, dense.t().contiguous()))
+    assert bool((dense[:, 0] == -128).all())
+
+
+def test_wide_kernels_check_inputs(card):
+    x = torch.zeros((3, 64), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        qm.quant_matmul(x, torch.zeros((64, 5), dtype=torch.int8))
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul(x, torch.zeros((5, 64), dtype=torch.int8,
+                                       device=card).t())
+    with pytest.raises(ValueError, match="int8 values"):
+        qm.quant_matmul(x, torch.full((64, 5), 300, dtype=torch.int32,
+                                      device=card))
+    assert qm.quant_matmul(x[:, :0], torch.zeros(
+        (0, 5), dtype=torch.int8, device=card)).abs().sum() == 0
+
+
+def test_quickstart_on_card_matches_cpu(card, capsys):
+    """repro_torch.quickstart on the card returns and prints what it does
+    on the CPU (apart from the device label), through the row 3, row 4
+    and seq_policy_matmul kernels, whose results equal the plain
+    versions' on the same inputs element by element."""
+    from repro_torch import quickstart
+    counts = (qm.quant_matmul.launches, nm_spmm.nm_spmm.launches,
+              sm.seq_policy_matmul.launches)
+    on_card, card_t = quickstart.run()
+    card_out = capsys.readouterr().out.replace("(kernel, cuda)",
+                                               "(kernel, cpu)")
+    assert all(c > b for c, b in zip((qm.quant_matmul.launches,
+                                      nm_spmm.nm_spmm.launches,
+                                      sm.seq_policy_matmul.launches),
+                                     counts))
+    on_cpu, cpu_t = quickstart.run(device="cpu")
+    assert on_card == on_cpu
+    assert card_out == capsys.readouterr().out
+    assert set(card_t) == set(cpu_t)
+    for key, want in cpu_t.items():
+        assert card_t[key].is_cuda and torch.equal(card_t[key].cpu(),
+                                                   want), key
+
+
+@pytest.mark.parametrize("kernel", ["nm_spmm", "nm_sort_matmul"])
+def test_expand_kernels_drop_out_of_group_indices(card, kernel):
+    """A slot whose index lies outside [0, m_group) adds nothing in the
+    kernels that rebuild slabs in shared memory, as the JAX package's
+    one-hot expansion drops it: the result is the plain version's on the
+    slabs with those slots' values set to 0."""
+    m_group = 16
+    x, _, vals, idx = _nm_w(17, 300, 70, 4, m_group, 33, card)
+    bad, dropped = idx.clone(), vals.clone()
+    for j, (sl, i) in enumerate(((slice(0, None, 3), m_group),
+                                 (slice(1, None, 3), -1),
+                                 (slice(2, None, 3), 1 << 20))):
+        bad[:, sl, j + 1] = i
+        dropped[:, sl, j + 1] = 0
+    assert bool((vals != dropped).any())
+    if kernel == "nm_spmm":
+        got = nm_spmm.nm_spmm(x, vals, bad, m_group=m_group)
+        want = nm_spmm.nm_spmm_ref(x, dropped, idx, m_group=m_group)
+    else:
+        kw = dict(m_group=m_group, policy="sorted_tiled", acc_bits=16,
+                  k_tile=64)
+        got = nm_spmm.nm_sort_matmul(x, vals, bad, **kw)
+        want = nm_spmm.nm_sort_matmul_ref(x, dropped, idx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

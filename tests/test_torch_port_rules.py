@@ -21,7 +21,7 @@ from repro_torch.models.model import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imports(path):
@@ -72,6 +72,35 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, model.init(0), num_slots=1, max_len=8)
+    from repro_torch import quickstart
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main()
+
+
+def test_wide_wrappers_never_take_plain_versions_off_the_cpu(monkeypatch):
+    """ops.quant_matmul and ops.nm_spmm on tensors that are not on the CPU
+    (meta tensors here, as no card is present) go to the card's operand
+    checks and raise there: the plain versions are never called."""
+    from repro_torch.kernels import nm_spmm, ops, quant_matmul
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for off-CPU tensors")
+
+    monkeypatch.setattr(quant_matmul, "quant_matmul_ref", refuse)
+    monkeypatch.setattr(nm_spmm, "nm_spmm_ref", refuse)
+    x = torch.zeros((2, 32), dtype=torch.int8, device="meta")
+    w = torch.zeros((32, 3), dtype=torch.int8, device="meta")
+    vals = torch.zeros((3, 2, 8), dtype=torch.int8, device="meta")
+    idx = torch.zeros((3, 2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.quant_matmul(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.nm_spmm(x, vals, idx, m_group=16)
+    with pytest.raises(ValueError, match="CUDA"):  # mixed devices
+        ops.quant_matmul(x, torch.zeros((32, 3), dtype=torch.int8))
+    assert quant_matmul.quant_matmul.launches == 0
+    assert nm_spmm.nm_spmm.launches == 0
 
 
 def test_cuda_backend_refuses_cpu_tensors():
