@@ -8,11 +8,17 @@ imports nothing of JAX or of the JAX package. Phases:
 
 1. the card (nvidia-smi name and power limit); build every CUDA kernel
    of the port from ``src/repro_torch/csrc`` (one nvcc each, in parallel)
-   and print each kernel's registers and spills;
+   and print each kernel's registers and spills, and the SASS opcodes of
+   the packed int16x2 sort;
 2. each kernel against its plain PyTorch version on the card, bit-exact,
    at the qwen2-1.5b projection shapes (seeded int8, near-extreme rows so
    a 16-bit register saturates), every policy, rounds 1 and 2: the dense
-   ``seq_policy_matmul``, and the N:M ``nm_gather_seq_policy_matmul`` and
+   ``seq_policy_matmul`` (``wide``, the tensor-core mainloop, also at
+   M = 128 with the int8 extremes at the corners and equal to
+   ``quant_matmul`` on the transposed weight; ``sorted_tiled_seq``, the
+   packed sort, at k_tile 1 to 1024, rounds 1 to 3, acc_bits 2, 16 and
+   30 and M 1, 3, 4, 5, with ``clip`` and ``wrap``), and the N:M
+   ``nm_gather_seq_policy_matmul`` and
    ``nm_seq_policy_matmul`` on 8:16 slabs (plus ragged 3:16 and 2:4
    cases), which must also equal the dense kernel on the decompressed
    weight; and the global-sort kernels ``sort_matmul``,
@@ -27,10 +33,12 @@ imports nothing of JAX or of the JAX package. Phases:
    global-sort kernels on the decompressed weight (and expand the
    gather); ``auto`` must launch the expand twins for a site of fewer than
    ``GATHER_MIN_G`` groups and for 16:16 (dense-as-sparse) slabs; and the
-   wide ``quant_matmul`` (w (K, N)) and ``nm_spmm`` at edge shapes (M 1,
-   4, 17, 128, ragged N and K, K = 8960, int8 extremes; 8:16, 4:16, 2:8,
-   16:16 and padded slots), ``nm_spmm`` also equal to ``quant_matmul`` on
-   the decompressed weight;
+   wide ``quant_matmul`` (w (K, N)), ``seq_policy_matmul`` under ``wide``
+   (at operands 0, 1 and 4 bytes off alignment) and ``nm_spmm`` at edge
+   shapes (M 1, 4, 17, 128, ragged N and K, K = 8960, int8 extremes;
+   8:16, 4:16, 2:8, 16:16 and padded slots; non-canonical slabs on which
+   it and its plain version agree), ``nm_spmm`` and the ``wide`` policy
+   also equal to ``quant_matmul``;
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -79,7 +87,9 @@ imports nothing of JAX or of the JAX package. Phases:
    launch), beside the plain versions, ``torch._int_mm`` (and a
    float32 ``bmm`` for the tile sums) and, for the N:M kernels, the
    dense kernel on the same dot (the decompressed weight) and, for the
-   expand kernels, the gather kernels; the gather and expand one-pass
+   expand kernels, the gather kernels; ``seq_policy_matmul`` under
+   ``wide`` at the 7 sites at M = 4, 64 and 128 beside ``torch._int_mm``;
+   the gather and expand one-pass
    kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); and ``quant_matmul``
    and ``nm_spmm`` at the 7 site shapes at M = 4 and 128 beside
    ``torch._int_mm`` with the weight stored (N, K) and as the kernel's
@@ -156,29 +166,79 @@ def nm_operands(torch, m, n, k, seed, n_keep=N_KEEP, m_group=M_GROUP,
     return x, w, vals.contiguous(), idx.contiguous()
 
 
-def phase_kernels(torch, sm, seed):
-    """Kernel vs plain version, bit-exact. Returns the max |difference|."""
+def corner_extremes(x, w):
+    """Row 0 of x and of w (N, K) all -128 and their last rows all 127,
+    in place: the int8 extremes at the corners of the output."""
+    x[0], w[0] = -128, -128
+    if x.shape[0] > 1:
+        x[-1] = 127
+    if w.shape[0] > 1:
+        w[-1] = 127
+    return x, w
+
+
+def phase_kernels(torch, sm, qm, seed):
+    """Kernel vs plain version, bit-exact: every policy at the site shapes
+    (M = 4 and 64) and a ragged one; ``wide`` (the tensor-core mainloop)
+    also at M = 128 with the int8 extremes at the corners, equal to row 3
+    on the transposed weight; ``sorted_tiled_seq`` (the packed int16x2
+    sort) at k_tile 1 to 1024, rounds 1 to 3, acc_bits 2, 16 and 30 and
+    M 1, 3, 4, 5 (odd M leaves a packed half zero), K not a multiple of a
+    chunk, extremes at the corners, and ``clip`` and ``wrap`` at the same
+    M and acc_bits. Returns the max |difference|."""
     cases = [(m, n, k) for (n, k) in SHAPES for m in (4, 64)] + [(5, 70, 300)]
     worst = 0
+
+    def check(x, w, **kw):
+        nonlocal worst
+        got = sm.seq_policy_matmul(x, w, **kw)
+        want = sm.seq_policy_matmul_ref(x, w, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        return got, want, err
+
     for i, (m, n, k) in enumerate(cases):
         x, w = operands(torch, m, n, k, seed + i)
         for policy in sm.SEQ_POLICIES:
             for rounds in ((1, 2) if policy == "sorted_tiled_seq" else (1,)):
-                kw = dict(policy=policy, acc_bits=16, rounds=rounds,
-                          k_tile=256)
-                got = sm.seq_policy_matmul(x, w, **kw)
-                want = sm.seq_policy_matmul_ref(x, w, **kw)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
+                _, want, err = check(x, w, policy=policy, acc_bits=16,
+                                     rounds=rounds, k_tile=256)
                 # share of outputs at or past the 16-bit register's edge
                 edge = float((want.abs() >= 32767).float().mean())
-                worst = max(worst, err)
                 print(f"  kernel/plain M={m:3d} N={n:5d} K={k:5d} "
                       f"{policy:16s} rounds={rounds} max|diff|={err} "
                       f"at-16-bit-edge={edge:.3f}", flush=True)
-    if worst:
+    row3 = 0
+    for i, (n, k) in enumerate(SHAPES):
+        for m in (4, 64, 128):
+            x, w = corner_extremes(*operands(torch, m, n, k, seed + 20 + i))
+            got, _, err = check(x, w, policy="wide")
+            cross = int((got.long() - qm.quant_matmul(
+                x, w.t().contiguous()).long()).abs().max())
+            row3 = max(row3, cross, abs(int(got[0, 0]) - 128 * 128 * k))
+            print(f"  wide (corners) M={m:3d} N={n:5d} K={k:5d} "
+                  f"max|diff| plain={err} row 3 on wT={cross}", flush=True)
+    for m in (1, 3, 4, 5):
+        x, w = corner_extremes(*operands(torch, m, 37, 1100, seed + 30 + m))
+        errs = []
+        for k_tile in (1, 8, 32, 256, 1024):
+            for rounds in (1, 2, 3):
+                for acc_bits in (2, 16, 30):
+                    errs.append(check(x, w, policy="sorted_tiled_seq",
+                                      acc_bits=acc_bits, rounds=rounds,
+                                      k_tile=k_tile)[2])
+        for policy in ("clip", "wrap"):
+            for acc_bits in (2, 16, 30):
+                errs.append(check(x, w, policy=policy,
+                                  acc_bits=acc_bits)[2])
+        print(f"  packed sort M={m} N=37 K=1100 (corners): k_tile 1-1024 "
+              f"x rounds 1-3 x acc_bits 2/16/30, and clip, wrap: "
+              f"max|diff| {max(errs)} over {len(errs)} cases", flush=True)
+    if worst or row3:
         raise AssertionError(f"kernel disagrees with its plain version "
-                             f"(max |diff| {worst})")
+                             f"(max |diff| {worst}) or wide with row 3 "
+                             f"({row3})")
     return worst
 
 
@@ -231,21 +291,35 @@ WIDE_EDGES = ((1, 1536, 256), (4, 8960, 1536), (17, 300, 70),
 WIDE_SLABS = ((8, 16), (4, 16), (2, 8), (16, 16))  # (n_keep, m_group)
 
 
-def phase_wide_kernels(torch, qm, nm, seed):
-    """Rows 3 (``quant_matmul``, w (K, N)) and 4 (``nm_spmm``) against
-    their plain versions, bit-exact, at ``WIDE_EDGES`` with the int8
-    extremes at a corner (row 0 of x and column 0 of w all -128, the
-    last ones all 127); row 4 on 8:16, 4:16, 2:8 and 16:16 slabs, and on
-    slabs whose padded (0, 0) slots follow a kept value at position 0,
-    each equal to row 3 on the decompressed weight. Returns the max
-    |difference| of each kernel against its plain version."""
+def offset_copy(torch, t, offset):
+    """A contiguous copy of int8 ``t`` starting ``offset`` bytes into its
+    allocation (no 16- or 4-byte alignment for an odd offset)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_wide_kernels(torch, sm, qm, nm, seed):
+    """Rows 3 (``quant_matmul``, w (K, N)), 1 under ``wide`` (w (N, K)) and
+    4 (``nm_spmm``) against their plain versions, bit-exact, at
+    ``WIDE_EDGES`` with the int8 extremes at a corner (row 0 of x and
+    column 0 of w all -128, the last ones all 127); row 1 also equal to
+    row 3, and through each copy width of its ring (operands 0, 1 and 4
+    bytes off 16-byte alignment); row 4 on 8:16, 4:16, 2:8 and 16:16
+    slabs, and on slabs whose padded (0, 0) slots follow a kept value at
+    position 0, each equal to row 3 on the decompressed weight, and on
+    non-canonical slabs where it and its plain version agree (indices >=
+    m_group or negative, dropped; two nonzero slots at one position whose
+    sum stays inside int8). Returns the max |difference| of each kernel
+    against its plain version."""
     from repro_torch.core.pruning import nm_decompress
 
     def diff(a, b):
         torch.cuda.synchronize()
         return int((a.long() - b.long()).abs().max())
 
-    worst = {"quant_matmul": 0, "nm_spmm": 0}
+    worst = {"quant_matmul": 0, "nm_spmm": 0, "seq_policy_matmul": 0}
     cross = corner = 0
     for i, (m, k, n) in enumerate(WIDE_EDGES):
         x, wt = operands(torch, m, n, k, seed + 300 + i)
@@ -259,6 +333,15 @@ def phase_wide_kernels(torch, qm, nm, seed):
         err = diff(got, qm.quant_matmul_ref(x, w))
         worst["quant_matmul"] = max(worst["quant_matmul"], err)
         corner = max(corner, abs(int(got[0, 0]) - 128 * 128 * k))
+        wide = []
+        for offset in (0, 1, 4):
+            xo = offset_copy(torch, x, offset)
+            wo = offset_copy(torch, w.t().contiguous(), 2 * offset)
+            row1 = sm.seq_policy_matmul(xo, wo, policy="wide")
+            wide.append(diff(row1, sm.seq_policy_matmul_ref(
+                xo, wo, policy="wide")))
+            cross = max(cross, diff(row1, got))
+        worst["seq_policy_matmul"] = max(worst["seq_policy_matmul"], *wide)
         errs = []
         for j, (n_keep, m_group) in enumerate(WIDE_SLABS):
             xs, ws, vals, idx = nm_operands(torch, m, n, k, seed + 310 + j,
@@ -270,9 +353,11 @@ def phase_wide_kernels(torch, qm, nm, seed):
                 xs, ws.t().contiguous())))
         worst["nm_spmm"] = max(worst["nm_spmm"], *errs)
         print(f"  wide kernels/plain M={m:3d} N={n:5d} K={k:5d} max|diff| "
-              f"quant_matmul={err} nm_spmm at "
+              f"quant_matmul={err} wide policy at offsets 0/1/4={wide} "
+              f"nm_spmm at "
               f"{'/'.join(f'{a}:{b}' for a, b in WIDE_SLABS)}={errs}; "
-              f"nm_spmm vs quant_matmul {cross}", flush=True)
+              f"wide policy and nm_spmm vs quant_matmul {cross}",
+              flush=True)
     x, _, vals, idx = nm_operands(torch, 4, 1536, 1536, seed + 320)
     vals[:, :, 1:] = 0  # padded slots (0, 0) behind a kept value at 0
     idx.zero_()
@@ -285,8 +370,24 @@ def phase_wide_kernels(torch, qm, nm, seed):
     kept = bool((dense[:, ::M_GROUP] == -128).all())
     print(f"  nm_spmm on padded slots: max|diff| {pad}, vs quant_matmul "
           f"{cross}, kept values at position 0 intact {kept}", flush=True)
+    odd = []
+    for j, (n_keep, m_group) in enumerate(WIDE_SLABS + ((3, 12), (8, 32))):
+        x, _, vals, idx = nm_operands(torch, 17, 70, 300, seed + 330 + j,
+                                      n_keep, m_group)
+        vals[:, 2::3, :2] = (vals[:, 2::3, :2].to(torch.int32) // 3).to(
+            torch.int8)  # slot 1 joins slot 0's position, inside int8
+        idx[:, 2::3, 1] = idx[:, 2::3, 0]
+        bad, dropped = idx.clone(), vals.clone()
+        bad[:, 0::3, -1], dropped[:, 0::3, -1] = m_group, 0
+        bad[:, 1::3, -1], dropped[:, 1::3, -1] = -1, 0
+        odd.append(diff(nm.nm_spmm(x, vals, bad, m_group=m_group),
+                        nm.nm_spmm_ref(x, dropped, idx, m_group=m_group)))
+    worst["nm_spmm"] = max(worst["nm_spmm"], *odd)
+    print(f"  nm_spmm on non-canonical slabs (dropped indices, summed "
+          f"duplicates) at {'/'.join(f'{a}:{b}' for a, b in WIDE_SLABS)}"
+          f"/3:12/8:32: max|diff| {odd}", flush=True)
     if any(worst.values()) or cross or corner or not kept:
-        raise AssertionError(f"wide kernels disagree: {worst}, nm_spmm vs "
+        raise AssertionError(f"wide kernels disagree: {worst}, vs "
                              f"quant_matmul {cross}, corner off by {corner}, "
                              f"kept {kept}")
     return worst
@@ -1003,7 +1104,11 @@ def time_launches(torch, fn, iters, flush_buf):
 
 def phase_timing(torch, sm):
     """Kernel, plain and library times at the decode shapes (M = 4) for
-    the 7 sites of one layer; the main path's policy is the record."""
+    the 7 sites of one layer under every policy (the main path's policy is
+    the record); and ``wide`` (the tensor-core mainloop) at M = 4, 64 and
+    128 beside its bound and ``torch._int_mm`` on the same (N, K) weight
+    (at M = 32 beside the decode rows: it refuses M <= 16). Returns
+    {policy: rows at M = 4} and {("wide", M): rows}."""
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     table = {}
     m = 4
@@ -1017,34 +1122,33 @@ def phase_timing(torch, sm):
             plain = time_launches(
                 torch, lambda: sm.seq_policy_matmul_ref(x, w, **kw), 1,
                 flush_buf)
-            lib = None
-            if policy == "wide":
-                try:
-                    lib = time_launches(torch, lambda: torch._int_mm(x, w.t()),
-                                        10, flush_buf)
-                except RuntimeError as exc:  # refused shape: report it
-                    lib = f"refused: {str(exc).splitlines()[0][:100]}"
-            bytes_ms = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2 * m * n * k / INT8_OPS_PER_S * 1e3
-            bound = max(bytes_ms, ops_ms)
-            rows.append(dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                             bytes_ms=bytes_ms, ops_ms=ops_ms))
+            rows.append(dict(ms=ms, plain_ms=plain,
+                             **bound_row(m, n, k, m * k + n * k + 4 * m * n)))
             print(f"  time {policy:16s} {name:6s} M={m} N={n:5d} K={k:5d} "
                   f"kernel {ms:.4f} ms  plain {plain:.2f} ms  bound "
-                  f"{bound:.5f} ms" + (f"  _int_mm {lib}" if lib else ""),
-                  flush=True)
+                  f"{rows[-1]['bound_ms']:.5f} ms", flush=True)
         table[policy] = rows
-    # wide at a prefill-sized M, where _int_mm takes the shape
-    for n, k in SHAPES:
-        x, w = operands(torch, 64, n, k, 8)
-        ms = time_launches(torch, lambda: sm.seq_policy_matmul(
-            x, w, policy="wide"), 10, flush_buf)
-        try:
-            lib = f"{time_launches(torch, lambda: torch._int_mm(x, w.t()), 10, flush_buf):.4f} ms"
-        except RuntimeError as exc:
-            lib = f"refused: {str(exc).splitlines()[0][:100]}"
-        print(f"  time wide M=64 N={n:5d} K={k:5d} kernel {ms:.4f} ms  "
-              f"_int_mm {lib}", flush=True)
+    for m in (4, 64, 128):
+        rows = []
+        for name, (n, k) in SITES.items():
+            x, w = operands(torch, max(m, 32), n, k, 8)
+            xm = x[:m]
+            ms = time_launches(torch, lambda: sm.seq_policy_matmul(
+                xm, w, policy="wide"), 10, flush_buf)
+            plain = time_launches(torch, lambda: sm.seq_policy_matmul_ref(
+                xm, w, policy="wide"), 1, flush_buf)
+            lib = time_launches(torch, lambda: torch._int_mm(x, w.t()), 10,
+                                flush_buf)
+            rows.append(dict(
+                ms=ms, plain_ms=plain,
+                **({"library_ms": lib} if m == x.shape[0]
+                   else {"int_mm_m32_ms": lib}),
+                **bound_row(m, n, k, m * k + n * k + 4 * m * n)))
+            print(f"  time wide M={m:3d} {name:6s} N={n:5d} K={k:5d} kernel "
+                  f"{ms:.4f} ms  plain {plain:.2f} ms  bound "
+                  f"{rows[-1]['bound_ms']:.5f} ms  _int_mm at M="
+                  f"{x.shape[0]} {lib:.4f} ms", flush=True)
+        table[("wide", m)] = rows
     return table
 
 
@@ -1432,6 +1536,18 @@ def main() -> int:
         for kernel, regs, spill in build.register_report(info["log"]):
             print(f"    {name}: {kernel} {regs} registers, spill stores/"
                   f"loads {spill} bytes", flush=True)
+    # what the packed sort's 16x2 max / min / add compile to
+    label = "sorted_seq_kernel<8,32>"
+    try:
+        ops = build.sass_opcodes("seq_policy_matmul", label)
+    except (OSError, subprocess.CalledProcessError) as exc:
+        print(f"[1] SASS of {label} not read: {exc}", flush=True)
+    else:
+        packed = {op: n for op, n in sorted(ops.items(), key=lambda o: -o[1])
+                  if "16x2" in op or op.startswith(("SHFL", "PRMT"))}
+        print(f"[1] SASS of {label} (k_tile 256): {sum(ops.values())} "
+              f"instructions; 16x2, shuffles and byte permutes {packed}",
+              flush=True)
 
     cfg = get_config("qwen2-1.5b")
     counters = {"seq_policy_matmul": sm.seq_policy_matmul,
@@ -1493,12 +1609,12 @@ def main() -> int:
 
     phases = [
         ("[2] kernel vs plain", lambda: got.update(
-            err=phase_kernels(torch, sm, args.seed),
+            err=phase_kernels(torch, sm, qm, args.seed),
             nm_err=phase_nm_kernels(torch, sm, nm, args.seed),
             sort_err=phase_sort_kernels(torch, sm, ss, args.seed),
             nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
                                               args.seed),
-            wide_err=phase_wide_kernels(torch, qm, nm, args.seed))),
+            wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
         ("[3c] serve qwen2-1.5b under sorted_tiled",
@@ -1554,7 +1670,16 @@ def main() -> int:
             got["timing"]["sorted_tiled_seq"],
             launches=got["launches"]["seq_policy_matmul"],
             max_abs_err=max(got["err"],
-                            got["quickstart_err"]["seq_policy_matmul"]),
+                            got["quickstart_err"]["seq_policy_matmul"],
+                            got["wide_err"]["seq_policy_matmul"]),
+            wide={f"M={m}": kernel_record(
+                "seq_policy_matmul", csrc + "seq_policy_matmul.cu",
+                "src/repro/kernels/sorted_matmul.py:155",
+                got["timing"][("wide", m)], policy="wide",
+                work=f"7 projection sites of one qwen2-1.5b layer at M={m}, "
+                     "the int8 tensor-core mainloop"
+                     + ("; torch._int_mm refuses M=4" if m == 4 else ""))
+                for m in (4, 64, 128)},
             path="phase 3, dense storage"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",

@@ -27,6 +27,17 @@
 //   ring homomorphism, so wrap(acc + chunk sum) equals the stepwise wraps.
 // - A zero product is neither positive nor negative and adds nothing
 //   under any policy, so callers mask edges and padding with zeros.
+// - The packed body (sort_desc2, pairwise_round2; seq_policy_matmul.cu's
+//   sorted_tiled_seq) runs the same network on the keys of two streams at
+//   once, one int16 half of a 32-bit register each. Products of int8
+//   carriers lie in [-16256, 16384] and a pair round adds a non-negative
+//   key to a non-positive one, which stays in that range, so every key of
+//   every round fits in 16 bits. The network's directions depend only on
+//   the element index, so both halves follow one select; compare-exchanges
+//   are 16x2 max / min, cross-lane stages move both halves in one
+//   shuffle, and the pairing's max(s, 0) + min(mirror, 0) is 16x2 too: half
+//   the instructions of two int32 sorts. Each half is unpacked to int32 for
+//   the saturating adds, whose registers reach 30 bits.
 
 #pragma once
 
@@ -149,6 +160,40 @@ __device__ __forceinline__ void pairwise_round(int (&v)[E], int l) {
   for (int r = 0; r < E; ++r) v[r] = out[r];
 }
 
+// The sum of a warp's chunk of 32*E products, in every lane.
+template <int E>
+__device__ __forceinline__ int chunk_sum(const int (&v)[E]) {
+  int s = 0;
+#pragma unroll
+  for (int r = 0; r < E; ++r) s += v[r];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
+  return s;
+}
+
+// The acc_bits register `acc` after the wrapping adds of a chunk summing
+// to s (a ring homomorphism: one floor mod of the sum).
+__device__ __forceinline__ int wrap_add(int acc, int s, int acc_bits) {
+  const int qmin = -(1 << (acc_bits - 1));
+  const int span = 1 << acc_bits;
+  int t = (acc + s - qmin) % span;  // floor mod: fix the sign
+  if (t < 0) t += span;
+  return t + qmin;
+}
+
+// The acc_bits register `acc` after the saturating adds of a chunk of
+// 32*E products in stream order, in lane 0.
+template <int E>
+__device__ __forceinline__ int saturate_chunk(const int (&v)[E], int acc,
+                                              int acc_bits, int lane) {
+  const int qmax = (1 << (acc_bits - 1)) - 1;
+  const int qmin = -qmax - 1;
+  Clamp f = clamp_step(v[0], qmin, qmax);
+#pragma unroll
+  for (int r = 1; r < E; ++r) f = clamp_then(f, clamp_step(v[r], qmin, qmax));
+  return clamp_apply(warp_compose(f, lane), acc);
+}
+
 // Adds one chunk of 32*E products to the register `acc` under `policy`
 // and returns the new register: in every lane for wide and wrap, in lane
 // 0 only for clip and sorted_tiled_seq. Every lane of the warp calls it.
@@ -156,28 +201,97 @@ template <int E, int LT>
 __device__ __forceinline__ int accumulate_chunk(int (&v)[E], int acc,
                                                 int policy, int acc_bits,
                                                 int rounds, int lane) {
-  const int qmax = (1 << (acc_bits - 1)) - 1;
-  const int qmin = -qmax - 1;
   if (policy == 0 || policy == 2) {
-    int s = 0;
-#pragma unroll
-    for (int r = 0; r < E; ++r) s += v[r];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
-    if (policy == 0) return acc + s;
-    const int span = 1 << acc_bits;
-    int t = (acc + s - qmin) % span;  // floor mod: fix the sign
-    if (t < 0) t += span;
-    return t + qmin;
+    const int s = chunk_sum<E>(v);
+    return policy == 0 ? acc + s : wrap_add(acc, s, acc_bits);
   }
   if (policy == 3) {
     const int l = lane & (LT - 1);
     for (int rd = 0; rd < rounds; ++rd) pairwise_round<E, LT>(v, l);
   }
-  Clamp f = clamp_step(v[0], qmin, qmax);
+  return saturate_chunk<E>(v, acc, acc_bits, lane);
+}
+
+// ---------------------------------------------------------------------
+// The packed body: two streams' int16 keys in one 32-bit register, the
+// low half one stream's, the high half the other's.
+
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) {
+  return __byte_perm(static_cast<uint32_t>(lo), static_cast<uint32_t>(hi),
+                     0x5410);
+}
+
+__device__ __forceinline__ int lo16(uint32_t v) {
+  return static_cast<int16_t>(v & 0xffffu);
+}
+
+__device__ __forceinline__ int hi16(uint32_t v) {
+  return static_cast<int>(v) >> 16;
+}
+
+// Signed 16x2 max, min and (wrapping) add.
+__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+  return __vmaxs2(a, b);
+}
+
+__device__ __forceinline__ uint32_t min2(uint32_t a, uint32_t b) {
+  return __vmins2(a, b);
+}
+
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  return __vadd2(a, b);
+}
+
+// sort_desc on packed keys: both halves of each register through one
+// network.
+template <int E, int LT>
+__device__ __forceinline__ void sort_desc2(uint32_t (&v)[E], int l) {
+  constexpr int S = E * LT;
 #pragma unroll
-  for (int r = 1; r < E; ++r) f = clamp_then(f, clamp_step(v[r], qmin, qmax));
-  return clamp_apply(warp_compose(f, lane), acc);
+  for (int k = 2; k <= S; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j < E) {
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const int p = r ^ j;
+          if (p > r) {
+            // descending inside a (e & k) == 0 block, ascending otherwise
+            const bool desc = ((l * E + r) & k) == 0;
+            const uint32_t hi = max2(v[r], v[p]), lo = min2(v[r], v[p]);
+            v[r] = desc ? hi : lo;
+            v[p] = desc ? lo : hi;
+          }
+        }
+      } else {
+        const int lj = j / E;
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const uint32_t other = __shfl_xor_sync(kFull, v[r], lj);
+          const int e = l * E + r;
+          const bool desc = (e & k) == 0;
+          const bool lower = (e & j) == 0;
+          // the lower index keeps the larger value in a descending block
+          v[r] = (desc == lower) ? max2(v[r], other) : min2(v[r], other);
+        }
+      }
+    }
+  }
+}
+
+// pairwise_round on packed keys.
+template <int E, int LT>
+__device__ __forceinline__ void pairwise_round2(uint32_t (&v)[E], int l) {
+  sort_desc2<E, LT>(v, l);
+  uint32_t out[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    // element S-1-e lives in lane LT-1-l, register E-1-r
+    const uint32_t mirror = __shfl_xor_sync(kFull, v[E - 1 - r], LT - 1);
+    out[r] = add2(max2(v[r], 0u), min2(mirror, 0u));
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) v[r] = out[r];
 }
 
 // The sort tile S = E * LT of a kernel instance: 32 lanes of E products
@@ -285,53 +399,37 @@ __device__ __forceinline__ void atomic_add_i16(int16_t* a, int v) {
   } while (seen != want);
 }
 
-// nm_decompress's scatter-add of compressed rows into w: w[0 .. kRows len)
-// is zeroed, then each slot q in [q0, q1) of each row r < rows (group
-// q / n_keep, value val[r stride + q], in-group position idx[r stride + q])
-// adds x[pos] * value (with x null: the value) at r len + pos - base, pos
-// its dense position, where pos lies in [base, base + len) and below K.
-// A value-0 slot (a padded one: value 0, index 0) adds nothing, so it never
-// disturbs a kept value at position 0 of its group; nor does a slot whose
-// index lies outside [0, m_group), which the reference's one-hot expansion
-// drops. The team of `size` threads, this one of rank `r`, runs it
-// together, kChunk slots a thread with their loads in flight together (one
-// slot reads its index only for a nonzero value); kWarp says whether the
-// team is one warp (else the whole block), which is synchronised before
-// and after the adds.
-template <bool kWarp, int kRows = 1, int kChunk = 1>
-__device__ __forceinline__ void expand_slots(
-    int16_t* w, int len, int base, const int8_t* x, const int8_t* val,
-    const int32_t* idx, int q0, int q1, int K, int n_keep, int m_group,
-    int r, int size, int rows = 1, int64_t stride = 0) {
-  for (int i = r; i < kRows * len; i += size) w[i] = 0;
+// nm_decompress's scatter-add of a compressed row into w: w[0 .. len) is
+// zeroed, then each slot q in [q0, q1) (group q / n_keep, value val[q],
+// in-group position idx[q]) adds x[pos] * value (with x null: the value)
+// at pos - base, pos its dense position, where pos lies in [base, base +
+// len) and below K. A value-0 slot (a padded one: value 0, index 0) adds
+// nothing, so it never disturbs a kept value at position 0 of its group;
+// nor does a slot whose index lies outside [0, m_group), which the
+// reference's one-hot expansion drops. The team of `size` threads, this
+// one of rank `r`, runs it together (a slot reads its index only for a
+// nonzero value); kWarp says whether the team is one warp (else the whole
+// block), which is synchronised before and after the adds.
+template <bool kWarp>
+__device__ __forceinline__ void expand_slots(int16_t* w, int len, int base,
+                                             const int8_t* x,
+                                             const int8_t* val,
+                                             const int32_t* idx, int q0,
+                                             int q1, int K, int n_keep,
+                                             int m_group, int r, int size) {
+  for (int i = r; i < len; i += size) w[i] = 0;
   if (kWarp) __syncwarp(); else __syncthreads();
-  const int per = q1 - q0;  // slots of a row
-  const int total = (kRows == 1 ? 1 : rows) * per;
-  for (int i0 = r; i0 < total; i0 += size * kChunk) {
-    int v[kChunk], pos[kChunk];
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const int i = i0 + c * size;
-      const int q = q0 + (kRows == 1 ? i : i % per);
-      const int64_t s = (kRows == 1 ? 0 : i / per) * stride + q;
-      v[c] = i < total ? __ldg(val + s) : 0;
-      pos[c] = K;
-      if (i < total && (kChunk > 1 || v[c] != 0)) {
-        const int j = __ldg(idx + s);
-        pos[c] = (q / n_keep) * m_group + j;
-        v[c] = static_cast<unsigned>(j) < static_cast<unsigned>(m_group)
-                   ? v[c] : 0;
-      }
+  for (int q = q0 + r; q < q1; q += size) {
+    int v = __ldg(val + q), pos = K;
+    if (v != 0) {
+      const int j = __ldg(idx + q);
+      pos = (q / n_keep) * m_group + j;
+      v = static_cast<unsigned>(j) < static_cast<unsigned>(m_group) ? v : 0;
     }
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const int row = kRows == 1 ? 0 : (i0 + c * size) / per;
-      if (v[c] != 0 && pos[c] < K &&
-          static_cast<unsigned>(pos[c] - base) < static_cast<unsigned>(len))
-        atomic_add_i16(w + row * len + (pos[c] - base),
-                       x ? static_cast<int>(__ldg(x + pos[c])) * v[c]
-                         : v[c]);
-    }
+    if (v != 0 && pos < K &&
+        static_cast<unsigned>(pos - base) < static_cast<unsigned>(len))
+      atomic_add_i16(w + (pos - base),
+                     x ? static_cast<int>(__ldg(x + pos)) * v : v);
   }
   if (kWarp) __syncwarp(); else __syncthreads();
 }

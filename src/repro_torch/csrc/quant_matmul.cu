@@ -1,365 +1,324 @@
 // quant_matmul.cu: the wide int8 matmuls for Hopper on the int8 tensor
-// cores, quant_matmul (dense weight) and nm_spmm (N:M compressed weight),
-// two instances of one body.
+// cores, quant_matmul (dense (K, N) weight) and nm_spmm (N:M compressed
+// weight): two loaders of the pipelined mainloop of int8_mma.cuh, which
+// seq_policy_matmul.cu's policy wide runs with a third (dense (N, K) rows).
 //
 // Replaces:
-//   wide_kernel<MT, 0> <- repro/kernels/quant_matmul.py:quant_matmul (the
-//     Pallas _kernel: an int32 dot_general of each (bm, bk) x (bk, bn)
+//   mma_kernel<MT, KnRows> <- repro/kernels/quant_matmul.py:quant_matmul
+//     (the Pallas _kernel: an int32 dot_general of each (bm, bk) x (bk, bn)
 //     block pair, the output block revisited along the K grid axis);
-//   wide_kernel<MT, 1> <- repro/kernels/nm_spmm.py:nm_spmm (the Pallas
-//     _kernel: each (bn, bg, n_keep) slab expanded by expand_nm_slab, then
-//     the same dot).
+//   mma_kernel<MT, NmChunks / NmBytes> <- repro/kernels/nm_spmm.py:nm_spmm
+//     (the Pallas _kernel: each (bn, bg, n_keep) slab expanded by
+//     expand_nm_slab, then the same dot).
 //
-// Both compute out[m, n] = sum_k x[m, k] * w[k, n] in int32, as an int32
-// dot_general does: int8 products are exact, and the mma adds in int32
-// without .satfinite, so a sum past 2^31 wraps (two's complement) as the
-// reference's does instead of saturating. That takes |sum| > 2^31, i.e.
-// K > 131072 at extreme int8 values. Partial sums of a split K are added
-// with atomicAdd, also modulo 2^32, so the result is the same bit for bit
-// in any order.
-//
-// Operands: x (M, K) int8; quant_matmul's w (K, N) int8, in-by-out (the
-// layout of QTensor.values, unlike the (N, K) weights of the policy
-// kernels); nm_spmm's values / indices (N, G, n_keep) int8 / int32 with
-// K <= G * m_group. Rows past M, columns past N and positions past K load
-// as zeros and groups past G do not exist, so nothing is padded on the
+// Both compute out[m, n] = sum_k x[m, k] * w[k, n] in int32 as an int32
+// dot_general does (int8_mma.cuh says how the sum wraps). Operands: x
+// (M, K) int8; quant_matmul's w (K, N) int8, in-by-out (the layout of
+// QTensor.values, unlike the (N, K) weights of the policy kernels);
+// nm_spmm's values / indices (N, G, n_keep) int8 / int32 with K <= G *
+// m_group. Rows past M, columns past N and positions past K are masked in
+// the kernel and groups past G do not exist, so nothing is padded on the
 // host.
 //
 // nm_spmm's slabs must be canonical, as pruning.nm_compress packs them:
 // indices in [0, m_group), and at most one nonzero slot at a dense
 // position. A slot whose index lies outside its group adds nothing, as the
 // reference's one-hot expansion drops it. Two nonzero slots at one
-// position add in the int16 tile, which is then narrowed to int8 for the
-// mma: their sum wraps modulo 2^8, where the plain version and the
-// reference's one-hot sum them in int32. Nothing checks the slabs at
-// launch (pruning.nm_assert_canonical does, for tests).
+// position add byte-wise in 32-bit registers, which is their int32 sum
+// narrowed to int8 for the mma: it wraps modulo 2^8, where the plain
+// version and the reference's one-hot sum them in int32. Nothing checks
+// the slabs at launch (pruning.nm_assert_canonical does, for tests).
 //
-// The body: a block of 4 warps owns a (16 MT) x 64 output tile (MT = 1 for
-// M <= 16, decode; 8 above) and walks its share of K in slabs of 64, each
-// slab's loads issued into registers before the tensor cores work on the
-// slab before it:
-// - x's slab is staged into shared memory as rows over K (the mma's .row
-//   A operand);
-// - quant_matmul's 64 (K) x 64 (N) weight slab is read a 4 x 4 byte block
-//   a thread (one 32-bit word of 4 columns from each of 4 rows of K) and
-//   transposed by byte permutes (prmt) into rows of N over K, the .col B
-//   operand: integer mma exists only as .row.col, and ldmatrix .trans moves
-//   only 16-bit elements on sm_90;
-// - nm_spmm's slab rebuilds its 64 rows at their dense positions from the
-//   compressed slots by nm_decompress's scatter-add (pqs_accum.cuh
-//   expand_slots: a value-0 slot adds nothing, so a padded (0, 0) slot
-//   never disturbs a kept value at position 0 of its group) into an int16
-//   tile, the whole block's slots at once, then narrows it to int8;
-// - each warp runs mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on its 16
-//   columns for every 16-row tile that holds a row below M, its fragments
-//   read as 32-bit words from shared-memory rows padded to 80 bytes, so
-//   that the 8 rows one fragment load touches fall in distinct banks.
-// When the output tiles alone would give the card's SMs fewer than two
-// blocks each at decode (24 tiles at N = 1536), or fewer than one at a
-// prefill cohort, K is split among blocks and the partial sums are added
-// with atomicAdd into an output zeroed first.
+// The loaders, each filling a ring stage's 64 weight rows over a slab of
+// K = 64 as (N, K) rows (the mma's .col B operand), from raw bytes that each
+// thread copies by cp.async into the ring two or three slabs ahead and
+// builds from, one slab ahead, reading only its own copies:
+// - KnRows (quant_matmul): the (K, N) slab as 4 x 4 byte blocks (one
+//   32-bit word of 4 columns from each of 4 rows of K), transposed by byte
+//   permutes (prmt) into rows of N over K: integer mma exists only as
+//   .row.col, and ldmatrix .trans moves only 16-bit elements on sm_90.
+// - NmChunks (nm_spmm, m_group dividing 16, so every WIDE_SLABS shape:
+//   8:16, 4:16, 2:8, 16:16): a thread owns whole 16-position chunks of a
+//   row, each 16 / m_group whole groups whose slots lie consecutive in the
+//   slabs. It copies their indices and values (16-, 8- or 4-byte copies
+//   where the slabs' strides allow), then builds the chunk's 16 bytes in 4
+//   registers, each kept value at its position (a value-0 slot adds
+//   nothing, so a padded (0, 0) slot never disturbs a kept value at
+//   position 0; a slot whose index is >= m_group or negative is skipped),
+//   and writes them with one 16-byte store. With at most 8 slots and no
+//   two nonzero ones at a position, each word is one byte permute of the
+//   chunk's values, masked; else the values add byte by byte (modulo 2^8).
+//   No int16 tile, compare-and-swap or narrowing pass.
+// - NmBytes (nm_spmm, other m_group): a thread builds a 4-byte word of a
+//   row from device memory, each byte the int32 sum of its group's slots
+//   at that position, narrowed; slow (every byte scans its group's
+//   slots), and taken by no WIDE_SLABS shape.
+// Positions at or past K multiply x's zero fill, so no loader masks them.
 //
 // What bounds it on this card: device memory. At decode (M = 4) a weight
 // byte feeds 8 operations, and at M = 128 256, both below the ~590 a byte
 // at which the int8 tensor cores (1979 TOP/s over 3.35 TB/s) become the
 // limit: the weight's bytes (5 a kept value when compressed) are the
-// bound. The slabs pass through registers (one slab ahead), not a cp.async
-// or TMA ring of shared-memory stages; that ring is later work.
+// bound. The ring keeps two (decode) or three slabs' copies in flight
+// while the tensor cores work on one; nm_spmm's build of the slab's bytes
+// is integer work on top (a kept value sets a nibble of a byte-permute
+// selector and a bit of a mask, then a chunk takes 4 permutes), paid once
+// per block and slab whatever M.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "pqs_accum.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
-constexpr int kBK = 64;                // K of a slab
-constexpr int kBN = 64;                // output columns of a block
-constexpr int kWarps = 4;              // 16 of the block's columns each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRow = kBK + 16;         // bytes of a staged row (20 words)
-constexpr int kPrefillTiles = 8;       // MT above decode: 128 rows a block
+using mma8::copy_run;
+using mma8::cp_async;
+using mma8::kBK;
+using mma8::kBN;
+using mma8::kRow;
+using mma8::pack_bytes;
+using mma8::store_word;
 
-// Bytes p[0 .. n) packed little-endian into a word (0 past n).
-__device__ __forceinline__ uint32_t pack_bytes(const int8_t* p, int n) {
-  uint32_t v = 0;
+// quant_matmul's loader: the slab w[k0 .. k0 + kBK)[n0 .. n0 + kBN) of the
+// (K, N) weight as 4 x 4 byte blocks (a 32-bit word of 4 columns from each
+// of 4 rows of K), each copied by one thread into the raw bytes (rows of K
+// over N, kRow bytes apart) and transposed by it into the tile with byte
+// permutes. `mode`: 4 (w and N multiples of 4: cp.async of each word) or 1
+// (byte loads).
+struct KnRows {
+  const int8_t* w;
+  int N, K, mode;
+  static constexpr int kLead = 1;
+  static constexpr int kBlocks = (kBN / 4) * (kBK / 4);
+  __host__ __device__ __forceinline__ int raw_bytes() const {
+    return kBK * kRow;
+  }
+  template <int NT>
+  __device__ __forceinline__ void start(uint8_t*, uint8_t* raw, int n0,
+                                        int k0) const {
+    for (int b = threadIdx.x; b < kBlocks; b += NT) {
+      const int nq = b % (kBN / 4), kq = b / (kBN / 4);
+      const int n = n0 + 4 * nq, cols = min(max(N - n, 0), 4);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < n)
-      v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + j)))
-           << (8 * j);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ uint32_t smem_word(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void store_word(uint8_t* p, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(p) = v;
-}
-
-// One slab of x and of quant_matmul's weight in registers, between their
-// loads from device memory and their stores into shared memory: the next
-// slab's loads are issued before the tensor cores work on this one, and a
-// thread's loads of a slab are all in flight together.
-template <int MT>
-struct Slab {
-  static constexpr int kX = 16 * MT * (kBK / 4) / kThreads;  // x words
-  static constexpr int kW = (kBN / 4) * (kBK / 4) / kThreads;  // 4x4 blocks
-  uint32_t x[kX];
-  uint32_t w[kW][4];  // w[b][j] byte c: row 4 kq + j, column 4 nq + c
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + 4 * kq + j;
+        if (k < K && cols) {  // past K: x's zero fill; past N: not stored
+          const int8_t* p = w + static_cast<int64_t>(k) * N + n;
+          uint8_t* to = raw + (4 * kq + j) * kRow + 4 * nq;
+          if (mode == 4)
+            cp_async<4>(to, p, cols);
+          else
+            store_word(to, pack_bytes(p, cols));
+        }
+      }
+    }
+  }
+  // Word c of block (kq, nq) after the permutes holds byte c of the
+  // block's 4 row words q[0 .. 3]: column 4 nq + c over rows 4 kq .. + 3.
+  template <int NT>
+  __device__ __forceinline__ void build(uint8_t* tile, const uint8_t* raw,
+                                        int, int) const {
+    for (int b = threadIdx.x; b < kBlocks; b += NT) {
+      const int nq = b % (kBN / 4), kq = b / (kBN / 4);
+      uint32_t q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = *reinterpret_cast<const uint32_t*>(raw + (4 * kq + j) * kRow +
+                                                  4 * nq);
+      // t01 = (q0.0, q1.0, q0.1, q1.1), t23 = (q0.2, q1.2, q0.3, q1.3)
+      const uint32_t t01 = __byte_perm(q[0], q[1], 0x5140);
+      const uint32_t t23 = __byte_perm(q[0], q[1], 0x7362);
+      const uint32_t u01 = __byte_perm(q[2], q[3], 0x5140);
+      const uint32_t u23 = __byte_perm(q[2], q[3], 0x7362);
+      uint8_t* dst = tile + 4 * nq * kRow + 4 * kq;
+      store_word(dst, __byte_perm(t01, u01, 0x5410));
+      store_word(dst + kRow, __byte_perm(t01, u01, 0x7632));
+      store_word(dst + 2 * kRow, __byte_perm(t23, u23, 0x5410));
+      store_word(dst + 3 * kRow, __byte_perm(t23, u23, 0x7632));
+    }
+  }
 };
 
-// Rows m0 .. m0 + 16 MT of x over [k0, k0 + kBK), zero past M and K.
-// `words`: x is 4-byte aligned and K a multiple of 4.
-template <int MT>
-__device__ __forceinline__ void load_x(Slab<MT>& s, const int8_t* x, int M,
-                                       int K, int m0, int k0, bool words) {
-#pragma unroll
-  for (int j = 0; j < Slab<MT>::kX; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int m = m0 + i / (kBK / 4), k = k0 + 4 * (i % (kBK / 4));
-    s.x[j] = 0;
-    if (m < M && k < K) {
-      const int8_t* p = x + static_cast<int64_t>(m) * K + k;
-      s.x[j] = words ? load_word(p) : pack_bytes(p, K - k);
+// a + b byte by byte, modulo 2^8 (no carry between bytes).
+__device__ __forceinline__ uint32_t add_bytes(uint32_t a, uint32_t b) {
+  return ((a & 0x7f7f7f7fu) + (b & 0x7f7f7f7fu)) ^ ((a ^ b) & 0x80808080u);
+}
+
+// nm_spmm's loader for m_group = 2^lm dividing 16. A thread owns (row,
+// 16-position chunk) pairs of the slab, each 16 / m_group whole groups of
+// the row, cpc = 16 / m_group * n_keep consecutive slots of the slabs. It
+// copies the chunk's indices and values into the raw bytes (rows of the
+// slab's 4 cpc indices, padded by 16 bytes so that a quarter warp's 16-byte
+// reads of 2 rows fall in distinct banks, then rows of its 4 cpc values),
+// then builds the chunk's 16 bytes from its own copies. `imode` / `vmode`:
+// the copies' widths for the indices (16 or 4) and the values (16, 8, 4
+// or 1), copy_run's.
+struct NmChunks {
+  const int8_t* val;
+  const int32_t* idx;
+  int N, G, n_keep, lm, imode, vmode;
+  static constexpr int kLead = 1;
+  static constexpr int kPer = kBK / 16;  // chunks of a row
+  __host__ __device__ __forceinline__ int cpc() const {
+    return (16 >> lm) * n_keep;
+  }
+  __host__ __device__ __forceinline__ int id_ld() const {
+    return 16 * cpc() + 16;
+  }
+  __host__ __device__ __forceinline__ int raw_bytes() const {
+    return kBN * (id_ld() + kPer * cpc());
+  }
+  // Slots of chunk (r, c) of the slab at k0 (0 past N and G), and the slab
+  // offset of its first.
+  __device__ __forceinline__ int slots(int n0, int k0, int r, int c,
+                                       int64_t* first) const {
+    const int g = (k0 >> lm) + (c << (4 - lm));  // the chunk's first group
+    *first = (static_cast<int64_t>(n0 + r) * G + g) * n_keep;
+    return n0 + r < N ? min(max(G - g, 0), 16 >> lm) * n_keep : 0;
+  }
+  template <int NT>
+  __device__ __forceinline__ void start(uint8_t*, uint8_t* raw, int n0,
+                                        int k0) const {
+    for (int task = threadIdx.x; task < kBN * kPer; task += NT) {
+      const int r = task / kPer, c = task % kPer;
+      int64_t first;
+      const int cnt = slots(n0, k0, r, c, &first);
+      if (cnt == 0) continue;
+      copy_run(raw + r * id_ld() + 4 * c * cpc(),
+               reinterpret_cast<const int8_t*>(idx + first), 4 * cpc(),
+               4 * cnt, imode);
+      copy_run(raw + kBN * id_ld() + (r * kPer + c) * cpc(), val + first,
+               cpc(), cnt, vmode);
     }
   }
-}
-
-template <int MT>
-__device__ __forceinline__ void store_x(const Slab<MT>& s,
-                                        uint8_t (*sa)[kRow]) {
+  template <int NT>
+  __device__ __forceinline__ void build(uint8_t* tile, const uint8_t* raw,
+                                        int n0, int k0) const {
+    const int m_group = 1 << lm;
+    for (int task = threadIdx.x; task < kBN * kPer; task += NT) {
+      const int r = task / kPer, c = task % kPer;
+      int64_t first;
+      const int cnt = slots(n0, k0, r, c, &first);
+      const auto* id =
+          reinterpret_cast<const int32_t*>(raw + r * id_ld()) + c * cpc();
+      const uint8_t* vv = raw + kBN * id_ld() + (r * kPer + c) * cpc();
+      int j[16];
+      uint32_t v[4] = {0, 0, 0, 0};  // the values, 4 to a word
+      if (cpc() % 4 == 0) {
 #pragma unroll
-  for (int j = 0; j < Slab<MT>::kX; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    store_word(&sa[i / (kBK / 4)][4 * (i % (kBK / 4))], s.x[j]);
-  }
-}
-
-// quant_matmul's slab w[k0 .. k0 + kBK)[n0 .. n0 + kBN) of the (K, N)
-// weight, zero past N and K: 4 x 4 byte blocks, one 32-bit word of 4
-// columns from each of 4 rows, lanes along N. `words`: w is 4-byte aligned
-// and N a multiple of 4.
-template <int MT>
-__device__ __forceinline__ void load_w(Slab<MT>& s, const int8_t* w, int N,
-                                       int K, int n0, int k0, bool words) {
+        for (int q = 0; q < 4; ++q) {
+          if (4 * q < cnt) {
+            const int4 i4 = reinterpret_cast<const int4*>(id)[q];
+            j[4 * q] = i4.x;
+            j[4 * q + 1] = i4.y;
+            j[4 * q + 2] = i4.z;
+            j[4 * q + 3] = i4.w;
+            v[q] = reinterpret_cast<const uint32_t*>(vv)[q];
+          }
+        }
+      } else {
 #pragma unroll
-  for (int b = 0; b < Slab<MT>::kW; ++b) {
-    const int i = threadIdx.x + b * kThreads;
-    const int n = n0 + 4 * (i % (kBN / 4)), kq = i / (kBN / 4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * kq + j;
-      s.w[b][j] = 0;
-      if (k < K && n < N) {
-        const int8_t* p = w + static_cast<int64_t>(k) * N + n;
-        s.w[b][j] = words ? load_word(p) : pack_bytes(p, N - n);
-      }
-    }
-  }
-}
-
-// The blocks of load_w into sb as rows of N over K (the mma's .col B):
-// each 4 x 4 block transposed by byte permutes, word c of the result
-// holding byte c of w[b][0 .. 3].
-template <int MT>
-__device__ __forceinline__ void store_w(const Slab<MT>& s,
-                                        uint8_t (*sb)[kRow]) {
-#pragma unroll
-  for (int b = 0; b < Slab<MT>::kW; ++b) {
-    const int i = threadIdx.x + b * kThreads;
-    const uint32_t* r = s.w[b];
-    // t01 = (r0.0, r1.0, r0.1, r1.1), t23 = (r0.2, r1.2, r0.3, r1.3)
-    const uint32_t t01 = __byte_perm(r[0], r[1], 0x5140);
-    const uint32_t t23 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t u01 = __byte_perm(r[2], r[3], 0x5140);
-    const uint32_t u23 = __byte_perm(r[2], r[3], 0x7362);
-    uint8_t* dst = &sb[4 * (i % (kBN / 4))][4 * (i / (kBN / 4))];
-    store_word(dst, __byte_perm(t01, u01, 0x5410));
-    store_word(dst + kRow, __byte_perm(t01, u01, 0x7632));
-    store_word(dst + 2 * kRow, __byte_perm(t23, u23, 0x5410));
-    store_word(dst + 3 * kRow, __byte_perm(t23, u23, 0x7632));
-  }
-}
-
-constexpr int kChunk = 8;  // slots a thread loads before it adds them
-
-// nm_spmm's slab: rows n0 .. n0 + kBN of the compressed weight at their
-// dense positions [k0, k0 + kBK) into sb, zero past N and K, by the whole
-// block: pqs_accum.cuh expand_slots adds every slot of the slab's groups
-// into the int16 tile s16 (nm_decompress's scatter-add, all rows at once,
-// kChunk slots a thread in flight), then the tile is narrowed to int8.
-__device__ __forceinline__ void stage_w_nm(uint8_t (*sb)[kRow],
-                                           int16_t (*s16)[kBK],
-                                           const pqs::Slabs& a, int n0,
-                                           int k0) {
-  const int g0 = k0 / a.m_group;
-  const int g1 = min(a.G, (k0 + kBK + a.m_group - 1) / a.m_group);
-  const int64_t row = static_cast<int64_t>(a.G) * a.n_keep;
-  pqs::expand_slots<false, kBN, kChunk>(
-      &s16[0][0], kBK, k0, nullptr, a.val + n0 * row, a.idx + n0 * row,
-      g0 * a.n_keep, g1 * a.n_keep, a.K, a.n_keep, a.m_group, threadIdx.x,
-      kThreads, min(kBN, a.N - n0), row);
-  for (int i = threadIdx.x; i < kBN * kBK / 4; i += kThreads) {
-    const int r = i / (kBK / 4), q = 4 * (i % (kBK / 4));
-    const uint32_t lo = smem_word(reinterpret_cast<const uint8_t*>(
-        &s16[r][q]));
-    const uint32_t hi = smem_word(reinterpret_cast<const uint8_t*>(
-        &s16[r][q + 2]));
-    store_word(&sb[r][q], __byte_perm(lo, hi, 0x6420));  // the low bytes
-  }
-}
-
-// d += a b for one 16 x 8 x 32 int8 tile, exact int32 (wrapping) adds.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One block: the (16 MT) x kBN output tile at (blockIdx.y, blockIdx.x) over
-// slabs [blockIdx.z * per, (blockIdx.z + 1) * per) of K. NM = 0: w is the
-// (K, N) weight; NM = 1: w and idx are the compressed values and indices.
-// `split`: K is split among blocks, whose sums are added atomically.
-template <int MT, int NM>
-__global__ void __launch_bounds__(kThreads) wide_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-    const int32_t* __restrict__ idx, int32_t* __restrict__ out, int M, int N,
-    int K, int G, int n_keep, int m_group, int per, int split, int x_words,
-    int w_words) {
-  __shared__ __align__(16) uint8_t sa[16 * MT][kRow];
-  __shared__ __align__(16) uint8_t sb[kBN][kRow];
-  __shared__ __align__(16) int16_t s16[NM ? kBN : 1][kBK];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // the mma fragments' groupID etc.
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * 16 * MT;
-  const int live = min(MT, (M - m0 + 15) / 16);  // tiles with a row < M
-  const int k_begin = blockIdx.z * per * kBK;
-  const int k_end = min(K, k_begin + per * kBK);
-  const pqs::Slabs a{x, w, idx, M, N, K, G, n_keep, m_group};
-
-  int acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
-
-  Slab<MT> slab;
-  load_x(slab, x, M, K, m0, k_begin, x_words);
-  if constexpr (!NM) load_w(slab, w, N, K, n0, k_begin, w_words);
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous slab's fragments are read
-    store_x(slab, sa);
-    if constexpr (NM)
-      stage_w_nm(sb, s16, a, n0, k0);
-    else
-      store_w(slab, sb);
-    __syncthreads();
-    if (k0 + kBK < k_end) {  // the next slab's loads fly during the mmas
-      load_x(slab, x, M, K, m0, k0 + kBK, x_words);
-      if constexpr (!NM) load_w(slab, w, N, K, n0, k0 + kBK, w_words);
-    }
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t b[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const uint8_t* col = &sb[warp * 16 + 8 * j + g][ks + 4 * t];
-        b[j][0] = smem_word(col);
-        b[j][1] = smem_word(col + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if (mt < live) {
-          const uint8_t* r0 = &sa[16 * mt + g][ks + 4 * t];
-          const uint8_t* r8 = &sa[16 * mt + g + 8][ks + 4 * t];
-          const uint32_t af[4] = {smem_word(r0), smem_word(r8),
-                                  smem_word(r0 + 16), smem_word(r8 + 16)};
-          mma_s8(acc[mt][0], af, b[0][0], b[0][1]);
-          mma_s8(acc[mt][1], af, b[1][0], b[1][1]);
+        for (int s = 0; s < 16; ++s) {
+          if (s < cnt) {
+            j[s] = id[s];
+            v[s >> 2] |= static_cast<uint32_t>(vv[s]) << (8 * (s & 3));
+          }
         }
       }
-    }
-  }
-
+      uint32_t b[4] = {0, 0, 0, 0};
+      // Up to 8 slots (the values of v[0], v[1]): the slot of each
+      // position into a nibble of `from`, then each word's 4 bytes picked
+      // by one byte permute and the empty positions masked; where two
+      // nonzero slots meet at a position (non-canonical slabs) or more
+      // slots are kept, byte-wise adds below.
+      uint64_t from = 0;
+      uint32_t taken = 0, twice = 0;
+      int pos = 0, slot = 0;  // the slot's group's first position, its rank
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    if (mt >= live) break;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // e: (row g or g + 8) x (column pair)
-        const int m = m0 + 16 * mt + g + 8 * (e >> 1);
-        const int n = n0 + warp * 16 + 8 * j + 2 * t + (e & 1);
-        if (m < M && n < N) {
-          int32_t* o = out + static_cast<int64_t>(m) * N + n;
-          if (split)
-            atomicAdd(o, acc[mt][j][e]);
-          else
-            *o = acc[mt][j][e];
+      for (int s = 0; s < 8; ++s) {
+        if (s < cnt) {
+          if (((v[s >> 2] >> (8 * (s & 3))) & 0xffu) &&
+              static_cast<unsigned>(j[s]) < static_cast<unsigned>(m_group)) {
+            const int p = pos + j[s];
+            twice |= taken & (1u << p);
+            taken |= 1u << p;
+            from |= static_cast<uint64_t>(s) << (4 * p);
+          }
+          if (++slot == n_keep) {
+            slot = 0;
+            pos += m_group;
+          }
         }
       }
+      if (cnt <= 8 && !twice) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const uint32_t m4 = (taken >> (4 * w)) & 0xfu;  // a byte's 0xff
+          const uint32_t keep = ((m4 * 0x204081u) & 0x01010101u) * 0xffu;
+          b[w] = __byte_perm(v[0], v[1],
+                             static_cast<uint32_t>(from >> (16 * w))) &
+                 keep;
+        }
+      } else {
+        pos = slot = 0;
+#pragma unroll
+        for (int s = 0; s < 16; ++s) {
+          if (s < cnt) {
+            if (static_cast<unsigned>(j[s]) <
+                static_cast<unsigned>(m_group)) {
+              const int p = pos + j[s];
+              const uint32_t add = ((v[s >> 2] >> (8 * (s & 3))) & 0xffu)
+                                   << (8 * (p & 3));
+#pragma unroll
+              for (int w = 0; w < 4; ++w)
+                b[w] = add_bytes(b[w], (p >> 2) == w ? add : 0u);
+            }
+            if (++slot == n_keep) {
+              slot = 0;
+              pos += m_group;
+            }
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(tile + r * kRow + 16 * c) =
+          make_uint4(b[0], b[1], b[2], b[3]);
+    }
   }
-}
+};
 
-int sm_count() {
-  int dev = 0, n = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
-template <int NM>
-int launch_wide(const int8_t* x, const int8_t* w, const int32_t* idx,
-                int32_t* out, int M, int N, int K, int G, int n_keep,
-                int m_group, cudaStream_t s) {
-  const size_t out_bytes = sizeof(int32_t) * static_cast<size_t>(M) * N;
-  if (K == 0) return cudaMemsetAsync(out, 0, out_bytes, s);
-  const bool decode = M <= 16;
-  const int bm = decode ? 16 : 16 * kPrefillTiles;
-  const int64_t tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + bm - 1) / bm;
-  if (tiles_m > 65535 || tiles_n > 0x7fffffff) return cudaErrorInvalidValue;
-  const int slabs = (K + kBK - 1) / kBK;
-  // two blocks an SM at decode; one wave at a prefill cohort, where every
-  // split adds M N atomics
-  const int64_t tiles = tiles_n * tiles_m;
-  const int64_t want = (decode ? 2 : 1) * static_cast<int64_t>(sm_count());
-  int splits = tiles >= want
-                   ? 1
-                   : static_cast<int>(
-                         std::min<int64_t>(slabs, (want + tiles - 1) / tiles));
-  const int per = (slabs + splits - 1) / splits;
-  splits = (slabs + per - 1) / per;
-  if (splits > 1) {
-    const cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, s);
-    if (err != cudaSuccess) return err;
+// nm_spmm's loader for any other m_group: the build reads the slabs from
+// device memory, a thread a 4-byte word of a row at a time, each byte the
+// int32 sum of the slots of its group at its position, narrowed.
+struct NmBytes {
+  const int8_t* val;
+  const int32_t* idx;
+  int N, G, n_keep, m_group;
+  static constexpr int kLead = 1;
+  __host__ __device__ __forceinline__ int raw_bytes() const { return 0; }
+  template <int NT>
+  __device__ __forceinline__ void start(uint8_t*, uint8_t*, int, int) const {}
+  template <int NT>
+  __device__ __forceinline__ void build(uint8_t* tile, const uint8_t*,
+                                        int n0, int k0) const {
+    for (int i = threadIdx.x; i < kBN * kBK / 4; i += NT) {
+      const int r = i / (kBK / 4), q = 4 * (i % (kBK / 4));
+      const int n = n0 + r;
+      uint32_t word = 0;
+      for (int e = 0; n < N && e < 4; ++e) {
+        const int pos = k0 + q + e, g = pos / m_group;
+        if (g >= G) break;
+        const int64_t base = (static_cast<int64_t>(n) * G + g) * n_keep;
+        const int at = pos - g * m_group;
+        int sum = 0;
+        for (int s = 0; s < n_keep; ++s)
+          sum += __ldg(idx + base + s) == at ? __ldg(val + base + s) : 0;
+        word |= static_cast<uint32_t>(sum & 0xff) << (8 * e);
+      }
+      store_word(tile + r * kRow + q, word);
+    }
   }
-  const dim3 grid(static_cast<unsigned>(tiles_n),
-                  static_cast<unsigned>(tiles_m), splits);
-  const int x_words = reinterpret_cast<uintptr_t>(x) % 4 == 0 && K % 4 == 0;
-  const int w_words =
-      !NM && reinterpret_cast<uintptr_t>(w) % 4 == 0 && N % 4 == 0;
-  if (decode)
-    wide_kernel<1, NM><<<grid, kThreads, 0, s>>>(
-        x, w, idx, out, M, N, K, G, n_keep, m_group, per, splits > 1,
-        x_words, w_words);
-  else
-    wide_kernel<kPrefillTiles, NM><<<grid, kThreads, 0, s>>>(
-        x, w, idx, out, M, N, K, G, n_keep, m_group, per, splits > 1,
-        x_words, w_words);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
@@ -373,10 +332,11 @@ extern "C" int pqs_quant_matmul(const void* x, const void* w, void* out,
                                 int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (K < 0) return cudaErrorInvalidValue;
-  return launch_wide<0>(static_cast<const int8_t*>(x),
-                        static_cast<const int8_t*>(w), nullptr,
-                        static_cast<int32_t*>(out), M, N, K, 0, 1, 1,
-                        static_cast<cudaStream_t>(stream));
+  const auto* w8 = static_cast<const int8_t*>(w);
+  return mma8::launch(static_cast<const int8_t*>(x),
+                      KnRows{w8, N, K, mma8::copy_mode(w8, N) == 1 ? 1 : 4},
+                      static_cast<int32_t*>(out), M, N, K,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // x (M, K) int8, values (N, G, n_keep) int8, indices (N, G, n_keep) int32,
@@ -389,9 +349,24 @@ extern "C" int pqs_nm_spmm(const void* x, const void* val, const void* idx,
       static_cast<int64_t>(G) * m_group < K ||
       static_cast<int64_t>(G) * n_keep > 0x7fffffff)
     return cudaErrorInvalidValue;
-  return launch_wide<1>(static_cast<const int8_t*>(x),
-                        static_cast<const int8_t*>(val),
-                        static_cast<const int32_t*>(idx),
-                        static_cast<int32_t*>(out), M, N, K, G, n_keep,
-                        m_group, static_cast<cudaStream_t>(stream));
+  const auto* x8 = static_cast<const int8_t*>(x);
+  const auto* v8 = static_cast<const int8_t*>(val);
+  const auto* i32 = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<int32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (16 % m_group != 0)
+    return mma8::launch(x8, NmBytes{v8, i32, N, G, n_keep, m_group}, o, M, N,
+                        K, s);
+  // a chunk's slots start at a multiple of cpc, rows G n_keep slots apart
+  int lm = 0;
+  while ((1 << lm) < m_group) ++lm;
+  const int cpc = (16 >> lm) * n_keep, row = G * n_keep;
+  const auto ia = reinterpret_cast<uintptr_t>(idx);
+  const auto va = reinterpret_cast<uintptr_t>(val);
+  const int imode = ia % 16 == 0 && row % 4 == 0 && cpc % 4 == 0 ? 16 : 4;
+  int vmode = 1;
+  for (int b : {16, 8, 4})
+    if (vmode == 1 && va % b == 0 && row % b == 0 && cpc % b == 0) vmode = b;
+  return mma8::launch(
+      x8, NmChunks{v8, i32, N, G, n_keep, lm, imode, vmode}, o, M, N, K, s);
 }

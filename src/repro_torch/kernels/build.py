@@ -87,18 +87,25 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     return targets
 
 
+def kernel_label(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name: its integer template
+    arguments and the class names among them (``mma_kernel<1,KnRows>``)."""
+    found = re.search(r"\d([a-z][a-z_]*_kernel)(I.*)?", mangled)
+    if not found:
+        return mangled
+    args = [a or b for a, b in re.findall(r"Li(\d+)E|\d([A-Z]\w*?)E",
+                                          found[2] or "")]
+    return f"{found[1]}<{','.join(args)}>" if args else found[1]
+
+
 def register_report(log: str) -> list[tuple[str, str, str]]:
-    """(kernel<E,LT>, registers, spill stores/loads) for each entry
+    """(kernel label, registers, spill stores/loads) for each entry
     function in nvcc's ``-Xptxas -v`` output."""
     rows, kernel = [], None
     for line in log.splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"\d([a-z_]+_kernel)ILi(\d+)ELi(\d+)E",
-                             entry[1])
-            plain = re.search(r"\d([a-z_]+_kernel)E", entry[1])
-            kernel = (f"{name[1]}<{name[2]},{name[3]}>" if name
-                      else plain[1] if plain else entry[1])
+            kernel = kernel_label(entry[1])
             spilled = "?"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -109,6 +116,28 @@ def register_report(log: str) -> list[tuple[str, str, str]]:
             rows.append((kernel, regs[1], spilled))
             kernel = None
     return rows
+
+
+def sass_opcodes(name: str, label: str) -> dict[str, int]:
+    """How often each SASS opcode (with its modifiers, e.g.
+    ``VIMNMX.S16x2``) occurs in the kernel of ``csrc/<name>.cu`` whose
+    ``kernel_label`` is ``label``, by ``cuobjdump -sass`` of the built
+    library; empty where the kernel is not found."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build_all((name,))[name])],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    inside = False
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\w+)", line)
+        if func:
+            inside = kernel_label(func[1]) == label
+            continue
+        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                       line)
+        if inside and op:
+            counts[op[1]] = counts.get(op[1], 0) + 1
+    return counts
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -307,9 +307,10 @@ def nm_spmm(
 ) -> torch.Tensor:
     """(M, N) int32 exact sums on compressed slabs, equal to
     ``quant_matmul`` on the decompressed weight: the CUDA kernel of
-    ``csrc/quant_matmul.cu`` (each slab expanded in shared memory, then the
-    tensor-core body of ``quant_matmul``) on CUDA tensors, the plain version
-    on CPU tensors. The kernel masks ragged M, N, K and G.
+    ``csrc/quant_matmul.cu`` (each slab's bytes built in shared memory from
+    its values and indices, then the tensor-core mainloop of
+    ``csrc/int8_mma.cuh``) on CUDA tensors, the plain version on CPU
+    tensors. The kernel masks ragged M, N, K and G.
 
     The slabs must be canonical (``pruning.nm_compress``'s; checked by
     ``nm_assert_canonical``, never here): indices in [0, m_group) and at

@@ -20,8 +20,9 @@ hand (the one-pass kernel):
                    element-interleaved (the paper's two-level sort)
 
 Each wrapper launches its hand-written CUDA kernel
-(``csrc/seq_policy_matmul.cu``, ``csrc/sort_matmul.cu``, whose headers say
-how they are built and what bounds them) on CUDA tensors, and takes its
+(``csrc/seq_policy_matmul.cu``, ``wide`` on the int8 tensor-core mainloop
+of ``csrc/int8_mma.cuh``; ``csrc/sort_matmul.cu``; their headers say how
+they are built and what bounds them) on CUDA tensors, and takes its
 plain version (``*_ref``) only for tensors on the CPU. Each launch adds
 one to the wrapper's ``.launches``.
 """

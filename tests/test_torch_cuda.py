@@ -1025,3 +1025,92 @@ def test_expand_kernels_drop_out_of_group_indices(card, kernel):
         want = nm_spmm.nm_sort_matmul_ref(x, dropped, idx, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _offset(t, offset):
+    """A contiguous copy of int8 ``t`` whose data starts ``offset`` bytes
+    past the start of its allocation (not 16- or 4-byte aligned for an
+    odd offset)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("m,k,n", WIDE_SHAPES)
+def test_wide_policy_copy_paths(card, m, k, n, offset):
+    """Row 1 under ``wide`` (the tensor-core mainloop) bit-exact against
+    its plain version and row 3 on the transposed weight, through each
+    copy width of its ring: 16-byte copies (K a multiple of 16, aligned
+    operands), 4-byte ones (K = 300, or an operand 4 bytes off) and byte
+    loads (odd K, or an operand 1 byte off); the int8 extremes at a
+    corner."""
+    x, w = _xw(m, k, n, m + k + n + offset, card)
+    x[0], w[0] = -128, -128
+    if m > 1:
+        x[-1] = 127
+    if n > 1:
+        w[-1] = 127
+    x, w = _offset(x, offset), _offset(w, 2 * offset)
+    got = sm.seq_policy_matmul(x, w, policy="wide")
+    want = sm.seq_policy_matmul_ref(x, w, policy="wide")
+    row3 = qm.quant_matmul(x, w.t().contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, row3), (m, k, n)
+    assert int(got[0, 0]) == 128 * 128 * k
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 7])
+def test_sorted_tiled_seq_packed_rows(card, m):
+    """Row 1 under ``sorted_tiled_seq`` (rows in packed int16x2 pairs; an
+    odd M leaves the last partner half zero) bit-exact against its plain
+    version at k_tile 1 to 1024, rounds 1 to 3 and acc_bits 2, 16 and 30,
+    K not a multiple of a chunk, with all -128 and all 127 rows of x
+    against all -128 and all 127 rows of w at the corners; and clip and
+    wrap at the same M."""
+    x, w = _xw(m, 1100, 37, 17 * m, card)
+    x[0], w[0] = -128, -128
+    x[-1], w[-1] = 127, 127
+    if m > 2:
+        x[1] = -128
+    for k_tile in (1, 8, 32, 256, 1024):
+        for rounds in (1, 2, 3):
+            for acc_bits in (2, 16, 30):
+                kw = dict(policy="sorted_tiled_seq", acc_bits=acc_bits,
+                          rounds=rounds, k_tile=k_tile)
+                got = sm.seq_policy_matmul(x, w, **kw)
+                want = sm.seq_policy_matmul_ref(x, w, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), kw
+    for policy in ("clip", "wrap"):
+        for acc_bits in (2, 16, 30):
+            kw = dict(policy=policy, acc_bits=acc_bits)
+            assert torch.equal(sm.seq_policy_matmul(x, w, **kw),
+                               sm.seq_policy_matmul_ref(x, w, **kw)), kw
+
+
+@pytest.mark.parametrize("n_keep,m_group", [(4, 16), (2, 8), (3, 12),
+                                            (8, 32)])
+def test_nm_spmm_non_canonical_slabs(card, n_keep, m_group):
+    """Row 4 on slabs that are not canonical but on which it and its
+    plain version agree: slots whose index is >= m_group or negative
+    (dropped by both, as the JAX package's one-hot expansion drops them)
+    and pairs of nonzero slots at one position whose sum stays inside
+    int8 (added, not overwritten). (3, 12) and (8, 32) take the loader
+    for groups that do not divide 16."""
+    x, _, vals, idx = _nm_w(17, 300, 70, n_keep, m_group, n_keep + m_group,
+                            card)
+    vals, idx = vals.clone(), idx.clone()
+    # slot 1 joins slot 0's position, the two values' sum inside int8
+    vals[:, 2::3, :2] = (vals[:, 2::3, :2].to(torch.int32) // 3).to(
+        torch.int8)
+    idx[:, 2::3, 1] = idx[:, 2::3, 0]
+    bad, kept = idx.clone(), vals.clone()
+    bad[:, 0::3, -1], kept[:, 0::3, -1] = m_group, 0
+    bad[:, 1::3, -1], kept[:, 1::3, -1] = -1, 0
+    assert bool((kept != vals).any())
+    got = nm_spmm.nm_spmm(x, vals, bad, m_group=m_group)
+    want = nm_spmm.nm_spmm_ref(x, kept, idx, m_group=m_group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

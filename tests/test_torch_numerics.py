@@ -8,11 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypothesis_shim import given, settings
+from _hypothesis_shim import strategies as st
 
 from repro.core import overflow as jov
 from repro.core import pruning as jpr
 from repro.core import quant as jq
 from repro.core import sorted_accum as jsa
+from repro.kernels import bitonic as jbit
 from repro_torch.core import overflow as tov
 from repro_torch.core import pruning as tpr
 from repro_torch.core import quant as tq
@@ -68,6 +71,41 @@ def test_pairwise_round_and_sorted_order(k):
         for rounds in (1, 2):
             _eq(tsa.sorted_order(torch.from_numpy(p), rounds),
                 jsa.sorted_order(jnp.asarray(p), rounds))
+
+
+# int8 operand rows for test_sort_keys_fit_int16: random, or the corners
+# whose products reach the ends of [-16256, 16384]
+_CORNERS = (None, (-128, -128), (-128, 127), (127, 127), "mixed")
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(0, 2**31 - 1), st.integers(0, 8),
+       st.integers(0, len(_CORNERS) - 1))
+def test_sort_keys_fit_int16(seed, log2_len, corner):
+    """The premise of the CUDA kernels' packed int16x2 sort: for int8
+    operands every product, and every key after each of 1 to 3
+    split/sort/pair rounds of the port's ``pairwise_round`` /
+    ``sorted_order``, lies in [-32768, 32767], and the rounds equal the
+    JAX package's ``sorted_order_bitonic`` (the Pallas kernels' network)
+    on the same inputs."""
+    r = np.random.default_rng(seed)
+    shape = (4, 1 << log2_len)
+    x = r.integers(-128, 128, shape)
+    w = r.integers(-128, 128, shape)
+    pick = _CORNERS[corner]
+    if pick == "mixed":
+        x = r.choice(np.array([-128, 127]), shape)
+        w = r.choice(np.array([-128, 127]), shape)
+    elif pick is not None:
+        x[:2], w[:2] = pick
+    prods = (x * w).astype(np.int32)
+    keys = torch.from_numpy(prods)
+    assert -16256 <= int(keys.min()) and int(keys.max()) <= 16384
+    for rounds in (1, 2, 3):
+        keys = tsa.pairwise_round(keys)
+        assert -32768 <= int(keys.min()) and int(keys.max()) <= 32767
+        _eq(keys, tsa.sorted_order(torch.from_numpy(prods), rounds))
+        _eq(keys, jbit.sorted_order_bitonic(jnp.asarray(prods), rounds))
 
 
 def test_pairwise_round_sentinel_extremes():
