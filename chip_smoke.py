@@ -24,7 +24,12 @@ imports nothing of JAX or of the JAX package. Phases:
    weight; and the global-sort kernels ``sort_matmul``,
    ``tile_sums_matmul``, ``paired_accum_matmul`` and
    ``chunked_sort_matmul`` (with tied tile sums), the one-pass kernel
-   equal to the two-pass pipeline; and their N:M gather twins
+   equal to the two-pass pipeline; pass 1's two kernels on their own
+   (``phase_pass1_kernels``: ``tile_sums_matmul`` on both bodies, the int8
+   mainloop and the small-tile one, and ``nm_gather_tile_sums`` on both,
+   at M 1, 4, 5, 64, 128, K 1000 and 1001, k_tile 16 to 1024, 8:16 and 2:4
+   slabs, non-canonical slabs and an index outside its group, the int8
+   extremes at k_tile 1024); and their N:M gather twins
    ``nm_gather_sort_matmul``, ``nm_gather_tile_sums``,
    ``nm_gather_paired_accum_matmul`` and ``nm_gather_chunked_sort_matmul``
    and their expand twins ``nm_sort_matmul``, ``nm_tile_sums_matmul``,
@@ -44,8 +49,8 @@ imports nothing of JAX or of the JAX package. Phases:
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
    tokens each; the launch counts show every integer projection went
    through the dense kernel; then a profiler window of two more decode
-   steps (device time by kernel, host time by operator) and the time of
-   the tied head's dequantize;
+   steps (device time by kernel, the port's own kernels summed, host time
+   by operator) and the time of the tied head's dequantize;
 3b. the same model served from N:M compressed storage
    (``nm_compress_tree``): every projection through the gather kernel,
    none through the dense one, and the same tokens as phase 3;
@@ -93,7 +98,11 @@ imports nothing of JAX or of the JAX package. Phases:
    kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); and ``quant_matmul``
    and ``nm_spmm`` at the 7 site shapes at M = 4 and 128 beside
    ``torch._int_mm`` with the weight stored (N, K) and as the kernel's
-   (K, N).
+   (K, N); pass 1 (``tile_sums_matmul``, ``nm_gather_tile_sums``) at w_out
+   at M = 4 and 128 beside a float32 ``bmm`` at the same M, checked equal
+   first, and, with ``--baseline-csrc DIR`` (another tree's
+   ``src/repro_torch/csrc``, built beside the port's), that tree's pass-1
+   kernels in the same call (``old_ms``).
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -105,6 +114,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -542,6 +552,22 @@ def profile_decode(torch, eng, vocab):
             break
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}",
               flush=True)
+    # the port's own kernels: the *_kernel names of csrc/ (PyTorch has
+    # anonymous namespaces too)
+    from repro_torch.kernels import build
+
+    ours = {k for f in build.CSRC.glob("*.cu*")
+            for k in re.findall(r"\b(\w+_kernel)\b", f.read_text())}
+
+    def name(e):
+        key = e.key.replace("(anonymous namespace)::", "")
+        return key.replace("mma8::", "").split("(")[0].replace("void ", "")
+
+    pqs = [e for e in events if name(e).split("<")[0] in ours]
+    print(f"  PQS kernels: {sum(dev_us(e) for e in pqs) / 1e3:.3f} ms device "
+          f"time in {sum(e.count for e in pqs)} launches: " + "; ".join(
+              f"{name(e)} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in pqs),
+          flush=True)
     # the host side: operators and CUDA runtime calls by self CPU time
     # (inflated by the profiler's own cost per operator)
     host = sorted((e for e in prof.key_averages()
@@ -1032,6 +1058,109 @@ def auto_expand(torch, sm, ss, nm, seed):
     return worst
 
 
+# phase 2's pass-1 cases: (M, K) with K not a multiple of 64, every tile
+# size, both bodies of each kernel (sorted_stream.tile_sums_body,
+# nm_tile_sums_body)
+PASS1_MS = (1, 4, 5, 64, 128)
+PASS1_KS = (1000, 1001)
+PASS1_K_TILES = (16, 32, 64, 256, 1024)
+
+
+def non_canonical(torch, vals, idx):
+    """Slabs with unsorted in-group indices (each group's slots reversed)
+    and, in every third group, slot 0 at the position of the last slot
+    (a duplicate, both products gathered)."""
+    vals, idx = vals.flip(-1).contiguous(), idx.flip(-1).contiguous()
+    idx[:, 1::3, 0] = idx[:, 1::3, -1]
+    return vals, idx
+
+
+def phase_pass1_kernels(torch, ss, seed):
+    """Pass 1 of ``sorted_tiled``, rows 9 and 11, against their plain
+    versions, equality: ``tile_sums_matmul`` at M 1, 4, 5, 64, 128, K 1000
+    and 1001, k_tile 16 to 1024 (both bodies), also with a zero tile past
+    K (kp + k_tile); ``nm_gather_tile_sums`` at the same M, K and tile
+    sizes on 8:16 and 2:4 slabs (both bodies), canonical (also equal to
+    row 9 on the decompressed weight) and non-canonical (``non_canonical``,
+    and an index outside its group but below K, read where it points); the
+    int8 extremes at k_tile 1024 (x all -128 against weight rows all -128
+    and all 127; 16:16 slabs), where a tile sum reaches 2^24. Returns the
+    max |difference| of each kernel."""
+    from repro_torch.kernels.sorted_matmul import padded_k
+
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    worst = {"tile_sums_matmul": 0, "nm_gather_tile_sums": 0}
+    bodies = {"tile_sums_matmul": set(), "nm_gather_tile_sums": set()}
+    cross = 0
+    for i, (m, k) in enumerate((m, k) for m in PASS1_MS for k in PASS1_KS):
+        x, w = operands(torch, m, 70, k, seed + 300 + i)
+        errs = []
+        for kt in PASS1_K_TILES:
+            kp = padded_k(k, "sorted_tiled", kt)
+            for kpx in (kp, kp + kt):
+                errs.append(diff(ss.tile_sums_matmul(x, w, k_tile=kt, kp=kpx),
+                                 ss.tile_sums_matmul_ref(x, w, k_tile=kt,
+                                                         kp=kpx)))
+            bodies["tile_sums_matmul"].add(ss.tile_sums_body(kt, k))
+        worst["tile_sums_matmul"] = max(worst["tile_sums_matmul"], *errs)
+        line = [f"  pass 1 M={m:3d} K={k}: tile_sums_matmul {max(errs)}"]
+        for n_keep, m_group in ((8, 16), (2, 4)):
+            x, w, vals, idx = nm_operands(torch, m, 70, k, seed + 400 + i,
+                                          n_keep, m_group)
+            odd = idx.clone()
+            odd[:, 2, 0] = m_group + 1  # group 3's position, below K
+            slabs = {"canonical": (vals, idx),
+                     "non-canonical": non_canonical(torch, vals, idx),
+                     "outside": (vals, odd)}
+            errs = []
+            for kt in PASS1_K_TILES:
+                kw = dict(k_tile=kt, m_group=m_group)
+                for name, (v, j) in slabs.items():
+                    got = ss.nm_gather_tile_sums(x, v, j, **kw)
+                    errs.append(diff(got, ss.nm_gather_tile_sums_ref(
+                        x, v, j, **kw)))
+                    if name == "canonical":
+                        kpt = padded_k(vals.shape[1] * m_group,
+                                       "sorted_tiled", kt)
+                        cross = max(cross, diff(got, ss.tile_sums_matmul(
+                            x, w, k_tile=kt, kp=kpt)))
+            bodies["nm_gather_tile_sums"].add(ss.nm_tile_sums_body(m))
+            worst["nm_gather_tile_sums"] = max(worst["nm_gather_tile_sums"],
+                                               *errs)
+            line.append(f"nm_gather_tile_sums {n_keep}:{m_group} {max(errs)}")
+        print("; ".join(line), flush=True)
+    for m in (4, 128):
+        x, w = operands(torch, m, 96, 2048, seed + 500 + m)
+        x[:] = -128
+        w[:48], w[48:] = -128, 127
+        sums = ss.tile_sums_matmul(x, w, k_tile=1024)
+        err = diff(sums, ss.tile_sums_matmul_ref(x, w, k_tile=1024))
+        vals = w.reshape(96, 128, 16)
+        idx = torch.arange(16, dtype=torch.int32, device="cuda").expand(
+            96, 128, 16).contiguous()
+        nm_sums = ss.nm_gather_tile_sums(x, vals, idx, k_tile=1024,
+                                         m_group=16)
+        nm_err = max(diff(nm_sums, ss.nm_gather_tile_sums_ref(
+            x, vals, idx, k_tile=1024, m_group=16)), diff(nm_sums, sums))
+        worst["tile_sums_matmul"] = max(worst["tile_sums_matmul"], err)
+        worst["nm_gather_tile_sums"] = max(worst["nm_gather_tile_sums"],
+                                           nm_err)
+        print(f"  pass 1 extremes M={m} k_tile 1024: sums in "
+              f"[{int(sums.min())}, {int(sums.max())}]; tile_sums_matmul "
+              f"{err}, nm_gather_tile_sums (16:16) {nm_err}", flush=True)
+    print(f"  pass 1 bodies run: {bodies}; nm_gather_tile_sums vs "
+          f"tile_sums_matmul on the decompressed weight {cross}", flush=True)
+    if any(worst.values()) or cross or bodies != {
+            "tile_sums_matmul": {"mma", "small"},
+            "nm_gather_tile_sums": {"few_rows", "many_rows"}}:
+        raise AssertionError(f"pass 1 kernels disagree: {worst}, vs dense "
+                             f"{cross}, bodies {bodies}")
+    return worst
+
+
 def phase_sort_parity(torch, counters, cfg, seed, new_tokens=8):
     """2 layers at full width under ``sorted_tiled`` and under ``sorted``:
     the dense kernels, their plain versions and the compressed weights
@@ -1420,6 +1549,133 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
     return table
 
 
+def baseline_pass1(torch, csrc_dir):
+    """Rows 9 and 11 as another tree's ``csrc/`` builds them (an older
+    commit's, for a same-call comparison): ``sorted_stream.cu`` and
+    ``nm_sort_matmul.cu`` compiled with the port's flags into
+    ``src/repro_torch/_build/baseline/``, called through their C entry
+    points (whose signatures are the port's). Returns {kernel name:
+    callable with the wrapper's arguments}."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sorted_matmul import padded_k
+
+    out_dir = build.BUILD_DIR / "baseline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    libs = {}
+    for src in ("sorted_stream", "nm_sort_matmul"):
+        lib = out_dir / f"lib{src}.so"
+        subprocess.run([build._nvcc(), *flags, "-o", str(lib),
+                        str(Path(csrc_dir) / f"{src}.cu")], check=True,
+                       capture_output=True, text=True)
+        libs[src] = ctypes.CDLL(str(lib))
+
+    def entry(src, name, n_ptrs, n_ints):
+        fn = getattr(libs[src], name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_void_p]
+        return fn
+
+    dense = entry("sorted_stream", "pqs_tile_sums", 3, 5)
+    gather = entry("nm_sort_matmul", "pqs_nm_gather_tile_sums", 4, 8)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def tile_sums(x, w, *, k_tile):
+        (m, k), n = x.shape, w.shape[0]
+        out = torch.empty((m, n, k // k_tile), dtype=torch.int32,
+                          device="cuda")
+        if dense(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, k,
+                 k_tile, stream()):
+            raise RuntimeError("baseline pqs_tile_sums failed")
+        return out
+
+    def nm_sums(x, vals, idx, *, k_tile, m_group):
+        (m, k), (n, g, n_keep) = x.shape, vals.shape
+        kp = padded_k(g * m_group, "sorted_tiled", k_tile)
+        out = torch.empty((m, n, kp // k_tile), dtype=torch.int32,
+                          device="cuda")
+        if gather(x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), m, n, k, g, n_keep, m_group, kp, k_tile,
+                  stream()):
+            raise RuntimeError("baseline pqs_nm_gather_tile_sums failed")
+        return out
+
+    return {"tile_sums_matmul": tile_sums, "nm_gather_tile_sums": nm_sums}
+
+
+def phase_pass1_timing(torch, ss, baseline=None):
+    """Rows 9 and 11 at w_out (N 1536, K 8960, k_tile 256, 8:16 slabs for
+    row 11) at decode (M = 4) and at a prefill cohort (M = 128): each
+    kernel beside one float32 ``torch.bmm`` of the same sums at the same
+    M (TF32 off; row 11's on the decompressed weight), first checked
+    equal to the kernel (exact: |sum| <= 256 * 16384 < 2^24), its plain
+    version, its bound (bytes: x, the weight or the int8 values and int32
+    indices, and the (M, N, T) int32 output; operations: 2 M N K, or
+    2 M (G n_keep) N for the kept products) and, given ``baseline``
+    (``baseline_pass1``), the same kernel of that build (``old_ms``,
+    equal results checked), timed in turns old, new, new, old. Returns
+    {(kernel, M): row}."""
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    (n, k), kt = SITES["w_out"], 256
+    t = k // kt
+    table = {}
+    for m in (4, 128):
+        x, w, vals, idx = nm_operands(torch, m, n, k, 17)
+        kept = vals.numel()
+        xf = x.float().reshape(m, t, kt).transpose(0, 1).contiguous()
+        wf = w.float().reshape(n, t, kt).permute(1, 2, 0).contiguous()
+        bmm = torch.bmm(xf, wf).permute(1, 2, 0).to(torch.int32)
+        out = 4 * m * n * t
+        kw = dict(k_tile=kt, m_group=M_GROUP)
+        for name, call, plain, nbytes, ops, args in (
+                ("tile_sums_matmul", ss.tile_sums_matmul,
+                 ss.tile_sums_matmul_ref, m * k + n * k + out, m * n * k,
+                 ((x, w), dict(k_tile=kt))),
+                ("nm_gather_tile_sums", ss.nm_gather_tile_sums,
+                 ss.nm_gather_tile_sums_ref, m * k + 5 * kept + out,
+                 m * kept, ((x, vals, idx), kw))):
+            pos, kws = args
+            got = call(*pos, **kws)
+            if not (torch.equal(got, bmm) and torch.equal(got, plain(
+                    *pos, **kws))):
+                raise AssertionError(f"{name} at M={m}: the kernel, its "
+                                     "plain version and the float32 bmm "
+                                     "disagree")
+            row = dict(plain_ms=time_launches(torch, lambda: plain(
+                *pos, **kws), 1, flush_buf),
+                library_ms=time_launches(torch, lambda: torch.bmm(xf, wf),
+                                         10, flush_buf),
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=2 * ops / INT8_OPS_PER_S * 1e3)
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            new = lambda: call(*pos, **kws)  # noqa: E731
+            if baseline is None:
+                row["ms"] = time_launches(torch, new, 10, flush_buf)
+            else:
+                old = lambda: baseline[name](*pos, **kws)  # noqa: E731
+                if not torch.equal(old(), got):
+                    raise AssertionError(f"{name} at M={m}: the baseline "
+                                         "build disagrees")
+                times = [time_launches(torch, f, 10, flush_buf)
+                         for f in (old, new, new, old)]
+                row["ms"] = (times[1] + times[2]) / 2
+                row["old_ms"] = (times[0] + times[3]) / 2
+            table[(name, m)] = row
+            print(f"  time pass 1 {name:20s} w_out M={m:3d} kernel "
+                  f"{row['ms']:.4f} ms" + (
+                      f"  old kernel {row['old_ms']:.4f} ms"
+                      if "old_ms" in row else "")
+                  + f"  float32 bmm {row['library_ms']:.4f} ms  plain "
+                  f"{row['plain_ms']:.2f} ms  bound {row['bound_ms']:.5f} "
+                  f"ms", flush=True)
+    return table
+
+
 def phase_wide_timing(torch, qm, nm):
     """Rows 3 and 4 at the 7 site shapes at decode (M = 4) and at a
     prefill cohort (M = 128); row 4 on 8:16 slabs and row 3 on their
@@ -1484,7 +1740,7 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     for key in ("dense_ms", "gather_ms", "int_mm_kn_ms", "int_mm_m32_ms",
-                "int_mm_m32_kn_ms"):
+                "int_mm_m32_kn_ms", "old_ms"):
         if all(key in r for r in rows):
             extra[key] = sum(r[key] for r in rows)
     library = [r.get("library_ms") for r in rows]
@@ -1503,9 +1759,23 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
         else None, **extra)
 
 
+def pass1_records(name, source, replaces, table, work):
+    """The phase-5 pass-1 rows of one kernel (``phase_pass1_timing``) as
+    sub-records of its ``kernels`` entry: ``by_M`` {"M=4", "M=128"}, each
+    with the float32 bmm at the same M and, where a baseline build was
+    timed, the old kernel's ms."""
+    return {"by_M": {f"M={m}": kernel_record(
+        name, source, replaces, [table[(name, m)]], policy="sorted_tiled",
+        work=work.replace("decode (M=4)", f"M={m}"))
+        for m in (4, 128)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline-csrc", default=None,
+                    help="another tree's src/repro_torch/csrc: phase 5 "
+                         "also times its rows 9 and 11 (old_ms)")
     args = ap.parse_args()
 
     import torch
@@ -1614,6 +1884,7 @@ def main() -> int:
             sort_err=phase_sort_kernels(torch, sm, ss, args.seed),
             nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
                                               args.seed),
+            pass1_err=phase_pass1_kernels(torch, ss, args.seed),
             wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
@@ -1648,6 +1919,9 @@ def main() -> int:
             nm_timing=phase_nm_timing(torch, sm, nm),
             sort_timing=phase_sort_timing(torch, sm, ss),
             nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm),
+            pass1_timing=phase_pass1_timing(
+                torch, ss, args.baseline_csrc and baseline_pass1(
+                    torch, args.baseline_csrc)),
             wide_timing=phase_wide_timing(torch, qm, nm))),
     ]
     for title, fn in phases:
@@ -1725,7 +1999,11 @@ def main() -> int:
             timing["tile_sums_matmul"], policy="sorted_tiled",
             work=w_out + ", k_tile 256",
             launches=tiled["tile_sums_matmul"],
-            max_abs_err=got["sort_err"]["tile_sums_matmul"],
+            max_abs_err=max(got["sort_err"]["tile_sums_matmul"],
+                            got["pass1_err"]["tile_sums_matmul"]),
+            **pass1_records("tile_sums_matmul", csrc + "sorted_stream.cu",
+                            "src/repro/kernels/sorted_stream.py:110",
+                            got["pass1_timing"], w_out + ", k_tile 256"),
             path="phase 3c (two-pass pass 1 at K = 8960)"),
         kernel_record(
             "paired_accum_matmul", csrc + "sorted_stream.cu",
@@ -1773,7 +2051,13 @@ def main() -> int:
             timing["nm_gather_tile_sums"], policy="sorted_tiled",
             work=w_out + nm8 + ", k_tile 256",
             launches=tiled["nm_gather_tile_sums"],
-            max_abs_err=err["nm_gather_tile_sums"],
+            max_abs_err=max(err["nm_gather_tile_sums"],
+                            got["pass1_err"]["nm_gather_tile_sums"]),
+            **pass1_records("nm_gather_tile_sums",
+                            csrc + "nm_sort_matmul.cu",
+                            "src/repro/kernels/sorted_stream.py:567",
+                            got["pass1_timing"],
+                            w_out + nm8 + ", k_tile 256"),
             path="phase 3e (two-pass pass 1 at K = 8960)"),
         kernel_record(
             "nm_gather_paired_accum_matmul", csrc + "nm_sort_matmul.cu",

@@ -44,6 +44,22 @@
 // that one wave, and the partial sums are added with atomicAdd into an
 // output zeroed first.
 //
+// The epilogue is the kernel's template parameter E:
+// - WholeK (rows 1 `wide`, 3 and 4): the (M, N) sums over the block's
+//   share of K, stored (or added atomically, K split) after its last slab;
+// - TileSums (row 9, sorted_stream.cu): the (M, N, T) sums of each k_tile
+//   tile, contiguous along T (k_tile a power-of-two multiple of kBK).
+//   After every k_tile / kBK slabs the block puts its accumulators in
+//   shared memory as that tile's sums and zeroes them; every kHeld tiles
+//   (and after its last) it writes the held tiles out, 8 lanes to an
+//   output's run of tiles, so a warp's store covers 4 runs and not 32
+//   outputs T words apart (stored from the fragments, those scattered
+//   words took most of the kernel's time at M = 128). K is split on whole
+//   tiles (launch_tile_sums), so each (m, n, t) has one writer: no
+//   atomics, no memset. The held tiles of a 16-row block take 35 KB;
+//   above decode, blocks of 32 rows keep them at 70 KB (128-row blocks
+//   would need 278 KB).
+//
 // A loader W provides:
 //   static constexpr int kLead;                 0 or 1, as above
 //   int raw_bytes() const;                      a stage's raw bytes (a
@@ -70,6 +86,7 @@ constexpr int kBK = 64;           // K of a slab
 constexpr int kBN = 64;           // output columns of a block
 constexpr int kRow = kBK + 16;    // bytes of a staged row (80)
 constexpr int kPrefillTiles = 8;  // MT above decode: 128 rows a block
+constexpr int kTileSumsTiles = 2;  // TileSums' MT above decode: 32 rows
 
 // A block of MT 16-row tiles: its warps (4 over the tile's columns, times 2
 // over its rows at a prefill cohort) and the stages of its ring.
@@ -217,6 +234,72 @@ struct DenseRows {
                                         int) const {}
 };
 
+// The epilogues (see the header).
+struct WholeK {
+  static constexpr bool kTiled = false;
+};
+
+struct TileSums {
+  static constexpr bool kTiled = true;
+  static constexpr int kHeld = 8;            // tiles held before a write
+  static constexpr int kRowWords = kBN + 4;  // a held row's int32 words
+  // a held tile: 16 MT rows, 4 words more so that the 8 lanes of a run
+  // (8 tiles) and 4 columns read 32 banks
+  template <int MT>
+  __host__ __device__ static constexpr int tile_words() {
+    return 16 * MT * kRowWords + 4;
+  }
+  // the held tiles' bytes, after the ring
+  template <int MT>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return kHeld * tile_words<MT>() * 4;
+  }
+  int shift;    // log2(k_tile / kBK): a tile's slabs
+  int T;        // tiles of an output row (kp / k_tile)
+  int tiles_k;  // tiles holding a position below K; the rest sum to 0
+};
+
+// TileSums: a thread's accumulators (acc[mt][j][e] at the block's row 16
+// (mt0 + mt) + g + 8 (e >> 1), column wn * 16 + 8 j + 2 t + (e & 1), for
+// mt0 + mt < live) put in a held tile, then zeroed.
+template <int TW>
+__device__ __forceinline__ void hold_tile(int (&acc)[TW][2][4],
+                                          int32_t* tile, int mt0, int wn,
+                                          int g, int t, int live) {
+#pragma unroll
+  for (int mt = 0; mt < TW; ++mt) {
+    if (mt0 + mt >= live) break;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * (mt0 + mt) + g + 8 * (e >> 1);
+        tile[r * TileSums::kRowWords + wn * 16 + 8 * j + 2 * t + (e & 1)] =
+            acc[mt][j][e];
+        acc[mt][j][e] = 0;
+      }
+  }
+}
+
+// TileSums: the block's `count` held tiles written out as tiles tile0 ..
+// tile0 + count - 1 of out (M, N, T): lanes 8c .. 8c + 7 of a warp write
+// one output's run of up to kHeld tiles. Every thread of the block calls
+// it.
+template <int MT, int NT>
+__device__ __forceinline__ void write_held(const int32_t* held,
+                                           int32_t* __restrict__ out, int M,
+                                           int N, int T, int tile0, int count,
+                                           int m0, int n0) {
+  const int p = threadIdx.x & 7;
+  for (int rc = threadIdx.x >> 3; rc < 16 * MT * kBN; rc += NT >> 3) {
+    const int r = rc / kBN, c = rc % kBN;
+    const int m = m0 + r, n = n0 + c;
+    if (p < count && m < M && n < N)
+      out[(static_cast<int64_t>(m) * N + n) * T + tile0 + p] =
+          held[p * TileSums::tile_words<MT>() + r * TileSums::kRowWords + c];
+  }
+}
+
 // Bytes of a ring stage: x rows, weight rows, the loader's raw bytes.
 template <int MT, typename W>
 __host__ __device__ __forceinline__ int stage_bytes(const W& wl) {
@@ -225,13 +308,13 @@ __host__ __device__ __forceinline__ int stage_bytes(const W& wl) {
 
 // One block: the (16 MT) x kBN output tile at (blockIdx.y, blockIdx.x) over
 // slabs [blockIdx.z * per, (blockIdx.z + 1) * per) of K. `split`: K is
-// split among blocks, whose sums are added atomically. Dynamic shared
-// memory: Shape<MT>::kStages * stage_bytes<MT>(wl) bytes.
-template <int MT, typename W>
+// split among blocks, whose sums are added atomically (WholeK). Dynamic
+// shared memory: Shape<MT>::kStages * stage_bytes<MT>(wl) bytes.
+template <int MT, typename W, typename E = WholeK>
 __global__ void __launch_bounds__(Shape<MT>::kThreads)
     mma_kernel(const int8_t* __restrict__ x, int x_mode, W wl,
                int32_t* __restrict__ out, int M, int N, int K, int per,
-               int split) {
+               int split, E epi) {
   extern __shared__ __align__(16) uint8_t ring[];
   constexpr int NT = Shape<MT>::kThreads;
   constexpr int TW = Shape<MT>::kTiles;
@@ -286,6 +369,10 @@ __global__ void __launch_bounds__(Shape<MT>::kThreads)
                     16 * (lane >> 4);
   const int b_off = (wn * 16 + (lane & 7) + 8 * (lane >> 4)) * kRow +
                     16 * ((lane >> 3) & 1);
+  // TileSums: tiles held after the ring, the first tile not yet written
+  int32_t* held = reinterpret_cast<int32_t*>(ring + kStages * stage);
+  int held_n = 0, tile0 = k_begin / kBK;
+  if constexpr (E::kTiled) tile0 >>= epi.shift;
   for (int i = 0; i < slabs; ++i) {
     // every thread's copies (and builds) of slab i are done, and its
     // reads of slab i - 1's stage
@@ -308,10 +395,38 @@ __global__ void __launch_bounds__(Shape<MT>::kThreads)
         }
       }
     }
+    if constexpr (E::kTiled) {
+      // slab i closes its tile: the block's last slab, or the tile's
+      const int s = k_begin / kBK + i;  // the slab's index over K
+      if (i + 1 == slabs || ((s + 1) & ((1 << epi.shift) - 1)) == 0) {
+        hold_tile(acc, held + held_n * E::template tile_words<MT>(), mt0, wn,
+                  g, t, live);
+        if (++held_n == E::kHeld || i + 1 == slabs) {
+          // every thread's part of the held tiles is in; the next tile's
+          // writes come after the next slab's barrier
+          __syncthreads();
+          write_held<MT, NT>(held, out, M, N, epi.T, tile0, held_n, m0, n0);
+          tile0 += held_n;
+          held_n = 0;
+        }
+      }
+    }
     cp_async_wait<kStages - 2>();  // slab i + 1's copies by this thread
     if (W::kLead && i + 1 < slabs) build(i + 1);
   }
 
+  if constexpr (E::kTiled) {
+    // the last split also writes the tiles past K, whose sums are 0
+    const int past = epi.T - epi.tiles_k;
+    if (blockIdx.z + 1 == gridDim.z && past > 0)
+      for (int i = threadIdx.x; i < 16 * MT * kBN * past; i += NT) {
+        const int rc = i / past, m = m0 + rc / kBN, n = n0 + rc % kBN;
+        if (m < M && n < N)
+          out[(static_cast<int64_t>(m) * N + n) * epi.T + epi.tiles_k +
+              i % past] = 0;
+      }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < TW; ++mt) {
     if (mt0 + mt >= live) break;
@@ -339,15 +454,17 @@ inline int sm_count() {
   return n;
 }
 
-// Blocks of mma_kernel<MT, W> with `smem` bytes of shared memory that one
-// SM holds at once (the last answer kept: a loader's smem rarely changes).
-template <int MT, typename W>
+// Blocks of mma_kernel<MT, W, E> with `smem` bytes of shared memory that
+// one SM holds at once (the last answer kept: a loader's smem rarely
+// changes).
+template <int MT, typename W, typename E = WholeK>
 int resident_blocks(int smem) {
   static int known_smem = -1, known = 1;
   if (smem != known_smem) {
     int n = 1;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, mma_kernel<MT, W>, Shape<MT>::kThreads, smem) != cudaSuccess)
+            &n, mma_kernel<MT, W, E>, Shape<MT>::kThreads, smem) !=
+        cudaSuccess)
       n = 1;
     known_smem = smem;
     known = n > 0 ? n : 1;
@@ -386,7 +503,7 @@ int launch_tiles(const int8_t* x, const W& wl, int32_t* out, int M, int N,
   const dim3 grid(static_cast<unsigned>(tiles_n),
                   static_cast<unsigned>(tiles_m), splits);
   mma_kernel<MT, W><<<grid, Shape<MT>::kThreads, smem, s>>>(
-      x, copy_mode(x, K), wl, out, M, N, K, per, splits > 1);
+      x, copy_mode(x, K), wl, out, M, N, K, per, splits > 1, WholeK{});
   return cudaGetLastError();
 }
 
@@ -405,6 +522,61 @@ int launch(const int8_t* x, const W& wl, int32_t* out, int M, int N, int K,
   return decode ? launch_tiles<1>(x, wl, out, M, N, K, tiles_n, tiles_m, s)
                 : launch_tiles<kPrefillTiles>(x, wl, out, M, N, K, tiles_n,
                                               tiles_m, s);
+}
+
+// TileSums at (16 MT)-row blocks: the tiles_k tiles of K split among as
+// many blocks as the card holds at once, as launch_tiles, but on whole
+// tiles, each block storing its own tiles' sums.
+template <int MT, typename W>
+int launch_tile_split(const int8_t* x, const W& wl, int32_t* out, int M,
+                      int N, int K, int64_t tiles_n, int64_t tiles_m,
+                      const TileSums& epi, cudaStream_t s) {
+  const int smem = Shape<MT>::kStages * stage_bytes<MT>(wl) +
+                   TileSums::smem_bytes<MT>();
+  if (smem > 232448) return cudaErrorInvalidValue;  // 227 KB a block
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mma_kernel<MT, W, TileSums>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t tiles = tiles_n * tiles_m;
+  const int64_t wave =
+      std::min(resident_blocks<MT, W, TileSums>(smem), MT == 1 ? 4 : 2) *
+      static_cast<int64_t>(sm_count());
+  int splits = static_cast<int>(
+      std::max<int64_t>(1, std::min<int64_t>(epi.tiles_k, wave / tiles)));
+  const int per = (epi.tiles_k + splits - 1) / splits;  // tiles a block
+  splits = (epi.tiles_k + per - 1) / per;
+  if (splits > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(tiles_n),
+                  static_cast<unsigned>(tiles_m), splits);
+  mma_kernel<MT, W, TileSums><<<grid, Shape<MT>::kThreads, smem, s>>>(
+      x, copy_mode(x, K), wl, out, M, N, K, per << epi.shift, 0, epi);
+  return cudaGetLastError();
+}
+
+// out (M, N, T) int32: out[m, n, t] = the sum over tile t, [t k_tile,
+// (t + 1) k_tile), of x (M, K) times the loader's (N, K) rows, zero past
+// K; k_tile a power-of-two multiple of kBK, T k_tile >= K >= 1, M, N >= 1.
+// Returns the launch's error.
+template <typename W>
+int launch_tile_sums(const int8_t* x, const W& wl, int32_t* out, int M,
+                     int N, int K, int k_tile, int T, cudaStream_t s) {
+  int shift = 0;
+  while ((kBK << shift) < k_tile) ++shift;
+  if ((kBK << shift) != k_tile || K < 1 ||
+      static_cast<int64_t>(T) * k_tile < K)
+    return cudaErrorInvalidValue;
+  const TileSums epi{shift, T, (K + k_tile - 1) / k_tile};
+  const bool decode = M <= 16;
+  const int bm = decode ? 16 : 16 * kTileSumsTiles;
+  const int64_t tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + bm - 1) / bm;
+  if (tiles_m > 65535 || tiles_n > 0x7fffffff) return cudaErrorInvalidValue;
+  return decode ? launch_tile_split<1>(x, wl, out, M, N, K, tiles_n,
+                                       tiles_m, epi, s)
+                : launch_tile_split<kTileSumsTiles>(x, wl, out, M, N, K,
+                                                    tiles_n, tiles_m, epi, s);
 }
 
 }  // namespace mma8

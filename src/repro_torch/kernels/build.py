@@ -88,13 +88,15 @@ def build_all(names=SOURCES) -> dict[str, Path]:
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<args>`` of a mangled kernel name: its integer template
-    arguments and the class names among them (``mma_kernel<1,KnRows>``)."""
-    found = re.search(r"\d([a-z][a-z_]*_kernel)(I.*)?", mangled)
+    """``name<args>`` of a mangled kernel name: its integer, bool and class
+    template arguments (``mma_kernel<1,KnRows,WholeK>``,
+    ``nm_sums_few_rows_kernel<4,true>``)."""
+    found = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(.*?)EEv)?", mangled)
     if not found:
         return mangled
-    args = [a or b for a, b in re.findall(r"Li(\d+)E|\d([A-Z]\w*?)E",
-                                          found[2] or "")]
+    args = [i or ("true" if b == "1" else "false" if b else c)
+            for i, b, c in re.findall(r"Li(\d+)E|Lb([01])E|\d([A-Z]\w*?)E",
+                                      found[2] or "")]
     return f"{found[1]}<{','.join(args)}>" if args else found[1]
 
 

@@ -20,6 +20,12 @@ split/sort/pair stage over the whole K of each output. On the card one
 block holds all of an output's keys up to ``SORTED_MAX_K``, so it launches
 the one-pass ``sorted`` kernel of ``csrc/sort_matmul.cu``, counted here.
 
+On the card pass 1 runs on the int8 tensor-core mainloop of
+``csrc/int8_mma.cuh`` (k_tile a power-of-two multiple of 64; shorter
+tiles on a small-tile body, ``tile_sums_body``), and its gather twin on a
+body that reads each kept slot once for all rows of x
+(``nm_tile_sums_body``).
+
 ``stream_sort_matmul`` is the entry point ``ops.policy_matmul`` routes K
 above ``ops.MAX_RESIDENT_K`` to. On N:M compressed slabs the gather twins
 ``nm_gather_tile_sums``, ``nm_gather_paired_accum_matmul`` and
@@ -79,6 +85,31 @@ from repro_torch.kernels.sorted_matmul import (
     row_chunk,
     stream_of,
 )
+
+
+# Pass 1's CUDA bodies. Dense (csrc/sorted_stream.cu): tiles of whole
+# slabs of the int8 tensor-core mainloop (csrc/int8_mma.cuh, 64 bytes of
+# K a slab) run on it, shorter tiles on a small-tile body. Gather
+# (csrc/nm_sort_matmul.cu): up to NM_SUMS_FEW_ROWS rows of x the lanes of
+# a warp split a tile's kept slots; above, each lane owns 4 rows of x.
+MMA_SLAB = 64
+NM_SUMS_FEW_ROWS = 16
+
+
+def tile_sums_body(k_tile: int, k: int) -> str:
+    """The CUDA body ``tile_sums_matmul`` launches for tiles of ``k_tile``
+    at K = ``k``: ``"mma"`` (the mainloop with its per-tile epilogue) where
+    k_tile is a power-of-two multiple of ``MMA_SLAB`` and K >= 1, else
+    ``"small"``."""
+    slabs = k_tile // MMA_SLAB
+    whole = k_tile % MMA_SLAB == 0 and slabs > 0 and slabs & (slabs - 1) == 0
+    return "mma" if whole and k >= 1 else "small"
+
+
+def nm_tile_sums_body(m: int) -> str:
+    """The CUDA body ``nm_gather_tile_sums`` launches for ``m`` rows of x:
+    ``"few_rows"`` up to ``NM_SUMS_FEW_ROWS``, else ``"many_rows"``."""
+    return "few_rows" if m <= NM_SUMS_FEW_ROWS else "many_rows"
 
 
 def _empty(x, *shape):
@@ -284,6 +315,10 @@ def nm_gather_tile_sums(x: torch.Tensor, values: torch.Tensor,
     if on_cpu(x, values, indices):
         return nm_gather_tile_sums_ref(x, values, indices, m_group=m_group,
                                        k_tile=k_tile)
+    if k_tile not in KERNEL_K_TILES:
+        raise NotImplementedError(
+            f"the CUDA kernel stages tiles of up to {KERNEL_K_TILES[-1]} "
+            f"positions; k_tile={k_tile}")
     out, launched = launch_slabs(
         "nm_sort_matmul", "pqs_nm_gather_tile_sums", x, values, indices,
         m_group=m_group, out_tail=(kp // k_tile,), ints=(kp, k_tile))

@@ -1114,3 +1114,75 @@ def test_nm_spmm_non_canonical_slabs(card, n_keep, m_group):
     want = nm_spmm.nm_spmm_ref(x, kept, idx, m_group=m_group)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [5, 128])
+@pytest.mark.parametrize("k_tile", [1, 4, 16, 32, 64, 512, 1024])
+def test_tile_sums_bodies_every_k_tile(card, k_tile, m):
+    """Row 9's two bodies (the int8 mainloop with its per-tile epilogue at
+    k_tile >= 64, the small-tile body below) against the plain version, K
+    not a multiple of a 64-byte slab, at a decode and a prefill M, also
+    with a tile past K (kp + k_tile: its sums are 0), the int8 extremes in
+    row 0."""
+    x, w = _xw(m, 3072 - 7, 40, 3 * k_tile + m, card)
+    x[0], w[0] = -128, -128
+    kp = ops.padded_k(x.shape[1], "sorted_tiled", k_tile)
+    for kpx in (kp, kp + k_tile):
+        got = ss.tile_sums_matmul(x, w, k_tile=k_tile, kp=kpx)
+        want = ss.tile_sums_matmul_ref(x, w, k_tile=k_tile, kp=kpx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (k_tile, m, kpx,
+                                        ss.tile_sums_body(k_tile, 3065))
+
+
+def _non_canonical(vals, idx):
+    """Each group's slots reversed (unsorted indices), and in every third
+    group slot 0 at the last slot's position (a duplicate)."""
+    vals, idx = vals.flip(-1).contiguous(), idx.flip(-1).contiguous()
+    idx[:, 1::3, 0] = idx[:, 1::3, -1]
+    return vals, idx
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 128])
+@pytest.mark.parametrize("n_keep,m_group", [(8, 16), (2, 4), (3, 16)])
+def test_nm_gather_tile_sums_bodies(card, m, n_keep, m_group):
+    """Row 11's two bodies (lanes over a tile's slots up to 16 rows of x,
+    over rows above) against the plain version and row 9 on the
+    decompressed weight at k_tile 16 to 1024, K = 1001 (groups past G and
+    positions past K masked); on non-canonical slabs against the plain
+    version; and with an index outside its group but below K, which reads
+    x where it points, as the plain version does."""
+    x, w, vals, idx = _nm_w(m, 1001, 70, n_keep, m_group, m + n_keep, card)
+    odd = idx.clone()
+    odd[:, 2, 0] = m_group + 1
+    nv, ni = _non_canonical(vals, idx)
+    for k_tile in (16, 64, 256, 1024):
+        kw = dict(m_group=m_group, k_tile=k_tile)
+        kt = ops.padded_k(vals.shape[1] * m_group, "sorted_tiled", k_tile)
+        got = ss.nm_gather_tile_sums(x, vals, idx, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ss.nm_gather_tile_sums_ref(x, vals, idx,
+                                                           **kw)), k_tile
+        assert torch.equal(got, ss.tile_sums_matmul(x, w, k_tile=k_tile,
+                                                    kp=kt)), k_tile
+        for v, i in ((nv, ni), (vals, odd)):
+            assert torch.equal(ss.nm_gather_tile_sums(x, v, i, **kw),
+                               ss.nm_gather_tile_sums_ref(x, v, i, **kw)), (
+                k_tile, ss.nm_tile_sums_body(m))
+
+
+def test_pass1_wrappers_refuse_mixed_devices(card):
+    """Rows 9 and 11 launch only on operands on one CUDA device: a CPU
+    operand beside CUDA ones is refused, as is a gather tile the card
+    kernel does not stage (k_tile above 1024)."""
+    x, w = _xw(4, 2048, 8, 0, card)
+    for a, b in ((x, w.cpu()), (x.cpu(), w)):
+        with pytest.raises(ValueError):
+            ss.tile_sums_matmul(a, b, k_tile=64)
+    x, vals, idx = _nm(4, 2048, 8, 8, 16, 0, card)
+    for args in ((x.cpu(), vals, idx), (x, vals.cpu(), idx),
+                 (x, vals, idx.cpu())):
+        with pytest.raises(ValueError):
+            ss.nm_gather_tile_sums(*args, m_group=16, k_tile=64)
+    with pytest.raises(NotImplementedError):
+        ss.nm_gather_tile_sums(x, vals, idx, m_group=16, k_tile=2048)
