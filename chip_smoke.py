@@ -26,10 +26,13 @@ imports nothing of JAX or of the JAX package. Phases:
    ``chunked_sort_matmul`` (with tied tile sums), the one-pass kernel
    equal to the two-pass pipeline; pass 1's two kernels on their own
    (``phase_pass1_kernels``: ``tile_sums_matmul`` on both bodies, the int8
-   mainloop and the small-tile one, and ``nm_gather_tile_sums`` on both,
-   at M 1, 4, 5, 64, 128, K 1000 and 1001, k_tile 16 to 1024, 8:16 and 2:4
-   slabs, non-canonical slabs and an index outside its group, the int8
-   extremes at k_tile 1024); and their N:M gather twins
+   mainloop and the small-tile one, and ``nm_gather_tile_sums`` and
+   ``nm_tile_sums_matmul`` on the few-rows and many-rows bodies they share
+   (and the latter's one-warp body at k_tile 2048), at M 1, 4, 5, 64, 128,
+   K 1000 and 1001, k_tile 16 to 1024, 8:16 and 2:4 slabs, non-canonical
+   slabs and an index outside its group, which the gather reads and the
+   expand drops, the int8 extremes at k_tile 1024); and their N:M gather
+   twins
    ``nm_gather_sort_matmul``, ``nm_gather_tile_sums``,
    ``nm_gather_paired_accum_matmul`` and ``nm_gather_chunked_sort_matmul``
    and their expand twins ``nm_sort_matmul``, ``nm_tile_sums_matmul``,
@@ -43,7 +46,11 @@ imports nothing of JAX or of the JAX package. Phases:
    shapes (M 1, 4, 17, 128, ragged N and K, K = 8960, int8 extremes;
    8:16, 4:16, 2:8, 16:16 and padded slots; non-canonical slabs on which
    it and its plain version agree), ``nm_spmm`` and the ``wide`` policy
-   also equal to ``quant_matmul``;
+   also equal to ``quant_matmul``; and ``quant_matmul`` on each of its
+   bodies (``phase_quant_matmul_bodies``: the TMA-fed one where
+   ``quant_matmul_body`` names it and the KnRows one everywhere, M 1 to
+   200, ragged N and K, operands 0, 1 and 4 bytes off alignment, the int8
+   extremes and the int32 wrap);
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -80,7 +87,8 @@ imports nothing of JAX or of the JAX package. Phases:
    their plain versions and the compressed weights through the expand
    kernels give identical tokens (8 new ones) and decode logits;
 4c. the torch quickstart (``repro_torch.quickstart.run``) on the card:
-   it launches ``quant_matmul``, ``nm_spmm`` and ``seq_policy_matmul``,
+   it launches ``quant_matmul`` (on its TMA-fed body), ``nm_spmm`` and
+   ``seq_policy_matmul``,
    prints what it prints on the CPU, and each of its matmuls' results
    equals the plain version's on the same inputs, element by element;
 4d. ``quant_matmul`` on the ``QTensor.values`` and ``nm_spmm`` on the
@@ -98,11 +106,13 @@ imports nothing of JAX or of the JAX package. Phases:
    kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); and ``quant_matmul``
    and ``nm_spmm`` at the 7 site shapes at M = 4 and 128 beside
    ``torch._int_mm`` with the weight stored (N, K) and as the kernel's
-   (K, N); pass 1 (``tile_sums_matmul``, ``nm_gather_tile_sums``) at w_out
-   at M = 4 and 128 beside a float32 ``bmm`` at the same M, checked equal
-   first, and, with ``--baseline-csrc DIR`` (another tree's
-   ``src/repro_torch/csrc``, built beside the port's), that tree's pass-1
-   kernels in the same call (``old_ms``).
+   (K, N), ``quant_matmul`` on its TMA-fed body; pass 1
+   (``tile_sums_matmul``, ``nm_tile_sums_matmul``, ``nm_gather_tile_sums``)
+   at w_out at M = 4 and 128 beside a float32 ``bmm`` at the same M,
+   checked equal first; and, with ``--baseline-csrc DIR`` (another tree's
+   ``src/repro_torch/csrc``, built beside the port's), that tree's rows 1
+   (``wide``), 3, 4, 9, 10 and 11, each timed in turns with the new one in
+   the same call (``old_ms``).
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -403,6 +413,73 @@ def phase_wide_kernels(torch, sm, qm, nm, seed):
     return worst
 
 
+# Row 3's bodies (quant_matmul_body): M at decode, around the 8-, 16- and
+# 32-row instructions and above 128; (K, N) TMA can take and ragged ones
+# it cannot; operands 0, 1 and 4 bytes off alignment (the TMA body only
+# at 0)
+QM_MS = (1, 4, 5, 16, 17, 64, 128, 200)
+QM_SHAPES = ((1536, 256), (272, 144), (300, 70), (33, 129))
+QM_WRAP_K = 131088  # 16384 K > 2^31: the all -128 sum wraps
+
+
+def phase_quant_matmul_bodies(torch, sm, qm, seed):
+    """Row 3 on each of its bodies against its plain version, bit for bit:
+    at ``QM_MS`` x ``QM_SHAPES`` x offsets 0, 1 and 4 (x and w copied that
+    many bytes off 16-byte alignment), the int8 extremes at the corners;
+    the TMA body where ``quant_matmul_body`` names it (aligned operands, N
+    and K multiples of 16), the KnRows body everywhere, and the default
+    call on the body the choice function names (``body_launches``); each
+    also equal to ``seq_policy_matmul`` under ``wide`` on wᵀ. Then the
+    int32 wrap (K = 131088, all -128: the sum passes 2^31) on both bodies.
+    Returns the max |difference| against the plain version."""
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    worst = cross = 0
+    chosen = set()
+    for i, (m, (k, n), offset) in enumerate(
+            (m, s, o) for m in QM_MS for s in QM_SHAPES for o in (0, 1, 4)):
+        x, wt = operands(torch, m, n, k, seed + 600 + i)
+        w = wt.t().contiguous()
+        x[0], w[:, 0] = -128, -128
+        if m > 1:
+            x[-1] = 127
+        if n > 1:
+            w[:, -1] = 127
+        x, w = offset_copy(torch, x, offset), offset_copy(torch, w, offset)
+        want = qm.quant_matmul_ref(x, w)
+        body = qm.quant_matmul_body(n, k, x.data_ptr(), w.data_ptr())
+        before = dict(qm.quant_matmul.body_launches)
+        errs = {"default": diff(qm.quant_matmul(x, w), want)}
+        if qm.quant_matmul.body_launches[body] != before[body] + 1:
+            raise AssertionError(f"quant_matmul at M={m} K={k} N={n} "
+                                 f"offset {offset} did not run {body}")
+        chosen.add(body)
+        for b in ({"kn_rows", body}):
+            errs[b] = diff(qm.quant_matmul(x, w, body=b), want)
+        cross = max(cross, diff(sm.seq_policy_matmul(
+            x, w.t().contiguous(), policy="wide"), want))
+        worst = max(worst, *errs.values())
+        if offset == 0 and m in (1, 17, 200):
+            print(f"  quant_matmul bodies M={m:3d} K={k:5d} N={n:4d}: "
+                  f"chosen {body}, max|diff| {errs}", flush=True)
+    x = torch.full((3, QM_WRAP_K), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((QM_WRAP_K, 32), -128, dtype=torch.int8, device="cuda")
+    want = qm.quant_matmul_ref(x, w)
+    wrap = (128 * 128 * QM_WRAP_K + (1 << 31)) % (1 << 32) - (1 << 31)
+    errs = {b: diff(qm.quant_matmul(x, w, body=b), want)
+            for b in qm.BODIES}
+    worst = max(worst, *errs.values(), abs(int(want[0, 0]) - wrap))
+    print(f"  quant_matmul int32 wrap at K={QM_WRAP_K}: {int(want[0, 0])} "
+          f"(wrapped {wrap}), bodies {errs}; bodies chosen {chosen}; vs the "
+          f"wide policy {cross}", flush=True)
+    if worst or cross or chosen != set(qm.BODIES):
+        raise AssertionError(f"quant_matmul bodies disagree: {worst}, vs "
+                             f"wide {cross}, chosen {chosen}")
+    return worst
+
+
 def prompts(n, seed, vocab):
     import numpy as np
 
@@ -559,9 +636,9 @@ def profile_decode(torch, eng, vocab):
     ours = {k for f in build.CSRC.glob("*.cu*")
             for k in re.findall(r"\b(\w+_kernel)\b", f.read_text())}
 
-    def name(e):
-        key = e.key.replace("(anonymous namespace)::", "")
-        return key.replace("mma8::", "").split("(")[0].replace("void ", "")
+    def name(e):  # without namespaces (mma8::, nmsums::, kn::, anonymous)
+        key = re.sub(r"(\(anonymous namespace\)|\b\w+)::", "", e.key)
+        return key.split("(")[0].replace("void ", "")
 
     pqs = [e for e in events if name(e).split("<")[0] in ours]
     print(f"  PQS kernels: {sum(dev_us(e) for e in pqs) / 1e3:.3f} ms device "
@@ -700,19 +777,23 @@ def phase_quickstart(torch, counters):
     the device label, and give each matmul's result (the wide and
     dense-on-pruned products, the compressed one, the sorted and clip
     registers at 18 bits) equal element by element to the plain version's
-    on the same inputs. Returns the launches and the max |difference| of
-    each kernel's results against their plain versions."""
+    on the same inputs; ``quant_matmul`` on its TMA-fed body each time.
+    Returns the launches and the max |difference| of each kernel's results
+    against their plain versions."""
     import contextlib
     import io
 
     from repro_torch import quickstart
 
+    qm = counters["quant_matmul"]
     reset(counters)
+    tma = qm.body_launches["tma"]
     card_out = io.StringIO()
     with contextlib.redirect_stdout(card_out):
         on_card, card_t = quickstart.run()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    tma = qm.body_launches["tma"] - tma
     cpu_out = io.StringIO()
     with contextlib.redirect_stdout(cpu_out):
         on_cpu, cpu_t = quickstart.run(device="cpu")
@@ -738,6 +819,9 @@ def phase_quickstart(torch, counters):
     if set(ran) != {"quant_matmul", "nm_spmm", "seq_policy_matmul"}:
         raise AssertionError(f"the quickstart's kernels did not launch "
                              f"(or others did): {launches}")
+    if tma != launches["quant_matmul"]:  # aligned operands throughout
+        raise AssertionError(f"quant_matmul ran its TMA body {tma} of "
+                             f"{launches['quant_matmul']} times")
     return launches, err
 
 
@@ -765,8 +849,9 @@ def phase_wide_full_width(torch, sm, qm, nm, cfg, seed):
     4) and a prefill cohort (M = 128): row 3 on ``QTensor.values`` (K, N),
     fed as stored, equals its plain version and row 1 under ``wide`` on
     ``values_t``; row 4 on the ``SparseQTensor`` slabs equals its plain
-    version and row 3 on the decompressed weight, bit for bit. Returns the
-    max |difference| of each kernel against its plain version."""
+    version and row 3 on the decompressed weight, bit for bit; row 3 on
+    its TMA-fed body at every site. Returns the max |difference| of each
+    kernel against its plain version."""
     from repro_torch.core.pruning import nm_decompress
 
     def diff(a, b):
@@ -775,6 +860,8 @@ def phase_wide_full_width(torch, sm, qm, nm, cfg, seed):
 
     worst = {"quant_matmul": 0, "nm_spmm": 0}
     cross = 0
+    tma = qm.quant_matmul.body_launches["tma"]
+    launches = qm.quant_matmul.launches
     for site, (qt, sq) in layer0_weights(cfg, seed).items():
         k, n = qt.values.shape
         if (n, k) != SITES[site] or sq.values.shape[0] != n:
@@ -800,9 +887,13 @@ def phase_wide_full_width(torch, sm, qm, nm, cfg, seed):
                   f"nm_spmm={errs[1]}; quant_matmul vs wide policy "
                   f"{checks[0]}, nm_spmm vs quant_matmul on the "
                   f"decompressed weight {checks[1]}", flush=True)
-    if any(worst.values()) or cross:
+    tma = qm.quant_matmul.body_launches["tma"] - tma
+    if any(worst.values()) or cross or tma != (qm.quant_matmul.launches
+                                               - launches):
         raise AssertionError(f"wide kernels at full width disagree: "
-                             f"{worst}, cross-checks {cross}")
+                             f"{worst}, cross-checks {cross}; quant_matmul "
+                             f"ran its TMA body {tma} of "
+                             f"{qm.quant_matmul.launches - launches} times")
     return worst
 
 
@@ -1059,11 +1150,12 @@ def auto_expand(torch, sm, ss, nm, seed):
 
 
 # phase 2's pass-1 cases: (M, K) with K not a multiple of 64, every tile
-# size, both bodies of each kernel (sorted_stream.tile_sums_body,
-# nm_tile_sums_body)
+# size, every body of each kernel (sorted_stream.tile_sums_body,
+# nm_tile_sums_body, nm_expand_tile_sums_body)
 PASS1_MS = (1, 4, 5, 64, 128)
 PASS1_KS = (1000, 1001)
 PASS1_K_TILES = (16, 32, 64, 256, 1024)
+PASS1_WARP_TILE = 2048  # row 10's one-warp body, above what row 11 stages
 
 
 def non_canonical(torch, vals, idx):
@@ -1076,25 +1168,31 @@ def non_canonical(torch, vals, idx):
 
 
 def phase_pass1_kernels(torch, ss, seed):
-    """Pass 1 of ``sorted_tiled``, rows 9 and 11, against their plain
+    """Pass 1 of ``sorted_tiled``, rows 9, 10 and 11, against their plain
     versions, equality: ``tile_sums_matmul`` at M 1, 4, 5, 64, 128, K 1000
     and 1001, k_tile 16 to 1024 (both bodies), also with a zero tile past
-    K (kp + k_tile); ``nm_gather_tile_sums`` at the same M, K and tile
-    sizes on 8:16 and 2:4 slabs (both bodies), canonical (also equal to
-    row 9 on the decompressed weight) and non-canonical (``non_canonical``,
-    and an index outside its group but below K, read where it points); the
-    int8 extremes at k_tile 1024 (x all -128 against weight rows all -128
-    and all 127; 16:16 slabs), where a tile sum reaches 2^24. Returns the
-    max |difference| of each kernel."""
+    K (kp + k_tile); ``nm_gather_tile_sums`` (row 11) and
+    ``nm_tile_sums_matmul`` (row 10) at the same M, K and tile sizes on
+    8:16 and 2:4 slabs (the bodies they share, few rows and many rows, and
+    row 10 also at k_tile 2048, its one-warp body), canonical (both also
+    equal to row 9 on the decompressed weight, and to each other),
+    non-canonical (``non_canonical``) and with an index outside its group
+    but below K, which row 11 reads where it points and row 10 drops (its
+    result is the plain version's on the slabs with that slot's value 0,
+    and differs from row 11's); the int8 extremes at k_tile 1024 (x all
+    -128 against weight rows all -128 and all 127; 16:16 slabs), where a
+    tile sum reaches 2^24. Returns the max |difference| of each kernel."""
     from repro_torch.kernels.sorted_matmul import padded_k
 
     def diff(a, b):
         torch.cuda.synchronize()
         return int((a.long() - b.long()).abs().max())
 
-    worst = {"tile_sums_matmul": 0, "nm_gather_tile_sums": 0}
-    bodies = {"tile_sums_matmul": set(), "nm_gather_tile_sums": set()}
+    names = ("tile_sums_matmul", "nm_tile_sums_matmul", "nm_gather_tile_sums")
+    worst = dict.fromkeys(names, 0)
+    bodies = {name: set() for name in names}
     cross = 0
+    drop_differs = False
     for i, (m, k) in enumerate((m, k) for m in PASS1_MS for k in PASS1_KS):
         x, w = operands(torch, m, 70, k, seed + 300 + i)
         errs = []
@@ -1112,25 +1210,42 @@ def phase_pass1_kernels(torch, ss, seed):
                                           n_keep, m_group)
             odd = idx.clone()
             odd[:, 2, 0] = m_group + 1  # group 3's position, below K
+            dropped = vals.clone()
+            dropped[:, 2, 0] = 0  # what row 10 makes of it
             slabs = {"canonical": (vals, idx),
                      "non-canonical": non_canonical(torch, vals, idx),
                      "outside": (vals, odd)}
-            errs = []
-            for kt in PASS1_K_TILES:
+            errs = {"nm_gather_tile_sums": [], "nm_tile_sums_matmul": []}
+            for kt in PASS1_K_TILES + (PASS1_WARP_TILE,):
                 kw = dict(k_tile=kt, m_group=m_group)
+                staged = kt <= PASS1_K_TILES[-1]  # row 11 stages the tile
                 for name, (v, j) in slabs.items():
+                    expand = ss.nm_tile_sums_matmul(x, v, j, **kw)
+                    want = ss.nm_tile_sums_matmul_ref(
+                        x, dropped if name == "outside" else v,
+                        idx if name == "outside" else j, **kw)
+                    errs["nm_tile_sums_matmul"].append(diff(expand, want))
+                    if not staged:
+                        continue
                     got = ss.nm_gather_tile_sums(x, v, j, **kw)
-                    errs.append(diff(got, ss.nm_gather_tile_sums_ref(
-                        x, v, j, **kw)))
+                    errs["nm_gather_tile_sums"].append(diff(
+                        got, ss.nm_gather_tile_sums_ref(x, v, j, **kw)))
                     if name == "canonical":
                         kpt = padded_k(vals.shape[1] * m_group,
                                        "sorted_tiled", kt)
                         cross = max(cross, diff(got, ss.tile_sums_matmul(
-                            x, w, k_tile=kt, kp=kpt)))
+                            x, w, k_tile=kt, kp=kpt)), diff(got, expand))
+                    elif name == "outside":
+                        drop_differs |= not torch.equal(got, expand)
+                bodies["nm_tile_sums_matmul"].add(
+                    ss.nm_expand_tile_sums_body(m, kt))
             bodies["nm_gather_tile_sums"].add(ss.nm_tile_sums_body(m))
-            worst["nm_gather_tile_sums"] = max(worst["nm_gather_tile_sums"],
-                                               *errs)
-            line.append(f"nm_gather_tile_sums {n_keep}:{m_group} {max(errs)}")
+            for name, e in errs.items():
+                worst[name] = max(worst[name], *e)
+            line.append(f"{n_keep}:{m_group} nm_tile_sums_matmul "
+                        f"{max(errs['nm_tile_sums_matmul'])} "
+                        f"nm_gather_tile_sums "
+                        f"{max(errs['nm_gather_tile_sums'])}")
         print("; ".join(line), flush=True)
     for m in (4, 128):
         x, w = operands(torch, m, 96, 2048, seed + 500 + m)
@@ -1141,23 +1256,32 @@ def phase_pass1_kernels(torch, ss, seed):
         vals = w.reshape(96, 128, 16)
         idx = torch.arange(16, dtype=torch.int32, device="cuda").expand(
             96, 128, 16).contiguous()
-        nm_sums = ss.nm_gather_tile_sums(x, vals, idx, k_tile=1024,
-                                         m_group=16)
-        nm_err = max(diff(nm_sums, ss.nm_gather_tile_sums_ref(
-            x, vals, idx, k_tile=1024, m_group=16)), diff(nm_sums, sums))
+        kw = dict(k_tile=1024, m_group=16)
+        nm_errs = {}
+        for name, call, plain in (
+                ("nm_gather_tile_sums", ss.nm_gather_tile_sums,
+                 ss.nm_gather_tile_sums_ref),
+                ("nm_tile_sums_matmul", ss.nm_tile_sums_matmul,
+                 ss.nm_tile_sums_matmul_ref)):
+            got = call(x, vals, idx, **kw)
+            nm_errs[name] = max(diff(got, plain(x, vals, idx, **kw)),
+                                diff(got, sums))
+            worst[name] = max(worst[name], nm_errs[name])
         worst["tile_sums_matmul"] = max(worst["tile_sums_matmul"], err)
-        worst["nm_gather_tile_sums"] = max(worst["nm_gather_tile_sums"],
-                                           nm_err)
         print(f"  pass 1 extremes M={m} k_tile 1024: sums in "
               f"[{int(sums.min())}, {int(sums.max())}]; tile_sums_matmul "
-              f"{err}, nm_gather_tile_sums (16:16) {nm_err}", flush=True)
+              f"{err}, on 16:16 slabs {nm_errs}", flush=True)
     print(f"  pass 1 bodies run: {bodies}; nm_gather_tile_sums vs "
-          f"tile_sums_matmul on the decompressed weight {cross}", flush=True)
-    if any(worst.values()) or cross or bodies != {
+          f"tile_sums_matmul on the decompressed weight and vs "
+          f"nm_tile_sums_matmul {cross}; an index outside its group changes "
+          f"row 11 against row 10: {drop_differs}", flush=True)
+    if any(worst.values()) or cross or not drop_differs or bodies != {
             "tile_sums_matmul": {"mma", "small"},
+            "nm_tile_sums_matmul": {"few_rows", "many_rows", "warp"},
             "nm_gather_tile_sums": {"few_rows", "many_rows"}}:
-        raise AssertionError(f"pass 1 kernels disagree: {worst}, vs dense "
-                             f"{cross}, bodies {bodies}")
+        raise AssertionError(f"pass 1 kernels disagree: {worst}, cross "
+                             f"{cross}, outside index differs "
+                             f"{drop_differs}, bodies {bodies}")
     return worst
 
 
@@ -1231,7 +1355,7 @@ def time_launches(torch, fn, iters, flush_buf):
     return total / iters
 
 
-def phase_timing(torch, sm):
+def phase_timing(torch, sm, baseline=None):
     """Kernel, plain and library times at the decode shapes (M = 4) for
     the 7 sites of one layer under every policy (the main path's policy is
     the record); and ``wide`` (the tensor-core mainloop) at M = 4, 64 and
@@ -1262,19 +1386,24 @@ def phase_timing(torch, sm):
         for name, (n, k) in SITES.items():
             x, w = operands(torch, max(m, 32), n, k, 8)
             xm = x[:m]
-            ms = time_launches(torch, lambda: sm.seq_policy_matmul(
-                xm, w, policy="wide"), 10, flush_buf)
+            timed = in_turns(torch, lambda: sm.seq_policy_matmul(
+                xm, w, policy="wide"), baseline and (
+                    lambda: baseline["wide"](xm, w)), flush_buf,
+                f"wide {name} M={m}")
+            ms = timed["ms"]
             plain = time_launches(torch, lambda: sm.seq_policy_matmul_ref(
                 xm, w, policy="wide"), 1, flush_buf)
             lib = time_launches(torch, lambda: torch._int_mm(x, w.t()), 10,
                                 flush_buf)
             rows.append(dict(
-                ms=ms, plain_ms=plain,
+                **timed, plain_ms=plain,
                 **({"library_ms": lib} if m == x.shape[0]
                    else {"int_mm_m32_ms": lib}),
                 **bound_row(m, n, k, m * k + n * k + 4 * m * n)))
+            old = (f"  old kernel {timed['old_ms']:.4f} ms"
+                   if "old_ms" in timed else "")
             print(f"  time wide M={m:3d} {name:6s} N={n:5d} K={k:5d} kernel "
-                  f"{ms:.4f} ms  plain {plain:.2f} ms  bound "
+                  f"{ms:.4f} ms{old}  plain {plain:.2f} ms  bound "
                   f"{rows[-1]['bound_ms']:.5f} ms  _int_mm at M="
                   f"{x.shape[0]} {lib:.4f} ms", flush=True)
         table[("wide", m)] = rows
@@ -1549,13 +1678,16 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
     return table
 
 
-def baseline_pass1(torch, csrc_dir):
-    """Rows 9 and 11 as another tree's ``csrc/`` builds them (an older
-    commit's, for a same-call comparison): ``sorted_stream.cu`` and
-    ``nm_sort_matmul.cu`` compiled with the port's flags into
+def baseline_kernels(torch, csrc_dir):
+    """Rows 1 (``wide``), 3, 4, 9, 10 and 11 as another tree's ``csrc/``
+    builds them (an older commit's, for a same-call comparison): its
+    ``seq_policy_matmul.cu``, ``quant_matmul.cu``, ``sorted_stream.cu``,
+    ``nm_sort_matmul.cu`` and ``nm_expand_sort.cu`` compiled with the
+    port's flags, one nvcc each in parallel, into
     ``src/repro_torch/_build/baseline/``, called through their C entry
-    points (whose signatures are the port's). Returns {kernel name:
-    callable with the wrapper's arguments}."""
+    points (whose signatures are the port's, but for ``pqs_quant_matmul``,
+    which took no body before this tree). Returns {kernel name: callable
+    with the wrapper's arguments}."""
     import ctypes
 
     from repro_torch.kernels import build
@@ -1564,13 +1696,18 @@ def baseline_pass1(torch, csrc_dir):
     out_dir = build.BUILD_DIR / "baseline"
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    srcs = ("seq_policy_matmul", "quant_matmul", "sorted_stream",
+            "nm_sort_matmul", "nm_expand_sort")
+    procs = {src: subprocess.Popen(
+        [build._nvcc(), *flags, "-o", str(out_dir / f"lib{src}.so"),
+         str(Path(csrc_dir) / f"{src}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for src in srcs}
     libs = {}
-    for src in ("sorted_stream", "nm_sort_matmul"):
-        lib = out_dir / f"lib{src}.so"
-        subprocess.run([build._nvcc(), *flags, "-o", str(lib),
-                        str(Path(csrc_dir) / f"{src}.cu")], check=True,
-                       capture_output=True, text=True)
-        libs[src] = ctypes.CDLL(str(lib))
+    for src, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"baseline nvcc failed for {src}:\n{log}")
+        libs[src] = ctypes.CDLL(str(out_dir / f"lib{src}.so"))
 
     def entry(src, name, n_ptrs, n_ints):
         fn = getattr(libs[src], name)
@@ -1579,47 +1716,89 @@ def baseline_pass1(torch, csrc_dir):
             + [ctypes.c_void_p]
         return fn
 
-    dense = entry("sorted_stream", "pqs_tile_sums", 3, 5)
-    gather = entry("nm_sort_matmul", "pqs_nm_gather_tile_sums", 4, 8)
+    fns = {"wide": entry("seq_policy_matmul", "pqs_seq_policy_matmul", 3, 7),
+           "quant_matmul": entry("quant_matmul", "pqs_quant_matmul", 3, 3),
+           "nm_spmm": entry("quant_matmul", "pqs_nm_spmm", 4, 6),
+           "tile_sums_matmul": entry("sorted_stream", "pqs_tile_sums", 3, 5),
+           "nm_gather_tile_sums": entry("nm_sort_matmul",
+                                        "pqs_nm_gather_tile_sums", 4, 8),
+           "nm_tile_sums_matmul": entry("nm_expand_sort",
+                                        "pqs_nm_expand_tile_sums", 4, 8)}
 
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
+    def call(name, out, *args):
+        if fns[name](*args, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"baseline {name} failed")
+        return out
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="cuda")
+
+    def wide(x, w):
+        (m, k), n = x.shape, w.shape[0]
+        out = empty(m, n)
+        return call("wide", out, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    m, n, k, 0, 16, 1, 256)
+
+    def quant_matmul(x, w):
+        (m, k), n = x.shape, w.shape[1]
+        out = empty(m, n)
+        return call("quant_matmul", out, x.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), m, n, k)
+
+    def nm_spmm(x, vals, idx, *, m_group):
+        (m, k), (n, g, n_keep) = x.shape, vals.shape
+        out = empty(m, n)
+        return call("nm_spmm", out, x.data_ptr(), vals.data_ptr(),
+                    idx.data_ptr(), out.data_ptr(), m, n, k, g, n_keep,
+                    m_group)
 
     def tile_sums(x, w, *, k_tile):
         (m, k), n = x.shape, w.shape[0]
-        out = torch.empty((m, n, k // k_tile), dtype=torch.int32,
-                          device="cuda")
-        if dense(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, k,
-                 k_tile, stream()):
-            raise RuntimeError("baseline pqs_tile_sums failed")
-        return out
+        out = empty(m, n, k // k_tile)
+        return call("tile_sums_matmul", out, x.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), m, n, k, k, k_tile)
 
-    def nm_sums(x, vals, idx, *, k_tile, m_group):
-        (m, k), (n, g, n_keep) = x.shape, vals.shape
-        kp = padded_k(g * m_group, "sorted_tiled", k_tile)
-        out = torch.empty((m, n, kp // k_tile), dtype=torch.int32,
-                          device="cuda")
-        if gather(x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                  out.data_ptr(), m, n, k, g, n_keep, m_group, kp, k_tile,
-                  stream()):
-            raise RuntimeError("baseline pqs_nm_gather_tile_sums failed")
-        return out
+    def nm_sums(name):
+        def run(x, vals, idx, *, k_tile, m_group):
+            (m, k), (n, g, n_keep) = x.shape, vals.shape
+            kp = padded_k(g * m_group, "sorted_tiled", k_tile)
+            out = empty(m, n, kp // k_tile)
+            return call(name, out, x.data_ptr(), vals.data_ptr(),
+                        idx.data_ptr(), out.data_ptr(), m, n, k, g, n_keep,
+                        m_group, kp, k_tile)
+        return run
 
-    return {"tile_sums_matmul": tile_sums, "nm_gather_tile_sums": nm_sums}
+    return {"wide": wide, "quant_matmul": quant_matmul, "nm_spmm": nm_spmm,
+            "tile_sums_matmul": tile_sums,
+            "nm_gather_tile_sums": nm_sums("nm_gather_tile_sums"),
+            "nm_tile_sums_matmul": nm_sums("nm_tile_sums_matmul")}
+
+
+def in_turns(torch, new, old, flush_buf, what):
+    """``ms`` of ``new`` and, given ``old`` (a baseline build's same
+    kernel; its result checked equal first), ``old_ms``, timed in turns
+    old, new, new, old."""
+    if old is None:
+        return dict(ms=time_launches(torch, new, 10, flush_buf))
+    if not torch.equal(old(), new()):
+        raise AssertionError(f"{what}: the baseline build disagrees")
+    times = [time_launches(torch, f, 10, flush_buf)
+             for f in (old, new, new, old)]
+    return dict(ms=(times[1] + times[2]) / 2, old_ms=(times[0] + times[3]) / 2)
 
 
 def phase_pass1_timing(torch, ss, baseline=None):
-    """Rows 9 and 11 at w_out (N 1536, K 8960, k_tile 256, 8:16 slabs for
-    row 11) at decode (M = 4) and at a prefill cohort (M = 128): each
-    kernel beside one float32 ``torch.bmm`` of the same sums at the same
-    M (TF32 off; row 11's on the decompressed weight), first checked
-    equal to the kernel (exact: |sum| <= 256 * 16384 < 2^24), its plain
-    version, its bound (bytes: x, the weight or the int8 values and int32
-    indices, and the (M, N, T) int32 output; operations: 2 M N K, or
-    2 M (G n_keep) N for the kept products) and, given ``baseline``
-    (``baseline_pass1``), the same kernel of that build (``old_ms``,
-    equal results checked), timed in turns old, new, new, old. Returns
-    {(kernel, M): row}."""
+    """Rows 9, 10 and 11 at w_out (N 1536, K 8960, k_tile 256, 8:16 slabs
+    for rows 10 and 11) at decode (M = 4) and at a prefill cohort (M =
+    128): each kernel beside one float32 ``torch.bmm`` of the same sums at
+    the same M (TF32 off; rows 10 and 11 on the decompressed weight),
+    first checked equal to the kernel (exact: |sum| <= 256 * 16384 <
+    2^24), its plain version, its bound (bytes: x, the weight or the int8
+    values and int32 indices, and the (M, N, T) int32 output; operations:
+    2 M N K, or 2 M (G n_keep) N for the kept products) and, given
+    ``baseline`` (``baseline_kernels``), the same kernel of that build
+    (``old_ms``, equal results checked), timed in turns old, new, new,
+    old. Returns {(kernel, M): row}."""
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     (n, k), kt = SITES["w_out"], 256
     t = k // kt
@@ -1632,13 +1811,17 @@ def phase_pass1_timing(torch, ss, baseline=None):
         bmm = torch.bmm(xf, wf).permute(1, 2, 0).to(torch.int32)
         out = 4 * m * n * t
         kw = dict(k_tile=kt, m_group=M_GROUP)
+        nm_bytes = m * k + 5 * kept + out
         for name, call, plain, nbytes, ops, args in (
                 ("tile_sums_matmul", ss.tile_sums_matmul,
                  ss.tile_sums_matmul_ref, m * k + n * k + out, m * n * k,
                  ((x, w), dict(k_tile=kt))),
+                ("nm_tile_sums_matmul", ss.nm_tile_sums_matmul,
+                 ss.nm_tile_sums_matmul_ref, nm_bytes, m * kept,
+                 ((x, vals, idx), kw)),
                 ("nm_gather_tile_sums", ss.nm_gather_tile_sums,
-                 ss.nm_gather_tile_sums_ref, m * k + 5 * kept + out,
-                 m * kept, ((x, vals, idx), kw))):
+                 ss.nm_gather_tile_sums_ref, nm_bytes, m * kept,
+                 ((x, vals, idx), kw))):
             pos, kws = args
             got = call(*pos, **kws)
             if not (torch.equal(got, bmm) and torch.equal(got, plain(
@@ -1653,18 +1836,10 @@ def phase_pass1_timing(torch, ss, baseline=None):
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 ops_ms=2 * ops / INT8_OPS_PER_S * 1e3)
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            new = lambda: call(*pos, **kws)  # noqa: E731
-            if baseline is None:
-                row["ms"] = time_launches(torch, new, 10, flush_buf)
-            else:
-                old = lambda: baseline[name](*pos, **kws)  # noqa: E731
-                if not torch.equal(old(), got):
-                    raise AssertionError(f"{name} at M={m}: the baseline "
-                                         "build disagrees")
-                times = [time_launches(torch, f, 10, flush_buf)
-                         for f in (old, new, new, old)]
-                row["ms"] = (times[1] + times[2]) / 2
-                row["old_ms"] = (times[0] + times[3]) / 2
+            row.update(in_turns(
+                torch, lambda: call(*pos, **kws),
+                baseline and (lambda: baseline[name](*pos, **kws)),
+                flush_buf, f"{name} at M={m}"))
             table[(name, m)] = row
             print(f"  time pass 1 {name:20s} w_out M={m:3d} kernel "
                   f"{row['ms']:.4f} ms" + (
@@ -1676,7 +1851,7 @@ def phase_pass1_timing(torch, ss, baseline=None):
     return table
 
 
-def phase_wide_timing(torch, qm, nm):
+def phase_wide_timing(torch, qm, nm, baseline=None):
     """Rows 3 and 4 at the 7 site shapes at decode (M = 4) and at a
     prefill cohort (M = 128); row 4 on 8:16 slabs and row 3 on their
     decompressed weight (K, N), the same dot (``dense_ms`` of row 4).
@@ -1689,10 +1864,15 @@ def phase_wide_timing(torch, qm, nm):
     K), the column-major B that cuBLAS takes without a transpose and the
     faster layout (the port keeps that copy as ``QTensor.values_t``), and
     ``int_mm_kn_ms`` (``int_mm_m32_kn_ms``) on the kernel's own (K, N)
-    inputs. Returns {(kernel, M): rows}."""
+    inputs. Given ``baseline`` (``baseline_kernels``), each kernel of that
+    build too (``old_ms``), timed in turns with the new. Row 3 must run
+    its TMA-fed body at every site (aligned operands). Returns {(kernel,
+    M): rows}."""
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     table = {(name, m): [] for name in ("quant_matmul", "nm_spmm")
              for m in (4, 128)}
+    tma = qm.quant_matmul.body_launches["tma"]
+    launches = qm.quant_matmul.launches
     for site, (n, k) in SITES.items():
         x, wt, vals, idx = nm_operands(torch, 128, n, k, 15)
         w = wt.t().contiguous()  # (K, N), as QTensor.values
@@ -1707,14 +1887,19 @@ def phase_wide_timing(torch, qm, nm):
                     if m == xl.shape[0] else
                     {"int_mm_m32_ms": lib, "int_mm_m32_kn_ms": lib_kn})
             row3 = dict(
-                ms=time_launches(torch, lambda: qm.quant_matmul(xm, w), 10,
-                                 flush_buf),
+                **in_turns(torch, lambda: qm.quant_matmul(xm, w),
+                           baseline and (lambda: baseline["quant_matmul"](
+                               xm, w)), flush_buf,
+                           f"quant_matmul {site} M={m}"),
                 plain_ms=time_launches(
                     torch, lambda: qm.quant_matmul_ref(xm, w), 1, flush_buf),
                 **libs, **bound_row(m, n, k, m * k + k * n + 4 * m * n))
             row4 = dict(
-                ms=time_launches(torch, lambda: nm.nm_spmm(
-                    xm, vals, idx, m_group=M_GROUP), 10, flush_buf),
+                **in_turns(torch, lambda: nm.nm_spmm(
+                    xm, vals, idx, m_group=M_GROUP),
+                    baseline and (lambda: baseline["nm_spmm"](
+                        xm, vals, idx, m_group=M_GROUP)), flush_buf,
+                    f"nm_spmm {site} M={m}"),
                 plain_ms=time_launches(torch, lambda: nm.nm_spmm_ref(
                     xm, vals, idx, m_group=M_GROUP), 1, flush_buf),
                 dense_ms=row3["ms"], **libs,
@@ -1722,13 +1907,19 @@ def phase_wide_timing(torch, qm, nm):
             table[("quant_matmul", m)].append(row3)
             table[("nm_spmm", m)].append(row4)
             for name, row in (("quant_matmul", row3), ("nm_spmm", row4)):
+                old = (f"  old kernel {row['old_ms']:.4f} ms"
+                       if "old_ms" in row else "")
                 print(f"  time {name:12s} {site:6s} M={m:3d} N={n:5d} "
-                      f"K={k:5d} kernel {row['ms']:.4f} ms  plain "
+                      f"K={k:5d} kernel {row['ms']:.4f} ms{old}  plain "
                       f"{row['plain_ms']:.2f} ms  bound "
                       f"{row['bound_ms']:.5f} ms  _int_mm at M="
                       f"{xl.shape[0]} {lib:.4f} ms (weight stored (N, K); "
                       f"(K, N) as the kernel's: {lib_kn:.4f} ms)",
                       flush=True)
+    tma = qm.quant_matmul.body_launches["tma"] - tma
+    if tma != qm.quant_matmul.launches - launches:
+        raise AssertionError(f"quant_matmul ran its TMA body {tma} of "
+                             f"{qm.quant_matmul.launches - launches} times")
     return table
 
 
@@ -1775,7 +1966,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baseline-csrc", default=None,
                     help="another tree's src/repro_torch/csrc: phase 5 "
-                         "also times its rows 9 and 11 (old_ms)")
+                         "also times its rows 1 (wide), 3, 4, 9, 10 and 11 "
+                         "(old_ms)")
     args = ap.parse_args()
 
     import torch
@@ -1877,6 +2069,17 @@ def main() -> int:
             raise AssertionError(f"no {policy} tokens of 3c-3f to compare: "
                                  "a phase before failed")
 
+    def timing():
+        baseline = args.baseline_csrc and baseline_kernels(
+            torch, args.baseline_csrc)
+        got.update(
+            timing=phase_timing(torch, sm, baseline),
+            nm_timing=phase_nm_timing(torch, sm, nm),
+            sort_timing=phase_sort_timing(torch, sm, ss),
+            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm),
+            pass1_timing=phase_pass1_timing(torch, ss, baseline),
+            wide_timing=phase_wide_timing(torch, qm, nm, baseline))
+
     phases = [
         ("[2] kernel vs plain", lambda: got.update(
             err=phase_kernels(torch, sm, qm, args.seed),
@@ -1885,7 +2088,8 @@ def main() -> int:
             nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
                                               args.seed),
             pass1_err=phase_pass1_kernels(torch, ss, args.seed),
-            wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed))),
+            wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed),
+            qm_err=phase_quant_matmul_bodies(torch, sm, qm, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
         ("[3c] serve qwen2-1.5b under sorted_tiled",
@@ -1914,15 +2118,7 @@ def main() -> int:
         ("[4d] quant_matmul and nm_spmm at the full-width qwen2-1.5b sites",
          lambda: got.update(full_width_err=phase_wide_full_width(
              torch, sm, qm, nm, cfg, args.seed))),
-        ("[5] timing", lambda: got.update(
-            timing=phase_timing(torch, sm),
-            nm_timing=phase_nm_timing(torch, sm, nm),
-            sort_timing=phase_sort_timing(torch, sm, ss),
-            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm),
-            pass1_timing=phase_pass1_timing(
-                torch, ss, args.baseline_csrc and baseline_pass1(
-                    torch, args.baseline_csrc)),
-            wide_timing=phase_wide_timing(torch, qm, nm))),
+        ("[5] timing", timing),
     ]
     for title, fn in phases:
         print(title, flush=True)
@@ -2102,7 +2298,13 @@ def main() -> int:
             timing["nm_tile_sums_matmul"], policy="sorted_tiled",
             work=w_out + nm8 + ", k_tile 256",
             launches=tiled["nm_tile_sums_matmul"],
-            max_abs_err=err["nm_tile_sums_matmul"],
+            max_abs_err=max(err["nm_tile_sums_matmul"],
+                            got["pass1_err"]["nm_tile_sums_matmul"]),
+            **pass1_records("nm_tile_sums_matmul",
+                            csrc + "nm_expand_sort.cu",
+                            "src/repro/kernels/sorted_stream.py:164",
+                            got["pass1_timing"],
+                            w_out + nm8 + ", k_tile 256"),
             path="phase 3g (two-pass pass 1 at K = 8960)"),
         kernel_record(
             "nm_paired_accum_matmul", csrc + "nm_expand_sort.cu",
@@ -2135,7 +2337,8 @@ def main() -> int:
             launches=launches[name],
             max_abs_err=max(got["wide_err"][name],
                             got["full_width_err"][name],
-                            got["quickstart_err"][name]),
+                            got["quickstart_err"][name],
+                            got["qm_err"] if name == "quant_matmul" else 0),
             decode=kernel_record(
                 name, csrc + "quant_matmul.cu", replaces, timing[(name, 4)],
                 policy="wide", work=f"{sites} at decode (M=4), {weight}; "

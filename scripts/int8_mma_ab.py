@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the wide kernels' mainloop (``csrc/int8_mma.cuh``).
+"""Same-call A/B of the wide kernels (``csrc/int8_mma.cuh`` and the
+TMA-fed body of ``csrc/quant_matmul.cu``).
 
-    python3 scripts/int8_mma_ab.py [--variants base,no_build,...]
+    python3 scripts/int8_mma_ab.py [--variants base,tma_mma_sync,...]
 
 Run from the repository root on a machine with one CUDA card and nvcc.
 Each variant is a copy of ``src/repro_torch/csrc`` with a few lines
 replaced, built with the port's nvcc flags into
 ``src/repro_torch/_build/ab/<variant>/`` (all variants compile in
 parallel). Then rows 1 (``seq_policy_matmul`` under ``wide``), 3
-(``quant_matmul``) and 4 (``nm_spmm``, 8:16 slabs) of every variant are
-timed by ``chip_smoke.time_launches`` at the 7 qwen2-1.5b projection
-sites at M = 4, 64 and 128, the variants in order and then in reverse
-order, and the mean of the two passes is printed summed over the sites
-(ms). ``no_build`` skips row 4's build of its weight tile, so its row 4
-results are wrong: it times the copies and the mmas alone.
+(``quant_matmul`` on its TMA-fed body, and on its KnRows body as ``row 3
+kn_rows``) and 4 (``nm_spmm``, 8:16 slabs) of every variant are timed by
+``chip_smoke.time_launches`` at the 7 qwen2-1.5b projection sites at M =
+4, 64 and 128, every variant loaded into this one process (each build's
+kernels and their set-up have internal linkage, so the builds stay
+apart), the variants in order and then in reverse order; the mean of the
+two passes is printed summed over the sites (ms). Row 3 of each variant
+is first checked equal to its plain version at the 7 sites at M = 1, 5,
+17 and 200. ``no_build`` skips
+row 4's build of its weight tile, so its row 4 results are wrong: it
+times the copies and the mmas alone.
 """
 
 from __future__ import annotations
@@ -31,10 +37,71 @@ sys.path.insert(0, str(ROOT))
 
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ab"
+SOURCES = ("quant_matmul", "seq_policy_matmul")
+MS = (4, 64, 128)
+KERNELS = ("row 1 wide", "row 3", "row 3 kn_rows", "row 4")
 
-# variant -> {file: [(text, replacement)]}
+# The TMA-fed body's consumer loop on mma.sync m16n8k32 (the same swapped
+# operands; x's fragments by ldmatrix) in place of its wgmma loop.
+MMA_SYNC_LOOP = r"""    for (int i = 0; i < slabs; ++i) {
+      const int st = i % kStages;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      const uint8_t* w = ring + st * Tile<MN>::kStage;
+      const uint8_t* xs = w + kWBytes;
+#pragma unroll
+      for (int s = 0; s < kBK / 32; ++s) {
+        uint32_t a[2][4];
+        build_a(a, w, 32 * s, col, t);
+        // ldmatrix lanes 8 i .. 8 i + 7 address matrix i: rows 8 (j +
+        // i / 2) + (lane & 7) at byte 32 s + 16 (i & 1)
+        const int row = lane & 7, kb = 32 * s + 16 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int j = 0; j < MN / 8; j += 2) {
+          if constexpr (MN == 8) {
+            uint32_t b[2];
+            asm volatile(
+                "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                : "=r"(b[0]), "=r"(b[1])
+                : "r"(mma8::smem_addr(xs + swz(row, kb))));
+#pragma unroll
+            for (int tile = 0; tile < 2; ++tile)
+              mma8::mma_s8(acc[tile][0], a[tile], b[0], b[1]);
+          } else {
+            uint32_t b[4];
+            mma8::ldmatrix_x4(b, xs + swz(8 * (j + (lane >> 4)) + row, kb));
+#pragma unroll
+            for (int tile = 0; tile < 2; ++tile) {
+              mma8::mma_s8(acc[tile][j], a[tile], b[0], b[1]);
+              mma8::mma_s8(acc[tile][j + 1], a[tile], b[2], b[3]);
+            }
+          }
+        }
+      }
+      mbar_arrive(&empty[st]);
+    }
+"""
+
+# variant -> {file: [(text or (first line, last line), replacement)]}
 VARIANTS = {
     "base": {},
+    # the TMA-fed body's tensor-core instruction, its x rows above 32 and
+    # its cluster of K splits (quant_matmul.cu's consumer loop, kMaxRows,
+    # kMaxSplits)
+    "tma_mma_sync": {"quant_matmul.cu": [(
+        ("    // stage i + 1's A fragments are built while stage i's wgmmas",
+         "      mbar_arrive(&empty[(i + 1) % kStages]);\n    }\n"),
+        MMA_SYNC_LOOP)]},
+    "rows64": {"quant_matmul.cu": [(
+        "constexpr int kMaxRows = 128;", "constexpr int kMaxRows = 64;")]},
+    "cluster16": {"quant_matmul.cu": [
+        ("constexpr int kMaxSplits = 8;", "constexpr int kMaxSplits = 16;"),
+        ("    if (err != cudaSuccess) return err;\n    configured = true;\n",
+         "    if (err == cudaSuccess)\n"
+         "      err = cudaFuncSetAttribute(\n"
+         "          kn_tma_kernel<MN, true>,\n"
+         "          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
+         "    if (err != cudaSuccess) return err;\n    configured = true;\n")]},
+    # the int8 mainloop (rows 1, 3 kn_rows, 4)
     "no_build": {"quant_matmul.cu": [(
         "    const int m_group = 1 << lm;\n",
         "    if (n0 >= 0) return;  // no build: timing only\n"
@@ -48,8 +115,8 @@ VARIANTS = {
 
 
 def build_variants(names):
-    """Compile quant_matmul.cu and seq_policy_matmul.cu of each variant;
-    returns {(variant, source): ctypes.CDLL}."""
+    """Compile quant_matmul.cu and seq_policy_matmul.cu of each variant,
+    all in parallel."""
     from repro_torch.kernels import build
 
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -61,22 +128,26 @@ def build_variants(names):
         for fname, pairs in VARIANTS[name].items():
             text = (tree / fname).read_text()
             for old, new in pairs:
+                if isinstance(old, tuple):  # the lines first .. last
+                    first, last = old
+                    at = text.find(first)
+                    end = text.find(last, at)
+                    if at < 0 or end < 0:
+                        raise SystemExit(f"{name}: {fname} has no {old!r}")
+                    old = text[at:end + len(last)]
                 if old not in text:
                     raise SystemExit(f"{name}: {fname} has no {old!r}")
                 text = text.replace(old, new)
             (tree / fname).write_text(text)
-        for src in ("quant_matmul", "seq_policy_matmul"):
+        for src in SOURCES:
             procs[(name, src)] = subprocess.Popen(
                 [build._nvcc(), *flags, "-o", str(tree / f"lib{src}.so"),
                  str(tree / f"{src}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
     for (name, src), proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name} {src}:\n{log}")
-        libs[(name, src)] = ctypes.CDLL(str(OUT / name / f"lib{src}.so"))
-    return libs
 
 
 def c_fn(lib, symbol, n_ptrs, n_ints):
@@ -87,60 +158,88 @@ def c_fn(lib, symbol, n_ptrs, n_ints):
     return fn
 
 
+def load_variant(torch, cs, qm, name):
+    """A variant's (row1, run3, row4) entry points, row 3 checked equal to
+    its plain version first."""
+    libs = {src: ctypes.CDLL(str(OUT / name / f"lib{src}.so"))
+            for src in SOURCES}
+    row1 = c_fn(libs["seq_policy_matmul"], "pqs_seq_policy_matmul", 3, 7)
+    row3 = c_fn(libs["quant_matmul"], "pqs_quant_matmul", 3, 4)
+    row4 = c_fn(libs["quant_matmul"], "pqs_nm_spmm", 4, 6)
+
+    def run3(x, w, out, body):
+        (m, k), n = x.shape, w.shape[1]
+        if row3(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, body,
+                torch.cuda.current_stream().cuda_stream):
+            raise SystemExit(f"{name}: pqs_quant_matmul failed")
+        return out
+
+    for site, (n, k) in cs.SITES.items():
+        for m in (1, 5, 17, 200):
+            x, wt = cs.operands(torch, m, n, k, m + n)
+            w = wt.t().contiguous()
+            out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+            if not torch.equal(run3(x, w, out, 1), qm.quant_matmul_ref(x, w)):
+                raise SystemExit(f"{name}: row 3 wrong at {site} M={m}")
+    return row1, run3, row4
+
+
+def time_variant(torch, cs, fns, flush_buf):
+    """One variant's ms over the 7 sites, {"kernel M=m": ms}."""
+    row1, run3, row4 = fns
+    stream = torch.cuda.current_stream().cuda_stream
+    total = {}
+    for site, (n, k) in cs.SITES.items():
+        x, w_nk, vals, idx = cs.nm_operands(torch, 128, n, k, 15)
+        w_kn = w_nk.t().contiguous()
+        g = vals.shape[1]
+        for m in MS:
+            xm = x[:m]
+            out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+            calls = {
+                "row 1 wide": lambda: row1(
+                    xm.data_ptr(), w_nk.data_ptr(), out.data_ptr(), m, n, k,
+                    0, 16, 1, 256, stream),
+                "row 3": lambda: run3(xm, w_kn, out, 1),
+                "row 3 kn_rows": lambda: run3(xm, w_kn, out, 0),
+                "row 4": lambda: row4(
+                    xm.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(), m, n, k, g, cs.N_KEEP, cs.M_GROUP,
+                    stream),
+            }
+            for kernel, fn in calls.items():
+                key = f"{kernel} M={m}"
+                total[key] = total.get(key, 0.0) + cs.time_launches(
+                    torch, fn, 10, flush_buf)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
-    names = ap.parse_args().variants.split(",")
+    args = ap.parse_args()
+    names = args.variants.split(",")
     import torch
 
     import chip_smoke as cs
+    from repro_torch.kernels import quant_matmul as qm
 
     if not torch.cuda.is_available():
         print("int8_mma_ab: no CUDA device", file=sys.stderr)
         return 2
-    libs = build_variants(names)
+    build_variants(names)
     print(cs.card_line(), flush=True)
-    stream = torch.cuda.current_stream().cuda_stream
+    fns = {name: load_variant(torch, cs, qm, name) for name in names}
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
-    sites = {site: cs.nm_operands(torch, 128, n, k, 15)
-             for site, (n, k) in cs.SITES.items()}
     total = {}
-    for order in (names, names[::-1]):
-        for name in order:
-            row1 = c_fn(libs[(name, "seq_policy_matmul")],
-                        "pqs_seq_policy_matmul", 3, 7)
-            row3 = c_fn(libs[(name, "quant_matmul")], "pqs_quant_matmul",
-                        3, 3)
-            row4 = c_fn(libs[(name, "quant_matmul")], "pqs_nm_spmm", 4, 6)
-            for site, (n, k) in cs.SITES.items():
-                x, w_nk, vals, idx = sites[site]
-                w_kn = w_nk.t().contiguous()
-                g = vals.shape[1]
-                for m in (4, 64, 128):
-                    xm = x[:m]
-                    out = torch.empty((m, n), dtype=torch.int32,
-                                      device="cuda")
-                    calls = {
-                        "row 1 wide": lambda: row1(
-                            xm.data_ptr(), w_nk.data_ptr(), out.data_ptr(),
-                            m, n, k, 0, 16, 1, 256, stream),
-                        "row 3": lambda: row3(
-                            xm.data_ptr(), w_kn.data_ptr(), out.data_ptr(),
-                            m, n, k, stream),
-                        "row 4": lambda: row4(
-                            xm.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                            out.data_ptr(), m, n, k, g, cs.N_KEEP,
-                            cs.M_GROUP, stream),
-                    }
-                    for kernel, fn in calls.items():
-                        ms = cs.time_launches(torch, fn, 10, flush_buf)
-                        key = (kernel, m, name)
-                        total[key] = total.get(key, 0.0) + ms / 2
-    for kernel in ("row 1 wide", "row 3", "row 4"):
-        for m in (4, 64, 128):
-            cells = "  ".join(f"{name} {total[(kernel, m, name)]:.4f}"
+    for name in names + names[::-1]:
+        for key, ms in time_variant(torch, cs, fns[name], flush_buf).items():
+            total[(key, name)] = total.get((key, name), 0.0) + ms / 2
+    for kernel in KERNELS:
+        for m in MS:
+            cells = "  ".join(f"{name} {total[(f'{kernel} M={m}', name)]:.4f}"
                               for name in names)
-            print(f"{kernel:10s} M={m:3d} ms over the 7 sites: {cells}",
+            print(f"{kernel:14s} M={m:3d} ms over the 7 sites: {cells}",
                   flush=True)
     return 0
 

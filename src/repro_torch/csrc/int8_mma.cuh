@@ -159,6 +159,20 @@ __device__ __forceinline__ uint32_t pack_bytes(const int8_t* p, int n) {
   return v;
 }
 
+// A 4 x 4 byte block transposed: y[r] byte s = x[s] byte r (8 byte
+// permutes).
+__device__ __forceinline__ void transpose4(const uint32_t (&x)[4],
+                                           uint32_t (&y)[4]) {
+  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140);
+  const uint32_t t1 = __byte_perm(x[2], x[3], 0x5140);
+  const uint32_t t2 = __byte_perm(x[0], x[1], 0x7362);
+  const uint32_t t3 = __byte_perm(x[2], x[3], 0x7362);
+  y[0] = __byte_perm(t0, t1, 0x5410);
+  y[1] = __byte_perm(t0, t1, 0x7632);
+  y[2] = __byte_perm(t2, t3, 0x5410);
+  y[3] = __byte_perm(t2, t3, 0x7632);
+}
+
 __device__ __forceinline__ void store_word(uint8_t* p, uint32_t v) {
   *reinterpret_cast<uint32_t*>(p) = v;
 }

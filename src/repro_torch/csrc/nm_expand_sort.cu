@@ -12,9 +12,13 @@
 //     VMEM split into two kernels does not carry over, as for the dense
 //     sort_matmul.cu;
 //   nm_expand_tiled_kernel  <- nm_sort_matmul under `sorted_tiled`;
-//   nm_expand_tile_sums_kernel <- repro/kernels/sorted_stream.py:
-//     nm_tile_sums_matmul (pass 1 of the two-pass `sorted_tiled`, the
-//     Pallas _nm_tile_sums_kernel);
+//   nm_sums_few_rows_kernel<RG, P2, true>,
+//   nm_sums_many_rows_kernel<P2, true> (nm_tile_sums.cuh) and, for tiles
+//   above its kMaxTile = 1024 positions, nm_expand_tile_sums_kernel <-
+//     repro/kernels/sorted_stream.py:nm_tile_sums_matmul (pass 1 of the
+//     two-pass `sorted_tiled`, the Pallas _nm_tile_sums_kernel: each
+//     (bn, bg, n_keep) slab expanded by expand_nm_slab in int32, then an
+//     int32 dot_general a tile);
 //   nm_expand_paired_kernel <- repro/kernels/sorted_stream.py:
 //     nm_paired_accum_matmul (pass 2, fed the pairing permutation; the
 //     Pallas _nm_paired_kernel).
@@ -54,16 +58,33 @@
 //   body on x and the row; 4 warps.
 // - Pass 2: the same int16 row of K weights (2 K bytes: 17.5 KB at K =
 //   8960, 128 KB at 65536), then the dense pass-2 body fed perm; 8 warps.
-// - Pass 1: one warp per (n, tile) expands 256 dense positions of the tile
-//   at a time into its own int16 buffer (512 bytes a warp, 4 KB a block),
-//   then, for each row of x, its lanes take consecutive positions (x read
-//   coalesced) and reduce by shuffles.
+// - Pass 1: a sum of raw products in int32, with no clipping, so the
+//   kept slots need not be expanded at all: for any slabs, canonical or
+//   not, the sum over the slots of x[pos] * value is x times the int32
+//   scatter-add of the slots. Up to k_tile 1024 it runs the gather twin's
+//   pass-1 body (nm_tile_sums.cuh, one copy for both) with expand's rule
+//   for a slot whose index lies outside its group: value zeroed, position
+//   clamped into the tile, so its quad stays on the fast path where the
+//   gather twin reads x where it points. The body reads each kept slot
+//   once for all rows of x from a block's tile of x staged transposed in
+//   shared memory (nm_tile_sums.cuh says what bounds it). Longer tiles
+//   keep the first body: one warp per (n, tile) expands 256 dense
+//   positions of the tile at a time into its own int16 buffer (512 bytes a
+//   warp, 4 KB a block), then, for each row of x, its lanes take
+//   consecutive positions (x read coalesced) and reduce by shuffles; it
+//   expands the slabs once per tile and walks the rows of x one at a time.
+//   At w_out (8:16, k_tile 256) the shared body takes 0.0268 ms at M = 4
+//   and 0.2015 at M = 128, the one-warp body 0.0816 / 1.1528, a float32
+//   bmm of the same sums on the decompressed weight 0.0343 / 0.0977
+//   (chip_smoke.py phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3,
+//   700.00 W).
 // int16 weights hold the scatter-add of up to 258 int8 values exactly
 // (canonical slabs: one).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "nm_tile_sums.cuh"
 #include "pqs_accum.cuh"
 
 namespace {
@@ -267,6 +288,10 @@ extern "C" int pqs_nm_expand_sort_matmul(const void* x, const void* val,
       k_tile, TiledLaunch{a, op, kp / k_tile, acc_bits, rounds, s});
 }
 
+// Tiles up to nmsums::kMaxTile positions run nm_tile_sums.cuh's body with
+// expand's drop rule, longer ones nm_expand_tile_sums_kernel
+// (kernels/sorted_stream.py nm_expand_tile_sums_body names the same
+// choice).
 extern "C" int pqs_nm_expand_tile_sums(const void* x, const void* val,
                                        const void* idx, void* out, int M,
                                        int N, int K, int G, int n_keep,
@@ -276,14 +301,17 @@ extern "C" int pqs_nm_expand_tile_sums(const void* x, const void* val,
   const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
   if (k_tile <= 0 || !valid_slabs(a, kp, k_tile))
     return cudaErrorInvalidValue;
+  auto* o = static_cast<int32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (k_tile <= nmsums::kMaxTile)
+    return nmsums::tile_sums<true>(a, o, kp, k_tile, s);
   const int T = kp / k_tile;
   const int64_t warps = static_cast<int64_t>(N) * T;
   const int64_t blocks = (warps + kSumThreads / 32 - 1) / (kSumThreads / 32);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   nm_expand_tile_sums_kernel<<<static_cast<unsigned>(blocks), kSumThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      a.x, a.val, a.idx, static_cast<int32_t*>(out), M, N, K, G, n_keep,
-      m_group, T, k_tile);
+                               s>>>(a.x, a.val, a.idx, o, M, N, K, G, n_keep,
+                                    m_group, T, k_tile);
   return cudaGetLastError();
 }
 

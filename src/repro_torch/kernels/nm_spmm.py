@@ -63,8 +63,13 @@ from repro_torch.kernels.sorted_matmul import (
 
 def expand_nm_slab(vals: torch.Tensor, idx: torch.Tensor, m_group: int
                    ) -> torch.Tensor:
-    """(N, G, n_keep) compressed slab -> dense (N, G*m_group) int32."""
-    return nm_decompress(vals.to(torch.int32), idx, m_group)
+    """(N, G, n_keep) compressed slab -> dense (N, G*m_group) int32, the
+    int32 scatter-add of the slots, as the JAX package's one-hot expansion
+    (``nm_onehot_expand``): a slot whose index lies outside [0, m_group)
+    adds nothing, and slots at one position add in int32."""
+    inside = (idx >= 0) & (idx < m_group)
+    return nm_decompress(torch.where(inside, vals.to(torch.int32), 0),
+                         torch.where(inside, idx, 0), m_group)
 
 
 def pad_last_pow2(a: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,15 @@ policy kernels) into an exact (M, N) int32 sum, wrapping as an int32
 ``dot_general`` does.
 
 ``quant_matmul`` launches its hand-written CUDA kernel
-(``csrc/quant_matmul.cu``, an int8 tensor-core MMA; its header says how it
-is built and what bounds it) on CUDA tensors, counting the launch in
-``.launches``, and takes its plain version (``quant_matmul_ref``) only for
-tensors on the CPU. The kernel masks ragged M, N and K itself, so nothing
-is padded.
+(``csrc/quant_matmul.cu``, int8 tensor cores; its header says how it is
+built and what bounds it) on CUDA tensors, counting the launch in
+``.launches`` (and in ``.body_launches`` under its body's name), and takes
+its plain version (``quant_matmul_ref``) only for tensors on the CPU. Two
+bodies, named by ``quant_matmul_body`` from the shapes and alignment
+alone: ``"tma"``, fed by the Tensor Memory Accelerator, where TMA takes
+the operands (N and K multiples of 16, both 16-byte aligned), else
+``"kn_rows"``, the (K, N) loader of the int8 mainloop. Both mask ragged M,
+N and K themselves, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -25,6 +29,19 @@ from repro_torch.kernels.sorted_matmul import (
     seq_policy_matmul_ref,
     stream_of,
 )
+
+
+BODIES = ("kn_rows", "tma")  # the C entry point's body codes 0, 1
+TMA_ALIGN = 16  # bytes: TMA's row strides and base addresses
+
+
+def quant_matmul_body(n: int, k: int, x_ptr: int, w_ptr: int) -> str:
+    """The CUDA body ``quant_matmul`` launches for w (K, N) at address
+    ``w_ptr`` and x (M, K) at ``x_ptr``: ``"tma"`` where N and K are
+    multiples of 16 and both addresses 16-byte aligned (a tensor map's row
+    strides and base), else ``"kn_rows"``."""
+    aligned = all(v % TMA_ALIGN == 0 for v in (n, k, x_ptr, w_ptr))
+    return "tma" if aligned and k > 0 else "kn_rows"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -45,9 +62,13 @@ def quant_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def quant_matmul(
     x: torch.Tensor,  # (M, K) int8, or int32 carrying int8 values
     w: torch.Tensor,  # (K, N) int8 weights, in-by-out
+    *,
+    body: str | None = None,
 ) -> torch.Tensor:
     """(M, N) int32 exact sums: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors. Any M, N, K."""
+    plain version on CPU tensors. Any M, N, K. ``body`` names the CUDA
+    body (default ``quant_matmul_body``'s choice; ``"tma"`` on operands it
+    does not take raises)."""
     _check(x, w)
     if on_cpu(x, w):
         return quant_matmul_ref(x, w)
@@ -59,13 +80,21 @@ def quant_matmul(
         return out
     if k == 0:
         return out.zero_()
-    fn = lib_fn("quant_matmul", "pqs_quant_matmul", 3, 3)
+    chosen = quant_matmul_body(n, k, x8.data_ptr(), w8.data_ptr())
+    body = chosen if body is None else body
+    if body not in BODIES or (body == "tma" and chosen != "tma"):
+        raise ValueError(f"quant_matmul body {body!r} does not take these "
+                         f"operands (N={n}, K={k}, x at {x8.data_ptr()}, w "
+                         f"at {w8.data_ptr()}); {chosen!r} does")
+    fn = lib_fn("quant_matmul", "pqs_quant_matmul", 3, 4)
     err = fn(x8.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, k,
-             stream_of(x8))
+             BODIES.index(body), stream_of(x8))
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
     quant_matmul.launches += 1
+    quant_matmul.body_launches[body] += 1
     return out
 
 
 quant_matmul.launches = 0
+quant_matmul.body_launches = dict.fromkeys(BODIES, 0)

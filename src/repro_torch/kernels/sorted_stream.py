@@ -22,9 +22,12 @@ the one-pass ``sorted`` kernel of ``csrc/sort_matmul.cu``, counted here.
 
 On the card pass 1 runs on the int8 tensor-core mainloop of
 ``csrc/int8_mma.cuh`` (k_tile a power-of-two multiple of 64; shorter
-tiles on a small-tile body, ``tile_sums_body``), and its gather twin on a
-body that reads each kept slot once for all rows of x
-(``nm_tile_sums_body``).
+tiles on a small-tile body, ``tile_sums_body``), and its gather and
+expand twins on one body that reads each kept slot once for all rows of x
+(``csrc/nm_tile_sums.cuh``; ``nm_tile_sums_body``,
+``nm_expand_tile_sums_body``), which differ only in a slot whose index
+lies outside its group: the gather reads x where it points, the expand
+drops it.
 
 ``stream_sort_matmul`` is the entry point ``ops.policy_matmul`` routes K
 above ``ops.MAX_RESIDENT_K`` to. On N:M compressed slabs the gather twins
@@ -110,6 +113,15 @@ def nm_tile_sums_body(m: int) -> str:
     """The CUDA body ``nm_gather_tile_sums`` launches for ``m`` rows of x:
     ``"few_rows"`` up to ``NM_SUMS_FEW_ROWS``, else ``"many_rows"``."""
     return "few_rows" if m <= NM_SUMS_FEW_ROWS else "many_rows"
+
+
+def nm_expand_tile_sums_body(m: int, k_tile: int) -> str:
+    """The CUDA body ``nm_tile_sums_matmul`` launches for ``m`` rows of x
+    and tiles of ``k_tile``: the gather twin's body (``nm_tile_sums_body``,
+    one copy in ``csrc/nm_tile_sums.cuh``, with expand's rule for a slot
+    outside its group) where the tile fits its staging, k_tile up to
+    ``KERNEL_K_TILES[-1]``; above, ``"warp"``, one warp per (n, tile)."""
+    return nm_tile_sums_body(m) if k_tile <= KERNEL_K_TILES[-1] else "warp"
 
 
 def _empty(x, *shape):
@@ -490,8 +502,11 @@ def nm_tile_sums_matmul(x: torch.Tensor, values: torch.Tensor,
                         indices: torch.Tensor, *, m_group: int,
                         k_tile: int = 256) -> torch.Tensor:
     """Pass 1 on expanded rows: (M, N, kp/k_tile) int32, equal to
-    ``tile_sums_matmul`` on the decompressed weight and to
-    ``nm_gather_tile_sums``."""
+    ``tile_sums_matmul`` on the decompressed weight and, on slabs whose
+    indices lie inside their groups, to ``nm_gather_tile_sums``. A slot
+    whose index lies outside its group adds nothing, as the expansion
+    drops it. Any power-of-two k_tile on the card
+    (``nm_expand_tile_sums_body`` names the body)."""
     kp = check_nm_sort(x, values, indices, m_group, "sorted_tiled", 16,
                        k_tile)
     if on_cpu(x, values, indices):

@@ -1000,31 +1000,109 @@ def test_quickstart_on_card_matches_cpu(card, capsys):
                                                    want), key
 
 
-@pytest.mark.parametrize("kernel", ["nm_spmm", "nm_sort_matmul"])
+@pytest.mark.parametrize("kernel", ["nm_spmm", "nm_sort_matmul",
+                                    "nm_tile_sums_matmul"])
 def test_expand_kernels_drop_out_of_group_indices(card, kernel):
     """A slot whose index lies outside [0, m_group) adds nothing in the
     kernels that rebuild slabs in shared memory, as the JAX package's
     one-hot expansion drops it: the result is the plain version's on the
-    slabs with those slots' values set to 0."""
+    slabs with those slots' values set to 0. Row 10's pass 1 drops it on
+    the body it shares with the gather twin, at a few-rows and a
+    many-rows M (where the gather twin reads x at the index instead)."""
     m_group = 16
-    x, _, vals, idx = _nm_w(17, 300, 70, 4, m_group, 33, card)
-    bad, dropped = idx.clone(), vals.clone()
-    for j, (sl, i) in enumerate(((slice(0, None, 3), m_group),
-                                 (slice(1, None, 3), -1),
-                                 (slice(2, None, 3), 1 << 20))):
-        bad[:, sl, j + 1] = i
-        dropped[:, sl, j + 1] = 0
-    assert bool((vals != dropped).any())
-    if kernel == "nm_spmm":
-        got = nm_spmm.nm_spmm(x, vals, bad, m_group=m_group)
-        want = nm_spmm.nm_spmm_ref(x, dropped, idx, m_group=m_group)
-    else:
-        kw = dict(m_group=m_group, policy="sorted_tiled", acc_bits=16,
-                  k_tile=64)
-        got = nm_spmm.nm_sort_matmul(x, vals, bad, **kw)
-        want = nm_spmm.nm_sort_matmul_ref(x, dropped, idx, **kw)
+    for m in ((4, 17) if kernel == "nm_tile_sums_matmul" else (17,)):
+        x, _, vals, idx = _nm_w(m, 300, 70, 4, m_group, 33, card)
+        bad, dropped = idx.clone(), vals.clone()
+        for j, (sl, i) in enumerate(((slice(0, None, 3), m_group),
+                                     (slice(1, None, 3), -1),
+                                     (slice(2, None, 3), 1 << 20))):
+            bad[:, sl, j + 1] = i
+            dropped[:, sl, j + 1] = 0
+        assert bool((vals != dropped).any())
+        if kernel == "nm_spmm":
+            got = nm_spmm.nm_spmm(x, vals, bad, m_group=m_group)
+            want = nm_spmm.nm_spmm_ref(x, dropped, idx, m_group=m_group)
+        elif kernel == "nm_sort_matmul":
+            kw = dict(m_group=m_group, policy="sorted_tiled", acc_bits=16,
+                      k_tile=64)
+            got = nm_spmm.nm_sort_matmul(x, vals, bad, **kw)
+            want = nm_spmm.nm_sort_matmul_ref(x, dropped, idx, **kw)
+        else:
+            kw = dict(m_group=m_group, k_tile=64)
+            got = ss.nm_tile_sums_matmul(x, vals, bad, **kw)
+            want = ss.nm_tile_sums_matmul_ref(x, dropped, idx, **kw)
+            assert ss.nm_expand_tile_sums_body(m, 64) == (
+                "few_rows" if m <= 16 else "many_rows")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kernel, m)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k_tile", [2048, 4096])
+def test_nm_tile_sums_matmul_long_tiles(card, m, k_tile):
+    """Row 10 above the 1024 positions its shared body stages runs its
+    one-warp body (``nm_expand_tile_sums_body``), equal to the plain
+    version, to row 9 on the decompressed weight and, summed pairwise, to
+    itself at half the tile; canonical and non-canonical slabs."""
+    x, w, vals, idx = _nm_w(m, 8192 - 9, 40, 8, 16, k_tile + m, card)
+    assert ss.nm_expand_tile_sums_body(m, k_tile) == "warp"
+    kw = dict(m_group=16, k_tile=k_tile)
+    got = ss.nm_tile_sums_matmul(x, vals, idx, **kw)
+    half = ss.nm_tile_sums_matmul(x, vals, idx, m_group=16,
+                                  k_tile=k_tile // 2)
+    kp = ops.padded_k(vals.shape[1] * 16, "sorted_tiled", k_tile)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(got, ss.nm_tile_sums_matmul_ref(x, vals, idx, **kw))
+    assert torch.equal(got, ss.tile_sums_matmul(x, w, k_tile=k_tile, kp=kp))
+    assert torch.equal(got, half.reshape(m, 40, -1, 2).sum(-1,
+                                                           dtype=torch.int32))
+    nv, ni = _non_canonical(vals, idx)
+    assert torch.equal(ss.nm_tile_sums_matmul(x, nv, ni, **kw),
+                       ss.nm_tile_sums_matmul_ref(x, nv, ni, **kw))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("m,k,n", WIDE_SHAPES + ((200, 272, 144),
+                                                 (16, 1536, 256)))
+def test_quant_matmul_bodies(card, m, k, n, offset):
+    """Row 3 on each body it can run, bit-exact against its plain version:
+    the TMA-fed body where operands are 16-byte aligned and N, K
+    multiples of 16 (``quant_matmul_body``), the KnRows body everywhere;
+    the default call runs the body the choice function names; the TMA
+    body on operands it cannot take is refused."""
+    x, wt = _xw(m, k, n, m + k + n + offset, card)
+    x, w = _extremes(x, wt.t().contiguous())
+    x, w = _offset(x, offset), _offset(w, offset)
+    want = qm.quant_matmul_ref(x, w)
+    body = qm.quant_matmul_body(n, k, x.data_ptr(), w.data_ptr())
+    assert body == ("tma" if offset == 0 and n % 16 == 0 and k % 16 == 0
+                    else "kn_rows")
+    before = dict(qm.quant_matmul.body_launches)
+    got = qm.quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (m, k, n, offset, body)
+    assert {b: qm.quant_matmul.body_launches[b] - before[b]
+            for b in qm.BODIES} == {b: int(b == body) for b in qm.BODIES}
+    assert torch.equal(qm.quant_matmul(x, w, body="kn_rows"), want)
+    if body == "tma":
+        assert torch.equal(qm.quant_matmul(x, w, body="tma"), want)
+    else:
+        with pytest.raises(ValueError, match="does not take"):
+            qm.quant_matmul(x, w, body="tma")
+
+
+def test_quant_matmul_int32_wrap(card):
+    """Both bodies of row 3 wrap a sum past 2^31 as an int32 dot_general
+    does (K = 131088, all -128), the TMA body over K split among a
+    cluster's blocks."""
+    k = 131088
+    x = torch.full((3, k), -128, dtype=torch.int8, device=card)
+    w = torch.full((k, 32), -128, dtype=torch.int8, device=card)
+    want = (128 * 128 * k + (1 << 31)) % (1 << 32) - (1 << 31)
+    for body in qm.BODIES:
+        got = qm.quant_matmul(x, w, body=body)
+        torch.cuda.synchronize()
+        assert bool((got == want).all()), body
 
 
 def _offset(t, offset):

@@ -7,11 +7,15 @@ JAX package's Pallas kernel run in interpret mode on the same numpy-seeded
 operands (zero-padded to its blocks of 8 x 8): at M 1 and 5, k_tile 16, 64
 and 1024, 8:16 and 2:4 slabs, canonical and non-canonical (unsorted
 in-group indices and duplicate ones, whose products are both gathered),
-and at the int8 extremes, where a tile sum reaches 2^24. Integer results,
-so the tolerance is 0. The CUDA bodies (the int8 mainloop and the
-small-tile body of row 9; the few-rows and many-rows gather bodies of row
-11) are held against these plain versions on the card by
-tests/test_torch_cuda.py (marker ``cuda``) and ``chip_smoke.py`` phase 2.
+and at the int8 extremes, where a tile sum reaches 2^24. The expand twin
+(``nm_tile_sums_matmul``) is held to the JAX package's on slabs with
+indices outside their groups (dropped) and duplicate slots whose sum
+leaves int8 (added in int32). Integer results, so the tolerance is 0.
+The CUDA bodies (the int8 mainloop and the small-tile body of row 9; the
+few-rows and many-rows bodies that rows 10 and 11 share, and row 10's
+one-warp body for longer tiles) are held against these plain versions on
+the card by tests/test_torch_cuda.py (marker ``cuda``) and
+``chip_smoke.py`` phase 2.
 """
 
 import jax.numpy as jnp
@@ -138,6 +142,66 @@ def test_pass1_body_choice():
     assert tss.tile_sums_body(256, 0) == "small"  # K = 0: nothing to add
     assert [tss.nm_tile_sums_body(m) for m in (1, 4, 16, 17, 128)] == [
         "few_rows"] * 3 + ["many_rows"] * 2
+
+
+def _off_group(vals, idx, m_group):
+    """Non-canonical slabs the expand twin must hold to the JAX one-hot
+    expansion: indices outside [0, m_group) (m_group + 1, -1 and 2^20,
+    whose slots add nothing) and, in two groups, two nonzero slots at one
+    position whose sum leaves int8 (+-200, added in int32)."""
+    vals, idx = vals.copy(), idx.copy()
+    idx[:, 2, 0], idx[:, 5, -1], idx[:, 7, 0] = m_group + 1, -1, 1 << 20
+    for g, v in ((1, 100), (3, -100)):
+        idx[:, g, 1] = idx[:, g, 0]
+        vals[:, g, :2] = v
+    return vals, idx
+
+
+def _check_expand(x, vals, idx, m_group, k_tile):
+    want = np.asarray(jss.nm_tile_sums_matmul(
+        jnp.asarray(_rows8(x)), jnp.asarray(vals), jnp.asarray(idx),
+        m_group=m_group, k_tile=k_tile, **BLOCKS))[: x.shape[0]]
+    got = tss.nm_tile_sums_matmul(*(torch.from_numpy(a)
+                                    for a in (x, vals, idx)),
+                                  m_group=m_group, k_tile=k_tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+    return got
+
+
+@pytest.mark.parametrize("n_keep,m_group", [(8, 16), (2, 4)])
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("k_tile", [16, 1024])
+def test_expand_tile_sums_matches_pallas_off_group(n_keep, m_group, m,
+                                                   k_tile):
+    """Row 10's plain version against the JAX package's Pallas
+    ``nm_tile_sums_matmul`` (interpret mode) on slabs with indices outside
+    their groups, which the expansion drops, and with duplicate nonzero
+    slots whose sum leaves int8, which it adds in int32: the semantics the
+    card kernel keeps. On canonical slabs it equals the gather twin."""
+    x, vals, idx = _slabs(m, n_keep, m_group, 11 * m + k_tile + n_keep)
+    canon = _check_expand(x, vals, idx, m_group, k_tile)
+    np.testing.assert_array_equal(canon.numpy(), tss.nm_gather_tile_sums(
+        *(torch.from_numpy(a) for a in (x, vals, idx)), m_group=m_group,
+        k_tile=k_tile).numpy())
+    ov, oi = _off_group(vals, idx, m_group)
+    got = _check_expand(x, ov, oi, m_group, k_tile)
+    dropped = ov.copy()
+    dropped[(oi < 0) | (oi >= m_group)] = 0
+    np.testing.assert_array_equal(got.numpy(), _check_expand(
+        x, dropped, np.clip(oi, 0, m_group - 1), m_group, k_tile).numpy())
+    assert not np.array_equal(got.numpy(), canon.numpy())
+
+
+def test_expand_tile_sums_body_choice():
+    """Row 10 runs row 11's body (few rows, many rows) at every tile that
+    body stages, up to 1024 positions, and its one-warp body above; no
+    power-of-two tile is refused."""
+    assert [tss.nm_expand_tile_sums_body(m, 256) for m in (1, 16, 17, 128)
+            ] == ["few_rows"] * 2 + ["many_rows"] * 2
+    assert [tss.nm_expand_tile_sums_body(4, t) for t in (16, 1024, 2048,
+                                                        8192)] == [
+        "few_rows"] * 2 + ["warp"] * 2
+    assert tss.nm_expand_tile_sums_body(128, 2048) == "warp"
 
 
 def test_gather_tile_sums_cpu_takes_any_tile():

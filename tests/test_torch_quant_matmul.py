@@ -293,3 +293,22 @@ def test_quickstart_example_script_runs_on_the_cpu():
         env=env, cwd=ROOT, timeout=300).stdout
     assert "compressed matmul == dense-on-pruned: True" in out
     assert "(kernel, cpu)" in out
+
+
+def test_quant_matmul_body_choice():
+    """Row 3's CUDA body is a pure function of the shapes and addresses:
+    the TMA-fed body where N and K are multiples of 16 and both operands
+    16-byte aligned (a tensor map's row strides and base), else the
+    KnRows body; on the CPU the wrapper runs the plain version whatever
+    body is asked for."""
+    assert tqm.quant_matmul_body(256, 1536, 0, 4096) == "tma"
+    assert tqm.quant_matmul_body(8960, 1536, 512, 1024) == "tma"
+    for args in ((70, 300, 0, 0), (129, 33, 0, 0), (256, 1536, 1, 0),
+                 (256, 1536, 0, 4), (256, 1536, 8, 0), (16, 0, 0, 0)):
+        assert tqm.quant_matmul_body(*args) == "kn_rows", args
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.integers(-128, 128, (5, 48)).astype(np.int8))
+    w = torch.from_numpy(r.integers(-128, 128, (48, 16)).astype(np.int8))
+    want = tqm.quant_matmul_ref(x, w)
+    for body in (None, *tqm.BODIES):
+        assert torch.equal(tqm.quant_matmul(x, w, body=body), want)
