@@ -39,7 +39,11 @@ imports nothing of JAX or of the JAX package. Phases:
    ``nm_paired_accum_matmul`` and ``nm_chunked_sort_matmul`` on 8:16 slabs
    (plus ragged 3:16 and 2:4, and 16:16), which must also equal the dense
    global-sort kernels on the decompressed weight (and expand the
-   gather); ``auto`` must launch the expand twins for a site of fewer than
+   gather); the register-resident `sorted` body of the dense, gather and
+   expand kernels in every regime of its shape (``phase_sorted_regimes``:
+   kp 32 to 65536, M = 3, rounds 1 to 3, acc_bits 2, 16 and 30, keys at
+   -16256 and 16384, outputs of one sign, an all-zero row);
+   ``auto`` must launch the expand twins for a site of fewer than
    ``GATHER_MIN_G`` groups and for 16:16 (dense-as-sparse) slabs; and the
    wide ``quant_matmul`` (w (K, N)), ``seq_policy_matmul`` under ``wide``
    (at operands 0, 1 and 4 bytes off alignment) and ``nm_spmm`` at edge
@@ -109,10 +113,12 @@ imports nothing of JAX or of the JAX package. Phases:
    (K, N), ``quant_matmul`` on its TMA-fed body; pass 1
    (``tile_sums_matmul``, ``nm_tile_sums_matmul``, ``nm_gather_tile_sums``)
    at w_out at M = 4 and 128 beside a float32 ``bmm`` at the same M,
-   checked equal first; and, with ``--baseline-csrc DIR`` (another tree's
-   ``src/repro_torch/csrc``, built beside the port's), that tree's rows 1
-   (``wide``), 3, 4, 9, 10 and 11, each timed in turns with the new one in
-   the same call (``old_ms``).
+   checked equal first; the one-pass `sorted` kernels (rows 2, 7, 8) also
+   at M = 128 at the six K = 1536 sites; and, with ``--baseline-csrc
+   DIR`` (another tree's ``src/repro_torch/csrc``, built beside the
+   port's), that tree's rows 1 (``wide``), 2-4 and 7-17, each timed in
+   turns with the new one in the same call (``old_ms``), equal results
+   checked first.
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -136,6 +142,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
+# lane-instructions a second: 132 SMs, 4 schedulers issuing a warp (32
+# lanes) a clock each, 1.98 GHz (the H100 SXM's boost clock)
+LANE_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 # (N, K) of the qwen2-1.5b projections: wq/wo, wk/wv, w_gate/w_up, w_out
 SITES = {"wq": (1536, 1536), "wk": (256, 1536), "wv": (256, 1536),
          "wo": (1536, 1536), "w_gate": (8960, 1536), "w_up": (8960, 1536),
@@ -165,25 +174,31 @@ def operands(torch, m, n, k, seed):
     return x, w
 
 
+def prune(torch, w, n_keep=N_KEEP, m_group=M_GROUP):
+    """(N, K) w pruned n_keep:m_group, and its compressed slabs: the dense
+    pruned w, values, indices."""
+    from repro_torch.core.pruning import nm_compress, nm_prune_mask
+
+    k = w.shape[1]
+    wp = torch.nn.functional.pad(w, (0, (-k) % m_group)).float()
+    w = (wp * nm_prune_mask(wp, n_keep, m_group))[:, :k].to(torch.int8)
+    vals, idx = nm_compress(w, n_keep, m_group)
+    return w, vals.contiguous(), idx.contiguous()
+
+
 def nm_operands(torch, m, n, k, seed, n_keep=N_KEEP, m_group=M_GROUP,
                 tied=False):
     """``operands`` with the weight pruned n_keep:m_group and compressed:
     x, the dense pruned w, values, indices. ``tied``: tied tile sums as
     ``sort_operands`` makes them (the repeated tile where 256 divides
     K), set before pruning."""
-    from repro_torch.core.pruning import nm_compress, nm_prune_mask
-
     if tied and k % 256 == 0:
         x, w = sort_operands(torch, m, n, k, seed)
     else:
         x, w = operands(torch, m, n, k, seed)
         if tied:
             x[1] = 0
-    kp = k + (-k) % m_group
-    wp = torch.nn.functional.pad(w, (0, kp - k)).float()
-    w = (wp * nm_prune_mask(wp, n_keep, m_group))[:, :k].to(torch.int8)
-    vals, idx = nm_compress(w, n_keep, m_group)
-    return x, w, vals.contiguous(), idx.contiguous()
+    return (x, *prune(torch, w, n_keep, m_group))
 
 
 def corner_extremes(x, w):
@@ -981,6 +996,65 @@ def phase_sort_kernels(torch, sm, ss, seed):
     return worst
 
 
+# kp regimes of the register-resident `sorted` body (csrc/pqs_accum.cuh
+# sorted_dot): padded to 64 keys, one warp, the first exchange across
+# warps, w_out's 16384 and 16 warps of 64 keys a lane
+SORTED_KP = (32, 64, 2048, 4096, 16384, 65536)
+
+
+def sorted_rows(torch, m, k, n, seed):
+    """``operands`` whose outputs probe the `sorted` body: (0, 0) all keys
+    -16256, (0, 1) all 16384, row 1 of x all zero, (2, 2) keys of one sign
+    and (2, 3) of the other."""
+    x, w = operands(torch, m, n, k, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x[0], w[0], w[1], x[1] = -128, 127, -128, 0
+    x[2] = torch.randint(1, 128, (k,), generator=g, device="cuda")
+    w[2] = torch.randint(1, 128, (k,), generator=g, device="cuda")
+    w[3] = torch.randint(-128, 0, (k,), generator=g, device="cuda")
+    return x, w
+
+
+def phase_sorted_regimes(torch, sm, nm, seed):
+    """The `sorted` body of rows 2 / 15 (dense), 8 / 17 (gather) and 7 / 16
+    (expand) against their plain versions, bit-exact, at every kp regime
+    of its shape (``SORTED_KP``; the gather twin's kept keys number kp:
+    8:16 slabs of 2 kp positions), K short of kp (the tail masked) and,
+    up to 4096, K = kp, M = 3, rounds 1, 2 and 3 at acc_bits 2, 30 and 16
+    (the plain versions add the stream one step at a time), with
+    ``sorted_rows``. Returns the max |difference| of each kernel."""
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    worst = {"sort_matmul": 0, "nm_gather_sort_matmul": 0,
+             "nm_sort_matmul": 0}
+    for kp in SORTED_KP:
+        short = max(1, kp - kp // 4 - 3)
+        for k in sorted({kp, short} if kp <= 4096 else {short}):
+            x, w = sorted_rows(torch, 3, k, 5, seed + kp + k)
+            x2, w2 = sorted_rows(torch, 3, 2 * k, 5, seed + kp + k)
+            slabs = {"nm_gather_sort_matmul": (x2, *prune(torch, w2)[1:]),
+                     "nm_sort_matmul": (x, *prune(torch, w)[1:])}
+            for rounds, acc_bits in ((1, 2), (2, 30), (3, 16)):
+                kw = dict(policy="sorted", acc_bits=acc_bits, rounds=rounds)
+                errs = {"sort_matmul": diff(
+                    sm.sort_matmul(x, w, kp=kp, **kw),
+                    sm.sort_matmul_ref(x, w, kp=kp, **kw))}
+                for name, args in slabs.items():
+                    fn = getattr(nm, name)
+                    errs[name] = diff(fn(*args, m_group=M_GROUP, **kw),
+                                      plain_of(fn)(*args, m_group=M_GROUP,
+                                                   **kw))
+                for name, err in errs.items():
+                    worst[name] = max(worst[name], err)
+            print(f"  sorted body kp={kp:5d} K={k:5d} M=3 N=5 rounds 1-3 "
+                  f"acc_bits 2/30/16 max|diff| {worst}", flush=True)
+    if any(worst.values()):
+        raise AssertionError(f"the sorted body disagrees: {worst}")
+    return worst
+
+
 # launches per layer and decode step of each global-sort policy on N:M
 # compressed storage: every site takes gather (G = 96 and 560 >= 8 groups);
 # with nm_impl="expand" the same routes through the expand twins
@@ -1021,17 +1095,12 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
     the unpadded x and slabs. The one-pass kernel equals the two-pass route
     under both policies. Then ``auto_expand``. Returns the max |difference|
     of each kernel against its plain version."""
-    import sys
-
     from repro_torch.core.sorted_accum import pair_permutation
     from repro_torch.kernels.sorted_matmul import padded_k
 
     def diff(a, b):
         torch.cuda.synchronize()
         return int((a.long() - b.long()).abs().max())
-
-    def plain(fn):
-        return getattr(sys.modules[fn.__module__], fn.__name__ + "_ref")
 
     families = nm_families(nm, ss)
     cases = [(4, n, k, N_KEEP, M_GROUP) for (n, k) in SHAPES] + [
@@ -1060,16 +1129,16 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
                 chunked = chunked_fn(x, vals, idx, **kw, **nk)
                 outs[impl] = (one, sums, two, ones, chunked)
                 errs[one_fn.__name__] = max(
-                    diff(one, plain(one_fn)(x, vals, idx,
+                    diff(one, plain_of(one_fn)(x, vals, idx,
                                             policy="sorted_tiled", **tk,
                                             **nk)),
-                    diff(ones, plain(one_fn)(x, vals, idx, policy="sorted",
+                    diff(ones, plain_of(one_fn)(x, vals, idx, policy="sorted",
                                              **kw, **nk)))
-                errs[sums_fn.__name__] = diff(sums, plain(sums_fn)(
+                errs[sums_fn.__name__] = diff(sums, plain_of(sums_fn)(
                     x, vals, idx, k_tile=256, **nk))
-                errs[two_fn.__name__] = diff(two, plain(two_fn)(
+                errs[two_fn.__name__] = diff(two, plain_of(two_fn)(
                     x, vals, idx, perm, **tk, **nk))
-                errs[chunked_fn.__name__] = diff(chunked, plain(chunked_fn)(
+                errs[chunked_fn.__name__] = diff(chunked, plain_of(chunked_fn)(
                     x, vals, idx, **kw, **nk))
                 dense = max(
                     diff(one, sm.sort_matmul(x, w, policy="sorted_tiled",
@@ -1457,7 +1526,19 @@ def bound_row(m, n, k, nbytes):
                 ops_ms=ops_ms)
 
 
-def phase_sort_timing(torch, sm, ss):
+def cx_floor_ms(outputs, length, sorts=1):
+    """The integer-ALU floor of ``outputs`` outputs that each sort
+    ``sorts`` bitonic networks of ``length`` keys (a power of two): one
+    lane-instruction a compare-exchange (a 16x2 max and a 16x2 min do two),
+    length/2 * log2(length) (log2(length) + 1) / 2 of them a network, at
+    the card's instruction rate (``LANE_INSTR_PER_S``); the pair rounds,
+    the adds and the loads come on top."""
+    lg = max(length, 1).bit_length() - 1
+    return outputs * sorts * (length // 2) * lg * (lg + 1) // 2 \
+        / LANE_INSTR_PER_S * 1e3
+
+
+def phase_sort_timing(torch, sm, ss, baseline=None):
     """The global-sort kernels at the decode shapes (M = 4) of the sites
     where the main path runs them: ``sort_matmul`` at the six K = 1536
     sites under each policy, the two-pass pair and the chunked sort at
@@ -1468,28 +1549,36 @@ def phase_sort_timing(torch, sm, ss):
     2 M N K int8 operations over the logical K) and, for pass 1, one
     float32 ``torch.bmm`` (TF32 off; exact, since |sum| <= 256 * 16384 <
     2^24). At w_out the one-pass kernel is timed too, beside the two-pass
-    path."""
+    path. ``sort_matmul`` under ``sorted`` also at a prefill cohort (M =
+    128; ``[sorted] M=128``, no plain version). Given ``baseline``
+    (``baseline_kernels``), rows 2, 12 and 15 of that build too
+    (``old_ms``), timed in turns with the new."""
     from repro_torch.core.sorted_accum import pair_permutation
     from repro_torch.kernels.ops import next_pow2
 
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
-    table = {name: [] for name in SORT_KERNELS + ("sort_matmul[sorted]",)}
-    m, kt = 4, 256
+    table = {name: [] for name in SORT_KERNELS + (
+        "sort_matmul[sorted]", "sort_matmul[sorted] M=128")}
+    kt = 256
     for site, (n, k) in SITES.items():
-        x, w = operands(torch, m, n, k, 11)
+        x128, w = operands(torch, 128, n, k, 11)
+        x = x128[:4].contiguous()
+        m = x.shape[0]
         kp = next_pow2(k)
         tk = dict(acc_bits=16, rounds=1, k_tile=kt)
         one = dict(acc_bits=16, rounds=1, kp=kp)
-        runs = []  # (table key, kernel call, plain call, bytes, library)
+        # (table key, kernel, (args, kwargs), plain, bytes, library)
+        runs = []
         if k <= 4096:
-            runs.append(("sort_matmul", lambda: sm.sort_matmul(
-                x, w, policy="sorted_tiled", **tk),
-                lambda: sm.sort_matmul_ref(x, w, policy="sorted_tiled", **tk),
-                m * k + n * k + 4 * m * n, None))
-            runs.append(("sort_matmul[sorted]", lambda: sm.sort_matmul(
-                x, w, policy="sorted", **one),
-                lambda: sm.sort_matmul_ref(x, w, policy="sorted", **one),
-                m * k + n * k + 4 * m * n, None))
+            runs.append(("sort_matmul", sm.sort_matmul,
+                         ((x, w), dict(policy="sorted_tiled", **tk)),
+                         sm.sort_matmul_ref, m * k + n * k + 4 * m * n, None))
+            runs.append(("sort_matmul[sorted]", sm.sort_matmul,
+                         ((x, w), dict(policy="sorted", **one)),
+                         sm.sort_matmul_ref, m * k + n * k + 4 * m * n, None))
+            runs.append(("sort_matmul[sorted] M=128", sm.sort_matmul,
+                         ((x128, w), dict(policy="sorted", **one)), None,
+                         128 * k + n * k + 4 * 128 * n, None))
         else:
             t = k // kt
             perm = pair_permutation(ss.tile_sums_matmul(x, w, k_tile=kt)).to(
@@ -1500,17 +1589,15 @@ def phase_sort_timing(torch, sm, ss):
             if not torch.equal(bmm.to(torch.int32),
                                ss.tile_sums_matmul(x, w, k_tile=kt)):
                 raise AssertionError("float32 bmm tile sums are not exact")
-            runs.append(("tile_sums_matmul", lambda: ss.tile_sums_matmul(
-                x, w, k_tile=kt), lambda: ss.tile_sums_matmul_ref(
-                x, w, k_tile=kt), m * k + n * k + 4 * m * n * t,
-                lambda: torch.bmm(xf, wf)))
-            runs.append(("paired_accum_matmul",
-                         lambda: ss.paired_accum_matmul(x, w, perm, **tk),
-                         lambda: ss.paired_accum_matmul_ref(x, w, perm, **tk),
+            runs.append(("tile_sums_matmul", ss.tile_sums_matmul,
+                         ((x, w), dict(k_tile=kt)), ss.tile_sums_matmul_ref,
+                         m * k + n * k + 4 * m * n * t,
+                         lambda: torch.bmm(xf, wf)))
+            runs.append(("paired_accum_matmul", ss.paired_accum_matmul,
+                         ((x, w, perm), tk), ss.paired_accum_matmul_ref,
                          m * k + n * k + 4 * m * n * t + 4 * m * n, None))
-            runs.append(("chunked_sort_matmul",
-                         lambda: ss.chunked_sort_matmul(x, w, **one),
-                         lambda: ss.chunked_sort_matmul_ref(x, w, **one),
+            runs.append(("chunked_sort_matmul", ss.chunked_sort_matmul,
+                         ((x, w), one), ss.chunked_sort_matmul_ref,
                          m * k + n * k + 4 * m * n, None))
             for policy, pk in (("sorted_tiled", k), ("sorted", kp)):
                 ms = time_launches(torch, lambda: sm.sort_matmul(
@@ -1518,16 +1605,30 @@ def phase_sort_timing(torch, sm, ss):
                 print(f"  time sort_matmul (one-pass, for comparison) "
                       f"{policy} {site} M={m} N={n} K={k} kp={pk} "
                       f"{ms:.4f} ms", flush=True)
-        for key, kernel, plain, nbytes, lib in runs:
-            row = dict(ms=time_launches(torch, kernel, 10, flush_buf),
-                       plain_ms=time_launches(torch, plain, 1, flush_buf),
+        for key, fn, (args, kw), plain, nbytes, lib in runs:
+            old = None if not baseline or fn is ss.tile_sums_matmul else (
+                lambda: baseline[fn.__name__](*args, **kw))
+            outputs = args[0].shape[0] * n
+            row = dict(**in_turns(torch, lambda: fn(*args, **kw), old,
+                                  flush_buf, f"{key} {site}"),
                        library_ms=lib and time_launches(torch, lib, 10,
                                                         flush_buf),
-                       **bound_row(m, n, k, nbytes))
+                       cx_floor_ms=(cx_floor_ms(outputs, kt, -(-k // kt))
+                                    if kw.get("policy") == "sorted_tiled"
+                                    or fn is ss.paired_accum_matmul
+                                    else cx_floor_ms(outputs, kp)
+                                    if "kp" in kw else 0.0),
+                       **bound_row(args[0].shape[0], n, k, nbytes))
+            if plain:
+                row["plain_ms"] = time_launches(
+                    torch, lambda: plain(*args, **kw), 1, flush_buf)
             table[key].append(row)
-            print(f"  time {key:20s} {site:6s} M={m} N={n:5d} K={k:5d} "
-                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} "
-                  f"ms  bound {row['bound_ms']:.5f} ms" + (
+            print(f"  time {key:26s} {site:6s} M={args[0].shape[0]:3d} "
+                  f"N={n:5d} K={k:5d} kernel {row['ms']:.4f} ms" + (
+                      f"  old kernel {row['old_ms']:.4f} ms"
+                      if "old_ms" in row else "") + (
+                      f"  plain {row['plain_ms']:.2f} ms" if plain else "")
+                  + f"  bound {row['bound_ms']:.5f} ms" + (
                       f"  float32 bmm {row['library_ms']:.4f} ms"
                       if lib else ""), flush=True)
     return table
@@ -1536,12 +1637,14 @@ def phase_sort_timing(torch, sm, ss):
 # the expand twin of each gather key of phase_nm_sort_timing
 EXPAND_OF = {"nm_gather_sort_matmul": "nm_sort_matmul",
              "nm_gather_sort_matmul[sorted]": "nm_sort_matmul[sorted]",
+             "nm_gather_sort_matmul[sorted] M=128":
+                 "nm_sort_matmul[sorted] M=128",
              "nm_gather_tile_sums": "nm_tile_sums_matmul",
              "nm_gather_paired_accum_matmul": "nm_paired_accum_matmul",
              "nm_gather_chunked_sort_matmul": "nm_chunked_sort_matmul"}
 
 
-def phase_nm_sort_timing(torch, sm, ss, nm):
+def phase_nm_sort_timing(torch, sm, ss, nm, baseline=None):
     """The gather global-sort kernels and their expand twins at the decode
     shapes (M = 4, 8:16) of the sites where the main path runs them, beside
     the dense kernel on the decompressed weight over the same kp
@@ -1552,15 +1655,26 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
     over the kept products (the same function for both twins). Pass 1 also
     beside one float32 ``torch.bmm`` on the decompressed weight, as row 9.
     At w_out the one-pass kernels are timed too, beside the two-pass
-    path."""
+    path. The one-pass kernels under ``sorted`` also at a prefill cohort
+    (M = 128; ``[sorted] M=128``, no plain version). Given ``baseline``
+    (``baseline_kernels``), rows 7, 8, 13, 14, 16 and 17 of that build too
+    (``old_ms``), timed in turns with the new."""
     from repro_torch.core.sorted_accum import pair_permutation
     from repro_torch.kernels.sorted_matmul import padded_k
 
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     table = {name: [] for name in (*EXPAND_OF, *EXPAND_OF.values())}
-    m, kt = 4, 256
+    kt = 256
+    twins = {"sort": (nm.nm_gather_sort_matmul, nm.nm_sort_matmul),
+             "sums": (ss.nm_gather_tile_sums, ss.nm_tile_sums_matmul),
+             "pass2": (ss.nm_gather_paired_accum_matmul,
+                       ss.nm_paired_accum_matmul),
+             "chunked": (ss.nm_gather_chunked_sort_matmul,
+                         ss.nm_chunked_sort_matmul)}
     for site, (n, k) in SITES.items():
-        x, w, vals, idx = nm_operands(torch, m, n, k, 13)
+        x128, w, vals, idx = nm_operands(torch, 128, n, k, 13)
+        x = x128[:4].contiguous()
+        m = x.shape[0]
         kept = vals.numel()
         kpt = padded_k(k, "sorted_tiled", kt)
         kps = padded_k(k, "sorted", kt)
@@ -1568,29 +1682,25 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
         one = dict(acc_bits=16, rounds=1, m_group=M_GROUP)
         dk = dict(acc_bits=16, rounds=1, k_tile=kt)
         base = m * k + 5 * kept
-        # (gather key, {impl: (kernel, plain)}, dense, bytes, library)
+        # (gather key, twins, (args, kwargs), dense call, bytes, library,
+        # with a plain version)
         runs = []
         if k <= 4096:
-            runs.append(("nm_gather_sort_matmul", {
-                impl: (lambda f=f: f(x, vals, idx, policy="sorted_tiled",
-                                     **tk),
-                       lambda r=r: r(x, vals, idx, policy="sorted_tiled",
-                                     **tk))
-                for impl, f, r in (
-                    ("gather", nm.nm_gather_sort_matmul,
-                     nm.nm_gather_sort_matmul_ref),
-                    ("expand", nm.nm_sort_matmul, nm.nm_sort_matmul_ref))},
-                lambda: sm.sort_matmul(x, w, policy="sorted_tiled", kp=kpt,
-                                       **dk), base + 4 * m * n, None))
-            runs.append(("nm_gather_sort_matmul[sorted]", {
-                impl: (lambda f=f: f(x, vals, idx, policy="sorted", **one),
-                       lambda r=r: r(x, vals, idx, policy="sorted", **one))
-                for impl, f, r in (
-                    ("gather", nm.nm_gather_sort_matmul,
-                     nm.nm_gather_sort_matmul_ref),
-                    ("expand", nm.nm_sort_matmul, nm.nm_sort_matmul_ref))},
-                lambda: sm.sort_matmul(x, w, policy="sorted", kp=kps,
-                                       acc_bits=16), base + 4 * m * n, None))
+            runs.append(("nm_gather_sort_matmul", "sort",
+                         ((x, vals, idx), dict(policy="sorted_tiled", **tk)),
+                         lambda: sm.sort_matmul(x, w, policy="sorted_tiled",
+                                                kp=kpt, **dk),
+                         base + 4 * m * n, None, True))
+            runs.append(("nm_gather_sort_matmul[sorted]", "sort",
+                         ((x, vals, idx), dict(policy="sorted", **one)),
+                         lambda: sm.sort_matmul(x, w, policy="sorted", kp=kps,
+                                                acc_bits=16),
+                         base + 4 * m * n, None, True))
+            runs.append(("nm_gather_sort_matmul[sorted] M=128", "sort",
+                         ((x128, vals, idx), dict(policy="sorted", **one)),
+                         lambda: sm.sort_matmul(x128, w, policy="sorted",
+                                                kp=kps, acc_bits=16),
+                         128 * k + 5 * kept + 4 * 128 * n, None, False))
         else:
             t = kpt // kt
             perm = pair_permutation(ss.nm_gather_tile_sums(
@@ -1601,38 +1711,21 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
             if not torch.equal(bmm.to(torch.int32), ss.nm_gather_tile_sums(
                     x, vals, idx, k_tile=kt, m_group=M_GROUP)):
                 raise AssertionError("float32 bmm tile sums are not exact")
-            runs.append(("nm_gather_tile_sums", {
-                impl: (lambda f=f: f(x, vals, idx, k_tile=kt,
-                                     m_group=M_GROUP),
-                       lambda r=r: r(x, vals, idx, k_tile=kt,
-                                     m_group=M_GROUP))
-                for impl, f, r in (
-                    ("gather", ss.nm_gather_tile_sums,
-                     ss.nm_gather_tile_sums_ref),
-                    ("expand", ss.nm_tile_sums_matmul,
-                     ss.nm_tile_sums_matmul_ref))},
-                lambda: ss.tile_sums_matmul(x, w, k_tile=kt, kp=kpt),
-                base + 4 * m * n * t, lambda: torch.bmm(xf, wf)))
-            runs.append(("nm_gather_paired_accum_matmul", {
-                impl: (lambda f=f: f(x, vals, idx, perm, **tk),
-                       lambda r=r: r(x, vals, idx, perm, **tk))
-                for impl, f, r in (
-                    ("gather", ss.nm_gather_paired_accum_matmul,
-                     ss.nm_gather_paired_accum_matmul_ref),
-                    ("expand", ss.nm_paired_accum_matmul,
-                     ss.nm_paired_accum_matmul_ref))},
-                lambda: ss.paired_accum_matmul(x, w, perm, kp=kpt, **dk),
-                base + 4 * m * n * t + 4 * m * n, None))
-            runs.append(("nm_gather_chunked_sort_matmul", {
-                impl: (lambda f=f: f(x, vals, idx, **one),
-                       lambda r=r: r(x, vals, idx, **one))
-                for impl, f, r in (
-                    ("gather", ss.nm_gather_chunked_sort_matmul,
-                     ss.nm_gather_chunked_sort_matmul_ref),
-                    ("expand", ss.nm_chunked_sort_matmul,
-                     ss.nm_chunked_sort_matmul_ref))},
-                lambda: ss.chunked_sort_matmul(x, w, kp=kps, acc_bits=16),
-                base + 4 * m * n, None))
+            runs.append(("nm_gather_tile_sums", "sums",
+                         ((x, vals, idx), dict(k_tile=kt, m_group=M_GROUP)),
+                         lambda: ss.tile_sums_matmul(x, w, k_tile=kt, kp=kpt),
+                         base + 4 * m * n * t, lambda: torch.bmm(xf, wf),
+                         True))
+            runs.append(("nm_gather_paired_accum_matmul", "pass2",
+                         ((x, vals, idx, perm), tk),
+                         lambda: ss.paired_accum_matmul(x, w, perm, kp=kpt,
+                                                        **dk),
+                         base + 4 * m * n * t + 4 * m * n, None, True))
+            runs.append(("nm_gather_chunked_sort_matmul", "chunked",
+                         ((x, vals, idx), one),
+                         lambda: ss.chunked_sort_matmul(x, w, kp=kps,
+                                                        acc_bits=16),
+                         base + 4 * m * n, None, True))
             for policy in ("sorted_tiled", "sorted"):
                 kw = tk if policy == "sorted_tiled" else one
                 for fn in (nm.nm_gather_sort_matmul, nm.nm_sort_matmul):
@@ -1641,34 +1734,63 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
                     print(f"  time {fn.__name__} (one-pass, for comparison) "
                           f"{policy} {site} M={m} N={n} K={k} {ms:.4f} ms",
                           flush=True)
-        ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
-        for key, impls, dense, nbytes, lib in runs:
+        for key, twin, (args, kw), dense, nbytes, lib, with_plain in runs:
+            rows_m = args[0].shape[0]
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * rows_m * kept / INT8_OPS_PER_S * 1e3
+            outputs = rows_m * n
+            tiles = kpt // kt
+            lp = N_KEEP * kt // M_GROUP  # a kept tile's sort length
             common = dict(
                 dense_ms=time_launches(torch, dense, 10, flush_buf),
                 library_ms=lib and time_launches(torch, lib, 10, flush_buf),
                 bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
                 ops_ms=ops_ms)
-            rows = {impl: dict(
-                common, ms=time_launches(torch, kernel, 10, flush_buf),
-                plain_ms=time_launches(torch, plain, 1, flush_buf))
-                for impl, (kernel, plain) in impls.items()}
+            # the gather twin sorts the kept keys, the expand twin the
+            # dense stream
+            floors = {"gather": 0.0, "expand": 0.0}
+            if twin in ("sort", "pass2") and (
+                    twin == "pass2" or kw["policy"] == "sorted_tiled"):
+                floors = {"gather": cx_floor_ms(outputs, lp, tiles),
+                          "expand": cx_floor_ms(outputs, kt, tiles)}
+            elif twin in ("sort", "chunked"):
+                floors = {"gather": cx_floor_ms(
+                    outputs, padded_k(vals.shape[1] * N_KEEP, "sorted", 1)),
+                    "expand": cx_floor_ms(outputs, kps)}
+            rows = {}
+            for impl, fn in zip(("gather", "expand"), twins[twin]):
+                old = None if not baseline or twin == "sums" else (
+                    lambda: baseline[fn.__name__](*args, **kw))
+                rows[impl] = dict(
+                    common, cx_floor_ms=floors[impl], **in_turns(
+                        torch, lambda: fn(*args, **kw), old, flush_buf,
+                        f"{fn.__name__} {key} {site}"))
+                if with_plain:
+                    ref = plain_of(fn)
+                    rows[impl]["plain_ms"] = time_launches(
+                        torch, lambda: ref(*args, **kw), 1, flush_buf)
             rows["expand"]["gather_ms"] = rows["gather"]["ms"]
             table[key].append(rows["gather"])
             table[EXPAND_OF[key]].append(rows["expand"])
             for impl, row in rows.items():
                 name = key if impl == "gather" else EXPAND_OF[key]
-                print(f"  time {name:30s} {site:6s} M={m} N={n:5d} K={k:5d} "
-                      f"kernel {row['ms']:.4f} ms  dense kernel "
-                      f"{row['dense_ms']:.4f} ms  plain "
-                      f"{row['plain_ms']:.2f} ms  bound "
-                      f"{row['bound_ms']:.5f} ms" + (
+                print(f"  time {name:36s} {site:6s} M={rows_m:3d} N={n:5d} "
+                      f"K={k:5d} kernel {row['ms']:.4f} ms" + (
+                          f"  old kernel {row['old_ms']:.4f} ms"
+                          if "old_ms" in row else "")
+                      + f"  dense kernel {row['dense_ms']:.4f} ms" + (
+                          f"  plain {row['plain_ms']:.2f} ms"
+                          if "plain_ms" in row else "")
+                      + f"  bound {row['bound_ms']:.5f} ms" + (
                           f"  float32 bmm {row['library_ms']:.4f} ms"
                           if lib else ""), flush=True)
     # the auto cut GATHER_MIN_G: both one-pass kernels at a few groups
+    m = 4
     for g in (4, 8, 16):
         x, _, vals, idx = nm_operands(torch, m, 1536, g * M_GROUP, 14)
-        for policy, kw in (("sorted_tiled", tk), ("sorted", one)):
+        for policy, kw in (("sorted_tiled", dict(acc_bits=16, k_tile=kt,
+                                                 m_group=M_GROUP)),
+                           ("sorted", dict(acc_bits=16, m_group=M_GROUP))):
             times = [time_launches(torch, lambda f=f: f(
                 x, vals, idx, policy=policy, **kw), 10, flush_buf)
                 for f in (nm.nm_gather_sort_matmul, nm.nm_sort_matmul)]
@@ -1678,26 +1800,36 @@ def phase_nm_sort_timing(torch, sm, ss, nm):
     return table
 
 
+def plain_of(fn):
+    """The plain version (``<name>_ref``) of a wrapper."""
+    return getattr(sys.modules[fn.__module__], fn.__name__ + "_ref")
+
+
 def baseline_kernels(torch, csrc_dir):
-    """Rows 1 (``wide``), 3, 4, 9, 10 and 11 as another tree's ``csrc/``
-    builds them (an older commit's, for a same-call comparison): its
-    ``seq_policy_matmul.cu``, ``quant_matmul.cu``, ``sorted_stream.cu``,
-    ``nm_sort_matmul.cu`` and ``nm_expand_sort.cu`` compiled with the
-    port's flags, one nvcc each in parallel, into
-    ``src/repro_torch/_build/baseline/``, called through their C entry
-    points (whose signatures are the port's, but for ``pqs_quant_matmul``,
-    which took no body before this tree). Returns {kernel name: callable
-    with the wrapper's arguments}."""
+    """Rows 1 (``wide``), 2-4 and 7-17 as another tree's ``csrc/`` builds
+    them (an older commit's, for a same-call comparison): its
+    ``seq_policy_matmul.cu``, ``quant_matmul.cu``, ``sort_matmul.cu``,
+    ``sorted_stream.cu``, ``nm_sort_matmul.cu`` and ``nm_expand_sort.cu``
+    compiled with the port's flags, one nvcc each in parallel, into a
+    directory of ``src/repro_torch/_build/`` named after ``csrc_dir``, and
+    called through the port's own wrappers with that build's library in
+    place of the port's for the call (so the two trees' C entry points
+    must take the same arguments). Returns {kernel name: callable with
+    the wrapper's arguments}."""
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.sorted_matmul import padded_k
+    from repro_torch.kernels import nm_spmm as nm
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import sorted_matmul as sm
+    from repro_torch.kernels import sorted_stream as ss
 
-    out_dir = build.BUILD_DIR / "baseline"
+    out_dir = build.BUILD_DIR / ("baseline-" + Path(csrc_dir).resolve()
+                                 .as_posix().strip("/").replace("/", "-"))
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    srcs = ("seq_policy_matmul", "quant_matmul", "sorted_stream",
-            "nm_sort_matmul", "nm_expand_sort")
+    srcs = ("seq_policy_matmul", "quant_matmul", "sort_matmul",
+            "sorted_stream", "nm_sort_matmul", "nm_expand_sort")
     procs = {src: subprocess.Popen(
         [build._nvcc(), *flags, "-o", str(out_dir / f"lib{src}.so"),
          str(Path(csrc_dir) / f"{src}.cu")], stdout=subprocess.PIPE,
@@ -1709,69 +1841,39 @@ def baseline_kernels(torch, csrc_dir):
             raise RuntimeError(f"baseline nvcc failed for {src}:\n{log}")
         libs[src] = ctypes.CDLL(str(out_dir / f"lib{src}.so"))
 
-    def entry(src, name, n_ptrs, n_ints):
-        fn = getattr(libs[src], name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
-            + [ctypes.c_void_p]
-        return fn
-
-    fns = {"wide": entry("seq_policy_matmul", "pqs_seq_policy_matmul", 3, 7),
-           "quant_matmul": entry("quant_matmul", "pqs_quant_matmul", 3, 3),
-           "nm_spmm": entry("quant_matmul", "pqs_nm_spmm", 4, 6),
-           "tile_sums_matmul": entry("sorted_stream", "pqs_tile_sums", 3, 5),
-           "nm_gather_tile_sums": entry("nm_sort_matmul",
-                                        "pqs_nm_gather_tile_sums", 4, 8),
-           "nm_tile_sums_matmul": entry("nm_expand_sort",
-                                        "pqs_nm_expand_tile_sums", 4, 8)}
-
-    def call(name, out, *args):
-        if fns[name](*args, torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError(f"baseline {name} failed")
-        return out
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.int32, device="cuda")
-
-    def wide(x, w):
-        (m, k), n = x.shape, w.shape[0]
-        out = empty(m, n)
-        return call("wide", out, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    m, n, k, 0, 16, 1, 256)
-
-    def quant_matmul(x, w):
-        (m, k), n = x.shape, w.shape[1]
-        out = empty(m, n)
-        return call("quant_matmul", out, x.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), m, n, k)
-
-    def nm_spmm(x, vals, idx, *, m_group):
-        (m, k), (n, g, n_keep) = x.shape, vals.shape
-        out = empty(m, n)
-        return call("nm_spmm", out, x.data_ptr(), vals.data_ptr(),
-                    idx.data_ptr(), out.data_ptr(), m, n, k, g, n_keep,
-                    m_group)
-
-    def tile_sums(x, w, *, k_tile):
-        (m, k), n = x.shape, w.shape[0]
-        out = empty(m, n, k // k_tile)
-        return call("tile_sums_matmul", out, x.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), m, n, k, k, k_tile)
-
-    def nm_sums(name):
-        def run(x, vals, idx, *, k_tile, m_group):
-            (m, k), (n, g, n_keep) = x.shape, vals.shape
-            kp = padded_k(g * m_group, "sorted_tiled", k_tile)
-            out = empty(m, n, kp // k_tile)
-            return call(name, out, x.data_ptr(), vals.data_ptr(),
-                        idx.data_ptr(), out.data_ptr(), m, n, k, g, n_keep,
-                        m_group, kp, k_tile)
+    def via(source, wrapper):
+        """``wrapper`` run on this build's csrc/<source>.cu."""
+        def run(*args, **kwargs):
+            saved = build._LIBS.get(source)
+            build._LIBS[source] = libs[source]
+            try:
+                return wrapper(*args, **kwargs)
+            finally:
+                if saved is None:
+                    del build._LIBS[source]
+                else:
+                    build._LIBS[source] = saved
         return run
 
-    return {"wide": wide, "quant_matmul": quant_matmul, "nm_spmm": nm_spmm,
-            "tile_sums_matmul": tile_sums,
-            "nm_gather_tile_sums": nm_sums("nm_gather_tile_sums"),
-            "nm_tile_sums_matmul": nm_sums("nm_tile_sums_matmul")}
+    def wide(x, w):
+        return sm.seq_policy_matmul(x, w, policy="wide")
+
+    return {"wide": via("seq_policy_matmul", wide),
+            **{f.__name__: via(src, f) for src, f in (
+                ("quant_matmul", qm.quant_matmul),
+                ("quant_matmul", nm.nm_spmm),
+                ("sort_matmul", sm.sort_matmul),
+                ("sort_matmul", ss.chunked_sort_matmul),
+                ("sorted_stream", ss.tile_sums_matmul),
+                ("sorted_stream", ss.paired_accum_matmul),
+                ("nm_sort_matmul", nm.nm_gather_sort_matmul),
+                ("nm_sort_matmul", ss.nm_gather_tile_sums),
+                ("nm_sort_matmul", ss.nm_gather_chunked_sort_matmul),
+                ("nm_sort_matmul", ss.nm_gather_paired_accum_matmul),
+                ("nm_expand_sort", nm.nm_sort_matmul),
+                ("nm_expand_sort", ss.nm_tile_sums_matmul),
+                ("nm_expand_sort", ss.nm_chunked_sort_matmul),
+                ("nm_expand_sort", ss.nm_paired_accum_matmul))}}
 
 
 def in_turns(torch, new, old, flush_buf, what):
@@ -1931,7 +2033,7 @@ def kernel_record(name, source, replaces, rows, policy="sorted_tiled_seq",
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     for key in ("dense_ms", "gather_ms", "int_mm_kn_ms", "int_mm_m32_ms",
-                "int_mm_m32_kn_ms", "old_ms"):
+                "int_mm_m32_kn_ms", "old_ms", "cx_floor_ms"):
         if all(key in r for r in rows):
             extra[key] = sum(r[key] for r in rows)
     library = [r.get("library_ms") for r in rows]
@@ -1961,12 +2063,24 @@ def pass1_records(name, source, replaces, table, work):
         for m in (4, 128)}}
 
 
+def prefill_record(rows, work):
+    """The M = 128 rows of a `sorted` one-pass kernel (no plain version):
+    sums over the sites of ms, old_ms where timed, and the bound."""
+    rec = {key: sum(r[key] for r in rows)
+           for key in ("ms", "bound_ms", "bytes_ms", "ops_ms", "dense_ms",
+                       "gather_ms", "old_ms", "cx_floor_ms")
+           if all(key in r for r in rows)}
+    rec["bound_by"] = ("bytes" if rec["bytes_ms"] >= rec["ops_ms"]
+                       else "operations")
+    return dict(work=work, timing=TIMING, **rec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baseline-csrc", default=None,
                     help="another tree's src/repro_torch/csrc: phase 5 "
-                         "also times its rows 1 (wide), 3, 4, 9, 10 and 11 "
+                         "also times its rows 1 (wide), 2-4 and 7-17 "
                          "(old_ms)")
     args = ap.parse_args()
 
@@ -1998,18 +2112,23 @@ def main() -> int:
         for kernel, regs, spill in build.register_report(info["log"]):
             print(f"    {name}: {kernel} {regs} registers, spill stores/"
                   f"loads {spill} bytes", flush=True)
-    # what the packed sort's 16x2 max / min / add compile to
-    label = "sorted_seq_kernel<8,32>"
-    try:
-        ops = build.sass_opcodes("seq_policy_matmul", label)
-    except (OSError, subprocess.CalledProcessError) as exc:
-        print(f"[1] SASS of {label} not read: {exc}", flush=True)
-    else:
+    # what the packed sorts' 16x2 max / min / add compile to: row 1's
+    # tiled sort and the whole-K `sorted` body at kp = 2048 and 16384
+    for source, label, what in (
+            ("seq_policy_matmul", "sorted_seq_kernel<8,32>", "k_tile 256"),
+            ("sort_matmul", "sort_sorted_kernel<32,1>", "kp 2048"),
+            ("sort_matmul", "sort_sorted_kernel<32,8>", "kp 16384")):
+        try:
+            ops = build.sass_opcodes(source, label)
+        except (OSError, subprocess.CalledProcessError) as exc:
+            print(f"[1] SASS of {label} not read: {exc}", flush=True)
+            continue
         packed = {op: n for op, n in sorted(ops.items(), key=lambda o: -o[1])
-                  if "16x2" in op or op.startswith(("SHFL", "PRMT"))}
-        print(f"[1] SASS of {label} (k_tile 256): {sum(ops.values())} "
-              f"instructions; 16x2, shuffles and byte permutes {packed}",
-              flush=True)
+                  if "16x2" in op or op.startswith(("SHFL", "PRMT", "BAR",
+                                                    "SEL", "LOP3"))}
+        print(f"[1] SASS of {label} ({what}): {sum(ops.values())} "
+              f"instructions; 16x2, shuffles, byte permutes, selects, "
+              f"logic and barriers {packed}", flush=True)
 
     cfg = get_config("qwen2-1.5b")
     counters = {"seq_policy_matmul": sm.seq_policy_matmul,
@@ -2075,8 +2194,8 @@ def main() -> int:
         got.update(
             timing=phase_timing(torch, sm, baseline),
             nm_timing=phase_nm_timing(torch, sm, nm),
-            sort_timing=phase_sort_timing(torch, sm, ss),
-            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm),
+            sort_timing=phase_sort_timing(torch, sm, ss, baseline),
+            nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm, baseline),
             pass1_timing=phase_pass1_timing(torch, ss, baseline),
             wide_timing=phase_wide_timing(torch, qm, nm, baseline))
 
@@ -2088,6 +2207,7 @@ def main() -> int:
             nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
                                               args.seed),
             pass1_err=phase_pass1_kernels(torch, ss, args.seed),
+            sorted_err=phase_sorted_regimes(torch, sm, nm, args.seed),
             wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed),
             qm_err=phase_quant_matmul_bodies(torch, sm, qm, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
@@ -2181,13 +2301,18 @@ def main() -> int:
             launches=tiled["sort_matmul"] + srt["sort_matmul"],
             launches_by_path={"sorted_tiled": tiled["sort_matmul"],
                               "sorted": srt["sort_matmul"]},
-            max_abs_err=got["sort_err"]["sort_matmul"],
+            max_abs_err=max(got["sort_err"]["sort_matmul"],
+                            got["sorted_err"]["sort_matmul"]),
             sorted_policy=kernel_record(
                 "sort_matmul", csrc + "sort_matmul.cu",
                 "src/repro/kernels/sorted_matmul.py:204",
                 timing["sort_matmul[sorted]"], policy="sorted",
                 work=six + ", sorted over kp 2048 (the tail past K "
-                           "masked in the kernel)"),
+                           "masked in the kernel)",
+                prefill=prefill_record(
+                    timing["sort_matmul[sorted] M=128"],
+                    six.replace("decode (M=4)", "a prefill cohort (M=128)")
+                    + ", sorted over kp 2048")),
             path="phases 3c and 3d (one-pass at K = 1536)"),
         kernel_record(
             "tile_sums_matmul", csrc + "sorted_stream.cu",
@@ -2216,7 +2341,8 @@ def main() -> int:
             work=w_out + ", sorted over kp 16384 (the tail past K "
                          "masked in the kernel)",
             launches=srt["chunked_sort_matmul"],
-            max_abs_err=got["sort_err"]["chunked_sort_matmul"],
+            max_abs_err=max(got["sort_err"]["chunked_sort_matmul"],
+                            got["sorted_err"]["sort_matmul"]),
             path="phase 3d (two-pass at K = 8960)"),
     ]
     timing = got["nm_sort_timing"]
@@ -2233,13 +2359,18 @@ def main() -> int:
             + srt["nm_gather_sort_matmul"],
             launches_by_path={"sorted_tiled": tiled["nm_gather_sort_matmul"],
                               "sorted": srt["nm_gather_sort_matmul"]},
-            max_abs_err=err["nm_gather_sort_matmul"],
+            max_abs_err=max(err["nm_gather_sort_matmul"],
+                            got["sorted_err"]["nm_gather_sort_matmul"]),
             sorted_policy=kernel_record(
                 "nm_gather_sort_matmul", csrc + "nm_sort_matmul.cu",
                 "src/repro/kernels/nm_spmm.py:465",
                 timing["nm_gather_sort_matmul[sorted]"], policy="sorted",
                 work=six + nm8 + ", sorted over next_pow2(G n_keep) = 1024 "
-                                 "kept keys"),
+                                 "kept keys",
+                prefill=prefill_record(
+                    timing["nm_gather_sort_matmul[sorted] M=128"],
+                    six.replace("decode (M=4)", "a prefill cohort (M=128)")
+                    + nm8 + ", 1024 kept keys")),
             path="phases 3e and 3f (one-pass at K = 1536)"),
         kernel_record(
             "nm_gather_tile_sums", csrc + "nm_sort_matmul.cu",
@@ -2270,7 +2401,8 @@ def main() -> int:
             work=w_out + nm8 + ", sorted over next_pow2(G n_keep) = 8192 "
                                "kept keys",
             launches=srt["nm_gather_chunked_sort_matmul"],
-            max_abs_err=err["nm_gather_chunked_sort_matmul"],
+            max_abs_err=max(err["nm_gather_chunked_sort_matmul"],
+                            got["sorted_err"]["nm_gather_sort_matmul"]),
             path="phase 3f (two-pass at K = 8960)"),
     ]
     tiled, srt = got["expand sorted_tiled"], got["expand sorted"]
@@ -2284,12 +2416,17 @@ def main() -> int:
             launches=tiled["nm_sort_matmul"] + srt["nm_sort_matmul"],
             launches_by_path={"sorted_tiled": tiled["nm_sort_matmul"],
                               "sorted": srt["nm_sort_matmul"]},
-            max_abs_err=err["nm_sort_matmul"],
+            max_abs_err=max(err["nm_sort_matmul"],
+                            got["sorted_err"]["nm_sort_matmul"]),
             sorted_policy=kernel_record(
                 "nm_sort_matmul", csrc + "nm_expand_sort.cu",
                 "src/repro/kernels/nm_spmm.py:249",
                 timing["nm_sort_matmul[sorted]"], policy="sorted",
-                work=six + nm8 + ", sorted over kp 2048 expanded keys"),
+                work=six + nm8 + ", sorted over kp 2048 expanded keys",
+                prefill=prefill_record(
+                    timing["nm_sort_matmul[sorted] M=128"],
+                    six.replace("decode (M=4)", "a prefill cohort (M=128)")
+                    + nm8 + ", kp 2048 expanded keys")),
             path="phases 3g and 3h (one-pass at K = 1536, "
                  "nm_impl='expand')"),
         kernel_record(
@@ -2320,7 +2457,8 @@ def main() -> int:
             timing["nm_chunked_sort_matmul"], policy="sorted",
             work=w_out + nm8 + ", sorted over kp 16384 expanded keys",
             launches=srt["nm_chunked_sort_matmul"],
-            max_abs_err=err["nm_chunked_sort_matmul"],
+            max_abs_err=max(err["nm_chunked_sort_matmul"],
+                            got["sorted_err"]["nm_sort_matmul"]),
             path="phase 3h (two-pass at K = 8960)"),
     ]
     timing, launches = got["wide_timing"], got["quickstart"]

@@ -36,7 +36,7 @@
 // past G and the kp tail are zero products, masked in the kernel, so
 // neither x nor the slabs are padded or copied on the host. The product
 // stream is then the dense kernels' own, and so is the result, bit for
-// bit, through the dense bodies of pqs_accum.cuh (sorted_keys,
+// bit, through the dense bodies of pqs_accum.cuh (sorted_dot,
 // sorted_tiled_dot, paired_dot, warp_tile_sum).
 //
 // What bounds it on this card: as for the dense kernels (sort_matmul.cu,
@@ -47,17 +47,32 @@
 // at 8:16.
 //
 // The expansion target, and the shared memory it takes:
-// - `sorted`: the keys x[pos] * value are written straight into the kp int16
-//   keys that sorted_keys sorts (zeroed first; a value-0 slot writes
-//   nothing): 2 kp bytes, 4 KB at kp = 2048, 32 KB at 16384 and 128 KB at
-//   MAX_STREAM_K = 65536, under launch_sorted's cap of 128 KB. kp / 8
-//   threads (32 to 1024).
+// - `sorted`: the keys x[pos] * value are written straight into kp int16
+//   keys in shared memory (zeroed first; a value-0 slot writes nothing):
+//   2 kp bytes, 4 KB at kp = 2048, 32 KB at 16384 and 128 KB at
+//   MAX_STREAM_K = 65536, pqs::kSmemCap. The register-resident body of the
+//   dense kernel (sorted_dot, the SharedKeys loader) then reads them into
+//   registers, two to a register, and its cross-warp exchange reuses the
+//   same bytes: one warp up to kp = 2048, kp / 2048 warps up to 32768, 16
+//   at 65536. The keys wrap to 16 bits as they always did: exact on
+//   canonical slabs, whose products lie in [-16256, 16384].
 // - `sorted_tiled` one-pass: the compressed row expanded into an int16 row
 //   of K weights beside the T tile sums and the pairing (8 T + 2 K bytes:
 //   3 KB at K = 1536; the wrapper refuses above 128 KB), then the dense
-//   body on x and the row; 4 warps.
+//   body on x and the row; up to 4 warps, one per pair slot. A row whose
+//   weights are all int8 (canonical slabs always) sorts each pair slot as
+//   packed int16x2 keys; a row where several slots name one position may
+//   hold a weight past int8, whose products leave the int16 range, and
+//   keeps two int32 networks a slot (pqs::int8_weights decides a block).
 // - Pass 2: the same int16 row of K weights (2 K bytes: 17.5 KB at K =
-//   8960, 128 KB at 65536), then the dense pass-2 body fed perm; 8 warps.
+//   8960, 128 KB at 65536), then the dense pass-2 body fed perm, with the
+//   same choice of network; up to 8 warps.
+// At decode (M = 4, 8:16) over the six K = 1536 sites `sorted` takes 1.13
+// ms and `sorted_tiled` 1.30 (6.38 and 2.04 before the register body and
+// the packed pairs); at w_out `sorted` 0.84 (5.18) and pass 2 0.54 (0.82)
+// (chip_smoke.py phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3,
+// 700.00 W). Expanding costs 0.29 ms over the dense kernel's `sorted` and
+// 0.55 over its `sorted_tiled` on the same dot.
 // - Pass 1: a sum of raw products in int32, with no clipping, so the
 //   kept slots need not be expanded at all: for any slabs, canonical or
 //   not, the sum over the slots of x[pos] * value is x times the int32
@@ -93,8 +108,8 @@ using pqs::Slabs;
 using pqs::slabs;
 using pqs::valid_slabs;
 
-constexpr int kTiledThreads = 128;
-constexpr int kPairThreads = 256;
+constexpr int kTiledWarps = 4;
+constexpr int kPairWarps = 8;
 constexpr int kSumThreads = 256;
 constexpr int kSumChunk = 256;  // dense positions a pass-1 warp expands
 
@@ -109,21 +124,25 @@ __device__ __forceinline__ void expand_row(int16_t* w, const int8_t* val,
                            blockDim.x);
 }
 
-__global__ void nm_expand_sorted_kernel(const int8_t* __restrict__ x,
-                                        const int8_t* __restrict__ val,
-                                        const int32_t* __restrict__ idx,
-                                        int32_t* __restrict__ out, int N,
-                                        int K, int G, int n_keep, int m_group,
-                                        int kp, int acc_bits, int rounds) {
-  __shared__ pqs::Clamp scratch[32];
+template <int E, int W>
+__global__ void __launch_bounds__(32 * W)
+    nm_expand_sorted_kernel(const int8_t* __restrict__ x,
+                            const int8_t* __restrict__ val,
+                            const int32_t* __restrict__ idx,
+                            int32_t* __restrict__ out, int N, int K, int G,
+                            int n_keep, int m_group, int acc_bits,
+                            int rounds) {
+  __shared__ pqs::Clamp scratch[2 * W];
   int16_t* keys = pqs::dynamic_smem<int16_t>();
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   const int64_t kept = static_cast<int64_t>(G) * n_keep;
-  pqs::expand_slots<false>(keys, kp, 0, x + m * K, val + n * kept,
+  pqs::expand_slots<false>(keys, 64 * W * E, 0, x + m * K, val + n * kept,
                            idx + n * kept, 0, G * n_keep, K, n_keep, m_group,
                            threadIdx.x, blockDim.x);
-  const int r = pqs::sorted_keys(keys, kp, scratch, acc_bits, rounds);
+  const int r = pqs::sorted_dot<E, W>(pqs::SharedKeys{keys},
+                                      reinterpret_cast<uint32_t*>(keys),
+                                      scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -134,15 +153,19 @@ __global__ void nm_expand_tiled_kernel(const int8_t* __restrict__ x,
                                        int32_t* __restrict__ out, int N,
                                        int K, int G, int n_keep, int m_group,
                                        int T, int acc_bits, int rounds) {
-  __shared__ pqs::Clamp scratch[kTiledThreads / 32];
+  __shared__ pqs::Clamp scratch[kTiledWarps];
   int* sums = pqs::dynamic_smem<int>();
   int16_t* w = reinterpret_cast<int16_t*>(sums + 2 * T);
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   expand_row(w, val, idx, n, K, G, n_keep, m_group);
   const pqs::ExpandedProducts p{x + m * K, w, K, E * LT};
-  const int r = pqs::sorted_tiled_dot<E, LT>(p, sums, sums + T, T, scratch,
-                                             acc_bits, rounds);
+  const int r =
+      pqs::int8_weights(w, K)
+          ? pqs::sorted_tiled_dot<E, LT, true>(p, sums, sums + T, T, scratch,
+                                               acc_bits, rounds)
+          : pqs::sorted_tiled_dot<E, LT, false>(p, sums, sums + T, T,
+                                                scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -198,14 +221,17 @@ __global__ void nm_expand_paired_kernel(const int8_t* __restrict__ x,
                                         int K, int G, int n_keep,
                                         int m_group, int T, int acc_bits,
                                         int rounds) {
-  __shared__ pqs::Clamp scratch[kPairThreads / 32];
+  __shared__ pqs::Clamp scratch[kPairWarps];
   int16_t* w = pqs::dynamic_smem<int16_t>();
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   expand_row(w, val, idx, n, K, G, n_keep, m_group);
   const pqs::ExpandedProducts p{x + m * K, w, K, E * LT};
-  const int r = pqs::paired_dot<E, LT>(p, perm + o * T, T, scratch, acc_bits,
-                                       rounds);
+  const int r = pqs::int8_weights(w, K)
+                    ? pqs::paired_dot<E, LT, true>(p, perm + o * T, T,
+                                                   scratch, acc_bits, rounds)
+                    : pqs::paired_dot<E, LT, false>(p, perm + o * T, T,
+                                                    scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -218,6 +244,23 @@ size_t tiled_smem(int T, int K) {
 
 size_t row_smem(int K) { return sizeof(int16_t) * static_cast<size_t>(K); }
 
+// The `sorted` kernel's shared memory: the L = 64 W E expanded int16 keys,
+// which its cross-warp exchange (4 bytes a packed position) reuses.
+struct SortedLaunch {
+  Slabs a;
+  int32_t* out;
+  int acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int W>
+  void operator()() const {
+    pqs::launch_smem(nm_expand_sorted_kernel<E, W>,
+                     static_cast<int64_t>(a.M) * a.N, 32 * W,
+                     sizeof(int16_t) * 64 * W * E, s, a.x, a.val, a.idx, out,
+                     a.N, a.K, a.G, a.n_keep, a.m_group, acc_bits, rounds);
+  }
+};
+
 struct TiledLaunch {
   Slabs a;
   int32_t* out;
@@ -227,7 +270,8 @@ struct TiledLaunch {
   template <int E, int LT>
   void operator()() const {
     pqs::launch_smem(nm_expand_tiled_kernel<E, LT>,
-                     static_cast<int64_t>(a.M) * a.N, kTiledThreads,
+                     static_cast<int64_t>(a.M) * a.N,
+                     pqs::paired_threads(T, E * LT, kTiledWarps),
                      tiled_smem(T, a.K), s, a.x, a.val, a.idx, out, a.N, a.K,
                      a.G, a.n_keep, a.m_group, T, acc_bits, rounds);
   }
@@ -243,7 +287,8 @@ struct PairedLaunch {
   template <int E, int LT>
   void operator()() const {
     pqs::launch_smem(nm_expand_paired_kernel<E, LT>,
-                     static_cast<int64_t>(a.M) * a.N, kPairThreads,
+                     static_cast<int64_t>(a.M) * a.N,
+                     pqs::paired_threads(T, E * LT, kPairWarps),
                      row_smem(a.K), s, a.x, a.val, a.idx, perm, out, a.N,
                      a.K, a.G, a.n_keep, a.m_group, T, acc_bits, rounds);
   }
@@ -276,10 +321,7 @@ extern "C" int pqs_nm_expand_sort_matmul(const void* x, const void* val,
   if (policy == 0) {
     if (!valid_slabs(a, kp, 0) || (kp & (kp - 1)))
       return cudaErrorInvalidValue;
-    return pqs::launch_sorted(nm_expand_sorted_kernel,
-                              static_cast<int64_t>(M) * N, kp, s, a.x, a.val,
-                              a.idx, op, N, K, G, n_keep, m_group, kp,
-                              acc_bits, rounds);
+    return pqs::dispatch_sorted(kp, SortedLaunch{a, op, acc_bits, rounds, s});
   }
   if (policy != 1 || k_tile <= 0 || !valid_slabs(a, kp, k_tile) ||
       tiled_smem(kp / k_tile, K) > pqs::kSmemCap)

@@ -54,10 +54,21 @@
 // - The sort bodies are the dense kernels' (pqs_accum.cuh sorted_dot,
 //   sorted_tiled_dot, paired_dot), reading products through the gathered
 //   loader instead of the dense row pair: one block per output element.
-// - `sorted`: L / 8 threads (32 to 1024) sort L int16 keys in shared
-//   memory (2 KB at L = 1024, 16 KB at 8192).
-// - `sorted_tiled` one-pass: 4 warps rank the T = kp / k_tile tile sums in
-//   shared memory, then sort each pair slot's two kept tiles in registers.
+// - `sorted`: the dense kernels' register-resident body over the L kept
+//   keys: one warp up to L = 2048 (16 keys a lane at 1024, no shared
+//   memory), L / 2048 warps above (4 at 8192, a 16 KB exchange). The lanes
+//   read the kept slots coalesced, position r * 32 W + t (a sort's result
+//   does not depend on where each key starts), and a slot's group q /
+//   n_keep is a multiply-high by a reciprocal (pqs::div_magic), not a
+//   division.
+// - `sorted_tiled` one-pass: up to 4 warps (one per pair slot) rank the T
+//   = kp / k_tile tile sums in shared memory, then sort each pair slot's
+//   two kept tiles in registers as the halves of packed int16x2 keys.
+// - At decode (M = 4, 8:16) over the six K = 1536 sites `sorted` takes
+//   0.62 ms and `sorted_tiled` 0.69 (2.73 and 1.11 for the shared-memory
+//   body and the int32 pairs before); at w_out `sorted` 0.37 (2.43) and
+//   pass 2 0.18 (0.30) (chip_smoke.py phase 5 with --baseline-csrc,
+//   NVIDIA H100 80GB HBM3, 700.00 W).
 // - Pass 1: the body of nm_tile_sums.cuh, which the expand twin's pass 1
 //   (nm_expand_sort.cu) shares; here a nonzero slot whose index points
 //   outside its group (so outside the tile) is read from x in device
@@ -74,7 +85,7 @@
 //   set its time, not its bytes; the alternative, row 4's slab build on
 //   the int8 mainloop with row 9's held-tile epilogue, was slower at M =
 //   4, 64 and 128 when both were timed in one process.
-// - Pass 2: 8 warps per output, the one-pass body fed perm.
+// - Pass 2: up to 8 warps per output, the one-pass body fed perm.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,8 +99,8 @@ using pqs::Slabs;
 using pqs::slabs;
 using pqs::valid_slabs;
 
-constexpr int kTiledThreads = 128;
-constexpr int kPairThreads = 256;
+constexpr int kTiledWarps = 4;
+constexpr int kPairWarps = 8;
 
 // The kept products of output (m, n).
 __device__ __forceinline__ pqs::GatheredProducts gathered(
@@ -97,21 +108,23 @@ __device__ __forceinline__ pqs::GatheredProducts gathered(
     int64_t n, int K, int G, int n_keep, int m_group, int tile_len) {
   const int kept = G * n_keep;
   return pqs::GatheredProducts{x + m * K, val + n * kept, idx + n * kept, K,
-                               kept, n_keep, m_group, tile_len};
+                               kept, n_keep, m_group, tile_len,
+                               pqs::div_magic(n_keep, kept)};
 }
 
-__global__ void nm_sort_sorted_kernel(const int8_t* __restrict__ x,
-                                      const int8_t* __restrict__ val,
-                                      const int32_t* __restrict__ idx,
-                                      int32_t* __restrict__ out, int N, int K,
-                                      int G, int n_keep, int m_group, int L,
-                                      int acc_bits, int rounds) {
-  __shared__ pqs::Clamp scratch[32];
+template <int E, int W>
+__global__ void __launch_bounds__(32 * W)
+    nm_sort_sorted_kernel(const int8_t* __restrict__ x,
+                          const int8_t* __restrict__ val,
+                          const int32_t* __restrict__ idx,
+                          int32_t* __restrict__ out, int N, int K, int G,
+                          int n_keep, int m_group, int acc_bits, int rounds) {
+  __shared__ pqs::Clamp scratch[2 * W];
   const int64_t o = blockIdx.x;
   const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
                           G * n_keep);
-  const int r = pqs::sorted_dot(p, L, pqs::dynamic_smem<int16_t>(), scratch,
-                                acc_bits, rounds);
+  const int r = pqs::sorted_dot<E, W>(p, pqs::dynamic_smem<uint32_t>(),
+                                      scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -122,13 +135,13 @@ __global__ void nm_sort_tiled_kernel(const int8_t* __restrict__ x,
                                      int32_t* __restrict__ out, int N, int K,
                                      int G, int n_keep, int m_group, int T,
                                      int lc, int acc_bits, int rounds) {
-  __shared__ pqs::Clamp scratch[kTiledThreads / 32];
+  __shared__ pqs::Clamp scratch[kTiledWarps];
   int* sums = pqs::dynamic_smem<int>();
   const int64_t o = blockIdx.x;
   const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
                           lc);
-  const int r = pqs::sorted_tiled_dot<E, LT>(p, sums, sums + T, T, scratch,
-                                             acc_bits, rounds);
+  const int r = pqs::sorted_tiled_dot<E, LT, true>(p, sums, sums + T, T,
+                                                   scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -141,14 +154,30 @@ __global__ void nm_paired_accum_kernel(const int8_t* __restrict__ x,
                                        int K, int G, int n_keep, int m_group,
                                        int T, int lc, int acc_bits,
                                        int rounds) {
-  __shared__ pqs::Clamp scratch[kPairThreads / 32];
+  __shared__ pqs::Clamp scratch[kPairWarps];
   const int64_t o = blockIdx.x;
   const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
                           lc);
-  const int r = pqs::paired_dot<E, LT>(p, perm + o * T, T, scratch, acc_bits,
-                                       rounds);
+  const int r = pqs::paired_dot<E, LT, true>(p, perm + o * T, T, scratch,
+                                             acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
+
+struct SortedLaunch {
+  Slabs a;
+  int32_t* out;
+  int acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int W>
+  void operator()() const {
+    pqs::launch_smem(nm_sort_sorted_kernel<E, W>,
+                     static_cast<int64_t>(a.M) * a.N, 32 * W,
+                     pqs::sorted_exchange_bytes(E, W), s, a.x, a.val, a.idx,
+                     out, a.N, a.K, a.G, a.n_keep, a.m_group, acc_bits,
+                     rounds);
+  }
+};
 
 struct TiledLaunch {
   Slabs a;
@@ -159,7 +188,8 @@ struct TiledLaunch {
   template <int E, int LT>
   void operator()() const {
     pqs::launch_smem(nm_sort_tiled_kernel<E, LT>,
-                     static_cast<int64_t>(a.M) * a.N, kTiledThreads,
+                     static_cast<int64_t>(a.M) * a.N,
+                     pqs::paired_threads(T, E * LT, kTiledWarps),
                      2 * sizeof(int) * static_cast<size_t>(T), s, a.x, a.val,
                      a.idx, out, a.N, a.K, a.G, a.n_keep, a.m_group, T, lc,
                      acc_bits, rounds);
@@ -177,9 +207,9 @@ struct PairedLaunch {
   void operator()() const {
     nm_paired_accum_kernel<E, LT>
         <<<static_cast<unsigned>(static_cast<int64_t>(a.M) * a.N),
-           kPairThreads, 0, s>>>(a.x, a.val, a.idx, perm, out, a.N, a.K, a.G,
-                                 a.n_keep, a.m_group, T, lc, acc_bits,
-                                 rounds);
+           pqs::paired_threads(T, E * LT, kPairWarps), 0, s>>>(
+            a.x, a.val, a.idx, perm, out, a.N, a.K, a.G, a.n_keep, a.m_group,
+            T, lc, acc_bits, rounds);
   }
 };
 
@@ -208,11 +238,8 @@ extern "C" int pqs_nm_gather_sort_matmul(const void* x, const void* val,
   if (policy == 0) {
     if (!valid_slabs(a, kp, 0) || (kp & (kp - 1)))
       return cudaErrorInvalidValue;
-    const int L = pqs::next_pow2(G * n_keep);
-    return pqs::launch_sorted(nm_sort_sorted_kernel,
-                              static_cast<int64_t>(M) * N, L, s, a.x, a.val,
-                              a.idx, op, N, K, G, n_keep, m_group, L,
-                              acc_bits, rounds);
+    return pqs::dispatch_sorted(pqs::next_pow2(G * n_keep),
+                                SortedLaunch{a, op, acc_bits, rounds, s});
   }
   if (policy != 1 || k_tile <= 0 || !valid_slabs(a, kp, k_tile))
     return cudaErrorInvalidValue;

@@ -328,6 +328,53 @@ int dispatch_tile(int s, Fn&& fn) {
 //               of the sort tile S (none for dense rows, where S is k_tile);
 //   tile_len    products of one k_tile tile (S is tile_len padded to a
 //               power of two).
+//
+// `sorted` over the whole axis (sorted_dot): what bounds it is the
+// bitonic network, L/2 * log2(L) (log2(L) + 1) / 2 compare-exchanges an
+// output (67,584 at L = 2048, 860,160 at 16384), not memory. The body
+// keeps them in registers:
+// - The L keys of one output are int16 (products of int8 carriers lie in
+//   [-16256, 16384] and a pair round stays in it), packed two to a
+//   register: position i in the low half, i + L/2 in the high half. A
+//   block of W warps holds the P = L/2 packed positions, E a lane, lane t
+//   of the block positions t*E .. t*E + E-1 of each half. The halves of
+//   one output, not two outputs, share a register, so one layout holds
+//   every kp up to 65536 without a cut (two outputs' 65536 keys would
+//   fill an SM's 65,536 registers) and no pairing of rows is needed.
+// - The network sorts both halves descending as two streams through one
+//   16x2 max / min per compare-exchange pair (the packed body above),
+//   then merges them: position i of the low half against position
+//   P-1-i of the high half (the halves' flip), then the half-cleaners of
+//   length P. Its count is the one network over L keys.
+// - A stage whose distance j is below E is a register compare-exchange,
+//   below 32 E a shuffle, from 32 E on a shared-memory exchange between
+//   warps (two barriers). Directions follow the global index: in a level
+//   whose blocks are wider than a lane, a lane of an ascending block
+//   complements its keys (~v reverses the int16 order) and every stage
+//   runs descending.
+// - The pair round's mirror L-1-i of position i sits in the other half at
+//   P-1-i: register E-1-r of lane 31-l of warp W-1-w, a shuffle inside one
+//   warp, an exchange across warps.
+// - The saturating adds: each lane composes its E low keys and E high keys
+//   in order (Clamp), the warps compose the lanes' functions, and thread 0
+//   the warps' in stream order, low halves before high.
+// - Shape (dispatch_sorted): one warp of E = L/64 up to L = 2048 (no
+//   barrier), then W = L/2048 warps of E = 32 up to 32768, and at 65536
+//   16 warps of E = 64 (512 threads, at most 128 registers each). The
+//   cross-warp exchange takes 4 bytes a packed position, 2 bytes a key:
+//   128 KB at 65536. Below 64 keys the body pads with zero keys, which a
+//   round maps to zeros past the sorted prefix and which add nothing.
+// - A sort's result does not depend on where each key starts, so with at
+//   least one round the lanes read the stream coalesced (position r * 32
+//   W + t); with no round each lane reads its own E positions in order.
+// At decode (M = 4) the dense body takes 0.84 ms over qwen2-1.5b's six K
+// = 1536 sites (kp 2048) and 0.72 at w_out (kp 16384), against 6.16 and
+// 5.09 for the shared-memory network with a barrier a stage that it
+// replaced (chip_smoke.py phase 5 with --baseline-csrc, NVIDIA H100 80GB
+// HBM3, 700.00 W). One lane-instruction a compare-exchange at the card's
+// instruction rate (132 SMs x 4 x 32 lanes at 1.98 GHz) would take 0.17
+// and 0.16 ms: the shuffles, the complements, the pair round and the adds
+// (7 instructions a key) come on top.
 
 // The dense row pair x[m, :], w[n, :]: product i is x[i] * w[i], zero at
 // or past K (so kp > K needs no padded operand).
@@ -346,6 +393,13 @@ struct DenseProducts {
   }
 };
 
+// q / n for 0 <= q < qmax as __umulhi(q, magic) (a round-up reciprocal,
+// exact while qmax * n <= 2^32); 0 where that does not hold (n = 1, or a
+// stream too long), and the division stands.
+__host__ __device__ inline unsigned div_magic(int n, int64_t qmax) {
+  return n >= 2 && qmax * n <= (int64_t{1} << 32) ? 0xffffffffu / n + 1 : 0u;
+}
+
 // The kept products of x[m, :] and compressed row n (canonical N:M slabs,
 // pruning.nm_compress): slot q of the row's kept = G * n_keep is
 // x[(q / n_keep) * m_group + idx[q]] * val[q]. A slot past kept (a group
@@ -358,9 +412,13 @@ struct GatheredProducts {
   const int32_t* idx;
   int K, kept, n_keep, m_group;
   int tile_len;
+  unsigned magic;  // div_magic(n_keep, kept)
   __device__ __forceinline__ int at(int q) const {
     if (q >= kept) return 0;
-    const int pos = (q / n_keep) * m_group + __ldg(idx + q);
+    const int g = magic ? static_cast<int>(__umulhi(
+                              static_cast<unsigned>(q), magic))
+                        : q / n_keep;
+    const int pos = g * m_group + __ldg(idx + q);
     return pos < K ? static_cast<int>(__ldg(x + pos)) *
                          static_cast<int>(__ldg(val + q))
                    : 0;
@@ -385,6 +443,12 @@ struct ExpandedProducts {
   __device__ __forceinline__ int tile(int t, int j) const {
     return at(t * tile_len + j);
   }
+};
+
+// Keys already in shared memory (an expanded N:M row's products).
+struct SharedKeys {
+  const int16_t* s;
+  __device__ __forceinline__ int at(int i) const { return s[i]; }
 };
 
 // *a += v in 16 bits, atomically (a compare-and-swap loop: shared memory
@@ -417,7 +481,12 @@ __device__ __forceinline__ void expand_slots(int16_t* w, int len, int base,
                                              const int32_t* idx, int q0,
                                              int q1, int K, int n_keep,
                                              int m_group, int r, int size) {
-  for (int i = r; i < len; i += size) w[i] = 0;
+  if ((len & 7) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
+    for (int i = r; i < (len >> 3); i += size)
+      reinterpret_cast<uint4*>(w)[i] = make_uint4(0, 0, 0, 0);
+  } else {
+    for (int i = r; i < len; i += size) w[i] = 0;
+  }
   if (kWarp) __syncwarp(); else __syncthreads();
   for (int q = q0 + r; q < q1; q += size) {
     int v = __ldg(val + q), pos = K;
@@ -434,6 +503,16 @@ __device__ __forceinline__ void expand_slots(int16_t* w, int len, int base,
   if (kWarp) __syncwarp(); else __syncthreads();
 }
 
+// Whether every weight of an expanded row w[0 .. K) is an int8 value (on
+// canonical slabs always; a position that several slots name holds their
+// sum), so that its products are exact int16 keys. By the whole block.
+__device__ __forceinline__ bool int8_weights(const int16_t* w, int K) {
+  int wide = 0;
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    wide |= w[i] != static_cast<int8_t>(w[i]);
+  return !__syncthreads_or(wide);
+}
+
 // The block's dynamic shared memory, as an array of T.
 template <typename T>
 __device__ __forceinline__ T* dynamic_smem() {
@@ -441,70 +520,205 @@ __device__ __forceinline__ T* dynamic_smem() {
   return reinterpret_cast<T*>(pqs_smem);
 }
 
-// Descending bitonic sort of s[0 .. kp) (kp a power of two) in shared
-// memory: each stage is kp/2 compare-exchanges spread over the block.
-__device__ __forceinline__ void smem_sort_desc(int16_t* s, int kp) {
-  for (int k = 2; k <= kp; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < (kp >> 1); i += blockDim.x) {
-        const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));  // bit j clear
-        const int b = a | j;
-        const int va = s[a], vb = s[b];
-        // descending inside a (a & k) == 0 block, ascending otherwise
-        if (((a & k) == 0) ? (va < vb) : (va > vb)) {
-          s[a] = static_cast<int16_t>(vb);
-          s[b] = static_cast<int16_t>(va);
-        }
+// Both int16 halves swapped.
+__device__ __forceinline__ uint32_t swap_halves(uint32_t v) {
+  return __byte_perm(v, 0, 0x1032);
+}
+
+// A descending compare-exchange of packed keys: a (the lower position)
+// keeps the larger key of each half.
+__device__ __forceinline__ void cx_desc(uint32_t& a, uint32_t& b) {
+  const uint32_t hi = max2(a, b);
+  b = min2(a, b);
+  a = hi;
+}
+
+// The stages j = k/2 .. 1 of a descending bitonic merge of blocks of k
+// positions (k >= E): across warps through buf while j >= 32 E, across
+// lanes by shuffles while j >= E, then inside the lane.
+template <int E, int W>
+__device__ __forceinline__ void merge_desc(uint32_t (&v)[E], int k,
+                                           uint32_t* buf) {
+  constexpr int T = 32 * W;
+  const int t = threadIdx.x;
+  int tj = (k >> 1) / E;  // the partner's distance in threads
+  if constexpr (W > 1) {
+#pragma unroll 1
+    for (; tj >= 32; tj >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) buf[r * T + t] = v[r];
+      __syncthreads();
+      const bool lower = (t & tj) == 0;
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const uint32_t o = buf[r * T + (t ^ tj)];
+        v[r] = lower ? max2(v[r], o) : min2(v[r], o);
       }
       __syncthreads();
     }
   }
+#pragma unroll 1
+  for (; tj >= 1; tj >>= 1) {
+    const bool lower = (t & tj) == 0;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const uint32_t o = __shfl_xor_sync(kFull, v[r], tj);
+      v[r] = lower ? max2(v[r], o) : min2(v[r], o);
+    }
+  }
+#pragma unroll
+  for (int j = E >> 1; j > 0; j >>= 1) {
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      if ((r & j) == 0) cx_desc(v[r], v[r | j]);
+  }
 }
 
-// The `sorted` policy for one output: products p.at(0 .. L) (L a power of
-// two; past the stream's end they are zero keys), `rounds` split/sort/pair
-// rounds over the whole axis in shared memory `s` (L int16 keys), then the
-// saturating adds in order. int16 keys are exact: products of int8
-// carriers lie in [-16256, 16384], and a pair round adds one positive and
-// one negative key, which stays in that range. Returns the register in
-// thread 0. Dense rows sort L = kp keys; kept products L =
-// next_pow2(G * n_keep), whose ordered stream is the dense one's prefix
-// (the rest of the dense stream is zeros, which add nothing).
-// sorted_keys is sorted_dot without the fill: it takes the L keys already
-// in s (an expanded N:M row writes them itself, expand_slots).
-__device__ __forceinline__ int sorted_keys(int16_t* s, int L, Clamp* scratch,
-                                           int acc_bits, int rounds) {
-  for (int rd = 0; rd < rounds; ++rd) {
-    smem_sort_desc(s, L);
-    // out[i] = max(s[i], 0) + min(s[L-1-i], 0), both ends of a pair at
-    // once, so the round runs in place
-    for (int i = threadIdx.x; i < (L >> 1); i += blockDim.x) {
-      const int va = s[i], vb = s[L - 1 - i];
-      s[i] = static_cast<int16_t>(max(va, 0) + min(vb, 0));
-      s[L - 1 - i] = static_cast<int16_t>(max(vb, 0) + min(va, 0));
+// v[r] = op(v[r], m) with m the packed key at the mirror position P-1-e
+// (register E-1-r of thread 32 W - 1 - t): a shuffle inside one warp, an
+// exchange through buf across warps.
+template <int E, int W, typename Op>
+__device__ __forceinline__ void with_mirror(uint32_t (&v)[E], uint32_t* buf,
+                                            Op op) {
+  if constexpr (W == 1) {
+#pragma unroll
+    for (int r = 0; r < (E + 1) / 2; ++r) {
+      const int q = E - 1 - r;
+      const uint32_t a = __shfl_xor_sync(kFull, v[q], 31);
+      if (q == r) {
+        v[r] = op(v[r], a);
+      } else {
+        const uint32_t b = __shfl_xor_sync(kFull, v[r], 31);
+        v[r] = op(v[r], a);
+        v[q] = op(v[q], b);
+      }
     }
+  } else {
+    constexpr int T = 32 * W;
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < E; ++r) buf[r * T + t] = v[r];
     __syncthreads();
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      v[r] = op(v[r], buf[(E - 1 - r) * T + (T - 1 - t)]);
+    __syncthreads();
+  }
+}
+
+// The halves' flip: low position e keeps max(low e, high P-1-e), high
+// position P-1-e the min (both halves sorted descending before).
+struct FlipHalves {
+  __device__ __forceinline__ uint32_t operator()(uint32_t v,
+                                                 uint32_t m) const {
+    const uint32_t ms = swap_halves(m);
+    return __byte_perm(max2(v, ms), min2(v, ms), 0x7610);
+  }
+};
+
+// A pair round on the sorted keys: out[i] = max(s[i], 0) + min(s[L-1-i], 0),
+// s[L-1-i] being the other half of the mirror.
+struct PairHalves {
+  __device__ __forceinline__ uint32_t operator()(uint32_t v,
+                                                 uint32_t m) const {
+    return add2(max2(v, 0u), min2(swap_halves(m), 0u));
+  }
+};
+
+// Descending bitonic sort of the block's L = 64 W E keys (see above).
+template <int E, int W>
+__device__ __forceinline__ void sort_desc_halves(uint32_t (&v)[E],
+                                                 uint32_t* buf) {
+  constexpr int P = 32 * W * E;
+  // levels 2 .. E/2: inside the lane, the direction by register
+#pragma unroll
+  for (int k = 2; k < E; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        if ((r & j) == 0) {
+          if ((r & k) == 0) cx_desc(v[r], v[r | j]);
+          else cx_desc(v[r | j], v[r]);
+        }
+      }
+    }
+  }
+  // levels E .. P: one direction a lane; ascending blocks complemented
+  uint32_t flip = 0;
+#pragma unroll 1
+  for (int k = E > 2 ? E : 2; k <= P; k <<= 1) {
+    const uint32_t want =
+        k < P && (threadIdx.x & (k / E)) ? 0xffffffffu : 0u;
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] ^= flip ^ want;
+    flip = want;
+    merge_desc<E, W>(v, k, buf);
+  }
+  with_mirror<E, W>(v, buf, FlipHalves{});
+  merge_desc<E, W>(v, P, buf);
+}
+
+// The `sorted` policy over the block's keys v (see above): `rounds`
+// split/sort/pair rounds, then the saturating adds in order. Returns the
+// register in thread 0.
+template <int E, int W>
+__device__ __forceinline__ int sorted_halves(uint32_t (&v)[E], uint32_t* buf,
+                                             Clamp* scratch, int acc_bits,
+                                             int rounds) {
+  for (int rd = 0; rd < rounds; ++rd) {
+    sort_desc_halves<E, W>(v, buf);
+    with_mirror<E, W>(v, buf, PairHalves{});
   }
   const int qmax = (1 << (acc_bits - 1)) - 1;
   const int qmin = -qmax - 1;
-  // each thread composes a contiguous run of the ordered stream
-  const int per = (L + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, L);
-  const int hi = min(lo + per, L);
-  Clamp f = clamp_identity(qmin, qmax);
-  for (int i = lo; i < hi; ++i) f = clamp_then(f, clamp_step(s[i], qmin, qmax));
-  f = block_compose_warps(warp_compose(f, threadIdx.x & 31), scratch);
-  return clamp_apply(f, 0);
+  Clamp lo = clamp_identity(qmin, qmax), hi = lo;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    lo = clamp_then(lo, clamp_step(lo16(v[r]), qmin, qmax));
+    hi = clamp_then(hi, clamp_step(hi16(v[r]), qmin, qmax));
+  }
+  const int lane = threadIdx.x & 31;
+  lo = warp_compose(lo, lane);
+  hi = warp_compose(hi, lane);
+  if constexpr (W == 1) {
+    return clamp_apply(clamp_then(lo, hi), 0);
+  } else {
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) {
+      scratch[warp] = lo;
+      scratch[W + warp] = hi;
+    }
+    __syncthreads();
+    Clamp f = scratch[0];
+    if (threadIdx.x == 0)
+      for (int i = 1; i < 2 * W; ++i) f = clamp_then(f, scratch[i]);
+    return clamp_apply(f, 0);
+  }
 }
 
-template <typename P>
-__device__ __forceinline__ int sorted_dot(const P& p, int L, int16_t* s,
+// The `sorted` policy for one output: products p.at(0 .. L), L = 64 W E
+// (past the stream's end they are zero keys), in registers; buf is the
+// cross-warp exchange (sorted_exchange_bytes; W = 1 uses none), scratch
+// 2 W Clamps. Dense rows sort L = kp keys; kept products L =
+// next_pow2(G * n_keep), whose ordered stream is the dense one's prefix
+// (the rest of the dense stream is zeros, which add nothing). Returns the
+// register in thread 0.
+template <int E, int W, typename P>
+__device__ __forceinline__ int sorted_dot(const P& p, uint32_t* buf,
                                           Clamp* scratch, int acc_bits,
                                           int rounds) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x)
-    s[i] = static_cast<int16_t>(p.at(i));
-  __syncthreads();
-  return sorted_keys(s, L, scratch, acc_bits, rounds);
+  constexpr int T = 32 * W;
+  constexpr int half = T * E;
+  const int t = threadIdx.x;
+  const int first = rounds > 0 ? t : t * E;
+  const int step = rounds > 0 ? T : 1;
+  uint32_t v[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    v[r] = pack2(p.at(first + r * step), p.at(half + first + r * step));
+  if constexpr (W > 1) __syncthreads();  // buf may alias the keys read
+  return sorted_halves<E, W>(v, buf, scratch, acc_bits, rounds);
 }
 
 // The exact sum of tile t's raw products, in every lane of the calling
@@ -563,18 +777,23 @@ __device__ __forceinline__ void tile_products(int (&v)[E], const P& p,
 // of sort tile S = E * LT (tile_len products, zero-extended), paired by
 // perm (T tile indices, in shared or device memory). Pair slot s
 // interleaves tiles perm[2s] and perm[2s+1] (a0, b0, a1, b1, ...), each
-// sorted `rounds` rounds first; an odd last tile perm[T-1] follows
-// un-interleaved. Warp w takes the contiguous slots [w P / nw, (w+1) P /
-// nw) of the P = T/2 pairs, and the last warp the odd tile, so composing
-// the warps in order is the stream order. A lane holds a[r], b[r] for its
-// E tile positions, which are its 2E consecutive places in the interleaved
-// stream. Tiles shorter than 32 (LT < 32) put 32 / LT slots in one warp
-// step, one per LT-lane segment in slot order; a segment with no slot
-// holds zero products, which add nothing. Returns the register in thread
-// 0. On kept products (S = next_pow2(tile_len) < k_tile) each sorted tile
-// is the sorted dense tile's prefix and the interleaved zero pairs dropped
-// add nothing, so the register is the dense one.
-template <int E, int LT, typename P>
+// sorted `rounds` rounds first; an odd last tile perm[T-1] is the last
+// slot, paired with a zero tile (a0, 0, a1, 0, ...: zeros add nothing, so
+// it follows un-interleaved). Warp w takes the contiguous slots [w I / nw,
+// (w+1) I / nw) of the I = (T+1)/2 slots, so composing the warps in order
+// is the stream order (paired_threads sizes the block so that no warp is
+// left without a slot). With kPacked each slot's two tiles run one
+// network as the halves of packed int16x2 keys (pairwise_round2; products
+// of int8 carriers), else two int32 networks (an expanded row with a
+// weight outside int8). A lane holds a[r], b[r] for its E tile positions,
+// which are its 2E consecutive places in the interleaved stream. Tiles
+// shorter than 32 (LT < 32) put 32 / LT slots in one warp step, one per
+// LT-lane segment in slot order; a segment with no slot holds zero
+// products, which add nothing. Returns the register in thread 0. On kept
+// products (S = next_pow2(tile_len) < k_tile) each sorted tile is the
+// sorted dense tile's prefix and the interleaved zero pairs dropped add
+// nothing, so the register is the dense one.
+template <int E, int LT, bool kPacked, typename P>
 __device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
                                           Clamp* scratch, int acc_bits,
                                           int rounds) {
@@ -586,45 +805,41 @@ __device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
   const int g = lane / LT;
   const int qmax = (1 << (acc_bits - 1)) - 1;
   const int qmin = -qmax - 1;
-  const int pairs = T >> 1;
-  const int s1 = (warp + 1) * pairs / nw;
+  const int slots = (T + 1) >> 1;
+  const int s1 = (warp + 1) * slots / nw;
   Clamp run = clamp_identity(qmin, qmax);
-  for (int s0 = warp * pairs / nw; s0 < s1; s0 += G) {
+  for (int s0 = warp * slots / nw; s0 < s1; s0 += G) {
     const int s = s0 + g;
     int a[E], b[E];
+#pragma unroll
+    for (int r = 0; r < E; ++r) a[r] = b[r] = 0;
     if (s < s1) {
       tile_products<E, LT>(a, p, perm[2 * s], l);
-      tile_products<E, LT>(b, p, perm[2 * s + 1], l);
-    } else {
-#pragma unroll
-      for (int r = 0; r < E; ++r) a[r] = b[r] = 0;
-    }
-    for (int rd = 0; rd < rounds; ++rd) {
-      pairwise_round<E, LT>(a, l);
-      pairwise_round<E, LT>(b, l);
+      if (2 * s + 1 < T) tile_products<E, LT>(b, p, perm[2 * s + 1], l);
     }
     Clamp f = clamp_identity(qmin, qmax);
+    if constexpr (kPacked) {
+      uint32_t v[E];
 #pragma unroll
-    for (int r = 0; r < E; ++r) {
-      f = clamp_then(f, clamp_step(a[r], qmin, qmax));
-      f = clamp_then(f, clamp_step(b[r], qmin, qmax));
-    }
-    f = warp_compose(f, lane);
-    run = clamp_then(run, f);  // meaningful in lane 0
-  }
-  if ((T & 1) && warp == nw - 1) {
-    int a[E];
-    if (g == 0) {
-      tile_products<E, LT>(a, p, perm[T - 1], l);
+      for (int r = 0; r < E; ++r) v[r] = pack2(a[r], b[r]);
+      for (int rd = 0; rd < rounds; ++rd) pairwise_round2<E, LT>(v, l);
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        f = clamp_then(f, clamp_step(lo16(v[r]), qmin, qmax));
+        f = clamp_then(f, clamp_step(hi16(v[r]), qmin, qmax));
+      }
     } else {
+      for (int rd = 0; rd < rounds; ++rd) {
+        pairwise_round<E, LT>(a, l);
+        pairwise_round<E, LT>(b, l);
+      }
 #pragma unroll
-      for (int r = 0; r < E; ++r) a[r] = 0;
+      for (int r = 0; r < E; ++r) {
+        f = clamp_then(f, clamp_step(a[r], qmin, qmax));
+        f = clamp_then(f, clamp_step(b[r], qmin, qmax));
+      }
     }
-    for (int rd = 0; rd < rounds; ++rd) pairwise_round<E, LT>(a, l);
-    Clamp f = clamp_identity(qmin, qmax);
-#pragma unroll
-    for (int r = 0; r < E; ++r) f = clamp_then(f, clamp_step(a[r], qmin, qmax));
-    run = clamp_then(run, warp_compose(f, lane));
+    run = clamp_then(run, warp_compose(f, lane));  // meaningful in lane 0
   }
   return clamp_apply(block_compose_warps(run, scratch), 0);
 }
@@ -632,14 +847,14 @@ __device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
 // The one-pass `sorted_tiled` of one output: T tile sums ranked in shared
 // memory (sums, perm: T ints each) with pair_permutation's tie rule, then
 // paired_dot. Returns the register in thread 0.
-template <int E, int LT, typename P>
+template <int E, int LT, bool kPacked, typename P>
 __device__ __forceinline__ int sorted_tiled_dot(const P& p, int* sums,
                                                 int* perm, int T,
                                                 Clamp* scratch, int acc_bits,
                                                 int rounds) {
   tile_sums(p, sums, T);
   pair_permutation(sums, perm, T);
-  return paired_dot<E, LT>(p, perm, T, scratch, acc_bits, rounds);
+  return paired_dot<E, LT, kPacked>(p, perm, T, scratch, acc_bits, rounds);
 }
 
 // ---------------------------------------------------------------------
@@ -651,10 +866,42 @@ inline int next_pow2(int n) {
   return p;
 }
 
-// Threads of a `sorted` block over L keys: 8 keys a thread, one warp to
-// 32 warps.
-inline int sorted_threads(int L) {
-  return L / 8 < 32 ? 32 : L / 8 > 1024 ? 1024 : L / 8;
+// Calls fn.template operator()<E, W>() for the `sorted` body that holds L
+// keys (a power of two; below 64 the body pads to 64 with zero keys; see
+// the shape above), and returns cudaGetLastError(), or
+// cudaErrorInvalidValue above 65536.
+template <typename Fn>
+int dispatch_sorted(int L, Fn&& fn) {
+  switch (L < 64 ? 64 : L) {
+    case 64: fn.template operator()<1, 1>(); break;
+    case 128: fn.template operator()<2, 1>(); break;
+    case 256: fn.template operator()<4, 1>(); break;
+    case 512: fn.template operator()<8, 1>(); break;
+    case 1024: fn.template operator()<16, 1>(); break;
+    case 2048: fn.template operator()<32, 1>(); break;
+    case 4096: fn.template operator()<32, 2>(); break;
+    case 8192: fn.template operator()<32, 4>(); break;
+    case 16384: fn.template operator()<32, 8>(); break;
+    case 32768: fn.template operator()<32, 16>(); break;
+    case 65536: fn.template operator()<64, 16>(); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The shared memory a `sorted` body of W warps of E keys a lane exchanges
+// through: 4 bytes a packed position (2 a key), none for one warp.
+inline size_t sorted_exchange_bytes(int E, int W) {
+  return W > 1 ? sizeof(uint32_t) * 32 * W * E : 0;
+}
+
+// Threads of a paired_dot block over T tiles of sort tile S: a warp per
+// warp step of slots (32 / S slots a step below S = 32), at most
+// max_warps.
+inline int paired_threads(int T, int S, int max_warps) {
+  const int per = S >= 32 ? 1 : 32 / S;
+  const int steps = ((T + 1) / 2 + per - 1) / per;
+  return 32 * (steps < 1 ? 1 : steps > max_warps ? max_warps : steps);
 }
 
 // Launches kernel<<<blocks, threads, smem, s>>>(args...), first raising
@@ -670,20 +917,9 @@ void launch_smem(void (*kernel)(Params...), int64_t blocks, int threads,
 }
 
 // The dynamic shared memory the global-sort kernels take at most, of the
-// 227 KB a block may use (sorted_matmul.SORT_SMEM_BYTES).
+// 227 KB a block may use (sorted_matmul.SORT_SMEM_BYTES): the `sorted`
+// exchange at 65536 keys, 2 bytes a key.
 constexpr size_t kSmemCap = 128 * 1024;
-
-// A `sorted` kernel (sorted_dot, sorted_keys) over L int16 keys in shared
-// memory, up to kSmemCap; cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue above that.
-template <typename... Params, typename... Args>
-int launch_sorted(void (*kernel)(Params...), int64_t blocks, int L,
-                  cudaStream_t s, Args... args) {
-  const size_t smem = sizeof(int16_t) * static_cast<size_t>(L);
-  if (smem > kSmemCap) return cudaErrorInvalidValue;
-  launch_smem(kernel, blocks, sorted_threads(L), smem, s, args...);
-  return cudaGetLastError();
-}
 
 // The operands of the N:M kernels (nm_sort_matmul.cu, nm_expand_sort.cu):
 // x (M, K) int8, values / indices (N, G, n_keep) int8 / int32.

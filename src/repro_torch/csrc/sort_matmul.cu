@@ -23,28 +23,44 @@
 //                 (the paper's two-level sort, section 6)
 //
 // What bounds it on this card: the integer work of the sorts and of the
-// ordered saturating adds, not device memory. `sorted` at kp = 2048 is 66
-// bitonic stages of 1024 compare-exchanges per output (67,584), 2.4 times
-// the 27,648 of sorting K = 1536 in six tiles of 256; both sit far above
-// the bytes bound at decode, where the weights are about one byte per
-// product.
+// ordered saturating adds, not device memory. `sorted` at kp = 2048 is a
+// bitonic network of 66 stages of 1024 compare-exchanges an output
+// (67,584), 2.4 times the 27,648 of sorting K = 1536 in six tiles of 256;
+// both sit far above the bytes bound at decode, where the weights are
+// about one byte per product. With the keys in registers what sets the
+// time is the count of compare-exchanges (one 16x2 max and one 16x2 min
+// for two of them) and of shuffles, no longer the barriers between
+// stages.
 //
 // What the design does about it (pqs_accum.cuh holds the bodies, which
 // read the products through a loader, DenseProducts here; the N:M gather
 // twins in nm_sort_matmul.cu run the same bodies on kept products):
 // - One block per output element. The TPU kernel kept a (bm, bn, K)
 //   product cube in VMEM; here a block keeps only its own output's work.
-// - sorted: kp / 8 threads (32 to 1024) sort the kp products as int16
-//   keys in shared memory (4 KB at kp = 2048, 32 KB at 16384, 128 KB at
-//   65536 of the 227 KB a block may use), pair them in place, and compose
-//   the saturating adds of contiguous runs of the ordered stream, then
-//   across the warps.
-// - sorted_tiled: 4 warps. The tile sums are taken from the raw products
-//   (sorting never changes a tile's sum) and ranked in shared memory with
-//   pair_permutation's exact tie rule; then each warp sorts its pair slots'
-//   two tiles in registers (the warp bitonic network of the K-streaming
-//   kernels) and composes their interleaved adds, and the warps' functions
-//   are composed in slot order. No sorted product goes to memory.
+// - sorted (sorted_dot): the kp keys as int16, two to a register
+//   (positions i and i + kp/2), held in registers by one warp up to kp =
+//   2048 (32 keys a lane at 2048: no shared memory, no barrier), by
+//   kp / 2048 warps up to 32768 and 16 warps of 64 keys a lane at 65536.
+//   Stages inside a lane are register compare-exchanges, across lanes
+//   shuffles, across warps an exchange through shared memory (4 bytes a
+//   packed position: 2 kp bytes, 32 KB at 16384, 128 KB at 65536 of the
+//   227 KB a block may use): at kp = 16384, 9 of the 105 stages and the
+//   two mirror exchanges, two barriers each.
+//   The pair round pairs each key with its mirror in the other half, and
+//   the saturating adds are composed a lane, a warp, then the warps.
+// - sorted_tiled: up to 4 warps, one per pair slot of tiles at most
+//   (pqs::paired_threads: 3 at K = 1536, where 4 left one idle). The tile
+//   sums are taken from the raw products (sorting never changes a tile's
+//   sum) and ranked in shared memory with pair_permutation's exact tie
+//   rule; then each warp sorts its pair slots' two tiles in registers as
+//   the halves of packed int16x2 keys (one network for both, the odd last
+//   tile against a zero half) and composes their interleaved adds, and
+//   the warps' functions are composed in slot order. No sorted product
+//   goes to memory.
+// At decode (M = 4) over the six K = 1536 sites: `sorted` 0.84 ms (6.16
+// before the register body), `sorted_tiled` 0.75 (1.64 before the packed
+// pairs); `sorted` at a prefill cohort (M = 128) 23.9 (194) (chip_smoke.py
+// phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,18 +69,19 @@
 
 namespace {
 
-constexpr int kTiledThreads = 128;
+constexpr int kTiledWarps = 4;
 
-__global__ void sort_sorted_kernel(const int8_t* __restrict__ x,
-                                   const int8_t* __restrict__ w,
-                                   int32_t* __restrict__ out, int N, int K,
-                                   int kp, int acc_bits, int rounds) {
-  __shared__ pqs::Clamp scratch[32];
+template <int E, int W>
+__global__ void __launch_bounds__(32 * W)
+    sort_sorted_kernel(const int8_t* __restrict__ x,
+                       const int8_t* __restrict__ w, int32_t* __restrict__ out,
+                       int N, int K, int acc_bits, int rounds) {
+  __shared__ pqs::Clamp scratch[2 * W];
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
-  const pqs::DenseProducts p{x + m * K, w + n * K, K, kp};
-  const int r = pqs::sorted_dot(p, kp, pqs::dynamic_smem<int16_t>(), scratch,
-                                acc_bits, rounds);
+  const pqs::DenseProducts p{x + m * K, w + n * K, K, 0};
+  const int r = pqs::sorted_dot<E, W>(p, pqs::dynamic_smem<uint32_t>(),
+                                      scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -74,16 +91,32 @@ __global__ void sort_tiled_kernel(const int8_t* __restrict__ x,
                                   int32_t* __restrict__ out, int N, int K,
                                   int kp, int acc_bits, int rounds) {
   constexpr int S = E * LT;
-  __shared__ pqs::Clamp scratch[kTiledThreads / 32];
+  __shared__ pqs::Clamp scratch[kTiledWarps];
   const int T = kp / S;
   int* sums = pqs::dynamic_smem<int>();
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   const pqs::DenseProducts p{x + m * K, w + n * K, K, S};
-  const int r = pqs::sorted_tiled_dot<E, LT>(p, sums, sums + T, T, scratch,
-                                             acc_bits, rounds);
+  const int r = pqs::sorted_tiled_dot<E, LT, true>(p, sums, sums + T, T,
+                                                   scratch, acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
+
+struct SortedLaunch {
+  const int8_t* x;
+  const int8_t* w;
+  int32_t* out;
+  int64_t blocks;
+  int N, K, acc_bits, rounds;
+  cudaStream_t s;
+
+  template <int E, int W>
+  void operator()() const {
+    pqs::launch_smem(sort_sorted_kernel<E, W>, blocks, 32 * W,
+                     pqs::sorted_exchange_bytes(E, W), s, x, w, out, N, K,
+                     acc_bits, rounds);
+  }
+};
 
 struct TiledLaunch {
   const int8_t* x;
@@ -96,8 +129,9 @@ struct TiledLaunch {
   void operator()() const {
     const int T = kp / (E * LT);
     pqs::launch_smem(sort_tiled_kernel<E, LT>, static_cast<int64_t>(M) * N,
-                     kTiledThreads, 2 * sizeof(int) * static_cast<size_t>(T),
-                     s, x, w, out, N, K, kp, acc_bits, rounds);
+                     pqs::paired_threads(T, E * LT, kTiledWarps),
+                     2 * sizeof(int) * static_cast<size_t>(T), s, x, w, out,
+                     N, K, kp, acc_bits, rounds);
   }
 };
 
@@ -125,8 +159,8 @@ extern "C" int pqs_sort_matmul(const void* x, const void* w, void* out,
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   if (policy == 0) {
     if (kp & (kp - 1)) return cudaErrorInvalidValue;
-    return pqs::launch_sorted(sort_sorted_kernel, blocks, kp, s, xp, wp, op,
-                              N, K, kp, acc_bits, rounds);
+    return pqs::dispatch_sorted(
+        kp, SortedLaunch{xp, wp, op, blocks, N, K, acc_bits, rounds, s});
   }
   if (policy != 1 || k_tile <= 0 || kp % k_tile) return cudaErrorInvalidValue;
   return pqs::dispatch_tile(

@@ -50,13 +50,17 @@
 //   __dp4a over 4 int8 pairs at a time when rows and tiles are 4-byte
 //   aligned, a byte loop otherwise; consecutive threads take consecutive
 //   tiles of one output, so the (M, N, T) output is written coalesced.
-// - paired_accum_kernel: one block of 8 warps per output; warp w takes a
-//   contiguous run of pair slots, sorts each slot's two tiles in registers
-//   (the warp bitonic network of the K-streaming kernels), composes their
-//   interleaved saturating adds, and the warps' functions are composed in
-//   slot order (pqs_accum.cuh paired_dot). The odd last tile goes to the
-//   last warp. The tiles are read straight from x and w; nothing sorted
-//   goes back to memory.
+// - paired_accum_kernel: one block of up to 8 warps per output (one per
+//   pair slot, pqs::paired_threads); warp w takes a contiguous run of pair
+//   slots, sorts each slot's two tiles in registers as the halves of
+//   packed int16x2 keys (one pass of the warp bitonic network of the
+//   K-streaming kernels for both tiles), composes their interleaved
+//   saturating adds, and the warps' functions are composed in slot order
+//   (pqs_accum.cuh paired_dot). The odd last tile is the last slot, against
+//   a zero half. The tiles are read straight from x and w; nothing sorted
+//   goes back to memory. At w_out at decode it takes 0.29 ms, 0.60 with
+//   two int32 networks a slot (chip_smoke.py phase 5 with --baseline-csrc,
+//   NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,7 +71,7 @@
 namespace {
 
 constexpr int kSumThreads = 256;
-constexpr int kPairThreads = 256;
+constexpr int kPairWarps = 8;
 
 // One thread per (m, n, tile) of the (M, N, T) output, grid-strided; rows
 // of T tiles, so consecutive threads write consecutive words.
@@ -107,13 +111,13 @@ __global__ void paired_accum_kernel(const int8_t* __restrict__ x,
                                     const int32_t* __restrict__ perm,
                                     int32_t* __restrict__ out, int N, int K,
                                     int kp, int acc_bits, int rounds) {
-  __shared__ pqs::Clamp scratch[kPairThreads / 32];
+  __shared__ pqs::Clamp scratch[kPairWarps];
   const int T = kp / (E * LT);
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   const pqs::DenseProducts p{x + m * K, w + n * K, K, E * LT};
-  const int r = pqs::paired_dot<E, LT>(p, perm + o * T, T, scratch, acc_bits,
-                                       rounds);
+  const int r = pqs::paired_dot<E, LT, true>(p, perm + o * T, T, scratch,
+                                             acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -128,8 +132,9 @@ struct PairedLaunch {
   template <int E, int LT>
   void operator()() const {
     paired_accum_kernel<E, LT>
-        <<<static_cast<unsigned>(static_cast<int64_t>(M) * N), kPairThreads,
-           0, s>>>(x, w, perm, out, N, K, kp, acc_bits, rounds);
+        <<<static_cast<unsigned>(static_cast<int64_t>(M) * N),
+           pqs::paired_threads(kp / (E * LT), E * LT, kPairWarps), 0, s>>>(
+            x, w, perm, out, N, K, kp, acc_bits, rounds);
   }
 };
 

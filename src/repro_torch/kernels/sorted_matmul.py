@@ -263,28 +263,32 @@ def sort_matmul_ref(
                                  rounds=rounds)
 
 
-# keys of the one-pass kernels in shared memory: kp int16 for sorted, two
-# int32 per tile for sorted_tiled; a block may use 227 KB
+# shared memory of the one-pass kernels: for sorted 2 bytes a key (the
+# cross-warp exchange of the keys held in registers, 4 bytes a packed
+# int16x2 position; the expand twin's expanded keys), for sorted_tiled two
+# int32 per tile; a block may use 227 KB
 SORT_SMEM_BYTES = 128 * 1024
-# the longest K the `sorted` kernel holds (int16 keys); chunked_sort_matmul
-# (the two-pass route of `sorted`) runs the same kernel to this K
+# the longest K the `sorted` kernel holds (int16 keys, 16 warps of 64 packed
+# positions a lane); chunked_sort_matmul (the two-pass route of `sorted`)
+# runs the same kernel to this K
 SORTED_MAX_K = SORT_SMEM_BYTES // 2
 
 
 def check_sort_smem(policy, kp, k_tile, keys=None, tile=None, row=0
                     ) -> None:
     """Refuse (NotImplementedError) what the one-pass global-sort kernels
-    cannot hold: ``keys`` int16 keys of ``sorted`` (default kp) or two
-    int32 per k_tile tile of ``sorted_tiled`` in shared memory, with ``row``
-    bytes beside them (an expanded N:M row), above ``SORT_SMEM_BYTES``, or
-    a sort tile (default k_tile) no kernel instance covers."""
+    cannot hold: 2 bytes of shared memory for each of the ``keys`` int16
+    keys of ``sorted`` (default kp) or two int32 per k_tile tile of
+    ``sorted_tiled``, with ``row`` bytes beside them (an expanded N:M
+    row), above ``SORT_SMEM_BYTES``, or a sort tile (default k_tile) no
+    kernel instance covers."""
     keys = kp if keys is None else keys
     tile = k_tile if tile is None else tile
     smem = (2 * keys if policy == "sorted" else 8 * (kp // k_tile)) + row
     if smem > SORT_SMEM_BYTES:
         raise NotImplementedError(
-            f"the CUDA kernel keeps {smem} bytes of keys in shared memory, "
-            f"above {SORT_SMEM_BYTES}: K={kp}"
+            f"the CUDA kernel needs {smem} bytes of shared memory for its "
+            f"keys, above {SORT_SMEM_BYTES}: K={kp}"
             + (f" (at most {SORTED_MAX_K} for sorted)"
                if policy == "sorted" else ""))
     if policy == "sorted_tiled" and tile not in KERNEL_K_TILES:

@@ -287,17 +287,22 @@ def test_engine_kernel_and_plain_agree(card, policy):
     assert outs["cuda"] == outs["torch"]
 
 
+def _prune(w, n_keep, m_group):
+    """w n_keep:m_group pruned, and its slabs."""
+    k = w.shape[1]
+    wp = torch.nn.functional.pad(w, (0, (-k) % m_group)).float()
+    w = (wp * nm_prune_mask(wp, n_keep, m_group))[:, :k].to(torch.int8)
+    vals, idx = nm_compress(w, n_keep, m_group)
+    return w, vals.contiguous(), idx.contiguous()
+
+
 def _nm_w(m, k, n, n_keep, m_group, seed, card, k_tile=None):
     """Seeded x (m, k), the n_keep:m_group pruned (n, k) weight and its
     slabs; with ``k_tile`` (dividing k), tied tile sums as ``_tied``."""
     x, w = _xw(m, k, n, seed, card)
     if k_tile is not None:
         x, w = _tied(x, w, k_tile)
-    kp = k + (-k) % m_group
-    wp = torch.nn.functional.pad(w, (0, kp - k)).float()
-    w = (wp * nm_prune_mask(wp, n_keep, m_group))[:, :k].to(torch.int8)
-    vals, idx = nm_compress(w, n_keep, m_group)
-    return x, w, vals.contiguous(), idx.contiguous()
+    return (x, *_prune(w, n_keep, m_group))
 
 
 def _nm(m, k, n, n_keep, m_group, seed, card):
@@ -1264,3 +1269,126 @@ def test_pass1_wrappers_refuse_mixed_devices(card):
             ss.nm_gather_tile_sums(*args, m_group=16, k_tile=64)
     with pytest.raises(NotImplementedError):
         ss.nm_gather_tile_sums(x, vals, idx, m_group=16, k_tile=2048)
+
+
+# kp regimes of the register-resident `sorted` body (csrc/pqs_accum.cuh
+# sorted_dot): padded to 64 keys (32), one warp (64, 2048), the first
+# exchange across warps (4096), the main path's w_out (16384) and 16 warps
+# of 64 keys a lane (65536)
+SORTED_KP = (32, 64, 2048, 4096, 16384, 65536)
+
+
+def _sorted_rows(m, k, n, seed, card):
+    """Seeded x (m, k) and w (n, k) whose outputs probe the body: (0, 0)
+    all keys -16256 (x -128, w 127), (0, 1) all 16384 (x -128, w -128),
+    row 1 of x all zero, (2, 2) keys of one sign (positive) and (2, 3) of
+    the other."""
+    x, w = _xw(m, k, n, seed, card)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x[0], w[0], w[1], x[1] = -128, 127, -128, 0
+    x[2] = torch.randint(1, 128, (k,), generator=g).to(card, torch.int8)
+    w[2] = torch.randint(1, 128, (k,), generator=g).to(card, torch.int8)
+    w[3] = torch.randint(-128, 0, (k,), generator=g).to(card, torch.int8)
+    return x, w
+
+
+@pytest.mark.parametrize("kp", SORTED_KP)
+@pytest.mark.parametrize("loader", ["dense", "gather", "expand"])
+def test_sorted_body_regimes(card, loader, kp):
+    """Rows 2, 15 (dense), 8, 17 (gather) and 7, 16 (expand) under
+    ``sorted`` against their plain versions in every regime of the body's
+    shape, at an odd M, rounds 1 to 3 and acc_bits 2, 16 and 30, with keys
+    at -16256 and 16384, outputs of one sign only and an all-zero row of
+    x; K = kp and K short of it (the tail masked in the kernel). The
+    gather twin's kept keys (8:16 slabs of 2 K positions) number kp."""
+    for k in sorted({kp, max(1, kp - kp // 4 - 3)}):
+        if loader == "dense":
+            x, w = _sorted_rows(3, k, 5, kp + k, card)
+            args, kern, ref = (x, w), sm.sort_matmul, sm.sort_matmul_ref
+            extra = dict(kp=kp)
+        else:
+            x, w = _sorted_rows(3, 2 * k if loader == "gather" else k, 5,
+                                kp + k, card)
+            _, vals, idx = _prune(w, 8, 16)
+            args, extra = (x, vals, idx), dict(m_group=16)
+            kern = (nm_spmm.nm_gather_sort_matmul if loader == "gather"
+                    else nm_spmm.nm_sort_matmul)
+            ref = (nm_spmm.nm_gather_sort_matmul_ref if loader == "gather"
+                   else nm_spmm.nm_sort_matmul_ref)
+        for rounds in (1, 2, 3):
+            for acc_bits in (2, 16, 30):
+                kw = dict(policy="sorted", acc_bits=acc_bits, rounds=rounds,
+                          **extra)
+                got = kern(*args, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref(*args, **kw)), (k, rounds,
+                                                            acc_bits)
+
+
+@pytest.mark.parametrize("tiles", [1, 3, 7])
+def test_paired_tiles_packed(card, tiles):
+    """Rows 2, 7 and 8 under ``sorted_tiled`` and the pass-2 rows 12, 13
+    and 14, whose pair slots sort their two tiles as the halves of packed
+    int16x2 keys (an odd last tile against a zero half), against their
+    plain versions: a single tile and odd tile counts, k_tile 16 and 256,
+    rounds 1 to 3, acc_bits 2, 16 and 30, the int8 extremes in row 0."""
+    for k_tile in (16, 256):
+        k = tiles * k_tile
+        x, w = _xw(5, k, 37, tiles + k_tile, card)
+        x, w = _tied(x, w, k_tile)
+        x[0, : k // 2], w[0, : k // 3] = -128, -128
+        w, vals, idx = _prune(w, 8, 16)
+        nk = dict(m_group=16)
+        perm = pair_permutation(ss.tile_sums_matmul(x, w, k_tile=k_tile)).to(
+            torch.int32)
+        for rounds in (1, 2, 3):
+            for acc_bits in (2, 16, 30):
+                kw = dict(acc_bits=acc_bits, rounds=rounds, k_tile=k_tile)
+                tk = dict(kw, policy="sorted_tiled")
+                for got, want in (
+                        (sm.sort_matmul(x, w, **tk),
+                         sm.sort_matmul_ref(x, w, **tk)),
+                        (ss.paired_accum_matmul(x, w, perm, **kw),
+                         ss.paired_accum_matmul_ref(x, w, perm, **kw)),
+                        (nm_spmm.nm_gather_sort_matmul(x, vals, idx, **tk,
+                                                       **nk),
+                         nm_spmm.nm_gather_sort_matmul_ref(x, vals, idx,
+                                                           **tk, **nk)),
+                        (nm_spmm.nm_sort_matmul(x, vals, idx, **tk, **nk),
+                         nm_spmm.nm_sort_matmul_ref(x, vals, idx, **tk,
+                                                    **nk)),
+                        (ss.nm_gather_paired_accum_matmul(x, vals, idx, perm,
+                                                          **kw, **nk),
+                         ss.nm_gather_paired_accum_matmul_ref(
+                             x, vals, idx, perm, **kw, **nk)),
+                        (ss.nm_paired_accum_matmul(x, vals, idx, perm, **kw,
+                                                   **nk),
+                         ss.nm_paired_accum_matmul_ref(x, vals, idx, perm,
+                                                       **kw, **nk))):
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (k_tile, rounds, acc_bits)
+
+
+def test_expand_tiled_weights_past_int8(card):
+    """An expanded row whose slots name one position several times holds
+    their sum, past int8, so its products leave the int16 keys' range:
+    rows 7 (``sorted_tiled``) and 13 then sort them as int32 and still
+    equal their plain versions (the int32 scatter-add of the slots)."""
+    m_group, k_tile = 16, 256
+    x, _, vals, idx = _nm_w(5, 1024, 21, 4, m_group, 5, card, k_tile)
+    x[:, ::m_group] = 127
+    vals[::2, 1::2] = 127  # every slot of those groups at position 0: 508
+    idx[::2, 1::2] = 0
+    nk = dict(m_group=m_group)
+    perm = pair_permutation(ss.nm_tile_sums_matmul(
+        x, vals, idx, k_tile=k_tile, **nk)).to(torch.int32)
+    for rounds in (1, 2):
+        for acc_bits in (16, 30):
+            kw = dict(acc_bits=acc_bits, rounds=rounds, k_tile=k_tile, **nk)
+            tk = dict(kw, policy="sorted_tiled")
+            assert torch.equal(nm_spmm.nm_sort_matmul(x, vals, idx, **tk),
+                               nm_spmm.nm_sort_matmul_ref(x, vals, idx,
+                                                          **tk))
+            assert torch.equal(
+                ss.nm_paired_accum_matmul(x, vals, idx, perm, **kw),
+                ss.nm_paired_accum_matmul_ref(x, vals, idx, perm, **kw))
