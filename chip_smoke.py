@@ -20,8 +20,11 @@ imports nothing of JAX or of the JAX package. Phases:
    30 and M 1, 3, 4, 5, with ``clip`` and ``wrap``), and the N:M
    ``nm_gather_seq_policy_matmul`` and
    ``nm_seq_policy_matmul`` on 8:16 slabs (plus ragged 3:16 and 2:4
-   cases), which must also equal the dense kernel on the decompressed
-   weight; and the global-sort kernels ``sort_matmul``,
+   cases, n_keep = m, and shapes that split the gather's tiles over 1, 2,
+   4 and 8 warps an output and stage x in several windows,
+   ``NM_SPLIT_CASES``), which must also equal the dense kernel on the
+   decompressed weight, and on non-canonical slabs their plain versions;
+   and the global-sort kernels ``sort_matmul``,
    ``tile_sums_matmul``, ``paired_accum_matmul`` and
    ``chunked_sort_matmul`` (with tied tile sums), the one-pass kernel
    equal to the two-pass pipeline; pass 1's two kernels on their own
@@ -42,7 +45,9 @@ imports nothing of JAX or of the JAX package. Phases:
    gather); the register-resident `sorted` body of the dense, gather and
    expand kernels in every regime of its shape (``phase_sorted_regimes``:
    kp 32 to 65536, M = 3, rounds 1 to 3, acc_bits 2, 16 and 30, keys at
-   -16256 and 16384, outputs of one sign, an all-zero row);
+   -16256 and 16384, outputs of one sign, an all-zero row; and the expand
+   kernel's int32 route, slabs whose slots name one position three
+   times, at each kp);
    ``auto`` must launch the expand twins for a site of fewer than
    ``GATHER_MIN_G`` groups and for 16:16 (dense-as-sparse) slabs; and the
    wide ``quant_matmul`` (w (K, N)), ``seq_policy_matmul`` under ``wide``
@@ -107,7 +112,11 @@ imports nothing of JAX or of the JAX package. Phases:
    expand kernels, the gather kernels; ``seq_policy_matmul`` under
    ``wide`` at the 7 sites at M = 4, 64 and 128 beside ``torch._int_mm``;
    the gather and expand one-pass
-   kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); and ``quant_matmul``
+   kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); the N:M K-streaming
+   kernels at M = 4 and the gather also at M = 128, its sort tile on 32
+   and on 16 lanes in turns (``phase_nm_timing``); the `sorted` rows 15,
+   16 and 17 at every kp from 4096 to 65536 (``phase_sorted_kp_timing``);
+   and ``quant_matmul``
    and ``nm_spmm`` at the 7 site shapes at M = 4 and 128 beside
    ``torch._int_mm`` with the weight stored (N, K) and as the kernel's
    (K, N), ``quant_matmul`` on its TMA-fed body; pass 1
@@ -116,9 +125,9 @@ imports nothing of JAX or of the JAX package. Phases:
    checked equal first; the one-pass `sorted` kernels (rows 2, 7, 8) also
    at M = 128 at the six K = 1536 sites; and, with ``--baseline-csrc
    DIR`` (another tree's ``src/repro_torch/csrc``, built beside the
-   port's), that tree's rows 1 (``wide``), 2-4 and 7-17, each timed in
-   turns with the new one in the same call (``old_ms``), equal results
-   checked first.
+   port's), that tree's rows 1 (``wide``) and 2-17, each timed in turns
+   with the new one in the same call (``old_ms``), equal results checked
+   first.
 
 The last three lines are a JSON ``kernels`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -277,13 +286,25 @@ def phase_kernels(torch, sm, qm, seed):
     return worst
 
 
+# (M, N, K, n_keep, m_group) that put row 6's tiles on 1, 2, 4 and 8 warps
+# an output, stage x in several windows (K = 65536), keep every slot (n_keep
+# = m) or take one output
+NM_SPLIT_CASES = ((1, 1, 16, 8, 16), (8, 1536, 1536, 8, 16),
+                  (12, 1536, 1536, 8, 16), (128, 1536, 1536, 8, 16),
+                  (17, 70, 4000, 16, 16), (1, 70, 65536, 4, 16))
+
+
 def phase_nm_kernels(torch, sm, nm, seed):
     """Both N:M kernels vs their plain versions, bit-exact, and vs the
-    dense kernel on the decompressed weight. Returns the max |difference|
-    of each kernel against its plain version."""
+    dense kernel on the decompressed weight; at the sites, at edge shapes
+    and at shapes that reach each split of row 6's tiles over warps
+    (``NM_SPLIT_CASES``); and on non-canonical slabs (``non_canonical``:
+    unsorted indices, two slots at one position) against their plain
+    versions only. Returns the max |difference| of each kernel against
+    its plain version."""
     cases = [(4, n, k, N_KEEP, M_GROUP) for (n, k) in SHAPES] + [
         (64, 256, 1536, N_KEEP, M_GROUP), (5, 70, 300, 3, 16),
-        (5, 70, 300, 2, 4)]
+        (5, 70, 300, 2, 4), *NM_SPLIT_CASES]
     kernels = {"nm_gather_seq_policy_matmul": (
         nm.nm_gather_seq_policy_matmul, nm.nm_gather_seq_policy_matmul_ref),
         "nm_seq_policy_matmul": (nm.nm_seq_policy_matmul,
@@ -312,6 +333,23 @@ def phase_nm_kernels(torch, sm, nm, seed):
                       f"{n_keep}:{m_group} {policy:16s} rounds={rounds} "
                       f"max|diff| gather={errs[0]} expand={errs[1]}; "
                       f"vs dense kernel {cross}", flush=True)
+        if (m, n, k) not in ((4, 1536, 8960), (5, 70, 300), (1, 70, 65536)):
+            continue
+        nv, ni = non_canonical(torch, vals, idx)
+        for policy in sm.SEQ_POLICIES:
+            kw = dict(policy=policy, acc_bits=16, rounds=2, k_tile=256)
+            errs = []
+            for name, (kernel, plain) in kernels.items():
+                got = kernel(x, nv, ni, m_group=m_group, **kw)
+                want = plain(x, nv, ni, m_group=m_group, **kw)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                worst[name] = max(worst[name], err)
+                errs.append(err)
+            print(f"  nm kernels/plain, non-canonical slabs M={m:3d} "
+                  f"N={n:5d} K={k:5d} {n_keep}:{m_group} {policy:16s} "
+                  f"max|diff| gather={errs[0]} expand={errs[1]}",
+                  flush=True)
     if any(worst.values()) or cross:
         raise AssertionError(f"N:M kernels disagree: {worst}, vs dense "
                              f"{cross}")
@@ -1000,6 +1038,9 @@ def phase_sort_kernels(torch, sm, ss, seed):
 # sorted_dot): padded to 64 keys, one warp, the first exchange across
 # warps, w_out's 16384 and 16 warps of 64 keys a lane
 SORTED_KP = (32, 64, 2048, 4096, 16384, 65536)
+# kp where the body also runs with no round (natural order): one of the
+# radix regime and the register network's 65536
+NO_ROUND_KP = (16384, 65536)
 
 
 def sorted_rows(torch, m, k, n, seed):
@@ -1021,8 +1062,11 @@ def phase_sorted_regimes(torch, sm, nm, seed):
     of its shape (``SORTED_KP``; the gather twin's kept keys number kp:
     8:16 slabs of 2 kp positions), K short of kp (the tail masked) and,
     up to 4096, K = kp, M = 3, rounds 1, 2 and 3 at acc_bits 2, 30 and 16
-    (the plain versions add the stream one step at a time), with
-    ``sorted_rows``. Returns the max |difference| of each kernel."""
+    (the plain versions add the stream one step at a time), and at
+    ``NO_ROUND_KP`` no round at acc_bits 16, with ``sorted_rows``; and the
+    expand twin on slabs whose slots name one position three times (keys
+    past int16: its int32 route) at each kp, one round (and none at
+    ``NO_ROUND_KP``). Returns the max |difference| of each kernel."""
     def diff(a, b):
         torch.cuda.synchronize()
         return int((a.long() - b.long()).abs().max())
@@ -1036,7 +1080,8 @@ def phase_sorted_regimes(torch, sm, nm, seed):
             x2, w2 = sorted_rows(torch, 3, 2 * k, 5, seed + kp + k)
             slabs = {"nm_gather_sort_matmul": (x2, *prune(torch, w2)[1:]),
                      "nm_sort_matmul": (x, *prune(torch, w)[1:])}
-            for rounds, acc_bits in ((1, 2), (2, 30), (3, 16)):
+            for rounds, acc_bits in ((1, 2), (2, 30), (3, 16)) + (
+                    ((0, 16),) if kp in NO_ROUND_KP else ()):
                 kw = dict(policy="sorted", acc_bits=acc_bits, rounds=rounds)
                 errs = {"sort_matmul": diff(
                     sm.sort_matmul(x, w, kp=kp, **kw),
@@ -1048,8 +1093,24 @@ def phase_sorted_regimes(torch, sm, nm, seed):
                                                    **kw))
                 for name, err in errs.items():
                     worst[name] = max(worst[name], err)
-            print(f"  sorted body kp={kp:5d} K={k:5d} M=3 N=5 rounds 1-3 "
-                  f"acc_bits 2/30/16 max|diff| {worst}", flush=True)
+            print(f"  sorted body kp={kp:5d} K={k:5d} M=3 N=5 rounds "
+                  f"{'0-3' if kp in NO_ROUND_KP else '1-3'} acc_bits "
+                  f"2/30/16 max|diff| {worst}", flush=True)
+        # the expand twin's int32 route: every slot of every other group of
+        # rows 1 and 3 at position 0 with value 127, x 127 there (a weight
+        # of 381 and keys of 48387, past int16)
+        x, _, vals, idx = nm_operands(torch, 3, 5, kp, seed + kp, n_keep=3)
+        vals[1::2, ::2], idx[1::2, ::2] = 127, 0
+        x[:, ::2 * M_GROUP] = 127
+        for rounds in (1, 0) if kp in NO_ROUND_KP else (1,):
+            kw = dict(policy="sorted", acc_bits=30, rounds=rounds,
+                      m_group=M_GROUP)
+            err = diff(nm.nm_sort_matmul(x, vals, idx, **kw),
+                       nm.nm_sort_matmul_ref(x, vals, idx, **kw))
+            worst["nm_sort_matmul"] = max(worst["nm_sort_matmul"], err)
+            print(f"  sorted body, expand past int16 keys kp={kp:5d} "
+                  f"K={kp:5d} M=3 N=5 3:16 rounds {rounds} max|diff| {err}",
+                  flush=True)
     if any(worst.values()):
         raise AssertionError(f"the sorted body disagrees: {worst}")
     return worst
@@ -1479,42 +1540,106 @@ def phase_timing(torch, sm, baseline=None):
     return table
 
 
-def phase_nm_timing(torch, sm, nm):
-    """Both N:M kernels at the decode shapes (M = 4) of the 7 sites, 8:16
-    sorted_tiled_seq, beside their plain versions and the dense kernel on
-    the decompressed weight. The bound counts the compressed bytes: x,
-    int8 values, int32 indices and the int32 out; the operations are the
-    kept products."""
+def phase_nm_timing(torch, sm, nm, baseline=None):
+    """Both N:M K-streaming kernels at the 7 sites, 8:16
+    sorted_tiled_seq: at decode (M = 4) beside their plain versions, the
+    dense kernel on the decompressed weight, their bound (the compressed
+    bytes: x, int8 values, int32 indices and the int32 out; the operations:
+    the kept products) and the integer-ALU floor of their sort networks
+    (``cx_floor_ms``: row 6 sorts a tile's 128 kept keys, row 5 its 256
+    dense ones); row 6 also at a prefill cohort (M = 128; no plain
+    version). Given ``baseline`` (``baseline_kernels``), rows 5 and 6
+    of that build too (``old_ms``), timed in turns with the new. Returns
+    {kernel: rows at M = 4} and {"nm_gather_seq_policy_matmul M=128":
+    rows}, each row with its ``site``."""
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     kw = dict(policy="sorted_tiled_seq", acc_bits=16, rounds=1, k_tile=256)
-    table = {"nm_gather_seq_policy_matmul": [], "nm_seq_policy_matmul": []}
-    m = 4
-    for name, (n, k) in SITES.items():
-        x, w, vals, idx = nm_operands(torch, m, n, k, 9)
+    gather = "nm_gather_seq_policy_matmul"
+    table = {gather: [], "nm_seq_policy_matmul": [], gather + " M=128": []}
+    for site, (n, k) in SITES.items():
+        x128, w, vals, idx = nm_operands(torch, 128, n, k, 9)
         kept = vals.numel()
-        bytes_ms = (m * k + 5 * kept + 4 * m * n) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
-        dense = time_launches(torch, lambda: sm.seq_policy_matmul(x, w, **kw),
-                              10, flush_buf)
-        line = [f"  time nm {name:6s} M={m} N={n:5d} K={k:5d}"]
-        for kname, fn, ref in (
-                ("nm_gather_seq_policy_matmul", nm.nm_gather_seq_policy_matmul,
-                 nm.nm_gather_seq_policy_matmul_ref),
-                ("nm_seq_policy_matmul", nm.nm_seq_policy_matmul,
-                 nm.nm_seq_policy_matmul_ref)):
-            ms = time_launches(torch, lambda: fn(x, vals, idx, m_group=M_GROUP,
-                                                 **kw), 10, flush_buf)
-            plain = time_launches(torch, lambda: ref(
-                x, vals, idx, m_group=M_GROUP, **kw), 1, flush_buf)
-            table[kname].append(dict(ms=ms, plain_ms=plain,
-                                     bound_ms=max(bytes_ms, ops_ms),
-                                     bytes_ms=bytes_ms, ops_ms=ops_ms))
-            line.append(f"{kname.split('_seq')[0]} {ms:.4f} ms (plain "
-                        f"{plain:.2f} ms)")
-        line.append(f"dense kernel {dense:.4f} ms  bound "
-                    f"{max(bytes_ms, ops_ms):.5f} ms")
-        print("  ".join(line), flush=True)
+        tiles = -(-k // 256)
+        for m in (4, 128):
+            x = x128[:m].contiguous()
+            bytes_ms = (m * k + 5 * kept + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
+            dense = time_launches(torch, lambda: sm.seq_policy_matmul(
+                x, w, **kw), 10, flush_buf)
+            line = [f"  time nm {site:6s} M={m:3d} N={n:5d} K={k:5d}"]
+            runs = ((gather, nm.nm_gather_seq_policy_matmul, 128),
+                    ("nm_seq_policy_matmul", nm.nm_seq_policy_matmul, 256))
+            for kname, fn, length in runs[: 2 if m == 4 else 1]:
+                old = baseline and (lambda: baseline[kname](
+                    x, vals, idx, m_group=M_GROUP, **kw))
+                row = dict(site=site, dense_ms=dense,
+                           bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                           ops_ms=ops_ms,
+                           cx_floor_ms=cx_floor_ms(m * n, length, tiles),
+                           **in_turns(torch, lambda: fn(
+                               x, vals, idx, m_group=M_GROUP, **kw), old,
+                               flush_buf, f"{kname} {site} M={m}"))
+                if m == 4:
+                    ref = plain_of(fn)
+                    row["plain_ms"] = time_launches(torch, lambda: ref(
+                        x, vals, idx, m_group=M_GROUP, **kw), 1, flush_buf)
+                table[kname if m == 4 else gather + " M=128"].append(row)
+                line.append(
+                    f"{kname.split('_seq')[0]} {row['ms']:.4f} ms" + (
+                        f" (old {row['old_ms']:.4f} ms)"
+                        if "old_ms" in row else "") + (
+                        f" (plain {row['plain_ms']:.2f} ms)"
+                        if "plain_ms" in row else ""))
+            line.append(f"dense kernel {dense:.4f} ms  bound "
+                        f"{max(bytes_ms, ops_ms):.5f} ms")
+            print("  ".join(line), flush=True)
     return table
+
+
+# kp of the `sorted` body from its first cross-warp shape up (the radix
+# regime, 4096 to 32768, and the register network's 65536): rows 15, 16
+# and 17 timed at each over w_out's 1536 outputs at decode
+SWEEP_KP = (4096, 8192, 16384, 32768, 65536)
+
+
+def phase_sorted_kp_timing(torch, ss, baseline=None):
+    """Rows 15 (``chunked_sort_matmul``), 16 (``nm_chunked_sort_matmul``)
+    and 17 (``nm_gather_chunked_sort_matmul``) at every kp of
+    ``SWEEP_KP``: M = 4, N = 1536 and K = 35 kp / 64 (w_out's share of its
+    kp: 8960 at 16384), 8:16 slabs (row 17 sorts G n_keep = K / 2 kept
+    keys), acc_bits 16, one round; beside the bound and, given
+    ``baseline``, that build's kernels in turns (``old_ms``). Returns
+    {kernel: {kp: row}}."""
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {name: {} for name in ("chunked_sort_matmul",
+                                 "nm_chunked_sort_matmul",
+                                 "nm_gather_chunked_sort_matmul")}
+    m, n = 4, 1536
+    for kp in SWEEP_KP:
+        k = 35 * kp // 64
+        x, w, vals, idx = nm_operands(torch, m, n, k, 15 + kp)
+        nk = dict(acc_bits=16, rounds=1, m_group=M_GROUP)
+        kept = vals.numel()
+        runs = (("chunked_sort_matmul", ss.chunked_sort_matmul, (x, w),
+                 dict(acc_bits=16, rounds=1, kp=kp), m * k + n * k),
+                ("nm_chunked_sort_matmul", ss.nm_chunked_sort_matmul,
+                 (x, vals, idx), nk, m * k + 5 * kept),
+                ("nm_gather_chunked_sort_matmul",
+                 ss.nm_gather_chunked_sort_matmul, (x, vals, idx), nk,
+                 m * k + 5 * kept))
+        for name, fn, args, kw, nbytes in runs:
+            old = baseline and (lambda: baseline[name](*args, **kw))
+            row = dict(k=k, **bound_row(m, n, kept if "nm" in name else k,
+                                        nbytes + 4 * m * n),
+                       **in_turns(torch, lambda: fn(*args, **kw), old,
+                                  flush_buf, f"{name} kp={kp}"))
+            out[name][kp] = row
+            print(f"  time {name:30s} kp={kp:5d} M={m} N={n} K={k:5d} "
+                  f"kernel {row['ms']:.4f} ms" + (
+                      f"  old kernel {row['old_ms']:.4f} ms"
+                      if "old_ms" in row else "")
+                  + f"  bound {row['bound_ms']:.5f} ms", flush=True)
+    return out
 
 
 def bound_row(m, n, k, nbytes):
@@ -1806,16 +1931,18 @@ def plain_of(fn):
 
 
 def baseline_kernels(torch, csrc_dir):
-    """Rows 1 (``wide``), 2-4 and 7-17 as another tree's ``csrc/`` builds
-    them (an older commit's, for a same-call comparison): its
-    ``seq_policy_matmul.cu``, ``quant_matmul.cu``, ``sort_matmul.cu``,
-    ``sorted_stream.cu``, ``nm_sort_matmul.cu`` and ``nm_expand_sort.cu``
-    compiled with the port's flags, one nvcc each in parallel, into a
+    """Rows 1 (``wide``) and 2-17 as another tree's ``csrc/`` builds them
+    (an older commit's, for a same-call comparison): its
+    ``seq_policy_matmul.cu``, ``nm_seq_policy_matmul.cu``,
+    ``quant_matmul.cu``, ``sort_matmul.cu``, ``sorted_stream.cu``,
+    ``nm_sort_matmul.cu`` and ``nm_expand_sort.cu`` compiled with the
+    port's flags, one nvcc each in parallel, into a
     directory of ``src/repro_torch/_build/`` named after ``csrc_dir``, and
     called through the port's own wrappers with that build's library in
     place of the port's for the call (so the two trees' C entry points
-    must take the same arguments). Returns {kernel name: callable with
-    the wrapper's arguments}."""
+    must take the same arguments, but for the expand `sorted` kernel's
+    int32-route pool, which a tree without it is called without).
+    Returns {kernel name: callable with the wrapper's arguments}."""
     import ctypes
 
     from repro_torch.kernels import build
@@ -1828,8 +1955,9 @@ def baseline_kernels(torch, csrc_dir):
                                  .as_posix().strip("/").replace("/", "-"))
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    srcs = ("seq_policy_matmul", "quant_matmul", "sort_matmul",
-            "sorted_stream", "nm_sort_matmul", "nm_expand_sort")
+    srcs = ("seq_policy_matmul", "nm_seq_policy_matmul", "quant_matmul",
+            "sort_matmul", "sorted_stream", "nm_sort_matmul",
+            "nm_expand_sort")
     procs = {src: subprocess.Popen(
         [build._nvcc(), *flags, "-o", str(out_dir / f"lib{src}.so"),
          str(Path(csrc_dir) / f"{src}.cu")], stdout=subprocess.PIPE,
@@ -1841,14 +1969,32 @@ def baseline_kernels(torch, csrc_dir):
             raise RuntimeError(f"baseline nvcc failed for {src}:\n{log}")
         libs[src] = ctypes.CDLL(str(out_dir / f"lib{src}.so"))
 
+    # a tree whose expand `sorted` entry point takes no int32-route pool
+    # (before the route existed) is called without one
+    poolless = "void* pool" not in (Path(csrc_dir) /
+                                    "nm_expand_sort.cu").read_text()
+
+    def launch_poolless(x, values, indices, *, m_group, policy, acc_bits,
+                        k_tile, rounds, kp):
+        return nm.launch_slabs(
+            "nm_expand_sort", "pqs_nm_expand_sort_matmul", x, values,
+            indices, m_group=m_group, ints=(
+                kp, sm.SORT_POLICIES.index(policy), acc_bits, rounds,
+                k_tile))
+
     def via(source, wrapper):
         """``wrapper`` run on this build's csrc/<source>.cu."""
         def run(*args, **kwargs):
             saved = build._LIBS.get(source)
             build._LIBS[source] = libs[source]
+            launch = nm.launch_nm_expand_sort
+            if poolless and source == "nm_expand_sort":
+                nm.launch_nm_expand_sort = launch_poolless
+                ss.launch_nm_expand_sort = launch_poolless
             try:
                 return wrapper(*args, **kwargs)
             finally:
+                nm.launch_nm_expand_sort = ss.launch_nm_expand_sort = launch
                 if saved is None:
                     del build._LIBS[source]
                 else:
@@ -1860,6 +2006,8 @@ def baseline_kernels(torch, csrc_dir):
 
     return {"wide": via("seq_policy_matmul", wide),
             **{f.__name__: via(src, f) for src, f in (
+                ("nm_seq_policy_matmul", nm.nm_gather_seq_policy_matmul),
+                ("nm_seq_policy_matmul", nm.nm_seq_policy_matmul),
                 ("quant_matmul", qm.quant_matmul),
                 ("quant_matmul", nm.nm_spmm),
                 ("sort_matmul", sm.sort_matmul),
@@ -2080,8 +2228,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baseline-csrc", default=None,
                     help="another tree's src/repro_torch/csrc: phase 5 "
-                         "also times its rows 1 (wide), 2-4 and 7-17 "
-                         "(old_ms)")
+                         "also times its rows 1 (wide) and 2-17 (old_ms)")
     args = ap.parse_args()
 
     import torch
@@ -2113,9 +2260,13 @@ def main() -> int:
             print(f"    {name}: {kernel} {regs} registers, spill stores/"
                   f"loads {spill} bytes", flush=True)
     # what the packed sorts' 16x2 max / min / add compile to: row 1's
-    # tiled sort and the whole-K `sorted` body at kp = 2048 and 16384
+    # tiled sort, row 6's (8:16 at k_tile 256: 128 keys a tile) and the
+    # whole-K `sorted` body at kp = 2048; the radix body at kp = 16384
+    # (its ballots and shared atomics)
     for source, label, what in (
             ("seq_policy_matmul", "sorted_seq_kernel<8,32>", "k_tile 256"),
+            ("nm_seq_policy_matmul", "nm_gather_kernel<4,32>",
+             "8:16, k_tile 256"),
             ("sort_matmul", "sort_sorted_kernel<32,1>", "kp 2048"),
             ("sort_matmul", "sort_sorted_kernel<32,8>", "kp 16384")):
         try:
@@ -2125,10 +2276,12 @@ def main() -> int:
             continue
         packed = {op: n for op, n in sorted(ops.items(), key=lambda o: -o[1])
                   if "16x2" in op or op.startswith(("SHFL", "PRMT", "BAR",
-                                                    "SEL", "LOP3"))}
+                                                    "SEL", "LOP3", "VOTE",
+                                                    "ATOMS"))}
         print(f"[1] SASS of {label} ({what}): {sum(ops.values())} "
               f"instructions; 16x2, shuffles, byte permutes, selects, "
-              f"logic and barriers {packed}", flush=True)
+              f"logic, barriers, votes and shared atomics {packed}",
+              flush=True)
 
     cfg = get_config("qwen2-1.5b")
     counters = {"seq_policy_matmul": sm.seq_policy_matmul,
@@ -2193,7 +2346,8 @@ def main() -> int:
             torch, args.baseline_csrc)
         got.update(
             timing=phase_timing(torch, sm, baseline),
-            nm_timing=phase_nm_timing(torch, sm, nm),
+            nm_timing=phase_nm_timing(torch, sm, nm, baseline),
+            sorted_kp=phase_sorted_kp_timing(torch, ss, baseline),
             sort_timing=phase_sort_timing(torch, sm, ss, baseline),
             nm_sort_timing=phase_nm_sort_timing(torch, sm, ss, nm, baseline),
             pass1_timing=phase_pass1_timing(torch, ss, baseline),
@@ -2277,6 +2431,14 @@ def main() -> int:
             got["nm_timing"]["nm_gather_seq_policy_matmul"],
             launches=got["nm_launches"]["nm_gather_seq_policy_matmul"],
             max_abs_err=got["nm_err"]["nm_gather_seq_policy_matmul"],
+            by_site={r["site"]: {key: r[key] for key in (
+                "ms", "old_ms", "dense_ms", "bound_ms") if key in r}
+                for r in got["nm_timing"]["nm_gather_seq_policy_matmul"]},
+            prefill=prefill_record(
+                got["nm_timing"]["nm_gather_seq_policy_matmul M=128"],
+                "7 projection sites of one qwen2-1.5b layer at a prefill "
+                "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
+                "256"),
             path="phase 3b, compressed storage"),
         kernel_record(
             "nm_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
@@ -2343,6 +2505,7 @@ def main() -> int:
             launches=srt["chunked_sort_matmul"],
             max_abs_err=max(got["sort_err"]["chunked_sort_matmul"],
                             got["sorted_err"]["sort_matmul"]),
+            by_kp=got["sorted_kp"]["chunked_sort_matmul"],
             path="phase 3d (two-pass at K = 8960)"),
     ]
     timing = got["nm_sort_timing"]
@@ -2403,6 +2566,7 @@ def main() -> int:
             launches=srt["nm_gather_chunked_sort_matmul"],
             max_abs_err=max(err["nm_gather_chunked_sort_matmul"],
                             got["sorted_err"]["nm_gather_sort_matmul"]),
+            by_kp=got["sorted_kp"]["nm_gather_chunked_sort_matmul"],
             path="phase 3f (two-pass at K = 8960)"),
     ]
     tiled, srt = got["expand sorted_tiled"], got["expand sorted"]
@@ -2459,6 +2623,7 @@ def main() -> int:
             launches=srt["nm_chunked_sort_matmul"],
             max_abs_err=max(err["nm_chunked_sort_matmul"],
                             got["sorted_err"]["nm_sort_matmul"]),
+            by_kp=got["sorted_kp"]["nm_chunked_sort_matmul"],
             path="phase 3h (two-pass at K = 8960)"),
     ]
     timing, launches = got["wide_timing"], got["quickstart"]

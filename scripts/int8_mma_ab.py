@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Same-call A/B of the wide kernels (``csrc/int8_mma.cuh`` and the
-TMA-fed body of ``csrc/quant_matmul.cu``).
+TMA-fed body of ``csrc/quant_matmul.cu``) and of row 6's sort tile
+(``csrc/nm_seq_policy_matmul.cu``).
 
     python3 scripts/int8_mma_ab.py [--variants base,tma_mma_sync,...]
 
@@ -10,14 +11,16 @@ replaced, built with the port's nvcc flags into
 ``src/repro_torch/_build/ab/<variant>/`` (all variants compile in
 parallel). Then rows 1 (``seq_policy_matmul`` under ``wide``), 3
 (``quant_matmul`` on its TMA-fed body, and on its KnRows body as ``row 3
-kn_rows``) and 4 (``nm_spmm``, 8:16 slabs) of every variant are timed by
+kn_rows``), 4 (``nm_spmm``, 8:16 slabs) and 6
+(``nm_gather_seq_policy_matmul``, 8:16 slabs, ``sorted_tiled_seq`` at
+k_tile 256, one round, acc_bits 16) of every variant are timed by
 ``chip_smoke.time_launches`` at the 7 qwen2-1.5b projection sites at M =
 4, 64 and 128, every variant loaded into this one process (each build's
 kernels and their set-up have internal linkage, so the builds stay
 apart), the variants in order and then in reverse order; the mean of the
-two passes is printed summed over the sites (ms). Row 3 of each variant
-is first checked equal to its plain version at the 7 sites at M = 1, 5,
-17 and 200. ``no_build`` skips
+two passes is printed summed over the sites (ms). Rows 3 and 6 of each
+variant are first checked equal to their plain versions at the 7 sites
+(row 3 at M = 1, 5, 17 and 200, row 6 at M = 1 and 5). ``no_build`` skips
 row 4's build of its weight tile, so its row 4 results are wrong: it
 times the copies and the mmas alone.
 """
@@ -37,9 +40,12 @@ sys.path.insert(0, str(ROOT))
 
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ab"
-SOURCES = ("quant_matmul", "seq_policy_matmul")
+SOURCES = ("quant_matmul", "seq_policy_matmul", "nm_seq_policy_matmul")
 MS = (4, 64, 128)
-KERNELS = ("row 1 wide", "row 3", "row 3 kn_rows", "row 4")
+KERNELS = ("row 1 wide", "row 3", "row 3 kn_rows", "row 4", "row 6")
+# row 6's policy (sorted_matmul.SEQ_POLICIES: sorted_tiled_seq), acc_bits,
+# rounds and k_tile
+ROW6 = dict(policy=3, acc_bits=16, rounds=1, k_tile=256)
 
 # The TMA-fed body's consumer loop on mma.sync m16n8k32 (the same swapped
 # operands; x's fragments by ldmatrix) in place of its wgmma loop.
@@ -81,6 +87,20 @@ MMA_SYNC_LOOP = r"""    for (int i = 0; i < slabs; ++i) {
     }
 """
 
+# Row 6's sort tiles of 32 to 256 slots on 16 lanes of E = S / 16, two
+# tiles a warp step (10 shuffle stages a sort of 128 keys), in place of
+# 32 lanes of E = S / 32 (one tile a step, 15 stages).
+GATHER_LT16 = """  const GatherLaunch fn{a, tile_len};
+  switch (pqs::next_pow2(tile_len)) {
+    case 32: fn.operator()<2, 16>(); break;
+    case 64: fn.operator()<4, 16>(); break;
+    case 128: fn.operator()<8, 16>(); break;
+    case 256: fn.operator()<16, 16>(); break;
+    default: return pqs::dispatch_tile(pqs::next_pow2(tile_len), fn);
+  }
+  return cudaGetLastError();
+"""
+
 # variant -> {file: [(text or (first line, last line), replacement)]}
 VARIANTS = {
     "base": {},
@@ -106,6 +126,11 @@ VARIANTS = {
         "    const int m_group = 1 << lm;\n",
         "    if (n0 >= 0) return;  // no build: timing only\n"
         "    const int m_group = 1 << lm;\n")]},
+    # row 6's tile shape (nm_seq_policy_matmul.cu's gather entry point)
+    "gather_lt16": {"nm_seq_policy_matmul.cu": [(
+        "  return pqs::dispatch_tile(pqs::next_pow2(tile_len),\n"
+        "                            GatherLaunch{a, tile_len});\n",
+        GATHER_LT16)]},
     "stages4": {"int8_mma.cuh": [(
         "kStages = MT == 1 ? 3 : 4;", "kStages = 4;")]},
     "wave_uncapped": {"int8_mma.cuh": [(
@@ -115,8 +140,7 @@ VARIANTS = {
 
 
 def build_variants(names):
-    """Compile quant_matmul.cu and seq_policy_matmul.cu of each variant,
-    all in parallel."""
+    """Compile the ``SOURCES`` of each variant, all in parallel."""
     from repro_torch.kernels import build
 
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -158,20 +182,31 @@ def c_fn(lib, symbol, n_ptrs, n_ints):
     return fn
 
 
-def load_variant(torch, cs, qm, name):
-    """A variant's (row1, run3, row4) entry points, row 3 checked equal to
-    its plain version first."""
+def load_variant(torch, cs, qm, nm, name):
+    """A variant's (row1, run3, row4, run6) entry points, rows 3 and 6
+    checked equal to their plain versions first."""
     libs = {src: ctypes.CDLL(str(OUT / name / f"lib{src}.so"))
             for src in SOURCES}
     row1 = c_fn(libs["seq_policy_matmul"], "pqs_seq_policy_matmul", 3, 7)
     row3 = c_fn(libs["quant_matmul"], "pqs_quant_matmul", 3, 4)
     row4 = c_fn(libs["quant_matmul"], "pqs_nm_spmm", 4, 6)
+    row6 = c_fn(libs["nm_seq_policy_matmul"],
+                "pqs_nm_gather_seq_policy_matmul", 4, 10)
 
     def run3(x, w, out, body):
         (m, k), n = x.shape, w.shape[1]
         if row3(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, body,
                 torch.cuda.current_stream().cuda_stream):
             raise SystemExit(f"{name}: pqs_quant_matmul failed")
+        return out
+
+    def run6(x, vals, idx, out):
+        (m, k), (n, g, n_keep) = x.shape, vals.shape
+        if row6(x.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), m, n, k, g, n_keep, cs.M_GROUP,
+                *ROW6.values(), torch.cuda.current_stream().cuda_stream):
+            raise SystemExit(f"{name}: pqs_nm_gather_seq_policy_matmul "
+                             "failed")
         return out
 
     for site, (n, k) in cs.SITES.items():
@@ -181,12 +216,21 @@ def load_variant(torch, cs, qm, name):
             out = torch.empty((m, n), dtype=torch.int32, device="cuda")
             if not torch.equal(run3(x, w, out, 1), qm.quant_matmul_ref(x, w)):
                 raise SystemExit(f"{name}: row 3 wrong at {site} M={m}")
-    return row1, run3, row4
+        for m in (1, 5):
+            x, _, vals, idx = cs.nm_operands(torch, m, n, k, m + n)
+            out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+            want = nm.nm_gather_seq_policy_matmul_ref(
+                x, vals, idx, m_group=cs.M_GROUP, policy="sorted_tiled_seq",
+                acc_bits=ROW6["acc_bits"], rounds=ROW6["rounds"],
+                k_tile=ROW6["k_tile"])
+            if not torch.equal(run6(x, vals, idx, out), want):
+                raise SystemExit(f"{name}: row 6 wrong at {site} M={m}")
+    return row1, run3, row4, run6
 
 
 def time_variant(torch, cs, fns, flush_buf):
     """One variant's ms over the 7 sites, {"kernel M=m": ms}."""
-    row1, run3, row4 = fns
+    row1, run3, row4, run6 = fns
     stream = torch.cuda.current_stream().cuda_stream
     total = {}
     for site, (n, k) in cs.SITES.items():
@@ -206,6 +250,7 @@ def time_variant(torch, cs, fns, flush_buf):
                     xm.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                     out.data_ptr(), m, n, k, g, cs.N_KEEP, cs.M_GROUP,
                     stream),
+                "row 6": lambda: run6(xm, vals, idx, out),
             }
             for kernel, fn in calls.items():
                 key = f"{kernel} M={m}"
@@ -222,6 +267,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from repro_torch.kernels import nm_spmm as nm
     from repro_torch.kernels import quant_matmul as qm
 
     if not torch.cuda.is_available():
@@ -229,7 +275,7 @@ def main() -> int:
         return 2
     build_variants(names)
     print(cs.card_line(), flush=True)
-    fns = {name: load_variant(torch, cs, qm, name) for name in names}
+    fns = {name: load_variant(torch, cs, qm, nm, name) for name in names}
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     total = {}
     for name in names + names[::-1]:

@@ -47,15 +47,23 @@
 // at 8:16.
 //
 // The expansion target, and the shared memory it takes:
-// - `sorted`: the keys x[pos] * value are written straight into kp int16
+// - `sorted`: the keys x[pos] * value are written straight into int16
 //   keys in shared memory (zeroed first; a value-0 slot writes nothing):
-//   2 kp bytes, 4 KB at kp = 2048, 32 KB at 16384 and 128 KB at
-//   MAX_STREAM_K = 65536, pqs::kSmemCap. The register-resident body of the
-//   dense kernel (sorted_dot, the SharedKeys loader) then reads them into
-//   registers, two to a register, and its cross-warp exchange reuses the
-//   same bytes: one warp up to kp = 2048, kp / 2048 warps up to 32768, 16
-//   at 65536. The keys wrap to 16 bits as they always did: exact on
-//   canonical slabs, whose products lie in [-16256, 16384].
+//   the kp keys of the dense kernel's register network (sorted_dot, the
+//   SharedKeys loader; 2 kp bytes, 4 KB at kp = 2048, 128 KB at
+//   MAX_STREAM_K = 65536, pqs::kSmemCap, which its cross-warp exchange
+//   reuses) on one warp up to kp = 2048 and 16 at 65536; in between the
+//   K keys of the radix body (radix_sorted_dot) beside its second buffer
+//   and control block. On canonical slabs the keys are exact, products of
+//   int8 carriers in [-16256, 16384]. Where slots name one position
+//   several times (expand_slots reports an add onto a nonzero key) the
+//   sum may leave int16: that block rebuilds the row's weights over the
+//   keys and sorts int32 keys x w with the radix body in a slot of a
+//   device-memory pool (expand_sorted_wide; nm_spmm.expand_scratch, a
+//   slot a streaming multiprocessor, claimed by atomics), at every kp, as
+//   the JAX kernel's int32 expansion adds them. The flag costs the int16
+//   routes nothing (reduced through shared memory: __syncthreads_or cost
+//   the one-warp kernel 6-12%).
 // - `sorted_tiled` one-pass: the compressed row expanded into an int16 row
 //   of K weights beside the T tile sums and the pairing (8 T + 2 K bytes:
 //   3 KB at K = 1536; the wrapper refuses above 128 KB), then the dense
@@ -72,7 +80,8 @@
 // the packed pairs); at w_out `sorted` 0.84 (5.18) and pass 2 0.54 (0.82)
 // (chip_smoke.py phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3,
 // 700.00 W). Expanding costs 0.29 ms over the dense kernel's `sorted` and
-// 0.55 over its `sorted_tiled` on the same dot.
+// 0.55 over its `sorted_tiled` on the same dot. The radix body takes the
+// w_out `sorted` (kp 16384) to 0.43 ms (0.84 on the network).
 // - Pass 1: a sum of raw products in int32, with no clipping, so the
 //   kept slots need not be expanded at all: for any slabs, canonical or
 //   not, the sum over the slots of x[pos] * value is x times the int32
@@ -124,25 +133,90 @@ __device__ __forceinline__ void expand_row(int16_t* w, const int8_t* val,
                            blockDim.x);
 }
 
+// The `sorted` kernel's shared memory: in the radix regime the radix
+// control block and two buffers of K int16 keys; else the L = 64 W E
+// int16 keys of the register network, whose cross-warp exchange at kp
+// 65536 reuses them. The int32 route takes no more of it: its control
+// block and buffers lie in its pool slot.
+template <int E, int W>
+__host__ __device__ constexpr size_t expand_sorted_smem(int K) {
+  if constexpr (pqs::radix_regime(E, W))
+    return sizeof(int) * pqs::radix_ctl_ints(W) +
+           2 * pqs::radix_buffer_bytes(K, 2);
+  return pqs::radix_buffer_bytes(64 * W * E, 2);
+}
+
+// A slot of the int32 route's pool: the radix control block of up to 16
+// warps, then two buffers of K keys, rounded to 16 bytes
+// (nm_spmm.expand_scratch sizes the pool to match).
+constexpr int kPoolCtlInts = pqs::radix_ctl_ints(16);
+static_assert(kPoolCtlInts % 4 == 0, "the control block is 16-byte aligned");
+
+__host__ __device__ constexpr int64_t pool_slot_ints(int K) {
+  return kPoolCtlInts + ((2 * static_cast<int64_t>(K) + 3) & ~int64_t{3});
+}
+
+// The `sorted` kernel's route for a row whose keys may leave int16 (two
+// slots at one position): the row's weights (their sums, in int16) over
+// the keys, then int32 keys in a slot of the device pool.
+template <int W>
+__device__ __forceinline__ int expand_sorted_wide(
+    const int8_t* x, const int8_t* val, const int32_t* idx, int16_t* w,
+    pqs::Clamp* scratch, int32_t* pool, int* busy, int slots, int* held,
+    int64_t n, int K, int G, int n_keep, int m_group, int acc_bits,
+    int rounds) {
+  expand_row(w, val, idx, n, K, G, n_keep, m_group);
+  const int s = pqs::claim_slot(busy, slots, held);
+  int32_t* ctl = pool + pool_slot_ints(K) * s;
+  int32_t* a = ctl + kPoolCtlInts;
+  const int r = pqs::radix_sorted_dot<int32_t, W>(
+      pqs::ExpandedProducts{x, w, K, 0}, K, a, a + K, ctl, scratch, acc_bits,
+      rounds);
+  pqs::release_slot(busy, s);
+  return r;
+}
+
 template <int E, int W>
 __global__ void __launch_bounds__(32 * W)
     nm_expand_sorted_kernel(const int8_t* __restrict__ x,
                             const int8_t* __restrict__ val,
                             const int32_t* __restrict__ idx,
+                            int32_t* __restrict__ pool, int* __restrict__ busy,
                             int32_t* __restrict__ out, int N, int K, int G,
-                            int n_keep, int m_group, int acc_bits,
-                            int rounds) {
+                            int n_keep, int m_group, int acc_bits, int rounds,
+                            int slots) {
+  constexpr bool kRadix = pqs::radix_regime(E, W);
   __shared__ pqs::Clamp scratch[2 * W];
-  int16_t* keys = pqs::dynamic_smem<int16_t>();
+  __shared__ int held;
+  unsigned char* smem = pqs::dynamic_smem<unsigned char>();
+  int* ctl = reinterpret_cast<int*>(smem);
+  auto* keys = reinterpret_cast<int16_t*>(
+      kRadix ? smem + sizeof(int) * pqs::radix_ctl_ints(W) : smem);
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   const int64_t kept = static_cast<int64_t>(G) * n_keep;
-  pqs::expand_slots<false>(keys, 64 * W * E, 0, x + m * K, val + n * kept,
-                           idx + n * kept, 0, G * n_keep, K, n_keep, m_group,
-                           threadIdx.x, blockDim.x);
-  const int r = pqs::sorted_dot<E, W>(pqs::SharedKeys{keys},
-                                      reinterpret_cast<uint32_t*>(keys),
-                                      scratch, acc_bits, rounds);
+  const int len = kRadix ? K : 64 * W * E;
+  // the keys x * value straight from the slots; an add onto a nonzero key
+  // (two slots at one position) may leave int16
+  const bool wide = pqs::expand_slots<false>(
+      keys, len, 0, x + m * K, val + n * kept, idx + n * kept, 0,
+      G * n_keep, K, n_keep, m_group, threadIdx.x, blockDim.x);
+  int r;
+  if (!wide) {
+    if constexpr (kRadix)
+      r = pqs::radix_sorted_dot<int16_t, W>(
+          pqs::SharedKeys{keys}, K, keys,
+          keys + pqs::radix_buffer_bytes(K, 2) / 2, ctl, scratch, acc_bits,
+          rounds);
+    else
+      r = pqs::sorted_dot<E, W>(pqs::SharedKeys{keys},
+                                reinterpret_cast<uint32_t*>(keys), scratch,
+                                acc_bits, rounds);
+  } else {
+    r = expand_sorted_wide<W>(x + m * K, val, idx, keys, scratch, pool, busy,
+                              slots, &held, n, K, G, n_keep, m_group,
+                              acc_bits, rounds);
+  }
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -244,20 +318,21 @@ size_t tiled_smem(int T, int K) {
 
 size_t row_smem(int K) { return sizeof(int16_t) * static_cast<size_t>(K); }
 
-// The `sorted` kernel's shared memory: the L = 64 W E expanded int16 keys,
-// which its cross-warp exchange (4 bytes a packed position) reuses.
 struct SortedLaunch {
   Slabs a;
+  int32_t* pool;
+  int* busy;
   int32_t* out;
-  int acc_bits, rounds;
+  int acc_bits, rounds, slots;
   cudaStream_t s;
 
   template <int E, int W>
   void operator()() const {
     pqs::launch_smem(nm_expand_sorted_kernel<E, W>,
                      static_cast<int64_t>(a.M) * a.N, 32 * W,
-                     sizeof(int16_t) * 64 * W * E, s, a.x, a.val, a.idx, out,
-                     a.N, a.K, a.G, a.n_keep, a.m_group, acc_bits, rounds);
+                     expand_sorted_smem<E, W>(a.K), s, a.x, a.val, a.idx,
+                     pool, busy, out, a.N, a.K, a.G, a.n_keep, a.m_group,
+                     acc_bits, rounds, slots);
   }
 };
 
@@ -306,12 +381,16 @@ struct PairedLaunch {
 
 // policy 0: sorted (kp a power of two), 1: sorted_tiled (k_tile the sort
 // tile, a power of two up to 1024).
+// Under `sorted`, pool (slots * pool_slot_ints(K) int32) and busy
+// (slots int32, zero between launches) are the int32 route's scratch;
+// sorted_tiled reads neither.
 extern "C" int pqs_nm_expand_sort_matmul(const void* x, const void* val,
-                                         const void* idx, void* out, int M,
-                                         int N, int K, int G, int n_keep,
+                                         const void* idx, void* pool,
+                                         void* busy, void* out, int M, int N,
+                                         int K, int G, int n_keep,
                                          int m_group, int kp, int policy,
                                          int acc_bits, int rounds, int k_tile,
-                                         void* stream) {
+                                         int slots, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
   auto* op = static_cast<int32_t*>(out);
@@ -319,9 +398,13 @@ extern "C" int pqs_nm_expand_sort_matmul(const void* x, const void* val,
   if (acc_bits < 2 || acc_bits > 30 || rounds < 0 || kp <= 0)
     return cudaErrorInvalidValue;
   if (policy == 0) {
-    if (!valid_slabs(a, kp, 0) || (kp & (kp - 1)))
+    if (!valid_slabs(a, kp, 0) || (kp & (kp - 1)) || slots < 1 || !pool ||
+        !busy)
       return cudaErrorInvalidValue;
-    return pqs::dispatch_sorted(kp, SortedLaunch{a, op, acc_bits, rounds, s});
+    return pqs::dispatch_sorted(
+        kp, SortedLaunch{a, static_cast<int32_t*>(pool),
+                         static_cast<int*>(busy), op, acc_bits, rounds,
+                         slots, s});
   }
   if (policy != 1 || k_tile <= 0 || !valid_slabs(a, kp, k_tile) ||
       tiled_smem(kp / k_tile, K) > pqs::kSmemCap)

@@ -54,13 +54,16 @@
 // - The sort bodies are the dense kernels' (pqs_accum.cuh sorted_dot,
 //   sorted_tiled_dot, paired_dot), reading products through the gathered
 //   loader instead of the dense row pair: one block per output element.
-// - `sorted`: the dense kernels' register-resident body over the L kept
-//   keys: one warp up to L = 2048 (16 keys a lane at 1024, no shared
-//   memory), L / 2048 warps above (4 at 8192, a 16 KB exchange). The lanes
-//   read the kept slots coalesced, position r * 32 W + t (a sort's result
-//   does not depend on where each key starts), and a slot's group q /
-//   n_keep is a multiply-high by a reciprocal (pqs::div_magic), not a
-//   division.
+// - `sorted`: the dense kernels' bodies over the L = next_pow2(G n_keep)
+//   kept keys: the register network on one warp up to L = 2048 (16 keys a
+//   lane at 1024, no shared memory) and at 65536; from 4096 to 32768 the
+//   radix body over the G n_keep real keys (L / 2048 warps: 4 at w_out's
+//   8192), zeros dropped. The lanes read the kept slots coalesced (a
+//   sort's result does not depend on where each key starts), and a slot's
+//   group q / n_keep is a multiply-high by a reciprocal (pqs::div_magic),
+//   not a division. At w_out (M = 4, 4480 kept keys) the radix body takes
+//   0.27 ms, the network 0.37 (chip_smoke.py phase 5 with --baseline-csrc,
+//   NVIDIA H100 80GB HBM3, 700.00 W).
 // - `sorted_tiled` one-pass: up to 4 warps (one per pair slot) rank the T
 //   = kp / k_tile tile sums in shared memory, then sort each pair slot's
 //   two kept tiles in registers as the halves of packed int16x2 keys.
@@ -123,8 +126,12 @@ __global__ void __launch_bounds__(32 * W)
   const int64_t o = blockIdx.x;
   const auto p = gathered(x, val, idx, o / N, o % N, K, G, n_keep, m_group,
                           G * n_keep);
-  const int r = pqs::sorted_dot<E, W>(p, pqs::dynamic_smem<uint32_t>(),
-                                      scratch, acc_bits, rounds);
+  int r;
+  if constexpr (pqs::radix_regime(E, W))
+    r = pqs::radix_sorted_shared<W>(p, G * n_keep, scratch, acc_bits, rounds);
+  else
+    r = pqs::sorted_dot<E, W>(p, pqs::dynamic_smem<uint32_t>(), scratch,
+                              acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -173,9 +180,9 @@ struct SortedLaunch {
   void operator()() const {
     pqs::launch_smem(nm_sort_sorted_kernel<E, W>,
                      static_cast<int64_t>(a.M) * a.N, 32 * W,
-                     pqs::sorted_exchange_bytes(E, W), s, a.x, a.val, a.idx,
-                     out, a.N, a.K, a.G, a.n_keep, a.m_group, acc_bits,
-                     rounds);
+                     pqs::sorted_smem_bytes(E, W, a.G * a.n_keep), s, a.x,
+                     a.val, a.idx, out, a.N, a.K, a.G, a.n_keep, a.m_group,
+                     acc_bits, rounds);
   }
 };
 

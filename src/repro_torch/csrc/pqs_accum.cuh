@@ -27,8 +27,9 @@
 //   ring homomorphism, so wrap(acc + chunk sum) equals the stepwise wraps.
 // - A zero product is neither positive nor negative and adds nothing
 //   under any policy, so callers mask edges and padding with zeros.
-// - The packed body (sort_desc2, pairwise_round2; seq_policy_matmul.cu's
-//   sorted_tiled_seq) runs the same network on the keys of two streams at
+// - The packed body (sort_desc2, pairwise_round2; the sorted_tiled_seq of
+//   seq_policy_matmul.cu and of nm_seq_policy_matmul.cu's gather kernel)
+//   runs the same network on the keys of two streams at
 //   once, one int16 half of a 32-bit register each. Products of int8
 //   carriers lie in [-16256, 16384] and a pair round adds a non-negative
 //   key to a non-positive one, which stays in that range, so every key of
@@ -359,11 +360,13 @@ int dispatch_tile(int s, Fn&& fn) {
 //   in order (Clamp), the warps compose the lanes' functions, and thread 0
 //   the warps' in stream order, low halves before high.
 // - Shape (dispatch_sorted): one warp of E = L/64 up to L = 2048 (no
-//   barrier), then W = L/2048 warps of E = 32 up to 32768, and at 65536
-//   16 warps of E = 64 (512 threads, at most 128 registers each). The
-//   cross-warp exchange takes 4 bytes a packed position, 2 bytes a key:
-//   128 KB at 65536. Below 64 keys the body pads with zero keys, which a
-//   round maps to zeros past the sorted prefix and which add nothing.
+//   barrier) and, at 65536, 16 warps of E = 64 (512 threads, at most 128
+//   registers each); the cross-warp exchange takes 4 bytes a packed
+//   position, 2 bytes a key: 128 KB at 65536. From 4096 to 32768 the W =
+//   L/2048 warps run the radix body below instead (radix_regime), which
+//   at kp 16384 took w_out to 0.32 ms from this network's 0.72. Below 64
+//   keys the body pads with zero keys, which a round maps to zeros past
+//   the sorted prefix and which add nothing.
 // - A sort's result does not depend on where each key starts, so with at
 //   least one round the lanes read the stream coalesced (position r * 32
 //   W + t); with no round each lane reads its own E positions in order.
@@ -452,15 +455,17 @@ struct SharedKeys {
 };
 
 // *a += v in 16 bits, atomically (a compare-and-swap loop: shared memory
-// has no 16-bit atomicAdd). On canonical slabs no two nonzero slots name
-// one position, so the first swap succeeds.
-__device__ __forceinline__ void atomic_add_i16(int16_t* a, int v) {
+// has no 16-bit atomicAdd); returns the value it added to. On canonical
+// slabs no two nonzero slots name one position, so the first swap
+// succeeds.
+__device__ __forceinline__ int atomic_add_i16(int16_t* a, int v) {
   auto* p = reinterpret_cast<unsigned short*>(a);
   unsigned short seen = *p, want;
   do {
     want = seen;
     seen = atomicCAS(p, want, static_cast<unsigned short>(want + v));
   } while (seen != want);
+  return static_cast<int16_t>(want);
 }
 
 // nm_decompress's scatter-add of a compressed row into w: w[0 .. len) is
@@ -473,9 +478,12 @@ __device__ __forceinline__ void atomic_add_i16(int16_t* a, int v) {
 // reference's one-hot expansion drops. The team of `size` threads, this
 // one of rank `r`, runs it together (a slot reads its index only for a
 // nonzero value); kWarp says whether the team is one warp (else the whole
-// block), which is synchronised before and after the adds.
+// block), which is synchronised before and after the adds. Returns, in
+// every thread of the team, whether an add landed on a nonzero entry
+// (never on canonical slabs): with x, then, an entry may hold a sum past
+// int16.
 template <bool kWarp>
-__device__ __forceinline__ void expand_slots(int16_t* w, int len, int base,
+__device__ __forceinline__ bool expand_slots(int16_t* w, int len, int base,
                                              const int8_t* x,
                                              const int8_t* val,
                                              const int32_t* idx, int q0,
@@ -488,6 +496,7 @@ __device__ __forceinline__ void expand_slots(int16_t* w, int len, int base,
     for (int i = r; i < len; i += size) w[i] = 0;
   }
   if (kWarp) __syncwarp(); else __syncthreads();
+  int hit = 0;
   for (int q = q0 + r; q < q1; q += size) {
     int v = __ldg(val + q), pos = K;
     if (v != 0) {
@@ -497,10 +506,20 @@ __device__ __forceinline__ void expand_slots(int16_t* w, int len, int base,
     }
     if (v != 0 && pos < K &&
         static_cast<unsigned>(pos - base) < static_cast<unsigned>(len))
-      atomic_add_i16(w + (pos - base),
-                     x ? static_cast<int>(__ldg(x + pos)) * v : v);
+      hit |= atomic_add_i16(w + (pos - base),
+                            x ? static_cast<int>(__ldg(x + pos)) * v : v);
   }
-  if (kWarp) __syncwarp(); else __syncthreads();
+  if (kWarp) return __any_sync(kFull, hit != 0);
+  // a flag in shared memory between plain barriers: __syncthreads_or took
+  // the one-warp `sorted` kernel from 64 registers to 75 and cost it 6-12%
+  // on the card; every thread has read the last call's flag before it is
+  // cleared here, past the zeroing barrier
+  __shared__ int any_hit;
+  if (threadIdx.x == 0) any_hit = 0;
+  __syncthreads();
+  if (hit) any_hit = 1;
+  __syncthreads();
+  return any_hit != 0;
 }
 
 // Whether every weight of an expanded row w[0 .. K) is an int8 value (on
@@ -721,6 +740,348 @@ __device__ __forceinline__ int sorted_dot(const P& p, uint32_t* buf,
   return sorted_halves<E, W>(v, buf, scratch, acc_bits, rounds);
 }
 
+// ---------------------------------------------------------------------
+// `sorted` by a block-wide radix sort of the real keys (radix_sorted_dot):
+// the body of W > 1 warps from kp 4096 to 32768 (radix_regime) and, at
+// every kp, the expand twin's route for a row whose weights leave int8.
+//
+// - What it rests on: with at least one round, the nonzero stream of the
+//   order does not depend on how many zero keys pad the row. A round maps
+//   p positive and q negative keys among any number of zeros to out[i] =
+//   P[i] + Q[i] (the i-th largest positive and the i-th most negative,
+//   zero past p and q) for i < max(p, q), then zeros; zeros add nothing
+//   under saturation (tests/test_torch_sorted_order.py pins it against the
+//   JAX package). So the body sorts only the real keys (K of a dense row,
+//   G n_keep of a gathered one, not kp), drops the zeros in the first
+//   pass of each round, and pairs the m sorted nonzero keys as out[i] =
+//   max(s[i], 0) + min(s[m-1-i], 0); no power-of-two padding is carried.
+// - The sort: LSD, 8-bit digits of the biased key u = kBias - k,
+//   ascending, which is k descending: 2 passes for int16 keys (products of
+//   int8 carriers lie in [-16256, 16384], a pair round stays in it), 3 for
+//   the int32 keys of an expanded row with weights past int8 (|x w| <=
+//   2^22). Warp w counts the digits of its contiguous segment of the
+//   stream into its own counts (shared atomics), one block scan turns the
+//   digit-major counts into each (digit, warp)'s first place, and each
+//   warp scatters its segment. The first pass may place a digit's keys in
+//   any order (atomics): keys that differ only above it are ordered by the
+//   later passes, which keep the stream's order within a digit (the live
+//   lanes of a warp that share a digit, radix_peers, take consecutive
+//   places after those of the warp's earlier steps).
+// - Two key buffers of the n keys: shared memory for int16 (4 n bytes
+//   beside the control block), a slot of a device-memory pool for int32
+//   (its control block too, so that the int16 bodies' shared memory is
+//   what it was without the route).
+// - The adds: each lane composes the saturating adds of a contiguous run
+//   of the final stream (the last pair round computed as it reads), the
+//   warps compose the lanes' functions and thread 0 the warps', in order.
+//   With no round, the natural order from the loader.
+
+// Whether the `sorted` body of W warps of E packed keys a lane is the
+// radix sort (kp 4096 to 32768); one warp (kp <= 2048) keeps the
+// register network, and so does kp 65536, whose two key buffers (256 KB)
+// would not fit a block.
+__host__ __device__ constexpr bool radix_regime(int E, int W) {
+  return W > 1 && E == 32;
+}
+
+constexpr int kRadixDigits = 256;
+
+// Ints of a radix body's control block: 256 W counts (digit-major: entry d
+// W + w is warp w's count of digit d) and 32 warp totals of the scans.
+__host__ __device__ constexpr int radix_ctl_ints(int W) {
+  return kRadixDigits * W + 32;
+}
+
+// Bytes of a shared-memory buffer of n keys, rounded to 16.
+__host__ __device__ constexpr size_t radix_buffer_bytes(int n, int key_bytes) {
+  return (static_cast<size_t>(n) * key_bytes + 15) & ~static_cast<size_t>(15);
+}
+
+// The shared memory of radix_sorted_shared: the control block and two
+// buffers of n int16 keys.
+inline size_t radix_smem_bytes(int W, int n) {
+  return sizeof(int) * radix_ctl_ints(W) + 2 * radix_buffer_bytes(n, 2);
+}
+
+// Warp w's segment of a stream of m keys is [w S, min(w S + S, m)).
+__device__ __forceinline__ int radix_span(int m, int W) {
+  return ((m + W - 1) / W + 31) & ~31;
+}
+
+// Zeroes counts[0 .. 4 V blockDim.x), 4 V a thread.
+template <int V>
+__device__ __forceinline__ void radix_zero(int* counts) {
+  int4* h = reinterpret_cast<int4*>(counts) + V * threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < V; ++i) h[i] = make_int4(0, 0, 0, 0);
+}
+
+// The exclusive scan of counts[0 .. 4 V blockDim.x) in place (each count
+// becomes the place of its first key), 4 V a thread, W warps; totals
+// holds W ints. Returns the total. Ends with the block in step.
+template <int V, int W>
+__device__ __forceinline__ int radix_scan(int* counts, int* totals) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int4* h = reinterpret_cast<int4*>(counts) + V * threadIdx.x;
+  int4 c[V];
+  int own = 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    c[i] = h[i];
+    own += c[i].x + c[i].y + c[i].z + c[i].w;
+  }
+  int inc = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) totals[warp] = inc;
+  __syncthreads();
+  int run = inc - own, total = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const int t = totals[i];
+    run += i < warp ? t : 0;
+    total += t;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    int4 v = c[i];
+    v.x = run;
+    v.y = (run += c[i].x);
+    v.z = (run += c[i].y);
+    v.w = (run += c[i].z);
+    run += c[i].w;
+    h[i] = v;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The register after the saturating adds of key(0 .. m) in order, in
+// thread 0: a lane a contiguous run, then the lanes and the warps.
+template <int W, typename Fn>
+__device__ __forceinline__ int radix_compose(int m, Fn key, Clamp* scratch,
+                                             int acc_bits) {
+  const int qmax = (1 << (acc_bits - 1)) - 1;
+  const int qmin = -qmax - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int run = radix_span(m, W) >> 5;
+  const int i0 = warp * (run << 5) + lane * run, i1 = min(i0 + run, m);
+  Clamp f = clamp_identity(qmin, qmax);
+  for (int i = i0; i < i1; ++i)
+    f = clamp_then(f, clamp_step(key(i), qmin, qmax));
+  f = warp_compose(f, lane);
+  if constexpr (W == 1) {
+    return clamp_apply(f, 0);
+  } else {
+    if (lane == 0) scratch[warp] = f;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 1; i < W; ++i) f = clamp_then(f, scratch[i]);
+    return clamp_apply(f, 0);
+  }
+}
+
+// A round's pair step in place, out[i] = max(s[i], 0) + min(s[m-1-i], 0).
+template <typename Key>
+__device__ __forceinline__ void radix_pairs(Key* s, int m) {
+  for (int i = threadIdx.x; i < (m + 1) / 2; i += blockDim.x) {
+    const int j = m - 1 - i, u = s[i], v = s[j];
+    s[i] = static_cast<Key>(max(u, 0) + min(v, 0));
+    if (j != i) s[j] = static_cast<Key>(max(v, 0) + min(u, 0));
+  }
+}
+
+template <typename Key>
+struct RadixKey;
+template <>
+struct RadixKey<int16_t> {  // products of int8 carriers: u < 2^15
+  static constexpr int kPasses = 2, kBias = 1 << 14;
+};
+template <>
+struct RadixKey<int32_t> {  // an expanded row past int8: u < 2^23
+  static constexpr int kPasses = 3, kBias = 1 << 22;
+};
+
+template <typename Key>
+__device__ __forceinline__ int radix_digit(int k, int pass) {
+  return ((RadixKey<Key>::kBias - k) >> (8 * pass)) & (kRadixDigits - 1);
+}
+
+// The lanes of the warp whose 8-bit digit equals this lane's, from one
+// ballot a bit (8 ballots: 10-15% faster than __match_any_sync in the
+// `sorted` rows on the card).
+__device__ __forceinline__ unsigned radix_peers(int digit) {
+  unsigned m = kFull;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const unsigned v = __ballot_sync(kFull, (digit >> b) & 1);
+    m &= ((digit >> b) & 1) ? v : ~v;
+  }
+  return m;
+}
+
+// Each warp counts the pass's digits of its segment of s[0 .. m) (the
+// first pass skips zero keys).
+template <typename Key, int W>
+__device__ __forceinline__ void radix_count(const Key* s, int m, int pass,
+                                            int* counts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int span = radix_span(m, W), i1 = min(warp * span + span, m);
+#pragma unroll 4
+  for (int i = warp * span + lane; i < i1; i += 32) {
+    const int k = s[i];
+    if (pass > 0 || k != 0)
+      atomicAdd(counts + radix_digit<Key>(k, pass) * W + warp, 1);
+  }
+}
+
+// Each warp moves its segment of s[0 .. m) to its places in d (counts
+// scanned): the first pass drops zero keys and places a digit's keys in
+// any order, the later ones keep the stream's order within a digit.
+template <typename Key, int W>
+__device__ __forceinline__ void radix_scatter(const Key* s, Key* d, int m,
+                                              int pass, int* counts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int span = radix_span(m, W), i0 = warp * span;
+  const int i1 = min(i0 + span, m);
+  if (pass == 0) {
+#pragma unroll 4
+    for (int i = i0 + lane; i < i1; i += 32) {
+      const int k = s[i];
+      if (k != 0)
+        d[atomicAdd(counts + radix_digit<Key>(k, 0) * W + warp, 1)] =
+            static_cast<Key>(k);
+    }
+    return;
+  }
+  for (int j = i0; j < i1; j += 32) {
+    const int i = j + lane;
+    const bool live = i < i1;
+    const int k = live ? static_cast<int>(s[i]) : 0;
+    const int dg = radix_digit<Key>(k, pass);
+    const unsigned peers = radix_peers(dg) & __ballot_sync(kFull, live);
+    const int first = __ffs(peers) - 1;
+    int* h = counts + dg * W + warp;
+    int base = lane == first && live ? *h : 0;
+    base = __shfl_sync(kFull, base, first);
+    if (live) {
+      d[base + __popc(peers & ((1u << lane) - 1))] = static_cast<Key>(k);
+      if (lane == first) *h = base + __popc(peers);
+    }
+    __syncwarp();
+  }
+}
+
+// The `sorted` policy by the radix sort: products p.at(0 .. n) (the real
+// keys), buffers a and b of n keys (a may be the memory p reads: the
+// load writes a[i] after reading key i, in the same thread), ctl
+// radix_ctl_ints(W) ints, 16-byte aligned (shared or device memory),
+// scratch W Clamps. Returns the register in thread 0.
+template <typename Key, int W, typename P>
+__device__ __forceinline__ int radix_sorted_dot(const P& p, int n, Key* a,
+                                                Key* b, int* ctl,
+                                                Clamp* scratch, int acc_bits,
+                                                int rounds) {
+  if (rounds == 0)
+    return radix_compose<W>(n, [&](int i) { return p.at(i); }, scratch,
+                            acc_bits);
+  int* counts = ctl;  // 256 W, digit-major
+  int* totals = ctl + kRadixDigits * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  radix_zero<2>(counts);
+  __syncthreads();
+  {  // a <- the stream, in the first pass's segments, counting its digits
+    const int span = radix_span(n, W), i1 = min(warp * span + span, n);
+#pragma unroll 4
+    for (int i = warp * span + lane; i < i1; i += 32) {
+      const int k = p.at(i);
+      a[i] = static_cast<Key>(k);
+      if (k != 0) atomicAdd(counts + radix_digit<Key>(k, 0) * W + warp, 1);
+    }
+  }
+  __syncthreads();
+  int m = n;
+  Key* s = a;
+  Key* d = b;
+  for (int rd = 0;;) {
+#pragma unroll 1
+    for (int pass = 0; pass < RadixKey<Key>::kPasses; ++pass) {
+      if (pass > 0) {
+        radix_zero<2>(counts);
+        __syncthreads();
+        radix_count<Key, W>(s, m, pass, counts);
+        __syncthreads();
+      }
+      const int total = radix_scan<2, W>(counts, totals);
+      radix_scatter<Key, W>(s, d, m, pass, counts);
+      if (pass == 0) m = total;
+      __syncthreads();
+      Key* t = s;
+      s = d;
+      d = t;
+    }
+    if (++rd == rounds) break;
+    radix_pairs(s, m);
+    radix_zero<2>(counts);
+    __syncthreads();
+    radix_count<Key, W>(s, m, 0, counts);
+    __syncthreads();
+  }
+  // the last round's pairs, composed as they are read
+  return radix_compose<W>(
+      m,
+      [&](int i) {
+        return max(static_cast<int>(s[i]), 0) +
+               min(static_cast<int>(s[m - 1 - i]), 0);
+      },
+      scratch, acc_bits);
+}
+
+// radix_sorted_dot on int16 keys with its control block and buffers in
+// the block's dynamic shared memory (radix_smem_bytes(W, n)).
+template <int W, typename P>
+__device__ __forceinline__ int radix_sorted_shared(const P& p, int n,
+                                                   Clamp* scratch,
+                                                   int acc_bits, int rounds) {
+  unsigned char* smem = dynamic_smem<unsigned char>();
+  int* ctl = reinterpret_cast<int*>(smem);
+  auto* a = reinterpret_cast<int16_t*>(smem + sizeof(int) * radix_ctl_ints(W));
+  auto* b = reinterpret_cast<int16_t*>(reinterpret_cast<unsigned char*>(a) +
+                                       radix_buffer_bytes(n, 2));
+  return radix_sorted_dot<int16_t, W>(p, n, a, b, ctl, scratch, acc_bits,
+                                      rounds);
+}
+
+// A slot of a device-memory pool of `slots` scratch areas: busy[s] is 1
+// while a block holds slot s. Thread 0 takes the first free slot from
+// blockIdx.x % slots on; a holder never waits for another block, so a
+// block that waits for a slot is only ever behind running ones. The block
+// calls release_slot when it is done with the slot.
+__device__ __forceinline__ int claim_slot(int* busy, int slots, int* held) {
+  if (threadIdx.x == 0) {
+    int s = static_cast<int>(blockIdx.x % static_cast<unsigned>(slots));
+    while (atomicCAS(busy + s, 0, 1) != 0) {
+      s = s + 1 == slots ? 0 : s + 1;
+      __nanosleep(100);
+    }
+    __threadfence();
+    *held = s;
+  }
+  __syncthreads();
+  return *held;
+}
+
+__device__ __forceinline__ void release_slot(int* busy, int s) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicExch(busy + s, 0);
+  }
+}
+
 // The exact sum of tile t's raw products, in every lane of the calling
 // warp: the lanes take consecutive products of the tile and reduce by
 // shuffles (sorting never changes a tile's sum).
@@ -895,6 +1256,14 @@ inline size_t sorted_exchange_bytes(int E, int W) {
   return W > 1 ? sizeof(uint32_t) * 32 * W * E : 0;
 }
 
+// The dynamic shared memory of a `sorted` kernel of W warps of E keys a
+// lane over n real keys: the radix body's buffers in its regime, else the
+// register network's exchange.
+inline size_t sorted_smem_bytes(int E, int W, int n) {
+  return radix_regime(E, W) ? radix_smem_bytes(W, n)
+                            : sorted_exchange_bytes(E, W);
+}
+
 // Threads of a paired_dot block over T tiles of sort tile S: a warp per
 // warp step of slots (32 / S slots a step below S = 32), at most
 // max_warps.
@@ -916,9 +1285,11 @@ void launch_smem(void (*kernel)(Params...), int64_t blocks, int threads,
   kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(args...);
 }
 
-// The dynamic shared memory the global-sort kernels take at most, of the
-// 227 KB a block may use (sorted_matmul.SORT_SMEM_BYTES): the `sorted`
-// exchange at 65536 keys, 2 bytes a key.
+// The shared memory the global-sort kernels give their keys and rows at
+// most, of the 227 KB a block may use (sorted_matmul.SORT_SMEM_BYTES): the
+// `sorted` exchange at 65536 keys, 2 bytes a key. The `sorted` kernels
+// add the radix body's control block (16.5 KB at 16 warps) and, in the
+// radix regime, a second key buffer: 144.5 KB at kp 32768.
 constexpr size_t kSmemCap = 128 * 1024;
 
 // The operands of the N:M kernels (nm_sort_matmul.cu, nm_expand_sort.cu):

@@ -30,24 +30,35 @@
 // about one byte per product. With the keys in registers what sets the
 // time is the count of compare-exchanges (one 16x2 max and one 16x2 min
 // for two of them) and of shuffles, no longer the barriers between
-// stages.
+// stages. Across warps (kp 4096 to 32768) the network's cross-warp
+// exchanges and its padding of K to kp held it (at kp 16384: 8 warps of
+// 32 packed keys a lane, 35 shuffle stages, 11 exchanges through shared
+// memory, 7,424 of the 16,384 keys zeros of the pad).
 //
 // What the design does about it (pqs_accum.cuh holds the bodies, which
 // read the products through a loader, DenseProducts here; the N:M gather
 // twins in nm_sort_matmul.cu run the same bodies on kept products):
 // - One block per output element. The TPU kernel kept a (bm, bn, K)
 //   product cube in VMEM; here a block keeps only its own output's work.
-// - sorted (sorted_dot): the kp keys as int16, two to a register
-//   (positions i and i + kp/2), held in registers by one warp up to kp =
-//   2048 (32 keys a lane at 2048: no shared memory, no barrier), by
-//   kp / 2048 warps up to 32768 and 16 warps of 64 keys a lane at 65536.
-//   Stages inside a lane are register compare-exchanges, across lanes
-//   shuffles, across warps an exchange through shared memory (4 bytes a
-//   packed position: 2 kp bytes, 32 KB at 16384, 128 KB at 65536 of the
-//   227 KB a block may use): at kp = 16384, 9 of the 105 stages and the
-//   two mirror exchanges, two barriers each.
-//   The pair round pairs each key with its mirror in the other half, and
-//   the saturating adds are composed a lane, a warp, then the warps.
+// - sorted, one warp (kp <= 2048; sorted_dot): the kp keys as int16, two to
+//   a register (positions i and i + kp/2), 32 keys a lane at 2048: no
+//   shared memory, no barrier. Stages inside a lane are register
+//   compare-exchanges, across lanes shuffles. The pair round pairs each
+//   key with its mirror in the other half, and the saturating adds are
+//   composed a lane, a warp, then the warps.
+// - sorted, kp 4096 to 32768 (kp / 2048 warps; pqs::radix_sorted_dot): an
+//   LSD radix sort of the K real keys in shared memory, not of kp, on
+//   8-bit digits of the biased key, 2 passes for int16 keys. Zeros are
+//   dropped in the first pass (with a round, the nonzero stream does not
+//   depend on them). Each warp counts its segment's digits, one block scan
+//   places them, and the later, stable pass orders the lanes of a warp
+//   that share a digit by 8 ballots. Each further round pairs and sorts
+//   again; the last round's pairs are composed as they are read (with no
+//   round, the natural order). 2 K bytes a buffer, two buffers beside a
+//   control block of 16.5 KB at 16 warps.
+// - sorted, kp 65536: 16 warps of 64 packed keys a lane hold the network
+//   in registers (two radix buffers of 65536 keys would not fit a block),
+//   exchanging across warps through 128 KB of shared memory.
 // - sorted_tiled: up to 4 warps, one per pair slot of tiles at most
 //   (pqs::paired_threads: 3 at K = 1536, where 4 left one idle). The tile
 //   sums are taken from the raw products (sorting never changes a tile's
@@ -60,7 +71,12 @@
 // At decode (M = 4) over the six K = 1536 sites: `sorted` 0.84 ms (6.16
 // before the register body), `sorted_tiled` 0.75 (1.64 before the packed
 // pairs); `sorted` at a prefill cohort (M = 128) 23.9 (194) (chip_smoke.py
-// phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3, 700.00 W).
+// phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3, 700.00 W). At
+// w_out (M = 4, K = 8960, kp 16384) the radix body takes 0.32 ms on the
+// served 8:16-pruned weight and 0.51 on an unpruned one, against 0.72 for
+// the network, and 0.09 / 0.15 / 0.85 at kp 4096 / 8192 / 32768 (0.14 /
+// 0.31 / 1.77; the same, with 8-bit stable passes matched by
+// __match_any_sync, was 10-15% slower than with ballots).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,8 +96,12 @@ __global__ void __launch_bounds__(32 * W)
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
   const pqs::DenseProducts p{x + m * K, w + n * K, K, 0};
-  const int r = pqs::sorted_dot<E, W>(p, pqs::dynamic_smem<uint32_t>(),
-                                      scratch, acc_bits, rounds);
+  int r;
+  if constexpr (pqs::radix_regime(E, W))
+    r = pqs::radix_sorted_shared<W>(p, K, scratch, acc_bits, rounds);
+  else
+    r = pqs::sorted_dot<E, W>(p, pqs::dynamic_smem<uint32_t>(), scratch,
+                              acc_bits, rounds);
   if (threadIdx.x == 0) out[o] = r;
 }
 
@@ -113,7 +133,7 @@ struct SortedLaunch {
   template <int E, int W>
   void operator()() const {
     pqs::launch_smem(sort_sorted_kernel<E, W>, blocks, 32 * W,
-                     pqs::sorted_exchange_bytes(E, W), s, x, w, out, N, K,
+                     pqs::sorted_smem_bytes(E, W, K), s, x, w, out, N, K,
                      acc_bits, rounds);
   }
 };

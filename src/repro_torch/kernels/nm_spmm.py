@@ -512,18 +512,58 @@ def nm_sort_matmul_ref(
                            rounds=rounds)
 
 
+# device -> the int32 route's slot flags (zero between launches; every
+# block that takes a slot gives it back)
+_EXPAND_BUSY: dict[torch.device, torch.Tensor] = {}
+# (device, stream) -> the int32 route's pool, grown to the largest K yet:
+# launches on one stream run in order, so they can share it
+_EXPAND_POOL: dict[tuple[torch.device, int], torch.Tensor] = {}
+# ints of a pool slot's radix control block (csrc/nm_expand_sort.cu
+# kPoolCtlInts: pqs_accum.cuh radix_ctl_ints(16))
+_POOL_CTL_INTS = 256 * 16 + 32
+
+
+def expand_scratch(x, policy):
+    """The pool and slot flags of the expand `sorted` kernel's int32 route
+    (a row whose expanded weights leave int8 sorts int32 keys in device
+    memory): one slot a streaming multiprocessor, each a radix control
+    block and two buffers of K int32 (csrc/nm_expand_sort.cu
+    ``pool_slot_ints``), taken by a block only on that route; none is
+    needed under ``sorted_tiled``. The pool is kept for the device and
+    the current stream and grown when a longer K arrives. Returns (pool,
+    busy, slots)."""
+    busy = _EXPAND_BUSY.get(x.device)
+    if busy is None:
+        slots = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        busy = torch.zeros(slots, dtype=torch.int32, device=x.device)
+        _EXPAND_BUSY[x.device] = busy
+    slots = busy.numel()
+    slot = _POOL_CTL_INTS + (2 * x.shape[1] + 3) // 4 * 4
+    size = slots * slot if policy == "sorted" else 0
+    key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
+    pool = _EXPAND_POOL.get(key)
+    if pool is None or pool.numel() < size:
+        pool = torch.empty(size, dtype=torch.int32, device=x.device)
+        _EXPAND_POOL[key] = pool
+    return pool, busy, slots
+
+
 def launch_nm_expand_sort(x, values, indices, *, m_group, policy, acc_bits,
                           k_tile, rounds, kp):
     """``pqs_nm_expand_sort_matmul`` of csrc/nm_expand_sort.cu (one block
-    per output, the row expanded in shared memory: kp int16 keys under
-    ``sorted``, an int16 row of K weights beside the tile sums under
-    ``sorted_tiled``) under ``policy``; the caller counts the launch."""
+    per output, the row expanded in shared memory: an int16 row of K
+    weights, beside the tile sums under ``sorted_tiled``; under ``sorted``
+    the keys in registers or the radix buffers, and a row whose weights
+    leave int8 in ``expand_scratch``) under ``policy``; the caller counts
+    the launch."""
     check_sort_smem(policy, kp, k_tile,
                     row=0 if policy == "sorted" else 2 * x.shape[1])
+    pool, busy, slots = expand_scratch(x, policy)
     return launch_slabs("nm_expand_sort", "pqs_nm_expand_sort_matmul", x,
-                        values, indices, m_group=m_group, ints=(
-                            kp, SORT_POLICIES.index(policy), acc_bits,
-                            rounds, k_tile))
+                        values, indices, m_group=m_group, ptrs=(pool, busy),
+                        ints=(kp, SORT_POLICIES.index(policy), acc_bits,
+                              rounds, k_tile, slots))
 
 
 def nm_sort_matmul(

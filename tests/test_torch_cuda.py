@@ -1006,14 +1006,16 @@ def test_quickstart_on_card_matches_cpu(card, capsys):
 
 
 @pytest.mark.parametrize("kernel", ["nm_spmm", "nm_sort_matmul",
-                                    "nm_tile_sums_matmul"])
+                                    "nm_tile_sums_matmul",
+                                    "nm_seq_policy_matmul"])
 def test_expand_kernels_drop_out_of_group_indices(card, kernel):
     """A slot whose index lies outside [0, m_group) adds nothing in the
     kernels that rebuild slabs in shared memory, as the JAX package's
     one-hot expansion drops it: the result is the plain version's on the
     slabs with those slots' values set to 0. Row 10's pass 1 drops it on
     the body it shares with the gather twin, at a few-rows and a
-    many-rows M (where the gather twin reads x at the index instead)."""
+    many-rows M (where the gather twin reads x at the index instead).
+    Row 5's expand kernel drops it in its scatter, under every policy."""
     m_group = 16
     for m in ((4, 17) if kernel == "nm_tile_sums_matmul" else (17,)):
         x, _, vals, idx = _nm_w(m, 300, 70, 4, m_group, 33, card)
@@ -1032,6 +1034,19 @@ def test_expand_kernels_drop_out_of_group_indices(card, kernel):
                       k_tile=64)
             got = nm_spmm.nm_sort_matmul(x, vals, bad, **kw)
             want = nm_spmm.nm_sort_matmul_ref(x, dropped, idx, **kw)
+        elif kernel == "nm_seq_policy_matmul":
+            for policy in sm.SEQ_POLICIES[:-1]:
+                kw = dict(m_group=m_group, policy=policy, acc_bits=12,
+                          k_tile=64)
+                got = nm_spmm.nm_seq_policy_matmul(x, vals, bad, **kw)
+                want = nm_spmm.nm_seq_policy_matmul_ref(x, dropped, idx,
+                                                        **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), policy
+            kw = dict(m_group=m_group, policy="sorted_tiled_seq",
+                      acc_bits=12, k_tile=64)
+            got = nm_spmm.nm_seq_policy_matmul(x, vals, bad, **kw)
+            want = nm_spmm.nm_seq_policy_matmul_ref(x, dropped, idx, **kw)
         else:
             kw = dict(m_group=m_group, k_tile=64)
             got = ss.nm_tile_sums_matmul(x, vals, bad, **kw)
@@ -1392,3 +1407,139 @@ def test_expand_tiled_weights_past_int8(card):
             assert torch.equal(
                 ss.nm_paired_accum_matmul(x, vals, idx, perm, **kw),
                 ss.nm_paired_accum_matmul_ref(x, vals, idx, perm, **kw))
+
+
+# the expand `sorted` kernel's shapes (pqs_accum.cuh dispatch_sorted): kp
+# 16 (padded to 64 keys) and 64 to 2048 on one warp, the radix regime from
+# 4096 to 32768, the register network of 16 warps at 65536
+EXPAND_SORTED_KP = (16, 64, 2048, 4096, 16384, 32768, 65536)
+
+
+@pytest.mark.parametrize("kp", EXPAND_SORTED_KP)
+def test_expand_sorted_weights_past_int8(card, kp):
+    """Rows 7 (``nm_sort_matmul`` under ``sorted``) and 16
+    (``nm_chunked_sort_matmul``) on slabs whose slots name one position
+    several times: the expanded weight is their sum, past int8, and its
+    products past int16, which the kernel sorts as int32 keys in its
+    device pool (the other rows stay on the int16 bodies), equal to the
+    plain version at every shape of the kernel, rounds 0 to 3 (with none,
+    the route adds in natural order); and the smallest case, M =
+    N = 1, K = 16, three 3:16 slots at position 0 of value 127 and x =
+    127, which int16 keys wrapped to -17149."""
+    m_group, n_keep = 16, 3
+    x, _, vals, idx = _nm_w(3, kp, 5, n_keep, m_group, kp + 7, card)
+    vals[1::2, ::2] = 127  # every slot of every other group at position 0
+    idx[1::2, ::2] = 0
+    x[:, ::2 * m_group] = 127
+    x[2, ::4 * m_group] = -128
+    nk = dict(m_group=m_group)
+    for rounds, acc_bits in ((1, 30), (2, 16), (3, 2), (0, 16)):
+        kw = dict(acc_bits=acc_bits, rounds=rounds, **nk)
+        got = nm_spmm.nm_sort_matmul(x, vals, idx, policy="sorted", **kw)
+        want = nm_spmm.nm_sort_matmul_ref(x, vals, idx, policy="sorted",
+                                          **kw)
+        chunked = ss.nm_chunked_sort_matmul(x, vals, idx, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (rounds, acc_bits)
+        assert torch.equal(chunked, want), (rounds, acc_bits)
+    one = torch.zeros((1, 16), dtype=torch.int8, device=card)
+    one[0, 0] = 127
+    v3 = torch.full((1, 1, 3), 127, dtype=torch.int8, device=card)
+    i3 = torch.zeros((1, 1, 3), dtype=torch.int32, device=card)
+    got = nm_spmm.nm_sort_matmul(one, v3, i3, m_group=16, policy="sorted",
+                                 acc_bits=30)
+    assert got.tolist() == [[48387]]
+
+
+def _keys_rows(k, card, seed):
+    """x (4, k) and w (6, k) whose outputs are the key patterns of the
+    `sorted` body: row 0 of x all zero (every key 0), row 1 all 3 and row
+    2 all -128, row 3 random; w rows 5 and -7 everywhere (all keys equal),
+    127 / -128 alternating (with x -128: keys -16256 and 16384), one
+    nonzero weight, -1 / 0 / 1 (heavy ties), random. Every odd position
+    of w is zero, so its 8:16 slabs keep the even ones."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.empty((4, k), dtype=torch.int8)
+    x[0], x[1], x[2] = 0, 3, -128
+    x[3] = torch.randint(-128, 128, (k,), generator=g)
+    w = torch.zeros((6, k), dtype=torch.int8)
+    w[0], w[1] = 5, -7
+    w[2, 0::4], w[2, 2::4] = 127, -128
+    w[3, (k // 3) & ~1] = 100
+    w[4] = torch.randint(-1, 2, (k,), generator=g)
+    w[5] = torch.randint(-128, 128, (k,), generator=g)
+    w[:, 1::2] = 0
+    return x.to(card), w.to(card)
+
+
+@pytest.mark.parametrize("kp", [4096, 8192, 16384, 32768, 65536])
+def test_sorted_long_k_key_patterns(card, kp):
+    """Rows 15 (``chunked_sort_matmul``), 16 (``nm_chunked_sort_matmul``)
+    and 17 (``nm_gather_chunked_sort_matmul``, whose kept keys number kp:
+    slabs of 2 kp positions) at every kp of the radix regime and at 65536,
+    on keys all zero, all equal, alternating -16256 / 16384, one nonzero
+    key and heavy ties, K = kp and K short of it, rounds 0 to 3, against
+    their plain versions."""
+    nk = dict(m_group=16)
+    for k in (kp, kp - kp // 4 - 3):
+        x, w = _keys_rows(k, card, kp + k)
+        _, vals, idx = _prune(w, 8, 16)
+        xg, wg = _keys_rows(2 * k, card, kp + k + 1)
+        _, gvals, gidx = _prune(wg, 8, 16)
+        for rounds, acc_bits in ((1, 16), (2, 2), (3, 30), (0, 16)):
+            kw = dict(acc_bits=acc_bits, rounds=rounds)
+            for got, want in (
+                    (ss.chunked_sort_matmul(x, w, kp=kp, **kw),
+                     ss.chunked_sort_matmul_ref(x, w, kp=kp, **kw)),
+                    (ss.nm_chunked_sort_matmul(x, vals, idx, **kw, **nk),
+                     ss.nm_chunked_sort_matmul_ref(x, vals, idx, **kw,
+                                                   **nk)),
+                    (ss.nm_gather_chunked_sort_matmul(xg, gvals, gidx, **kw,
+                                                      **nk),
+                     ss.nm_gather_chunked_sort_matmul_ref(xg, gvals, gidx,
+                                                          **kw, **nk))):
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (k, rounds, acc_bits)
+
+
+# (M, N, K, n_keep, m_group, k_tile) reaching each split of row 6's tiles
+# over warps (1, 2, 4 and 8 warps an output), several windows of staged x
+# (K = 65536), ragged G, n_keep = m, odd M, tiles of 16 to 1024
+GATHER_SPLIT_CASES = (
+    (1, 1, 16, 8, 16, 16), (4, 70, 300, 3, 16, 64),
+    (5, 256, 1536, 8, 16, 256), (17, 70, 4000, 16, 16, 1024),
+    (4, 1536, 8960, 8, 16, 256), (8, 1536, 1536, 8, 16, 256),
+    (12, 1536, 1536, 8, 16, 256), (128, 1536, 1536, 8, 16, 256),
+    (1, 70, 65536, 4, 16, 512), (5, 3, 65536, 2, 4, 16),
+)
+
+
+@pytest.mark.parametrize("case", GATHER_SPLIT_CASES, ids=str)
+def test_nm_gather_seq_packed_split(card, case):
+    """Row 6's packed, K-split body (rows in packed pairs, an output's
+    tiles split over warps, x staged a window at a time) against its plain
+    version under every policy (``sorted_tiled_seq`` at rounds 0 to 3 and
+    acc_bits 2, 16 and 30) and, on canonical slabs, against the dense
+    kernel on the decompressed weight; on non-canonical slabs (unsorted
+    and duplicate indices) against the plain version."""
+    m, n, k, n_keep, m_group, k_tile = case
+    x, w, vals, idx = _nm_w(m, k, n, n_keep, m_group, m + n + k, card)
+    nv, ni = _non_canonical(vals, idx)
+    runs = [("sorted_tiled_seq", r, b) for r, b in ((0, 16), (1, 16),
+                                                    (2, 2), (3, 30))]
+    runs += [(p, 1, 16) for p in ("wide", "clip", "wrap")]
+    for policy, rounds, acc_bits in runs:
+        kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+                  rounds=rounds, k_tile=k_tile)
+        got = nm_spmm.nm_gather_seq_policy_matmul(x, vals, idx, **kw)
+        want = nm_spmm.nm_gather_seq_policy_matmul_ref(x, vals, idx, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (policy, rounds, acc_bits)
+        if policy == "sorted_tiled_seq" and rounds == 1:
+            dense = sm.seq_policy_matmul(
+                x, w, policy=policy, acc_bits=acc_bits, rounds=rounds,
+                k_tile=k_tile)
+            assert torch.equal(got, dense)
+            got = nm_spmm.nm_gather_seq_policy_matmul(x, nv, ni, **kw)
+            assert torch.equal(got, nm_spmm.nm_gather_seq_policy_matmul_ref(
+                x, nv, ni, **kw))

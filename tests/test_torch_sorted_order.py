@@ -10,6 +10,13 @@ tile. So the CUDA bodies may read a stream in whatever layout loads fastest
 + t in register r of thread t). On the CPU each wrapper runs its plain
 version; each case is held against the JAX package's Pallas kernel in
 interpret mode on the unpermuted operands.
+
+And the premise of the card's radix `sorted` body (``csrc/pqs_accum.cuh``
+``radix_sorted_dot``): with at least one round, the nonzero stream of
+``sorted_order`` does not depend on how many zero keys pad the row, so the
+body sorts only the real keys, drops the zeros and pairs the m sorted
+nonzero keys as max(s[i], 0) + min(s[m-1-i], 0) (``_radix_order``, a numpy
+model of it), held against the JAX package's ``sorted_order``.
 """
 
 import jax.numpy as jnp
@@ -19,8 +26,10 @@ import torch
 
 import repro.core  # noqa: F401  (imports the JAX package in its own order)
 from repro.core import pruning as jpr
+from repro.core import sorted_accum as jsa
 from repro.kernels import nm_spmm as jnm
 from repro.kernels import sorted_matmul as jsm
+from repro_torch.core import sorted_accum as tsa
 from repro_torch.kernels import nm_spmm
 from repro_torch.kernels import sorted_matmul as tsm
 
@@ -109,3 +118,45 @@ def test_sort_result_does_not_depend_on_key_order(case):
             np.testing.assert_array_equal(got, base)
             if rounds == jrounds:
                 np.testing.assert_array_equal(got, want)
+
+
+def _nonzero(a):
+    return a[a != 0]
+
+
+def _radix_order(keys, rounds):
+    """The card's radix body in numpy: each round drops the zero keys,
+    sorts the m others descending and pairs them, out[i] = max(s[i], 0) +
+    min(s[m-1-i], 0)."""
+    s = keys
+    for _ in range(rounds):
+        s = np.sort(s[s != 0])[::-1]
+        s = np.maximum(s, 0) + np.minimum(s[::-1], 0)
+    return s
+
+
+@pytest.mark.parametrize("zeros", [0.0, 0.3, 0.9])
+def test_nonzero_stream_does_not_depend_on_zero_padding(zeros):
+    """For K from 1 to 300, rounds 1 to 3 and rows padded with zeros to
+    next_pow2(K) and to twice that, the nonzero stream of the order is the
+    same: the port's ``sorted_order`` on every padding, the JAX package's
+    on the power-of-two one, and ``_radix_order`` on the unpadded row."""
+    r = np.random.default_rng(int(zeros * 10) + 3)
+    ks = list(range(1, 41)) + [63, 64, 65, 127, 128, 255, 256, 300]
+    for k in ks:
+        keys = (r.integers(-128, 128, k) * r.integers(-128, 128, k)).astype(
+            np.int32)
+        keys[r.random(k) < zeros] = 0
+        if k % 7 == 0:  # heavy ties
+            keys = np.where(keys != 0, np.sign(keys) * 5, 0).astype(np.int32)
+        p2 = 1 << max(k - 1, 0).bit_length()
+        rows = [np.pad(keys, (0, pad)) for pad in (0, p2 - k, 2 * p2 - k)]
+        for rounds in (1, 2, 3):
+            want = _nonzero(np.asarray(jsa.sorted_order(jnp.asarray(rows[1]),
+                                                         rounds)))
+            for row in rows:
+                got = tsa.sorted_order(torch.from_numpy(row), rounds).numpy()
+                np.testing.assert_array_equal(_nonzero(got), want)
+            np.testing.assert_array_equal(_nonzero(_radix_order(keys,
+                                                                rounds)),
+                                          want)
