@@ -42,7 +42,11 @@ imports nothing of JAX or of the JAX package. Phases:
    ``nm_paired_accum_matmul`` and ``nm_chunked_sort_matmul`` on 8:16 slabs
    (plus ragged 3:16 and 2:4, and 16:16), which must also equal the dense
    global-sort kernels on the decompressed weight (and expand the
-   gather); the register-resident `sorted` body of the dense, gather and
+   gather); the gather kernels (rows 6, 8, 11, 14, 17) on slabs whose
+   gathered positions lie before x's row (``phase_gather_faults``: a
+   position in [-kp, 0) wraps within x's row padded to kp, G * m for row
+   6, one below is a zero product); the register-resident `sorted` body
+   of the dense, gather and
    expand kernels in every regime of its shape (``phase_sorted_regimes``:
    kp 32 to 65536, M = 3, rounds 1 to 3, acc_bits 2, 16 and 30, keys at
    -16256 and 16384, outputs of one sign, an all-zero row; and the expand
@@ -94,7 +98,7 @@ imports nothing of JAX or of the JAX package. Phases:
    decode logits;
 4b. at 2 layers under ``sorted_tiled`` and ``sorted``: the dense kernels,
    their plain versions and the compressed weights through the expand
-   kernels give identical tokens (8 new ones) and decode logits;
+   kernels give identical tokens (4 new ones) and decode logits;
 4c. the torch quickstart (``repro_torch.quickstart.run``) on the card:
    it launches ``quant_matmul`` (on its TMA-fed body), ``nm_spmm`` and
    ``seq_policy_matmul``,
@@ -1297,6 +1301,76 @@ def non_canonical(torch, vals, idx):
     return vals, idx
 
 
+def negative_slabs(torch, vals, idx, width):
+    """Slabs whose gathered positions lie before x's row: in every fifth
+    group slot 0 at position -1 - (g % 7), which wraps within x's row of
+    ``width``, and in every seventh slot 1 below -width (a zero
+    product)."""
+    vals, idx = vals.clone(), idx.clone()
+    g = torch.arange(idx.shape[1], device=idx.device, dtype=torch.int32)
+    idx[:, ::5, 0] = (-g * M_GROUP - 1 - g % 7)[::5]
+    idx[:, ::7, 1] = (-g * M_GROUP - width - 3)[::7]
+    vals[:, ::5, 0] = vals[:, ::5, 0].clamp(min=1)
+    return vals, idx
+
+
+def phase_gather_faults(torch, nm, ss, seed):
+    """The gather kernels (rows 6, 8, 11, 14, 17) on slabs with positions
+    before x's row (``negative_slabs``) against their plain versions,
+    bit-exact: a position in [-W, 0) reads x at position + W (W the padded
+    K, G * m for row 6), one below -W is a zero product, no kernel reads
+    outside x. M = 4 at K = 1536 and 2048 (K = kp, so a wrapped position
+    reads x), row 17 at K = 8192 (4096 kept keys, the radix body). Returns
+    the max |difference| of each kernel."""
+    from repro_torch.core.sorted_accum import pair_permutation
+    from repro_torch.kernels.sorted_matmul import padded_k
+
+    worst = {}
+
+    def held(fn, *args, **kw):
+        got = fn(*args, **kw)
+        err = int((got.long() - plain_of(fn)(*args, **kw).long()).abs()
+                  .max())
+        worst[fn.__name__] = max(worst.get(fn.__name__, 0), err)
+        return err
+
+    nk = dict(m_group=M_GROUP)
+    for i, (m, n, k) in enumerate(((4, 256, 1536), (4, 256, 2048),
+                                   (3, 64, 8192))):
+        x, _, vals, idx = nm_operands(torch, m, n, k, seed + 400 + i)
+        g = vals.shape[1]
+        errs = []
+        if k <= 2048:
+            nv, ni = negative_slabs(torch, vals, idx, g * M_GROUP)
+            for policy in ("clip", "sorted_tiled_seq"):
+                errs.append(held(nm.nm_gather_seq_policy_matmul, x, nv, ni,
+                                 policy=policy, acc_bits=16, k_tile=256,
+                                 **nk))
+            kt = padded_k(g * M_GROUP, "sorted_tiled", 256)
+            nv, ni = negative_slabs(torch, vals, idx, kt)
+            tk = dict(acc_bits=16, rounds=1, k_tile=256, **nk)
+            errs.append(held(nm.nm_gather_sort_matmul, x, nv, ni,
+                             policy="sorted_tiled", **tk))
+            errs.append(held(ss.nm_gather_tile_sums, x, nv, ni, k_tile=256,
+                             **nk))
+            perm = pair_permutation(ss.nm_gather_tile_sums(
+                x, nv, ni, k_tile=256, **nk)).to(torch.int32)
+            errs.append(held(ss.nm_gather_paired_accum_matmul, x, nv, ni,
+                             perm, **tk))
+        ks = padded_k(g * M_GROUP, "sorted", 256)
+        nv, ni = negative_slabs(torch, vals, idx, ks)
+        one = dict(acc_bits=16, rounds=1, **nk)
+        errs.append(held(nm.nm_gather_sort_matmul, x, nv, ni,
+                         policy="sorted", **one))
+        errs.append(held(ss.nm_gather_chunked_sort_matmul, x, nv, ni, **one))
+        print(f"  gather kernels on negative positions M={m} N={n} K={k}: "
+              f"max|diff| vs plain {max(errs)}", flush=True)
+    if any(worst.values()):
+        raise AssertionError(f"gather kernels disagree on negative "
+                             f"positions: {worst}")
+    return worst
+
+
 def phase_pass1_kernels(torch, ss, seed):
     """Pass 1 of ``sorted_tiled``, rows 9, 10 and 11, against their plain
     versions, equality: ``tile_sums_matmul`` at M 1, 4, 5, 64, 128, K 1000
@@ -1415,11 +1489,11 @@ def phase_pass1_kernels(torch, ss, seed):
     return worst
 
 
-def phase_sort_parity(torch, counters, cfg, seed, new_tokens=8):
+def phase_sort_parity(torch, counters, cfg, seed, new_tokens=4):
     """2 layers at full width under ``sorted_tiled`` and under ``sorted``:
     the dense kernels, their plain versions and the compressed weights
     through the expand kernels (which must launch, and no gather kernel)
-    give the same tokens (8 new ones each: the plain ``sorted`` path walks
+    give the same tokens (4 new ones each: the plain ``sorted`` path walks
     16384 saturating adds in Python at w_out) and the same decode
     logits."""
     from repro_torch.core.qtensor import nm_compress_tree
@@ -1935,8 +2009,9 @@ def baseline_kernels(torch, csrc_dir):
     (an older commit's, for a same-call comparison): its
     ``seq_policy_matmul.cu``, ``nm_seq_policy_matmul.cu``,
     ``quant_matmul.cu``, ``sort_matmul.cu``, ``sorted_stream.cu``,
-    ``nm_sort_matmul.cu`` and ``nm_expand_sort.cu`` compiled with the
-    port's flags, one nvcc each in parallel, into a
+    ``nm_sort_matmul.cu``, ``nm_expand_sort.cu`` and, where it has one,
+    ``nm_expand_pass2.cu`` (else its ``nm_expand_sort.cu`` holds row 13)
+    compiled with the port's flags, one nvcc each in parallel, into a
     directory of ``src/repro_torch/_build/`` named after ``csrc_dir``, and
     called through the port's own wrappers with that build's library in
     place of the port's for the call (so the two trees' C entry points
@@ -1955,9 +2030,8 @@ def baseline_kernels(torch, csrc_dir):
                                  .as_posix().strip("/").replace("/", "-"))
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    srcs = ("seq_policy_matmul", "nm_seq_policy_matmul", "quant_matmul",
-            "sort_matmul", "sorted_stream", "nm_sort_matmul",
-            "nm_expand_sort")
+    srcs = [src for src in build.SOURCES
+            if (Path(csrc_dir) / f"{src}.cu").exists()]
     procs = {src: subprocess.Popen(
         [build._nvcc(), *flags, "-o", str(out_dir / f"lib{src}.so"),
          str(Path(csrc_dir) / f"{src}.cu")], stdout=subprocess.PIPE,
@@ -1968,6 +2042,7 @@ def baseline_kernels(torch, csrc_dir):
         if proc.returncode:
             raise RuntimeError(f"baseline nvcc failed for {src}:\n{log}")
         libs[src] = ctypes.CDLL(str(out_dir / f"lib{src}.so"))
+    libs.setdefault("nm_expand_pass2", libs["nm_expand_sort"])
 
     # a tree whose expand `sorted` entry point takes no int32-route pool
     # (before the route existed) is called without one
@@ -2021,7 +2096,7 @@ def baseline_kernels(torch, csrc_dir):
                 ("nm_expand_sort", nm.nm_sort_matmul),
                 ("nm_expand_sort", ss.nm_tile_sums_matmul),
                 ("nm_expand_sort", ss.nm_chunked_sort_matmul),
-                ("nm_expand_sort", ss.nm_paired_accum_matmul))}}
+                ("nm_expand_pass2", ss.nm_paired_accum_matmul))}}
 
 
 def in_turns(torch, new, old, flush_buf, what):
@@ -2262,13 +2337,21 @@ def main() -> int:
     # what the packed sorts' 16x2 max / min / add compile to: row 1's
     # tiled sort, row 6's (8:16 at k_tile 256: 128 keys a tile) and the
     # whole-K `sorted` body at kp = 2048; the radix body at kp = 16384
-    # (its ballots and shared atomics)
+    # (its ballots and shared atomics); row 8's row-block kernels (a block
+    # per compressed row and 4 rows of x, products decoded once) and row
+    # 13's merged-slot pass 2 at the main path's shapes
     for source, label, what in (
             ("seq_policy_matmul", "sorted_seq_kernel<8,32>", "k_tile 256"),
             ("nm_seq_policy_matmul", "nm_gather_kernel<4,32>",
              "8:16, k_tile 256"),
             ("sort_matmul", "sort_sorted_kernel<32,1>", "kp 2048"),
-            ("sort_matmul", "sort_sorted_kernel<32,8>", "kp 16384")):
+            ("sort_matmul", "sort_sorted_kernel<32,8>", "kp 16384"),
+            ("nm_sort_matmul", "nm_sort_sorted_rows_kernel<16>",
+             "8:16, K 1536: 1024 kept keys"),
+            ("nm_sort_matmul", "nm_sort_tiled_kernel<4,32>",
+             "8:16, K 1536, k_tile 256"),
+            ("nm_expand_pass2", "nm_expand_paired_kernel<4,32,true>",
+             "8:16, k_tile 256, merged slots")):
         try:
             ops = build.sass_opcodes(source, label)
         except (OSError, subprocess.CalledProcessError) as exc:
@@ -2361,6 +2444,7 @@ def main() -> int:
             nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
                                               args.seed),
             pass1_err=phase_pass1_kernels(torch, ss, args.seed),
+            fault_err=phase_gather_faults(torch, nm, ss, args.seed),
             sorted_err=phase_sorted_regimes(torch, sm, nm, args.seed),
             wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed),
             qm_err=phase_quant_matmul_bodies(torch, sm, qm, args.seed))),
@@ -2430,7 +2514,8 @@ def main() -> int:
             "src/repro/kernels/nm_spmm.py:381",
             got["nm_timing"]["nm_gather_seq_policy_matmul"],
             launches=got["nm_launches"]["nm_gather_seq_policy_matmul"],
-            max_abs_err=got["nm_err"]["nm_gather_seq_policy_matmul"],
+            max_abs_err=max(got["nm_err"]["nm_gather_seq_policy_matmul"],
+                            got["fault_err"]["nm_gather_seq_policy_matmul"]),
             by_site={r["site"]: {key: r[key] for key in (
                 "ms", "old_ms", "dense_ms", "bound_ms") if key in r}
                 for r in got["nm_timing"]["nm_gather_seq_policy_matmul"]},
@@ -2523,7 +2608,8 @@ def main() -> int:
             launches_by_path={"sorted_tiled": tiled["nm_gather_sort_matmul"],
                               "sorted": srt["nm_gather_sort_matmul"]},
             max_abs_err=max(err["nm_gather_sort_matmul"],
-                            got["sorted_err"]["nm_gather_sort_matmul"]),
+                            got["sorted_err"]["nm_gather_sort_matmul"],
+                            got["fault_err"]["nm_gather_sort_matmul"]),
             sorted_policy=kernel_record(
                 "nm_gather_sort_matmul", csrc + "nm_sort_matmul.cu",
                 "src/repro/kernels/nm_spmm.py:465",
@@ -2542,7 +2628,8 @@ def main() -> int:
             work=w_out + nm8 + ", k_tile 256",
             launches=tiled["nm_gather_tile_sums"],
             max_abs_err=max(err["nm_gather_tile_sums"],
-                            got["pass1_err"]["nm_gather_tile_sums"]),
+                            got["pass1_err"]["nm_gather_tile_sums"],
+                            got["fault_err"]["nm_gather_tile_sums"]),
             **pass1_records("nm_gather_tile_sums",
                             csrc + "nm_sort_matmul.cu",
                             "src/repro/kernels/sorted_stream.py:567",
@@ -2555,7 +2642,9 @@ def main() -> int:
             timing["nm_gather_paired_accum_matmul"], policy="sorted_tiled",
             work=w_out + nm8 + ", k_tile 256",
             launches=tiled["nm_gather_paired_accum_matmul"],
-            max_abs_err=err["nm_gather_paired_accum_matmul"],
+            max_abs_err=max(
+                err["nm_gather_paired_accum_matmul"],
+                got["fault_err"]["nm_gather_paired_accum_matmul"]),
             path="phase 3e (two-pass pass 2 at K = 8960)"),
         kernel_record(
             "nm_gather_chunked_sort_matmul", csrc + "nm_sort_matmul.cu",
@@ -2565,7 +2654,9 @@ def main() -> int:
                                "kept keys",
             launches=srt["nm_gather_chunked_sort_matmul"],
             max_abs_err=max(err["nm_gather_chunked_sort_matmul"],
-                            got["sorted_err"]["nm_gather_sort_matmul"]),
+                            got["sorted_err"]["nm_gather_sort_matmul"],
+                            got["fault_err"]
+                            ["nm_gather_chunked_sort_matmul"]),
             by_kp=got["sorted_kp"]["nm_gather_chunked_sort_matmul"],
             path="phase 3f (two-pass at K = 8960)"),
     ]
@@ -2608,7 +2699,7 @@ def main() -> int:
                             w_out + nm8 + ", k_tile 256"),
             path="phase 3g (two-pass pass 1 at K = 8960)"),
         kernel_record(
-            "nm_paired_accum_matmul", csrc + "nm_expand_sort.cu",
+            "nm_paired_accum_matmul", csrc + "nm_expand_pass2.cu",
             "src/repro/kernels/sorted_stream.py:305",
             timing["nm_paired_accum_matmul"], policy="sorted_tiled",
             work=w_out + nm8 + ", k_tile 256",

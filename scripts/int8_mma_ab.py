@@ -139,17 +139,19 @@ VARIANTS = {
 }
 
 
-def build_variants(names):
-    """Compile the ``SOURCES`` of each variant, all in parallel."""
+def build_variants(names, variants=None, sources=SOURCES, out=OUT):
+    """Compile the ``sources`` of each variant (``variants``, default
+    ``VARIANTS``) into ``out``/<variant>, all in parallel."""
     from repro_torch.kernels import build
 
+    variants = VARIANTS if variants is None else variants
     flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs = {}
     for name in names:
-        tree = OUT / name
+        tree = out / name
         shutil.rmtree(tree, ignore_errors=True)
         shutil.copytree(CSRC, tree)
-        for fname, pairs in VARIANTS[name].items():
+        for fname, pairs in variants[name].items():
             text = (tree / fname).read_text()
             for old, new in pairs:
                 if isinstance(old, tuple):  # the lines first .. last
@@ -163,7 +165,7 @@ def build_variants(names):
                     raise SystemExit(f"{name}: {fname} has no {old!r}")
                 text = text.replace(old, new)
             (tree / fname).write_text(text)
-        for src in SOURCES:
+        for src in sources:
             procs[(name, src)] = subprocess.Popen(
                 [build._nvcc(), *flags, "-o", str(tree / f"lib{src}.so"),
                  str(tree / f"{src}.cu")],

@@ -1,7 +1,7 @@
 // nm_expand_sort.cu: the PQS global-sort policies (`sorted`,
 // `sorted_tiled`) on N:M compressed weights, each compressed row expanded
-// to its dense positions in shared memory; four kernels, the expand twins
-// of nm_sort_matmul.cu's gather kernels.
+// to its dense positions in shared memory; the expand twins of
+// nm_sort_matmul.cu's gather kernels but pass 2.
 //
 // Replaces:
 //   nm_expand_sorted_kernel <- repro/kernels/nm_spmm.py:nm_sort_matmul
@@ -19,9 +19,7 @@
 //     two-pass `sorted_tiled`, the Pallas _nm_tile_sums_kernel: each
 //     (bn, bg, n_keep) slab expanded by expand_nm_slab in int32, then an
 //     int32 dot_general a tile);
-//   nm_expand_paired_kernel <- repro/kernels/sorted_stream.py:
-//     nm_paired_accum_matmul (pass 2, fed the pairing permutation; the
-//     Pallas _nm_paired_kernel).
+//   pass 2 (nm_paired_accum_matmul) is nm_expand_pass2.cu's.
 //
 // Operands: x (M, K) int8; values (N, G, n_keep) int8 and indices
 // (N, G, n_keep) int32 (pruning.nm_compress); kp >= K and kp >= G * m is the
@@ -72,16 +70,13 @@
 //   packed int16x2 keys; a row where several slots name one position may
 //   hold a weight past int8, whose products leave the int16 range, and
 //   keeps two int32 networks a slot (pqs::int8_weights decides a block).
-// - Pass 2: the same int16 row of K weights (2 K bytes: 17.5 KB at K =
-//   8960, 128 KB at 65536), then the dense pass-2 body fed perm, with the
-//   same choice of network; up to 8 warps.
 // At decode (M = 4, 8:16) over the six K = 1536 sites `sorted` takes 1.13
 // ms and `sorted_tiled` 1.30 (6.38 and 2.04 before the register body and
-// the packed pairs); at w_out `sorted` 0.84 (5.18) and pass 2 0.54 (0.82)
-// (chip_smoke.py phase 5 with --baseline-csrc, NVIDIA H100 80GB HBM3,
-// 700.00 W). Expanding costs 0.29 ms over the dense kernel's `sorted` and
-// 0.55 over its `sorted_tiled` on the same dot. The radix body takes the
-// w_out `sorted` (kp 16384) to 0.43 ms (0.84 on the network).
+// the packed pairs); at w_out `sorted` 0.84 (5.18) (chip_smoke.py phase 5
+// with --baseline-csrc, NVIDIA H100 80GB HBM3, 700.00 W). Expanding costs
+// 0.29 ms over the dense kernel's `sorted` and 0.55 over its
+// `sorted_tiled` on the same dot. The radix body takes the w_out `sorted`
+// (kp 16384) to 0.43 ms (0.84 on the network).
 // - Pass 1: a sum of raw products in int32, with no clipping, so the
 //   kept slots need not be expanded at all: for any slabs, canonical or
 //   not, the sum over the slots of x[pos] * value is x times the int32
@@ -118,20 +113,8 @@ using pqs::slabs;
 using pqs::valid_slabs;
 
 constexpr int kTiledWarps = 4;
-constexpr int kPairWarps = 8;
 constexpr int kSumThreads = 256;
 constexpr int kSumChunk = 256;  // dense positions a pass-1 warp expands
-
-// Row n's expanded weights w[0 .. K), by the whole block.
-__device__ __forceinline__ void expand_row(int16_t* w, const int8_t* val,
-                                           const int32_t* idx, int64_t n,
-                                           int K, int G, int n_keep,
-                                           int m_group) {
-  const int64_t kept = static_cast<int64_t>(G) * n_keep;
-  pqs::expand_slots<false>(w, K, 0, nullptr, val + n * kept, idx + n * kept,
-                           0, G * n_keep, K, n_keep, m_group, threadIdx.x,
-                           blockDim.x);
-}
 
 // The `sorted` kernel's shared memory: in the radix regime the radix
 // control block and two buffers of K int16 keys; else the L = 64 W E
@@ -165,7 +148,7 @@ __device__ __forceinline__ int expand_sorted_wide(
     pqs::Clamp* scratch, int32_t* pool, int* busy, int slots, int* held,
     int64_t n, int K, int G, int n_keep, int m_group, int acc_bits,
     int rounds) {
-  expand_row(w, val, idx, n, K, G, n_keep, m_group);
+  pqs::expand_row(w, val, idx, n, K, G, n_keep, m_group);
   const int s = pqs::claim_slot(busy, slots, held);
   int32_t* ctl = pool + pool_slot_ints(K) * s;
   int32_t* a = ctl + kPoolCtlInts;
@@ -232,7 +215,7 @@ __global__ void nm_expand_tiled_kernel(const int8_t* __restrict__ x,
   int16_t* w = reinterpret_cast<int16_t*>(sums + 2 * T);
   const int64_t o = blockIdx.x;
   const int64_t m = o / N, n = o % N;
-  expand_row(w, val, idx, n, K, G, n_keep, m_group);
+  pqs::expand_row(w, val, idx, n, K, G, n_keep, m_group);
   const pqs::ExpandedProducts p{x + m * K, w, K, E * LT};
   const int r =
       pqs::int8_weights(w, K)
@@ -286,29 +269,6 @@ __global__ void nm_expand_tile_sums_kernel(const int8_t* __restrict__ x,
   }
 }
 
-template <int E, int LT>
-__global__ void nm_expand_paired_kernel(const int8_t* __restrict__ x,
-                                        const int8_t* __restrict__ val,
-                                        const int32_t* __restrict__ idx,
-                                        const int32_t* __restrict__ perm,
-                                        int32_t* __restrict__ out, int N,
-                                        int K, int G, int n_keep,
-                                        int m_group, int T, int acc_bits,
-                                        int rounds) {
-  __shared__ pqs::Clamp scratch[kPairWarps];
-  int16_t* w = pqs::dynamic_smem<int16_t>();
-  const int64_t o = blockIdx.x;
-  const int64_t m = o / N, n = o % N;
-  expand_row(w, val, idx, n, K, G, n_keep, m_group);
-  const pqs::ExpandedProducts p{x + m * K, w, K, E * LT};
-  const int r = pqs::int8_weights(w, K)
-                    ? pqs::paired_dot<E, LT, true>(p, perm + o * T, T,
-                                                   scratch, acc_bits, rounds)
-                    : pqs::paired_dot<E, LT, false>(p, perm + o * T, T,
-                                                    scratch, acc_bits, rounds);
-  if (threadIdx.x == 0) out[o] = r;
-}
-
 // Shared memory of the tiled kernels: 2 T ints (sums, perm) for the
 // one-pass one, then the int16 row of K weights.
 size_t tiled_smem(int T, int K) {
@@ -316,7 +276,6 @@ size_t tiled_smem(int T, int K) {
          sizeof(int16_t) * static_cast<size_t>(K);
 }
 
-size_t row_smem(int K) { return sizeof(int16_t) * static_cast<size_t>(K); }
 
 struct SortedLaunch {
   Slabs a;
@@ -349,23 +308,6 @@ struct TiledLaunch {
                      pqs::paired_threads(T, E * LT, kTiledWarps),
                      tiled_smem(T, a.K), s, a.x, a.val, a.idx, out, a.N, a.K,
                      a.G, a.n_keep, a.m_group, T, acc_bits, rounds);
-  }
-};
-
-struct PairedLaunch {
-  Slabs a;
-  const int32_t* perm;
-  int32_t* out;
-  int T, acc_bits, rounds;
-  cudaStream_t s;
-
-  template <int E, int LT>
-  void operator()() const {
-    pqs::launch_smem(nm_expand_paired_kernel<E, LT>,
-                     static_cast<int64_t>(a.M) * a.N,
-                     pqs::paired_threads(T, E * LT, kPairWarps),
-                     row_smem(a.K), s, a.x, a.val, a.idx, perm, out, a.N,
-                     a.K, a.G, a.n_keep, a.m_group, T, acc_bits, rounds);
   }
 };
 
@@ -438,21 +380,4 @@ extern "C" int pqs_nm_expand_tile_sums(const void* x, const void* val,
                                s>>>(a.x, a.val, a.idx, o, M, N, K, G, n_keep,
                                     m_group, T, k_tile);
   return cudaGetLastError();
-}
-
-extern "C" int pqs_nm_expand_paired_accum(const void* x, const void* val,
-                                          const void* idx, const void* perm,
-                                          void* out, int M, int N, int K,
-                                          int G, int n_keep, int m_group,
-                                          int kp, int acc_bits, int rounds,
-                                          int k_tile, void* stream) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  const Slabs a = slabs(x, val, idx, M, N, K, G, n_keep, m_group);
-  if (k_tile <= 0 || !valid_slabs(a, kp, k_tile) || acc_bits < 2 ||
-      acc_bits > 30 || rounds < 0 || row_smem(K) > pqs::kSmemCap)
-    return cudaErrorInvalidValue;
-  return pqs::dispatch_tile(
-      k_tile, PairedLaunch{a, static_cast<const int32_t*>(perm),
-                           static_cast<int32_t*>(out), kp / k_tile, acc_bits,
-                           rounds, static_cast<cudaStream_t>(stream)});
 }

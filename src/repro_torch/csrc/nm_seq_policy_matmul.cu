@@ -57,7 +57,9 @@
 //   a gathered position is one shared load for all 4 rows; the value and
 //   the index of a slot are two independent loads. A slot that points
 //   outside the window (an index outside its group) reads x in device
-//   memory, below K.
+//   memory where its position lies in [0, K); one before x's row wraps
+//   within the slabs' dense row of G * m (pqs::gathered_pos, the rule of
+//   the plain version), so nothing outside x is read.
 // - With a round the tile's layout in the lanes is free (a sort's result
 //   does not depend on where a key starts), so the lanes read the slots
 //   coalesced; with none (and under clip) each lane reads its E slots in
@@ -84,6 +86,7 @@
 // - Groups past G and positions past K are masked with zeros in-kernel,
 //   so ragged G, M, N and K need no host padding.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -104,19 +107,6 @@ constexpr int kStagePositions = 16384;
 // output's tiles over up to kGatherWarps warps until a launch has them
 constexpr int kFillWarps = 132 * 64;
 
-// x[0 .. rows) at position pos of rows K long, row r in byte r.
-__device__ __forceinline__ uint32_t x_word(const int8_t* x, int pos, int K,
-                                           int rows) {
-  uint32_t v = 0;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-    if (r < rows)
-      v |= static_cast<uint32_t>(static_cast<uint8_t>(
-               __ldg(x + static_cast<int64_t>(r) * K + pos)))
-           << (8 * r);
-  return v;
-}
-
 // The gather kernel (row 6): output n of the block's 4 rows of x takes
 // `split` warps, each a contiguous run of the stream's tiles (tile_len =
 // bg * n_keep kept slots, zero-padded to the sort tile S = E * LT; 32 / LT
@@ -129,8 +119,8 @@ __global__ void __launch_bounds__(32 * kGatherWarps)
                      const int8_t* __restrict__ vals,
                      const int32_t* __restrict__ idx,
                      int32_t* __restrict__ out, int M, int N, int K, int G,
-                     int n_keep, int m_group, int policy, int acc_bits,
-                     int rounds, int tile_len, int split) {
+                     int n_keep, int m_group, int width, int policy,
+                     int acc_bits, int rounds, int tile_len, int split) {
   constexpr int TW = 32 / LT;  // tiles a warp step
   __shared__ Clamp part[kGatherWarps][kRowsPerWarp];
   __shared__ Clamp run[kGatherWarps][kRowsPerWarp];
@@ -197,12 +187,12 @@ __global__ void __launch_bounds__(32 * kGatherWarps)
           const int gq = magic ? static_cast<int>(__umulhi(
                                      static_cast<unsigned>(q), magic))
                                : q / n_keep;
-          const int pos = gq * m_group + ix;
+          const int pos = pqs::gathered_pos(gq, m_group, ix, width);
           uint32_t xw = 0;
           if (static_cast<unsigned>(pos - k0) < static_cast<unsigned>(len))
             xw = xs[pos - k0];
           else if (static_cast<unsigned>(pos) < static_cast<unsigned>(K))
-            xw = x_word(xb, pos, K, rows);
+            xw = nmsums::x_word(xb, pos, K, rows);
 #pragma unroll
           for (int i = 0; i < kRowsPerWarp; ++i)
             a[i] = static_cast<int>(static_cast<int8_t>(xw >> (8 * i))) * wv;
@@ -390,7 +380,10 @@ struct GatherLaunch {
     nm_gather_kernel<E, LT>
         <<<a.grid(kGatherWarps / split), 32 * kGatherWarps, smem, a.s>>>(
             a.x, a.vals, a.idx, a.out, a.M, a.N, a.K, a.G, a.n_keep,
-            a.m_group, a.policy, a.acc_bits, a.rounds, tile_len, split);
+            a.m_group,
+            static_cast<int>(std::min<int64_t>(
+                static_cast<int64_t>(a.G) * a.m_group, INT32_MAX)),
+            a.policy, a.acc_bits, a.rounds, tile_len, split);
   }
 };
 

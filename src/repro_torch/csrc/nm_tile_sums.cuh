@@ -7,7 +7,9 @@
 // kDrop):
 // - gather (kDrop false) reads x where such a slot points, as
 //   gather_nm_products does: its position leaves the tile, so its quad
-//   leaves the fast path and reads x in device memory below K;
+//   leaves the fast path and reads x in device memory below K (a position
+//   in [-kp, 0) at position + kp, pqs::gathered_pos; one outside the row
+//   adds nothing);
 // - expand (kDrop true) adds nothing for it, as expand_nm_slab's one-hot
 //   expansion drops it: its value is zeroed and its position clamped into
 //   the tile, so every quad stays on the fast path.
@@ -75,6 +77,7 @@ constexpr int kMaxTile = 1024;     // positions a tile may stage
 // the tile into shared memory with cp.async first.
 struct SumTile {
   int lc, kept, k_tile, n_keep, m_group, lk, lm;
+  int width;  // x's padded row (kp) a gathered position wraps within
   bool vec, staged;
 };
 
@@ -107,6 +110,20 @@ __device__ __forceinline__ void stage_x(uint32_t* xs,
     for (int j = 0; j < 4; ++j)
       if (p + j < len) xs[((p + j) << lrw) + g] = out[j];
   }
+}
+
+// x[0 .. rows) (rows <= 4) at position pos of rows K long, row r in byte
+// r: a staged word read from device memory.
+__device__ __forceinline__ uint32_t x_word(const int8_t* __restrict__ x,
+                                           int pos, int K, int rows) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (r < rows)
+      v |= static_cast<uint32_t>(static_cast<uint8_t>(
+               __ldg(x + static_cast<int64_t>(r) * K + pos)))
+           << (8 * r);
+  return v;
 }
 
 // Kept slots q .. q + 3 (q a multiple of 4) of tile t of one compressed row.
@@ -193,13 +210,14 @@ __device__ __forceinline__ void stage_slabs(int32_t* sidx, uint8_t* sval,
   mma8::cp_async_commit();
 }
 
-// x[row, k0 + p] where the slot's position p lies outside the tile: read
-// from device memory below K, else 0.
+// x[row, k0 + p] where the slot's position p lies outside the tile (a
+// gathered position, pqs::gathered_pos's rule in a row of `width`): read
+// from device memory where it lies in [0, K), else 0.
 __device__ __forceinline__ int x_outside(const int8_t* __restrict__ x,
                                          int row, int M, int K, int k0,
-                                         int p) {
-  const int pos = k0 + p;
-  return row < M && pos >= 0 && pos < K
+                                         int p, int width) {
+  const int pos = pqs::gathered_pos(1, k0, p, width);
+  return row < M && static_cast<unsigned>(pos) < static_cast<unsigned>(K)
              ? __ldg(x + static_cast<int64_t>(row) * K + pos)
              : 0;
 }
@@ -228,7 +246,8 @@ template <int RG, bool kDrop>
 __device__ __forceinline__ void add_quad(int (&acc)[RG][4], const Quad& d,
                                          const uint32_t* xs,
                                          const int8_t* __restrict__ x, int M,
-                                         int K, int k0, int k_tile) {
+                                         int K, int k0, int k_tile,
+                                         int width) {
   if constexpr (!kDrop) {
     if (d.odd) {
 #pragma unroll
@@ -243,7 +262,7 @@ __device__ __forceinline__ void add_quad(int (&acc)[RG][4], const Quad& d,
           for (int r = 0; r < 4; ++r)
             acc[rg][r] +=
                 v * (in ? static_cast<int8_t>(xs[p * RG + rg] >> (8 * r))
-                        : x_outside(x, 4 * rg + r, M, K, k0, p));
+                        : x_outside(x, 4 * rg + r, M, K, k0, p, width));
       }
       return;
     }
@@ -315,7 +334,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
         if (c < cols)
-          add_quad<RG, kDrop>(acc[c], d[c], xs, x, M, K, k0, st.k_tile);
+          add_quad<RG, kDrop>(acc[c], d[c], xs, x, M, K, k0, st.k_tile,
+                              st.width);
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -391,7 +411,7 @@ __global__ void __launch_bounds__(kThreads)
               for (int r = 0; r < 4; ++r)
                 acc[r] += v * (in ? static_cast<int8_t>(mine[p << 5] >> (8 * r))
                                   : x_outside(x, m0 + 4 * lane + r, M, K, k0,
-                                              p));
+                                              p, st.width));
             }
           }
         }
@@ -458,7 +478,7 @@ int tile_sums(const pqs::Slabs& a, int32_t* out, int kp, int k_tile,
               cudaStream_t s) {
   if (k_tile > kMaxTile) return cudaErrorInvalidValue;
   SumTile st{(k_tile / a.m_group) * a.n_keep, a.G * a.n_keep, k_tile,
-             a.n_keep, a.m_group, 0, 0, false, false};
+             a.n_keep, a.m_group, 0, 0, kp, false, false};
   while ((1 << st.lk) < a.n_keep) ++st.lk;
   while ((1 << st.lm) < a.m_group) ++st.lm;
   const bool p2 = (1 << st.lk) == a.n_keep && (1 << st.lm) == a.m_group;

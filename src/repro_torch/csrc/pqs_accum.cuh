@@ -403,17 +403,32 @@ __host__ __device__ inline unsigned div_magic(int n, int64_t qmax) {
   return n >= 2 && qmax * n <= (int64_t{1} << 32) ? 0xffffffffu / n + 1 : 0u;
 }
 
-// The kept products of x[m, :] and compressed row n (canonical N:M slabs,
+// The dense position of a gathered slot of group g with in-group index j
+// (g * m_group + j, wrapping in 32 bits as the index may be any int32),
+// under the port's rule for a position outside x's row of `width`
+// (kernels/nm_spmm.py gather_nm_products): one in [-width, 0) reads
+// position + width; the caller reads x only below K (x is zero from K to
+// width), so one below -width or at or past width is a zero product, and
+// nothing outside x is read.
+__device__ __forceinline__ int gathered_pos(int g, int m_group, int j,
+                                            int width) {
+  const int pos = static_cast<int>(static_cast<unsigned>(g * m_group) +
+                                   static_cast<unsigned>(j));
+  return pos < 0 ? pos + width : pos;
+}
+
+// The kept products of x[m, :] and compressed row n (N:M slabs,
 // pruning.nm_compress): slot q of the row's kept = G * n_keep is
-// x[(q / n_keep) * m_group + idx[q]] * val[q]. A slot past kept (a group
-// past G) or at a position at or past K is a zero product, so neither x
-// nor the slabs are padded on the host. A k_tile tile is its k_tile /
-// m_group groups, tile_len = (k_tile / m_group) * n_keep kept slots.
+// x[gathered_pos(q / n_keep, m_group, idx[q], width)] * val[q]. A slot past
+// kept (a group past G) or at a position outside [0, K) is a zero
+// product, so neither x nor the slabs are padded on the host. A k_tile
+// tile is its k_tile / m_group groups, tile_len = (k_tile / m_group) *
+// n_keep kept slots.
 struct GatheredProducts {
   const int8_t* x;
   const int8_t* val;
   const int32_t* idx;
-  int K, kept, n_keep, m_group;
+  int K, width, kept, n_keep, m_group;
   int tile_len;
   unsigned magic;  // div_magic(n_keep, kept)
   __device__ __forceinline__ int at(int q) const {
@@ -421,10 +436,11 @@ struct GatheredProducts {
     const int g = magic ? static_cast<int>(__umulhi(
                               static_cast<unsigned>(q), magic))
                         : q / n_keep;
-    const int pos = g * m_group + __ldg(idx + q);
-    return pos < K ? static_cast<int>(__ldg(x + pos)) *
-                         static_cast<int>(__ldg(val + q))
-                   : 0;
+    const int pos = gathered_pos(g, m_group, __ldg(idx + q), width);
+    return static_cast<unsigned>(pos) < static_cast<unsigned>(K)
+               ? static_cast<int>(__ldg(x + pos)) *
+                     static_cast<int>(__ldg(val + q))
+               : 0;
   }
   __device__ __forceinline__ int tile(int t, int j) const {
     return j < tile_len ? at(t * tile_len + j) : 0;
@@ -520,6 +536,18 @@ __device__ __forceinline__ bool expand_slots(int16_t* w, int len, int base,
   if (hit) any_hit = 1;
   __syncthreads();
   return any_hit != 0;
+}
+
+// Row n's expanded weights w[0 .. K) (expand_slots over the row's slots),
+// by the whole block.
+__device__ __forceinline__ void expand_row(int16_t* w, const int8_t* val,
+                                           const int32_t* idx, int64_t n,
+                                           int K, int G, int n_keep,
+                                           int m_group) {
+  const int64_t kept = static_cast<int64_t>(G) * n_keep;
+  expand_slots<false>(w, K, 0, nullptr, val + n * kept, idx + n * kept, 0,
+                      G * n_keep, K, n_keep, m_group, threadIdx.x,
+                      blockDim.x);
 }
 
 // Whether every weight of an expanded row w[0 .. K) is an int8 value (on
@@ -729,7 +757,8 @@ __device__ __forceinline__ int sorted_dot(const P& p, uint32_t* buf,
                                           int rounds) {
   constexpr int T = 32 * W;
   constexpr int half = T * E;
-  const int t = threadIdx.x;
+  // one warp may be one of several outputs of its block
+  const int t = W == 1 ? threadIdx.x & 31 : threadIdx.x;
   const int first = rounds > 0 ? t : t * E;
   const int step = rounds > 0 ? T : 1;
   uint32_t v[E];
@@ -1104,7 +1133,8 @@ __device__ __forceinline__ void tile_sums(const P& p, int* sums, int T) {
   __syncthreads();
 }
 
-// pair_permutation (core/sorted_accum.py) of T tile sums into perm:
+// pair_permutation (core/sorted_accum.py) of T tile sums into perm, for
+// each of `rows` outputs (row r's sums and perm at r * T), by the block:
 // `asc` is the stable ascending order of the sums and `desc` its reverse
 // (so among equal sums desc takes the higher tile index first); even
 // slots take desc[0 .. half), odd slots asc[0 .. T - half). Tile i's
@@ -1112,16 +1142,18 @@ __device__ __forceinline__ void tile_sums(const P& p, int* sums, int T) {
 // before it; it lands in odd slot 2p + 1 if p < T - half, else in even
 // slot 2 (T - 1 - p).
 __device__ __forceinline__ void pair_permutation(const int* sums, int* perm,
-                                                 int T) {
+                                                 int T, int rows = 1) {
   const int half = (T + 1) >> 1;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    const int si = sums[i];
+  for (int k = threadIdx.x; k < rows * T; k += blockDim.x) {
+    const int r = k / T, i = k - r * T;
+    const int* s = sums + r * T;
+    const int si = s[i];
     int p = 0;
     for (int j = 0; j < T; ++j) {
-      const int sj = sums[j];
+      const int sj = s[j];
       p += (sj < si) | ((sj == si) & (j < i));
     }
-    perm[p < T - half ? 2 * p + 1 : 2 * (T - 1 - p)] = i;
+    perm[r * T + (p < T - half ? 2 * p + 1 : 2 * (T - 1 - p))] = i;
   }
   __syncthreads();
 }
@@ -1134,16 +1166,17 @@ __device__ __forceinline__ void tile_products(int (&v)[E], const P& p,
   for (int r = 0; r < E; ++r) v[r] = p.tile(tile, l * E + r);
 }
 
-// The `sorted_tiled` stream of one output, level 2, as one block: T tiles
+// The `sorted_tiled` stream of one output, level 2, as nw warps: T tiles
 // of sort tile S = E * LT (tile_len products, zero-extended), paired by
 // perm (T tile indices, in shared or device memory). Pair slot s
 // interleaves tiles perm[2s] and perm[2s+1] (a0, b0, a1, b1, ...), each
 // sorted `rounds` rounds first; an odd last tile perm[T-1] is the last
 // slot, paired with a zero tile (a0, 0, a1, 0, ...: zeros add nothing, so
-// it follows un-interleaved). Warp w takes the contiguous slots [w I / nw,
-// (w+1) I / nw) of the I = (T+1)/2 slots, so composing the warps in order
-// is the stream order (paired_threads sizes the block so that no warp is
-// left without a slot). With kPacked each slot's two tiles run one
+// it follows un-interleaved). Warp w of the nw takes the contiguous slots
+// [w I / nw, (w+1) I / nw) of the I = (T+1)/2 slots, so composing the
+// warps in order is the stream order (paired_threads sizes the block so
+// that no warp is left without a slot). With kPacked each slot's two tiles
+// run one
 // network as the halves of packed int16x2 keys (pairwise_round2; products
 // of int8 carriers), else two int32 networks (an expanded row with a
 // weight outside int8). A lane holds a[r], b[r] for its E tile positions,
@@ -1153,15 +1186,14 @@ __device__ __forceinline__ void tile_products(int (&v)[E], const P& p,
 // products, which add nothing. Returns the register in thread 0. On kept
 // products (S = next_pow2(tile_len) < k_tile) each sorted tile is the
 // sorted dense tile's prefix and the interleaved zero pairs dropped add
-// nothing, so the register is the dense one.
+// nothing, so the register is the dense one. Returns the warp's run of
+// saturating adds, composed in lane 0.
 template <int E, int LT, bool kPacked, typename P>
-__device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
-                                          Clamp* scratch, int acc_bits,
-                                          int rounds) {
+__device__ __forceinline__ Clamp paired_run(const P& p, const int* perm,
+                                            int T, int warp, int nw,
+                                            int acc_bits, int rounds) {
   constexpr int G = 32 / LT;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
   const int l = lane & (LT - 1);
   const int g = lane / LT;
   const int qmax = (1 << (acc_bits - 1)) - 1;
@@ -1202,6 +1234,17 @@ __device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
     }
     run = clamp_then(run, warp_compose(f, lane));  // meaningful in lane 0
   }
+  return run;
+}
+
+// paired_run on every warp of the block, one output: the register in
+// thread 0.
+template <int E, int LT, bool kPacked, typename P>
+__device__ __forceinline__ int paired_dot(const P& p, const int* perm, int T,
+                                          Clamp* scratch, int acc_bits,
+                                          int rounds) {
+  const Clamp run = paired_run<E, LT, kPacked>(
+      p, perm, T, threadIdx.x >> 5, blockDim.x >> 5, acc_bits, rounds);
   return clamp_apply(block_compose_warps(run, scratch), 0);
 }
 

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("seq_policy_matmul", "nm_seq_policy_matmul", "sort_matmul",
            "sorted_stream", "nm_sort_matmul", "nm_expand_sort",
-           "quant_matmul")
+           "nm_expand_pass2", "quant_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.overflow import accumulate, nm_partial_products
+from repro_torch.core.overflow import accumulate
 from repro_torch.core.pruning import nm_decompress
 from repro_torch.core.sorted_accum import (
     monotone_accumulate,
@@ -81,10 +81,30 @@ def pad_last_pow2(a: torch.Tensor) -> torch.Tensor:
 
 
 def gather_nm_products(xb: torch.Tensor, vals: torch.Tensor,
-                       idx: torch.Tensor, m_group: int) -> torch.Tensor:
+                       idx: torch.Tensor, m_group: int,
+                       width: int | None = None) -> torch.Tensor:
     """Kept-only partial products: xb (M, K), vals/idx (N, G, n_keep) ->
-    (M, N, G*n_keep) int32 (``overflow.nm_partial_products``)."""
-    return nm_partial_products(vals, idx, xb, m_group)
+    (M, N, G*n_keep) int32, slot j of group g being x[m, p] * value at
+    p = g*m_group + idx, with x zero-extended to ``width`` columns (default
+    G*m_group; K <= width). The port's rule for a position outside the
+    row: one in [-width, 0) wraps from the row's end, as the JAX gather
+    kernels' ``take_along_axis`` does where their x block is the whole row
+    (``overflow.nm_partial_products`` on canonical slabs); one below
+    -width, or at or past width, is a zero product, where the JAX kernels
+    read a fill value. Every gather kernel of the port follows it, with
+    width the padded K (``kp``) of the global-sort kernels and G*m_group
+    for the K-streaming one."""
+    n, g, n_keep = vals.shape
+    width = g * m_group if width is None else width
+    x = xb.to(torch.int32)
+    if x.shape[-1] < width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    base = torch.arange(g, device=idx.device, dtype=torch.int64) * m_group
+    pos = (idx.to(torch.int64) + base[:, None]).reshape(n, g * n_keep)
+    pos = torch.where(pos < 0, pos + width, pos)
+    inside = (pos >= 0) & (pos < width)
+    v = torch.where(inside, vals.reshape(n, g * n_keep).to(torch.int32), 0)
+    return x[:, torch.where(inside, pos, 0)] * v
 
 
 def _check(x, values, indices, m_group, policy, acc_bits, k_tile) -> None:
@@ -162,14 +182,15 @@ def nm_gather_seq_policy_matmul_ref(
     _check(x, values, indices, m_group, policy, acc_bits, k_tile)
     bg = k_tile // m_group if policy == "sorted_tiled_seq" else 1
     g = values.shape[1]
+    width = g * m_group  # a position wraps within the slabs' dense row
     x, values, indices = _cover(x, values, indices, m_group, g + (-g) % bg)
     n, g, n_keep = values.shape
     tile = bg * n_keep
     chunk = row_chunk(n, g * n_keep)
     outs = []
     for i in range(0, x.shape[0], chunk):
-        prods = gather_nm_products(x[i : i + chunk], values, indices,
-                                   m_group)
+        prods = gather_nm_products(x[i : i + chunk, :width], values, indices,
+                                   m_group, width)
         seg = k_tile
         if policy == "sorted_tiled_seq":
             tiles = pad_last_pow2(prods.reshape(*prods.shape[:2], -1, tile))
@@ -378,7 +399,7 @@ def kept_tiles(x, values, indices, m_group, k_tile, kp):
     its lc = (k_tile/m_group) * n_keep kept products (groups past G are
     zero products)."""
     x, values, indices = _cover(x, values, indices, m_group, kp // m_group)
-    prods = gather_nm_products(x, values, indices, m_group)
+    prods = gather_nm_products(x, values, indices, m_group, kp)
     return prods.reshape(*prods.shape[:2], kp // k_tile, -1)
 
 
@@ -412,11 +433,9 @@ def nm_gather_sort_matmul_ref(
     kp = check_nm_sort(x, values, indices, m_group, policy, acc_bits, k_tile)
     n, g, n_keep = values.shape
     if policy == "sorted":
-        x, values, indices = _cover(x, values, indices, m_group, g)
-
         def run(xc):
             prods = pad_last_pow2(gather_nm_products(xc, values, indices,
-                                                     m_group))
+                                                     m_group, kp))
             return monotone_accumulate(sorted_order(prods, rounds),
                                        acc_bits)[0]
 
@@ -435,17 +454,21 @@ def nm_gather_sort_matmul_ref(
 
 def launch_nm_sort_matmul(x, values, indices, *, m_group, policy, acc_bits,
                           k_tile, rounds, kp):
-    """``pqs_nm_gather_sort_matmul`` of csrc/nm_sort_matmul.cu (one block
-    per output, the whole kept stream at hand) under ``policy``, with the
-    shared-memory guard of the dense one-pass kernel; the caller counts
-    the launch."""
+    """``pqs_nm_gather_sort_matmul`` of csrc/nm_sort_matmul.cu (a block
+    per compressed row and up to 4 rows of x, every product formed once in
+    shared memory; ``sorted`` past 2048 kept keys a block per output)
+    under ``policy``, with the shared-memory guard of the dense one-pass
+    kernel and a row's products; the caller counts the launch."""
     n_keep = values.shape[2]
     if policy == "sorted":
         check_sort_smem(policy, kp, 1, keys=next_pow2(values.shape[1] *
                                                      n_keep))
     else:
-        check_sort_smem(policy, kp, k_tile,
-                        tile=next_pow2((k_tile // m_group) * n_keep))
+        # a block keeps a row's T * lc products (int16, 4 at a time)
+        lc = (k_tile // m_group) * n_keep
+        stride = -(-(kp // k_tile) * lc // 4) * 4
+        check_sort_smem(policy, kp, k_tile, tile=next_pow2(lc),
+                        row=-(-2 * stride // 16) * 16)
     return launch_slabs("nm_sort_matmul", "pqs_nm_gather_sort_matmul", x,
                         values, indices, m_group=m_group, ints=(
                             kp, SORT_POLICIES.index(policy), acc_bits,

@@ -578,7 +578,7 @@ def nm_paired_accum_matmul(
         raise ValueError(f"perm must be int32 on {x.device}, got "
                          f"{perm.dtype} on {perm.device}")
     out, launched = launch_slabs(
-        "nm_expand_sort", "pqs_nm_expand_paired_accum", x, values, indices,
+        "nm_expand_pass2", "pqs_nm_expand_paired_accum", x, values, indices,
         m_group=m_group, ptrs=(perm.contiguous(),),
         ints=(kp, acc_bits, rounds, k_tile))
     if launched:

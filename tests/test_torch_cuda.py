@@ -1543,3 +1543,125 @@ def test_nm_gather_seq_packed_split(card, case):
             got = nm_spmm.nm_gather_seq_policy_matmul(x, nv, ni, **kw)
             assert torch.equal(got, nm_spmm.nm_gather_seq_policy_matmul_ref(
                 x, nv, ni, **kw))
+
+
+def _negative_slabs(vals, idx, m_group, width):
+    """Slabs with positions before x's row: in every fifth group slot 0 at
+    position -1 - (g % 7) (an index below -g * m_group: it wraps from the
+    end of x's row of ``width``), and in every seventh slot 1 below
+    -width (a zero product)."""
+    vals, idx = vals.clone(), idx.clone()
+    g = torch.arange(idx.shape[1], device=idx.device, dtype=torch.int32)
+    idx[:, ::5, 0] = (-g * m_group - 1 - g % 7)[::5]
+    idx[:, ::7, 1] = (-g * m_group - width - 3)[::7]
+    vals[:, ::5, 0] = vals[:, ::5, 0].clamp(min=1)
+    return vals, idx
+
+
+# (kernel, M, N, K): the gather kernels near the shapes of the main path's
+# sites (row 17's `sorted` past 2048 kept keys, as at w_out; K = kp, where
+# a wrapped position reads x, and K short of it)
+GATHER_FAULT_CASES = (("seq", 5, 37, 1000), ("seq", 5, 37, 1536),
+                      ("sort", 5, 37, 1536), ("sort", 5, 37, 2048),
+                      ("sort", 3, 9, 1000), ("sums", 5, 37, 1536),
+                      ("pass2", 5, 37, 1536), ("chunked", 3, 9, 8192),
+                      ("chunked", 3, 9, 8960))
+
+
+@pytest.mark.parametrize("case", GATHER_FAULT_CASES, ids=str)
+def test_gather_kernels_negative_positions(card, case):
+    """Rows 6, 8, 11, 14 and 17 on slabs whose gathered positions lie
+    before x's row (``_negative_slabs``) against their plain versions: a
+    position in [-W, 0) reads x at position + W (W the padded K, G * m for
+    row 6), one below -W is a zero product, and no kernel reads outside x
+    (before the repair rows 8, 14 and 17 read the bytes before x's row,
+    rows 6 and 11 a zero)."""
+    kernel, m, n, k = case
+    x, _, vals, idx = _nm_w(m, k, n, 8, 16, m + n + k, card)
+    g = vals.shape[1]
+    nk = dict(m_group=16)
+    if kernel == "seq":
+        nv, ni = _negative_slabs(vals, idx, 16, g * 16)
+        for policy in sm.SEQ_POLICIES:
+            kw = dict(policy=policy, acc_bits=16, rounds=1, k_tile=256, **nk)
+            got = nm_spmm.nm_gather_seq_policy_matmul(x, nv, ni, **kw)
+            want = nm_spmm.nm_gather_seq_policy_matmul_ref(x, nv, ni, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), policy
+        return
+    for policy in (("sorted",) if kernel == "chunked"
+                   else ("sorted", "sorted_tiled")):
+        kp = sm.padded_k(g * 16, policy, 256)
+        nv, ni = _negative_slabs(vals, idx, 16, kp)
+        kw = dict(acc_bits=16, rounds=1, **nk)
+        tk = dict(kw, k_tile=256)
+        if kernel == "sort":
+            args = (x, nv, ni)
+            kern, ref = (nm_spmm.nm_gather_sort_matmul,
+                         nm_spmm.nm_gather_sort_matmul_ref)
+            kw = dict(tk, policy=policy)
+        elif kernel == "chunked":
+            args = (x, nv, ni)
+            kern, ref = (ss.nm_gather_chunked_sort_matmul,
+                         ss.nm_gather_chunked_sort_matmul_ref)
+        elif kernel == "sums":
+            if policy == "sorted":
+                continue
+            args, kw = (x, nv, ni), dict(k_tile=256, **nk)
+            kern, ref = ss.nm_gather_tile_sums, ss.nm_gather_tile_sums_ref
+        else:
+            if policy == "sorted":
+                continue
+            perm = pair_permutation(ss.nm_gather_tile_sums_ref(
+                x, nv, ni, k_tile=256, **nk)).to(torch.int32)
+            args, kw = (x, nv, ni, perm), tk
+            kern, ref = (ss.nm_gather_paired_accum_matmul,
+                         ss.nm_gather_paired_accum_matmul_ref)
+        got = kern(*args, **kw)
+        want = ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), policy
+
+
+def _stacked_slabs(vals, idx, m_group):
+    """Non-canonical slabs for the expand twin's merged slots: each group's
+    slots reversed (descending indices), in every third group slot 0 at
+    the last slot's position (a duplicate), in every fourth slot 1 outside
+    its group (index m_group, then -1), and in every fifth every slot at
+    position 0 with value 127 (a merged weight past int8)."""
+    vals, idx = _non_canonical(vals, idx)
+    idx[:, ::4, 1] = m_group
+    idx[:, 2::8, 1] = -1
+    idx[:, ::5, :] = 0
+    vals[:, ::5, :] = 127
+    return vals, idx
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 128])
+def test_rows_8_and_13_row_blocks(card, m):
+    """Row 8 (``nm_gather_sort_matmul``, both policies: a block per
+    compressed row and up to 4 rows of x, products formed once in shared
+    memory) and row 13 (``nm_paired_accum_matmul``: the row's merged slots,
+    or with no round its expanded row, shared by up to 4 rows of x)
+    against their plain versions at M 1, 3, 4, 5 and 128, rounds 0 to 2,
+    on canonical slabs, on non-canonical ones (``_stacked_slabs``: merged
+    weights past int8 for row 13) and at K short of kp (1000: kp 1024)."""
+    for k in (1536, 1000):
+        x, _, vals, idx = _nm_w(m, k, 45, 8, 16, m + k, card, None)
+        nk = dict(m_group=16)
+        for slabs in ((vals, idx), _stacked_slabs(vals, idx, 16)):
+            perm = pair_permutation(ss.nm_tile_sums_matmul_ref(
+                x, *slabs, k_tile=256, **nk)).to(torch.int32)
+            for rounds in (0, 1, 2):
+                kw = dict(acc_bits=16, rounds=rounds, **nk)
+                for policy in sm.SORT_POLICIES:
+                    tk = dict(kw, policy=policy, k_tile=256)
+                    got = nm_spmm.nm_gather_sort_matmul(x, *slabs, **tk)
+                    want = nm_spmm.nm_gather_sort_matmul_ref(x, *slabs, **tk)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (k, policy, rounds)
+                tk = dict(kw, k_tile=256)
+                got = ss.nm_paired_accum_matmul(x, *slabs, perm, **tk)
+                want = ss.nm_paired_accum_matmul_ref(x, *slabs, perm, **tk)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (k, rounds)
