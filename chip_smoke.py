@@ -127,7 +127,9 @@ imports nothing of JAX or of the JAX package. Phases:
    (``tile_sums_matmul``, ``nm_tile_sums_matmul``, ``nm_gather_tile_sums``)
    at w_out at M = 4 and 128 beside a float32 ``bmm`` at the same M,
    checked equal first; the one-pass `sorted` kernels (rows 2, 7, 8) also
-   at M = 128 at the six K = 1536 sites; and, with ``--baseline-csrc
+   at M = 128 at the six K = 1536 sites; pass 2 (rows 12, 13 and 14) also
+   at M = 128 at w_out, row 12 also on the weight as served (8:16-pruned,
+   stored dense) at both M; and, with ``--baseline-csrc
    DIR`` (another tree's ``src/repro_torch/csrc``, built beside the
    port's), that tree's rows 1 (``wide``) and 2-17, each timed in turns
    with the new one in the same call (``old_ms``), equal results checked
@@ -1748,8 +1750,10 @@ def phase_sort_timing(torch, sm, ss, baseline=None):
     2 M N K int8 operations over the logical K) and, for pass 1, one
     float32 ``torch.bmm`` (TF32 off; exact, since |sum| <= 256 * 16384 <
     2^24). At w_out the one-pass kernel is timed too, beside the two-pass
-    path. ``sort_matmul`` under ``sorted`` also at a prefill cohort (M =
-    128; ``[sorted] M=128``, no plain version). Given ``baseline``
+    path. ``sort_matmul`` under ``sorted`` and ``paired_accum_matmul`` also
+    at a prefill cohort (M = 128; ``M=128``, no plain version), and
+    ``paired_accum_matmul`` also on the weight as served, 8:16-pruned and
+    stored dense (``[8:16]``), at both M. Given ``baseline``
     (``baseline_kernels``), rows 2, 12 and 15 of that build too
     (``old_ms``), timed in turns with the new."""
     from repro_torch.core.sorted_accum import pair_permutation
@@ -1757,7 +1761,9 @@ def phase_sort_timing(torch, sm, ss, baseline=None):
 
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     table = {name: [] for name in SORT_KERNELS + (
-        "sort_matmul[sorted]", "sort_matmul[sorted] M=128")}
+        "sort_matmul[sorted]", "sort_matmul[sorted] M=128",
+        "paired_accum_matmul M=128", "paired_accum_matmul[8:16]",
+        "paired_accum_matmul[8:16] M=128")}
     kt = 256
     for site, (n, k) in SITES.items():
         x128, w = operands(torch, 128, n, k, 11)
@@ -1795,6 +1801,21 @@ def phase_sort_timing(torch, sm, ss, baseline=None):
             runs.append(("paired_accum_matmul", ss.paired_accum_matmul,
                          ((x, w, perm), tk), ss.paired_accum_matmul_ref,
                          m * k + n * k + 4 * m * n * t + 4 * m * n, None))
+            # pass 2 at a prefill cohort, and on the weight as served
+            # (8:16-pruned, stored dense: at most 128 nonzero products a
+            # tile), at decode and at the cohort
+            wp = prune(torch, w)[0]
+            for key, xm, wm in (("paired_accum_matmul M=128", x128, w),
+                                ("paired_accum_matmul[8:16]", x, wp),
+                                ("paired_accum_matmul[8:16] M=128", x128,
+                                 wp)):
+                mm = xm.shape[0]
+                pm = pair_permutation(ss.tile_sums_matmul(
+                    xm, wm, k_tile=kt)).to(torch.int32)
+                runs.append((key, ss.paired_accum_matmul, ((xm, wm, pm), tk),
+                             None if mm == 128 else ss.paired_accum_matmul_ref,
+                             mm * k + n * k + 4 * mm * n * t + 4 * mm * n,
+                             None))
             runs.append(("chunked_sort_matmul", ss.chunked_sort_matmul,
                          ((x, w), one), ss.chunked_sort_matmul_ref,
                          m * k + n * k + 4 * m * n, None))
@@ -1808,11 +1829,13 @@ def phase_sort_timing(torch, sm, ss, baseline=None):
             old = None if not baseline or fn is ss.tile_sums_matmul else (
                 lambda: baseline[fn.__name__](*args, **kw))
             outputs = args[0].shape[0] * n
+            # the pruned weight's tiles sort on the 128-key network
+            tile = kt // 2 if "8:16" in key else kt
             row = dict(**in_turns(torch, lambda: fn(*args, **kw), old,
                                   flush_buf, f"{key} {site}"),
                        library_ms=lib and time_launches(torch, lib, 10,
                                                         flush_buf),
-                       cx_floor_ms=(cx_floor_ms(outputs, kt, -(-k // kt))
+                       cx_floor_ms=(cx_floor_ms(outputs, tile, -(-k // kt))
                                     if kw.get("policy") == "sorted_tiled"
                                     or fn is ss.paired_accum_matmul
                                     else cx_floor_ms(outputs, kp)
@@ -1822,7 +1845,7 @@ def phase_sort_timing(torch, sm, ss, baseline=None):
                 row["plain_ms"] = time_launches(
                     torch, lambda: plain(*args, **kw), 1, flush_buf)
             table[key].append(row)
-            print(f"  time {key:26s} {site:6s} M={args[0].shape[0]:3d} "
+            print(f"  time {key:31s} {site:6s} M={args[0].shape[0]:3d} "
                   f"N={n:5d} K={k:5d} kernel {row['ms']:.4f} ms" + (
                       f"  old kernel {row['old_ms']:.4f} ms"
                       if "old_ms" in row else "") + (
@@ -1840,6 +1863,8 @@ EXPAND_OF = {"nm_gather_sort_matmul": "nm_sort_matmul",
                  "nm_sort_matmul[sorted] M=128",
              "nm_gather_tile_sums": "nm_tile_sums_matmul",
              "nm_gather_paired_accum_matmul": "nm_paired_accum_matmul",
+             "nm_gather_paired_accum_matmul M=128":
+                 "nm_paired_accum_matmul M=128",
              "nm_gather_chunked_sort_matmul": "nm_chunked_sort_matmul"}
 
 
@@ -1854,8 +1879,8 @@ def phase_nm_sort_timing(torch, sm, ss, nm, baseline=None):
     over the kept products (the same function for both twins). Pass 1 also
     beside one float32 ``torch.bmm`` on the decompressed weight, as row 9.
     At w_out the one-pass kernels are timed too, beside the two-pass
-    path. The one-pass kernels under ``sorted`` also at a prefill cohort
-    (M = 128; ``[sorted] M=128``, no plain version). Given ``baseline``
+    path. The one-pass kernels under ``sorted`` and pass 2 also at a
+    prefill cohort (M = 128; ``M=128``, no plain version). Given ``baseline``
     (``baseline_kernels``), rows 7, 8, 13, 14, 16 and 17 of that build too
     (``old_ms``), timed in turns with the new."""
     from repro_torch.core.sorted_accum import pair_permutation
@@ -1920,6 +1945,14 @@ def phase_nm_sort_timing(torch, sm, ss, nm, baseline=None):
                          lambda: ss.paired_accum_matmul(x, w, perm, kp=kpt,
                                                         **dk),
                          base + 4 * m * n * t + 4 * m * n, None, True))
+            perm128 = pair_permutation(ss.nm_gather_tile_sums(
+                x128, vals, idx, k_tile=kt, m_group=M_GROUP)).to(torch.int32)
+            runs.append(("nm_gather_paired_accum_matmul M=128", "pass2",
+                         ((x128, vals, idx, perm128), tk),
+                         lambda: ss.paired_accum_matmul(x128, w, perm128,
+                                                        kp=kpt, **dk),
+                         128 * k + 5 * kept + 4 * 128 * n * t + 4 * 128 * n,
+                         None, False))
             runs.append(("nm_gather_chunked_sort_matmul", "chunked",
                          ((x, vals, idx), one),
                          lambda: ss.chunked_sort_matmul(x, w, kp=kps,
@@ -2351,7 +2384,11 @@ def main() -> int:
             ("nm_sort_matmul", "nm_sort_tiled_kernel<4,32>",
              "8:16, K 1536, k_tile 256"),
             ("nm_expand_pass2", "nm_expand_paired_kernel<4,32,true>",
-             "8:16, k_tile 256, merged slots")):
+             "8:16, k_tile 256, merged slots"),
+            ("sorted_stream", "paired_rows_kernel<16,16>",
+             "k_tile 256, sorted on the nonzero products"),
+            ("nm_sort_matmul", "nm_paired_rows_kernel<8,16>",
+             "8:16, k_tile 256, products decoded once")):
         try:
             ops = build.sass_opcodes(source, label)
         except (OSError, subprocess.CalledProcessError) as exc:
@@ -2580,6 +2617,20 @@ def main() -> int:
             work=w_out + ", k_tile 256",
             launches=tiled["paired_accum_matmul"],
             max_abs_err=got["sort_err"]["paired_accum_matmul"],
+            prefill=prefill_record(
+                timing["paired_accum_matmul M=128"],
+                w_out.replace("decode (M=4)", "a prefill cohort (M=128)")
+                + ", k_tile 256"),
+            served_weight=kernel_record(
+                "paired_accum_matmul", csrc + "sorted_stream.cu",
+                "src/repro/kernels/sorted_stream.py:262",
+                timing["paired_accum_matmul[8:16]"], policy="sorted_tiled",
+                work=w_out + ", k_tile 256, the weight 8:16-pruned and "
+                             "stored dense, as served",
+                prefill=prefill_record(
+                    timing["paired_accum_matmul[8:16] M=128"],
+                    w_out.replace("decode (M=4)", "a prefill cohort "
+                                  "(M=128)") + ", k_tile 256, 8:16-pruned")),
             path="phase 3c (two-pass pass 2 at K = 8960)"),
         kernel_record(
             "chunked_sort_matmul", csrc + "sort_matmul.cu",
@@ -2645,6 +2696,10 @@ def main() -> int:
             max_abs_err=max(
                 err["nm_gather_paired_accum_matmul"],
                 got["fault_err"]["nm_gather_paired_accum_matmul"]),
+            prefill=prefill_record(
+                timing["nm_gather_paired_accum_matmul M=128"],
+                w_out.replace("decode (M=4)", "a prefill cohort (M=128)")
+                + nm8 + ", k_tile 256"),
             path="phase 3e (two-pass pass 2 at K = 8960)"),
         kernel_record(
             "nm_gather_chunked_sort_matmul", csrc + "nm_sort_matmul.cu",
@@ -2705,6 +2760,10 @@ def main() -> int:
             work=w_out + nm8 + ", k_tile 256",
             launches=tiled["nm_paired_accum_matmul"],
             max_abs_err=err["nm_paired_accum_matmul"],
+            prefill=prefill_record(
+                timing["nm_paired_accum_matmul M=128"],
+                w_out.replace("decode (M=4)", "a prefill cohort (M=128)")
+                + nm8 + ", k_tile 256"),
             path="phase 3g (two-pass pass 2 at K = 8960)"),
         kernel_record(
             "nm_chunked_sort_matmul", csrc + "nm_expand_sort.cu",

@@ -19,8 +19,9 @@
 //     repro/kernels/sorted_stream.py:nm_gather_tile_sums (pass 1 of the
 //     two-pass `sorted_tiled`; the first up to 16 rows of x, the second
 //     above);
-//   nm_paired_accum_kernel <- repro/kernels/sorted_stream.py:
-//     nm_gather_paired_accum_matmul (pass 2, fed the pairing permutation).
+//   nm_paired_rows_kernel, and past kStagePositions nm_paired_accum_kernel
+//     <- repro/kernels/sorted_stream.py:nm_gather_paired_accum_matmul (pass
+//     2, fed the pairing permutation).
 //
 // Operands: x (M, K) int8; values (N, G, n_keep) int8 and indices
 // (N, G, n_keep) int32 (pruning.nm_compress); kp >= K and kp >= G * m is
@@ -98,8 +99,23 @@
 //   4 and 0.2005 at M = 128, against a float32 bmm of the same sums on the
 //   decompressed weight at 0.0345 / 0.0975 (chip_smoke.py phase 5 with
 //   --baseline-csrc, NVIDIA H100 80GB HBM3, 700.00 W).
-// - Pass 2 (row 14): up to 8 warps per output, the one-pass body fed perm,
-//   gathering through pqs::GatheredProducts.
+// - Pass 2 (row 14), nm_paired_rows_kernel: the one-pass `sorted_tiled`
+//   block fed perm. It stages x and decodes compressed row n once into
+//   int16 products for up to 4 rows of x (decode_products), as the one-pass
+//   kernel does, loads the rows' perm into shared memory where that kernel
+//   keeps its sums, and runs pass2.cuh's block body on the stored products
+//   (two pair slots a warp step, a kept tile on 16 lanes read as 16-byte
+//   words, up to 16 warps a block in contiguous runs of steps; the
+//   network with the directions folded into the keys). Before it a block
+//   of up to 8 warps took one output, and each product cost an index, a
+//   value, a multiply-high for its group and a dependent byte of x, for
+//   every row of x. Past kStagePositions (x not staged) nm_paired_accum_kernel
+//   keeps that design, gathering through pqs::GatheredProducts.
+//   At w_out (8:16) it takes 0.125 ms at M = 4 and 3.51 at M = 128,
+//   0.182 and 5.31 before; tiles on 32 lanes took 0.154 at M = 4, on 8
+//   lanes 0.131, 8 warps a block 0.140, the directions as selects 0.153
+//   (chip_smoke.py phase 5 with --baseline-csrc and scripts/pass2_ab.py,
+//   NVIDIA H100 80GB HBM3, 700.00 W).
 // Over qwen2-1.5b's six K = 1536 sites at decode (M = 4, 8:16) the
 // one-pass kernel takes 0.45 ms under `sorted_tiled` and 0.45 under
 // `sorted`, 12.6 under `sorted` at M = 128; before this design (one
@@ -111,6 +127,7 @@
 #include <cuda_runtime.h>
 
 #include "nm_tile_sums.cuh"
+#include "pass2.cuh"
 #include "pqs_accum.cuh"
 
 namespace {
@@ -121,7 +138,9 @@ using pqs::slabs;
 using pqs::valid_slabs;
 
 constexpr int kTiledWarps = 4;  // warps an output of the one-pass tiled
-constexpr int kPairWarps = 8;   // of pass 2
+constexpr int kPairWarps = 8;   // of pass 2 past kStagePositions
+constexpr int kPairLanes = 16;  // lanes a pass-2 sort tile: 2 a warp
+constexpr int kRowsPairWarps = 16;  // warps a pass-2 row block at most
 constexpr int kRows = 4;        // rows of x a one-pass block serves
 constexpr int kStagePositions = 16384;  // x staged up to this K (64 KB)
 constexpr int kSortedTile = 128;  // `sorted`: slots a decode step takes
@@ -183,6 +202,7 @@ struct RowsArgs {
   int tile_len;  // kept slots a tile
   int wpo;       // warps an output (`sorted_tiled`)
   RowsLayout l;
+  const int32_t* perm;  // pass 2: (M, N, T) pairing permutation
 };
 
 // What a one-pass block has at hand: compressed row n's slots and its rows
@@ -385,13 +405,48 @@ __global__ void nm_paired_accum_kernel(const int8_t* __restrict__ x,
   if (threadIdx.x == 0) out[o] = r;
 }
 
+// Pass 2 (row 14) up to kStagePositions: the one-pass tiled block fed the
+// pairing. Compressed row n = blockIdx.x is decoded once into int16
+// products for the block's rows (m0 = blockIdx.y * a.rows ..), their rows
+// of perm go to shared memory (where the one-pass kernel keeps its sums),
+// and pass2::block_rows runs the pair slots on the stored products. One
+// block an SM is all the launch bounds ask: with the register allocator's
+// own target the instances of 16 and fewer kept keys a tile held 32
+// registers and spilled (scripts/pass2_ab.py).
+template <int E, int LT>
+__global__ void __launch_bounds__(32 * kRowsPairWarps, 1)
+    nm_paired_rows_kernel(RowsArgs a) {
+  __shared__ Clamp acc[kRowsPairWarps * pass2::kRows];
+  unsigned char* smem = pqs::dynamic_smem<unsigned char>();
+  const RowSlots rs = stage_block(a, smem);
+  auto* prods = reinterpret_cast<int16_t*>(smem + a.l.prods);
+  int* perm = reinterpret_cast<int*>(smem + a.l.sums);
+  const int64_t n = blockIdx.x;
+  const int m0 = blockIdx.y * a.rows;
+  const int32_t* pm = a.perm + (static_cast<int64_t>(m0) * a.N + n) * a.T;
+  for (int k = threadIdx.x; k < rs.rows * a.T; k += blockDim.x) {
+    const int r = k / a.T;
+    perm[k] = __ldg(pm + static_cast<int64_t>(r) * a.N * a.T + (k - r * a.T));
+  }
+  decode_products<false>(rs, prods, a.stride, nullptr, a.T * a.tile_len,
+                         a.tile_len);
+  pass2::block_rows<E, LT, false>(
+      pass2::StagedRows{prods, a.stride, a.tile_len},
+      pass2::PermRows{perm, a.T}, rs.rows, a.T, acc, nullptr, a.acc_bits,
+      a.rounds);
+  if (threadIdx.x < rs.rows)
+    a.out[static_cast<int64_t>(m0 + threadIdx.x) * a.N + n] =
+        pass2::rows_register(acc, threadIdx.x, blockDim.x >> 5);
+}
+
 // The one-pass arguments r for up to kRows rows of x a block, with `stride`
 // products a row and T tiles: staging x where the shared memory stays
 // within pqs::kSmemCap, fewer rows a block where the products do not fit,
-// no staging last. False where one row's products and tiles do not fit
-// either.
-bool rows_args(RowsArgs& r, const Slabs& a, int stride, int T) {
-  for (int unstaged = 0; unstaged < 2; ++unstaged)
+// no staging last (none with staged_only). False where one row's products
+// and tiles do not fit either.
+bool rows_args(RowsArgs& r, const Slabs& a, int stride, int T,
+               bool staged_only = false) {
+  for (int unstaged = 0; unstaged < (staged_only ? 1 : 2); ++unstaged)
     for (int rows = a.M < kRows ? a.M : kRows; rows >= 1; rows >>= 1) {
       const RowsLayout l = rows_layout(a, rows, stride, T, !unstaged);
       if (l.total <= static_cast<int>(pqs::kSmemCap) &&
@@ -444,6 +499,19 @@ struct TiledLaunch {
     RowsArgs b = r;
     b.wpo = pqs::paired_threads(b.T, E * LT, kTiledWarps) / 32;
     launch_rows(nm_sort_tiled_kernel<E, LT>, b, 32 * b.rows * b.wpo, s);
+  }
+};
+
+struct RowsPairedLaunch {
+  RowsArgs r;
+  cudaStream_t s;
+
+  template <int E, int LT>
+  void operator()() const {
+    const int steps = ((r.T + 1) / 2 + 32 / LT - 1) / (32 / LT);
+    launch_rows(nm_paired_rows_kernel<E, LT>, r,
+                32 * pass2::balanced_warps(r.rows * steps, kRowsPairWarps),
+                s);
   }
 };
 
@@ -529,9 +597,18 @@ extern "C" int pqs_nm_gather_paired_accum(const void* x, const void* val,
       acc_bits > 30 || rounds < 0)
     return cudaErrorInvalidValue;
   const int lc = (k_tile / m_group) * n_keep;
+  const int T = kp / k_tile;
+  auto s = static_cast<cudaStream_t>(stream);
+  RowsArgs r{a.x, a.val, a.idx, static_cast<int32_t*>(out), M, N, K, kp,
+             G, n_keep, m_group, acc_bits, rounds};
+  r.tile_len = lc;
+  r.perm = static_cast<const int32_t*>(perm);
+  if (K <= kStagePositions && rows_args(r, a, (T * lc + 7) & ~7, T, true))
+    return pass2::dispatch<kPairLanes>(pqs::next_pow2(lc),
+                                       RowsPairedLaunch{r, s});
   return pqs::dispatch_tile(
       pqs::next_pow2(lc),
       PairedLaunch{a, static_cast<const int32_t*>(perm),
-                   static_cast<int32_t*>(out), kp, kp / k_tile, lc, acc_bits,
-                   rounds, static_cast<cudaStream_t>(stream)});
+                   static_cast<int32_t*>(out), kp, T, lc, acc_bits, rounds,
+                   s});
 }

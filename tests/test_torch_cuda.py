@@ -1665,3 +1665,100 @@ def test_rows_8_and_13_row_blocks(card, m):
                 want = ss.nm_paired_accum_matmul_ref(x, *slabs, perm, **tk)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (k, rounds)
+
+
+PASS2_MS = (1, 3, 4, 5, 9)  # around the pass-2 kernels' blocks of 4 rows
+# nonzero products of tiles 0-2 of the constructed rows 0-4 of w (against
+# rows of x with no zero): each side of the 64-, 128- and 256-key networks
+PASS2_NNZ = ((64, 65, 128), (129, 256, 64), (65, 129, 0), (128, 128, 129),
+             (0, 0, 0))
+
+
+def _pass2_dense(m, k, seed, card):
+    """x (m, k) int8 with no zero (row 0 at +-127) and w (12, k): rows 0-4
+    with exactly ``PASS2_NNZ`` nonzero products a tile of 256 (tile 2 cut
+    to what lies before K), row 5 8:16-pruned, row 6 at 127, the rest
+    random."""
+    r = np.random.default_rng(seed)
+    x = r.integers(1, 128, (m, k)) * np.where(r.random((m, k)) < 0.5, -1, 1)
+    x[0] = 127 * np.where(r.random(k) < 0.3, -1, 1)
+    w = r.integers(-127, 128, (12, k))
+    w[w == 0] = 1
+    for row, counts in enumerate(PASS2_NNZ):
+        for t, nnz in enumerate(counts):
+            tile = w[row, t * 256:(t + 1) * 256]
+            tile[r.permutation(len(tile))[min(nnz, len(tile)):]] = 0
+    w[6] = 127
+    w = torch.from_numpy(w.astype(np.int8))
+    w[5] = _prune(w[5:6], 8, 16)[0][0]
+    return torch.from_numpy(x.astype(np.int8)).to(card), w.to(card)
+
+
+@pytest.mark.parametrize("m", PASS2_MS)
+def test_paired_accum_row_blocks(card, m):
+    """Row 12 (``paired_accum_matmul``: up to 4 rows of x a block, the
+    weight row and perm staged, each pair slot sorted on its nonzero
+    products on the smallest network that holds them) against its plain
+    version at M 1, 3, 4, 5 and 9: tiles of 64, 65, 128, 129 and 256
+    nonzero products and all-zero ones, an odd T, K = kp and K short of
+    kp, rounds 0 to 3, acc_bits 8, 16 and 30."""
+    for k in (768, 700):
+        x, w = _pass2_dense(m, k, m + k, card)
+        perm = pair_permutation(ss.tile_sums_matmul(
+            x, w, k_tile=256, kp=768)).to(torch.int32)
+        for rounds in (0, 1, 2, 3):
+            for acc_bits in (8, 16, 30):
+                kw = dict(acc_bits=acc_bits, rounds=rounds, k_tile=256,
+                          kp=768)
+                got = ss.paired_accum_matmul(x, w, perm, **kw)
+                want = ss.paired_accum_matmul_ref(x, w, perm, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (k, rounds, acc_bits)
+
+
+@pytest.mark.parametrize("k,k_tile", [(8192, 1), (135168, 1024)])
+def test_paired_accum_unstaged(card, k, k_tile):
+    """Row 12 where its shared memory does not hold the block's rows of
+    perm (k_tile 1: 8192 tiles a row) or the weight row (K = 135168)
+    against its plain version, which then read device memory; each pair
+    slot sorted on its nonzero products at k_tile 1024."""
+    x, w = _xw(5, k, 3, k + k_tile, card)
+    w[1, ::3] = 0
+    perm = pair_permutation(ss.tile_sums_matmul(x, w, k_tile=k_tile)).to(
+        torch.int32)
+    for rounds in (0, 1):
+        kw = dict(acc_bits=16, rounds=rounds, k_tile=k_tile)
+        got = ss.paired_accum_matmul(x, w, perm, **kw)
+        want = ss.paired_accum_matmul_ref(x, w, perm, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rounds
+
+
+@pytest.mark.parametrize("m", PASS2_MS)
+def test_nm_gather_paired_accum_row_blocks(card, m):
+    """Row 14 (``nm_gather_paired_accum_matmul``: a compressed row decoded
+    once into products for up to 4 rows of x, their perm in shared memory)
+    against its plain version at M 1, 3, 4, 5 and 9: 8:16 at k_tile 256
+    and 2:4 at k_tile 64, K = kp (1536) and K short of kp (1000), canonical
+    and non-canonical slabs, rounds 0 to 3, acc_bits 8, 16 and 30; and past
+    ``kStagePositions`` (K = 16896), where the kernel of one output a block
+    stands."""
+    for k, n_keep, m_group, k_tile in ((1536, 8, 16, 256), (1000, 8, 16, 256),
+                                       (1000, 2, 4, 64),
+                                       (16896, 8, 16, 256)):
+        x, _, vals, idx = _nm_w(m, k, 21, n_keep, m_group, m + k + n_keep,
+                                card)
+        nk = dict(m_group=m_group)
+        for slabs in ((vals, idx), _non_canonical(vals, idx)):
+            perm = pair_permutation(ss.nm_gather_tile_sums_ref(
+                x, *slabs, k_tile=k_tile, **nk)).to(torch.int32)
+            for rounds in (0, 1, 2, 3):
+                for acc_bits in (8, 16, 30):
+                    kw = dict(acc_bits=acc_bits, rounds=rounds,
+                              k_tile=k_tile, **nk)
+                    got = ss.nm_gather_paired_accum_matmul(x, *slabs, perm,
+                                                           **kw)
+                    want = ss.nm_gather_paired_accum_matmul_ref(
+                        x, *slabs, perm, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (k, rounds, acc_bits)

@@ -17,6 +17,13 @@ And the premise of the card's radix `sorted` body (``csrc/pqs_accum.cuh``
 body sorts only the real keys, drops the zeros and pairs the m sorted
 nonzero keys as max(s[i], 0) + min(s[m-1-i], 0) (``_radix_order``, a numpy
 model of it), held against the JAX package's ``sorted_order``.
+
+And the premise of the card's pass 2 (``csrc/pass2.cuh``, rows 12 and 14):
+with at least one round, a pair slot may keep only its two tiles' nonzero
+products, pad both to next_pow2 of the larger count and sort those
+(``_compacted_pass2``, a torch model of it), held against the JAX
+package's ``paired_accum_matmul`` in interpret mode; with no round the
+compacted interleave differs, which is why that route stays dense.
 """
 
 import jax.numpy as jnp
@@ -29,6 +36,7 @@ from repro.core import pruning as jpr
 from repro.core import sorted_accum as jsa
 from repro.kernels import nm_spmm as jnm
 from repro.kernels import sorted_matmul as jsm
+from repro.kernels import sorted_stream as jss
 from repro_torch.core import sorted_accum as tsa
 from repro_torch.kernels import nm_spmm
 from repro_torch.kernels import sorted_matmul as tsm
@@ -160,3 +168,116 @@ def test_nonzero_stream_does_not_depend_on_zero_padding(zeros):
             np.testing.assert_array_equal(_nonzero(_radix_order(keys,
                                                                 rounds)),
                                           want)
+
+
+PASS2_TILE = 256
+# (tile, nonzero products) of the constructed rows of w in
+# _pass2_operands: rows 4-7 hold tiles of exactly 64, 65, 128, 129 and 256
+# nonzero products against row 2 of x, which has no zero
+PASS2_NNZ = ((64, 65, 128), (129, 64, 65), (128, 129, 256), (65, 0, 129))
+
+
+def _pass2_operands(pruned, seed):
+    """Seeded int8 x (4, 768) and w (8, 768), three tiles of 256 (an odd
+    T): row 0 of x saturating, row 1 all zero, row 2 without a zero; w
+    8:16-pruned by the JAX mask, or unpruned with rows 4-7 built to the
+    nonzero counts of ``PASS2_NNZ``."""
+    r = np.random.default_rng(seed)
+    k = 3 * PASS2_TILE
+    x = r.integers(-128, 128, (4, k)).astype(np.int8)
+    w = r.integers(-127, 128, (8, k))
+    x[0] = 127
+    w[0, : k // 2] = 127
+    x[1] = 0
+    x[2] = r.integers(1, 128, k) * np.where(r.random(k) < 0.5, -1, 1)
+    if pruned:
+        mask = np.asarray(jpr.nm_prune_mask(jnp.asarray(w, jnp.float32),
+                                            N_KEEP, M_GROUP))
+        return x, (w * mask).astype(np.int8)
+    w[w == 0] = 1
+    for row, counts in zip(range(4, 8), PASS2_NNZ):
+        for t, nnz in enumerate(counts):
+            tile = w[row, t * PASS2_TILE:(t + 1) * PASS2_TILE]
+            tile[r.permutation(PASS2_TILE)[nnz:]] = 0
+    return x, w.astype(np.int8)
+
+
+def _perm(x, w, k_tile):
+    """The JAX package's pairing of the tile sums of x against w."""
+    m, k = x.shape
+    sums = (x.astype(np.int64)[:, None, :] * w.astype(np.int64)[None]
+            ).reshape(m, w.shape[0], k // k_tile, k_tile).sum(-1)
+    return np.asarray(jsa.pair_permutation(jnp.asarray(sums, jnp.int32)))
+
+
+def _compacted_pass2(x, w, perm, k_tile, rounds, acc_bits):
+    """A torch model of the card's compacted pass 2: each pair slot keeps
+    its two tiles' nonzero products, pads both with zeros to L =
+    next_pow2(the larger count), sorts each ``rounds`` rounds and
+    interleaves them; the slots' streams in perm's order are added with
+    one saturating add each."""
+    m, k = x.shape
+    n, t = w.shape[0], k // k_tile
+    prods = (torch.from_numpy(x).long()[:, None, :]
+             * torch.from_numpy(w).long()[None]).reshape(m, n, t, k_tile)
+    streams = torch.zeros((m, n, (t + 1) // 2 * 2 * k_tile),
+                          dtype=torch.int64)
+    for i in range(m):
+        for j in range(n):
+            order, pieces = perm[i, j].tolist(), []
+            for s in range(0, t, 2):
+                a = prods[i, j, order[s]]
+                b = (prods[i, j, order[s + 1]] if s + 1 < t
+                     else torch.zeros(k_tile, dtype=torch.int64))
+                a, b = a[a != 0], b[b != 0]
+                size = 1 << (max(len(a), len(b), 1) - 1).bit_length()
+                sa, sb = (tsa.sorted_order(torch.nn.functional.pad(
+                    v, (0, size - len(v))), rounds) for v in (a, b))
+                pieces.append(torch.stack([sa, sb], -1).reshape(-1))
+            stream = torch.cat(pieces)
+            streams[i, j, : len(stream)] = stream
+    return tsa.monotone_accumulate(streams, acc_bits)[0].numpy()
+
+
+@pytest.mark.parametrize("pruned", [True, False], ids=["8:16", "dense"])
+@pytest.mark.parametrize("rounds", [1, 2, 3])
+def test_pass2_sorts_nonzero_products(pruned, rounds):
+    """With rounds 1 to 3, on an 8:16-pruned and an unpruned weight (tiles
+    of exactly 64, 65, 128, 129 and 256 nonzero products, an all-zero row
+    of x, three tiles a row), ``_compacted_pass2`` equals the JAX
+    package's ``paired_accum_matmul`` in interpret mode, bit for bit."""
+    x, w = _pass2_operands(pruned, 40 + rounds)
+    perm = _perm(x, w, PASS2_TILE)
+    if not pruned:
+        nnz = (x[2].astype(np.int64) * w[4:8]).reshape(
+            4, 3, PASS2_TILE) != 0
+        assert nnz.sum(-1).tolist() == [list(c) for c in PASS2_NNZ]
+    acc_bits = 12 if rounds == 2 else 16  # one Pallas compile a case
+    want = np.asarray(jss.paired_accum_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(perm),
+        acc_bits=acc_bits, k_tile=PASS2_TILE, rounds=rounds, **BLOCKS))
+    np.testing.assert_array_equal(
+        _compacted_pass2(x, w, perm, PASS2_TILE, rounds, acc_bits), want)
+
+
+def test_pass2_without_a_round_stays_dense():
+    """With no round the tiles keep their positions, and the dense
+    interleave is not the compacted one: two tiles (100, 100, 0, 0) and
+    (0, 0, -100, -100) add as 100, 0, 100, 0, 0, -100, 0, -100 (-73 in an
+    8-bit register) against the compacted 100, -100, 100, -100 (0). With
+    a round the two agree (the JAX package's kernel gives both)."""
+    x = np.zeros((4, 8), np.int8)
+    w = np.zeros((8, 8), np.int8)
+    x[0] = 10
+    w[0] = (10, 10, 0, 0, 0, 0, -10, -10)
+    perm = np.tile(np.arange(2, dtype=np.int32), (4, 8, 1))
+    for rounds in (0, 1):
+        want = np.asarray(jss.paired_accum_matmul(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(perm), acc_bits=8,
+            k_tile=4, rounds=rounds, **BLOCKS))
+        got = _compacted_pass2(x, w, perm, 4, rounds, 8)
+        if rounds:
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert (want[0, 0], got[0, 0]) == (-73, 0)
+            np.testing.assert_array_equal(got[1:], want[1:])
