@@ -34,7 +34,11 @@ imports nothing of JAX or of the JAX package. Phases:
    (and the latter's one-warp body at k_tile 2048), at M 1, 4, 5, 64, 128,
    K 1000 and 1001, k_tile 16 to 1024, 8:16 and 2:4 slabs, non-canonical
    slabs and an index outside its group, which the gather reads and the
-   expand drops, the int8 extremes at k_tile 1024); and their N:M gather
+   expand drops, the int8 extremes at k_tile 1024); rows 4 and 5 on slabs
+   whose slots name one position twice with a sum past int8
+   (``phase_duplicate_slots``: the smallest case, M = 2, K = 16, must give
+   (254, 32258), and row 5 under every policy on its int32 route); and
+   their N:M gather
    twins
    ``nm_gather_sort_matmul``, ``nm_gather_tile_sums``,
    ``nm_gather_paired_accum_matmul`` and ``nm_gather_chunked_sort_matmul``
@@ -90,8 +94,14 @@ imports nothing of JAX or of the JAX package. Phases:
    tokens of 3c (and so of 3e);
 3h. and under ``sorted``: 168 ``nm_sort_matmul`` and 28
    ``nm_chunked_sort_matmul`` launches a step, the tokens of 3d and 3f;
-3i. one 28-layer decode's logits bit for bit within each group: 3 / 3b,
-   3c / 3e / 3g, 3d / 3f / 3h;
+3j. the compressed model with ``nm_impl="expand"`` under
+   ``sorted_tiled_seq``: 196 ``nm_seq_policy_matmul`` launches a step (row
+   5), no other kernel, the tokens of 3 and 3b;
+3k. the compressed model under ``wide`` (``auto`` takes the expand
+   kernel, as it does for every compressed matmul ``pqs_dot(certified=
+   True)`` makes ``wide``): 196 ``nm_seq_policy_matmul`` launches a step;
+3i. one 28-layer decode's logits bit for bit within each group: 3 / 3b /
+   3j, 3c / 3e / 3g, 3d / 3f / 3h, and dense ``wide`` / 3k;
 4. the same engine at 1 layer, full width: the dense kernel and its
    plain version, and the compressed weights through the gather and the
    expand kernel (the expand kernel's path), give identical tokens and
@@ -117,8 +127,9 @@ imports nothing of JAX or of the JAX package. Phases:
    ``wide`` at the 7 sites at M = 4, 64 and 128 beside ``torch._int_mm``;
    the gather and expand one-pass
    kernels at 4, 8 and 16 groups (``GATHER_MIN_G``); the N:M K-streaming
-   kernels at M = 4 and the gather also at M = 128, its sort tile on 32
-   and on 16 lanes in turns (``phase_nm_timing``); the `sorted` rows 15,
+   kernels at M = 4 and 128, the gather under ``sorted_tiled_seq`` and the
+   expand (row 5) under every policy, its ``wide`` beside ``torch._int_mm``
+   on the decompressed weight (``phase_nm_timing``); the `sorted` rows 15,
    16 and 17 at every kp from 4096 to 65536 (``phase_sorted_kp_timing``);
    and ``quant_matmul``
    and ``nm_spmm`` at the 7 site shapes at M = 4 and 128 beside
@@ -472,6 +483,95 @@ def phase_wide_kernels(torch, sm, qm, nm, seed):
     return worst
 
 
+def smallest_duplicate(torch, device="cuda"):
+    """M = 2, K = 16, one 2:16 group whose two slots both name position 0
+    with value 127, x[:, 0] = (1, 127): the expanded weight is 254 (past
+    int8), the products 254 and 32258 (a byte would wrap them to -2 and
+    -254). Returns x, vals, idx."""
+    x = torch.zeros((2, 16), dtype=torch.int8, device=device)
+    x[:, 0] = torch.tensor([1, 127], dtype=torch.int8)
+    vals = torch.full((1, 1, 2), 127, dtype=torch.int8, device=device)
+    idx = torch.zeros((1, 1, 2), dtype=torch.int32, device=device)
+    return x, vals, idx
+
+
+def stacked_slabs(torch, vals, idx):
+    """Slabs whose slots name one position twice with a sum past int8: in
+    every third group slots 0 and 1 both at slot 0's position with value
+    127 (a weight of 254), in every seventh both -128 (-256)."""
+    vals, idx = vals.clone(), idx.clone()
+    idx[:, ::3, 1] = idx[:, ::3, 0]
+    vals[:, ::3, :2] = 127
+    idx[:, ::7, 1] = idx[:, ::7, 0]
+    vals[:, ::7, :2] = -128
+    return vals, idx
+
+
+# (M, N, K) of row 5's int32 route: decode at a site's shape, K past the
+# expand kernel's staged window, a prefill cohort, a block of 4 groups of 4
+# rows
+DUPLICATE_CASES = ((4, 256, 1536), (5, 70, 8960), (128, 70, 300),
+                   (13, 70, 200))
+
+
+def phase_duplicate_slots(torch, sm, nm, seed):
+    """Rows 4 (``nm_spmm``) and 5 (``nm_seq_policy_matmul``) on slabs whose
+    slots name one position twice, their sum past int8 (the expanded
+    weight 254 or -256): the smallest case (``smallest_duplicate``) must give
+    the plain version's (254, 32258) under ``nm_spmm`` and row 5's ``wide``
+    (the tile's bytes would wrap it to (-2, -254)); then at
+    ``DUPLICATE_CASES`` row 4 on ``WIDE_SLABS`` and row 5 under every
+    policy (``sorted_tiled_seq`` at rounds 0 to 3 with acc_bits 2, 16 and
+    30, ``clip`` and ``wrap`` at 2 and 30, ``wide``), each on its int32
+    route, against the plain version. Returns the max |difference| of
+    each kernel."""
+    def diff(a, b):
+        torch.cuda.synchronize()
+        return int((a.long() - b.long()).abs().max())
+
+    worst = {"nm_spmm": 0, "nm_seq_policy_matmul": 0}
+    x, vals, idx = smallest_duplicate(torch)
+    smallest = {name: fn(x, vals, idx, m_group=16).flatten().tolist()
+                for name, fn in (
+                    ("nm_spmm", nm.nm_spmm),
+                    ("nm_seq_policy_matmul", lambda *a, **kw:
+                     nm.nm_seq_policy_matmul(*a, policy="wide", **kw)))}
+    print(f"  smallest duplicate case (254 at position 0, x = 1 and 127): "
+          f"{smallest}, want [254, 32258] each", flush=True)
+    for name, got in smallest.items():
+        worst[name] = max(worst[name], *(abs(a - b) for a, b in zip(
+            got, (254, 32258))))
+    runs = [("sorted_tiled_seq", r, b) for r in range(4) for b in (2, 16, 30)]
+    runs += [(p, 1, b) for p in ("clip", "wrap") for b in (2, 30)]
+    runs += [("wide", 1, 16)]
+    for i, (m, n, k) in enumerate(DUPLICATE_CASES):
+        errs = []
+        for j, (n_keep, m_group) in enumerate(WIDE_SLABS):
+            x, _, vals, idx = nm_operands(torch, m, n, k, seed + 340 + i + j,
+                                          n_keep, m_group)
+            sv, si = stacked_slabs(torch, vals, idx)
+            errs.append(diff(nm.nm_spmm(x, sv, si, m_group=m_group),
+                             nm.nm_spmm_ref(x, sv, si, m_group=m_group)))
+        worst["nm_spmm"] = max(worst["nm_spmm"], *errs)
+        x, _, vals, idx = nm_operands(torch, m, n, k, seed + 350 + i)
+        sv, si = stacked_slabs(torch, vals, idx)
+        seq = []
+        for policy, rounds, acc_bits in runs:
+            kw = dict(m_group=M_GROUP, policy=policy, acc_bits=acc_bits,
+                      rounds=rounds, k_tile=256)
+            seq.append(diff(nm.nm_seq_policy_matmul(x, sv, si, **kw),
+                            nm.nm_seq_policy_matmul_ref(x, sv, si, **kw)))
+        worst["nm_seq_policy_matmul"] = max(worst["nm_seq_policy_matmul"],
+                                            *seq)
+        print(f"  duplicate slots past int8 M={m:3d} N={n:4d} K={k:5d}: "
+              f"nm_spmm at {'/'.join(f'{a}:{b}' for a, b in WIDE_SLABS)} "
+              f"max|diff| {errs}; nm_seq_policy_matmul over {len(runs)} "
+              f"policy runs max|diff| {max(seq)}", flush=True)
+    if any(worst.values()):
+        raise AssertionError(f"duplicate slots past int8: {worst}")
+    return worst
+
+
 # Row 3's bodies (quant_matmul_body): M at decode, around the 8-, 16- and
 # 32-row instructions and above 128; (K, N) TMA can take and ragged ones
 # it cannot; operands 0, 1 and 4 bytes off alignment (the TMA body only
@@ -731,14 +831,12 @@ def phase_parity(torch, counters, cfg, seed):
     """1 layer at full width (every site of the model; the depth is cut to
     keep the plain version's serve short): the dense kernel and its plain
     version, and the compressed weights through the gather and the expand
-    kernel, give the same tokens and decode logits. The expand serve is
-    that kernel's path: its counts are set to 0 just before and read just
-    after. Returns the expand kernel's launches in it."""
+    kernel, give the same tokens and decode logits; the expand serve must
+    launch the expand kernel at every site and the gather kernel never."""
     from repro_torch.core.qtensor import nm_compress_tree
 
     cfg1 = dataclasses.replace(cfg, num_layers=1)
     outs = {}
-    expand_launches = None
     for name, kw in (("cuda", dict(backend="cuda")),
                      ("torch", dict(backend="torch")),
                      ("gather", dict(compressed=True, nm_impl="gather")),
@@ -767,7 +865,6 @@ def phase_parity(torch, counters, cfg, seed):
         ("torch", params, dict(backend="torch")),
         ("gather", sparse, dict(nm_impl="gather")),
         ("expand", sparse, dict(nm_impl="expand"))))
-    return expand_launches
 
 
 def check_logits(torch, model, cfg, seed, runs):
@@ -801,22 +898,24 @@ def check_logits(torch, model, cfg, seed, runs):
 def phase_logits_28(torch, cfg, seed):
     """One full-depth (28-layer) decode's logits, after a prefill of 4 x
     16 tokens, bit for bit within each group the serve phases compare by
-    tokens: dense and compressed (``auto``: gather) storage under
-    ``sorted_tiled_seq`` (3 / 3b); dense, gather and expand under
-    ``sorted_tiled`` (3c / 3e / 3g) and under ``sorted`` (3d / 3f / 3h).
+    tokens: dense, gather (``auto``) and expand storage under
+    ``sorted_tiled_seq`` (3 / 3b / 3j); dense, gather and expand under
+    ``sorted_tiled`` (3c / 3e / 3g) and under ``sorted`` (3d / 3f / 3h);
+    dense and compressed (``auto``: expand, row 5) under ``wide`` (3k).
     The tokens of a 28-layer serve compare about one argmax a request;
     the logits compare every value."""
     from repro_torch.core.qtensor import nm_compress_tree
 
     model, params = model_params(cfg, seed, compressed=False)
     sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
-    for policy, impls in (("sorted_tiled_seq", (None,)),
+    for policy, impls in (("sorted_tiled_seq", (None, "expand")),
                           ("sorted_tiled", (None, "expand")),
-                          ("sorted", (None, "expand"))):
+                          ("sorted", (None, "expand")),
+                          ("wide", (None,))):
         t0 = time.perf_counter()
         check_logits(torch, model, cfg, seed, [
             ("dense", params, dict(policy=policy))] + [
-            (f"compressed {impl or 'auto (gather)'}", sparse,
+            (f"compressed {impl or 'auto'}", sparse,
              dict(policy=policy, nm_impl=impl)) for impl in impls])
         print(f"  {policy}: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1617,57 +1716,77 @@ def phase_timing(torch, sm, baseline=None):
 
 
 def phase_nm_timing(torch, sm, nm, baseline=None):
-    """Both N:M K-streaming kernels at the 7 sites, 8:16
-    sorted_tiled_seq: at decode (M = 4) beside their plain versions, the
-    dense kernel on the decompressed weight, their bound (the compressed
-    bytes: x, int8 values, int32 indices and the int32 out; the operations:
-    the kept products) and the integer-ALU floor of their sort networks
-    (``cx_floor_ms``: row 6 sorts a tile's 128 kept keys, row 5 its 256
-    dense ones); row 6 also at a prefill cohort (M = 128; no plain
-    version). Given ``baseline`` (``baseline_kernels``), rows 5 and 6
-    of that build too (``old_ms``), timed in turns with the new. Returns
-    {kernel: rows at M = 4} and {"nm_gather_seq_policy_matmul M=128":
-    rows}, each row with its ``site``."""
+    """Both N:M K-streaming kernels at the 7 sites on 8:16 slabs: row 6
+    (gather) under sorted_tiled_seq at decode (M = 4) and at a prefill
+    cohort (M = 128); row 5 (expand) under every SEQ policy at both M.
+    Beside each: the dense kernel under the same policy on the
+    decompressed weight (``dense_ms``), the bound (the compressed bytes: x,
+    int8 values, int32 indices and the int32 out; the operations: the kept
+    products), the integer-ALU floor of the sort networks under
+    sorted_tiled_seq (``cx_floor_ms``: a network of 128 keys a tile, row 6's
+    kept products and row 5's listed nonzero positions), the plain version
+    at decode and, for row
+    5's ``wide``, ``torch._int_mm`` on the decompressed weight stored (N, K)
+    (``library_ms`` at M = 128; ``int_mm_m32_ms`` at M = 32 beside decode,
+    which it refuses). Given ``baseline`` (``baseline_kernels``), each
+    kernel of that build too (``old_ms``), timed in turns with the new.
+    Returns {(kernel, policy, M): rows}, each row with its ``site``."""
     flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
-    kw = dict(policy="sorted_tiled_seq", acc_bits=16, rounds=1, k_tile=256)
-    gather = "nm_gather_seq_policy_matmul"
-    table = {gather: [], "nm_seq_policy_matmul": [], gather + " M=128": []}
+    gather, expand = "nm_gather_seq_policy_matmul", "nm_seq_policy_matmul"
+    runs = [(gather, nm.nm_gather_seq_policy_matmul, "sorted_tiled_seq",
+             128)] + [(expand, nm.nm_seq_policy_matmul, policy, 128)
+                      for policy in sm.SEQ_POLICIES]
+    table = {(name, policy, m): [] for name, _, policy, _ in runs
+             for m in (4, 128)}
     for site, (n, k) in SITES.items():
         x128, w, vals, idx = nm_operands(torch, 128, n, k, 9)
         kept = vals.numel()
         tiles = -(-k // 256)
         for m in (4, 128):
             x = x128[:m].contiguous()
+            xl = x128[:max(m, 32)].contiguous()
             bytes_ms = (m * k + 5 * kept + 4 * m * n) / HBM_BYTES_PER_S * 1e3
             ops_ms = 2 * m * kept / INT8_OPS_PER_S * 1e3
-            dense = time_launches(torch, lambda: sm.seq_policy_matmul(
-                x, w, **kw), 10, flush_buf)
             line = [f"  time nm {site:6s} M={m:3d} N={n:5d} K={k:5d}"]
-            runs = ((gather, nm.nm_gather_seq_policy_matmul, 128),
-                    ("nm_seq_policy_matmul", nm.nm_seq_policy_matmul, 256))
-            for kname, fn, length in runs[: 2 if m == 4 else 1]:
+            dense_of = {}  # the dense kernel under each policy
+            for kname, fn, policy, length in runs:
+                kw = dict(policy=policy, acc_bits=16, rounds=1, k_tile=256)
+                if policy not in dense_of:
+                    dense_of[policy] = time_launches(
+                        torch, lambda: sm.seq_policy_matmul(x, w, **kw), 10,
+                        flush_buf)
+                dense = dense_of[policy]
                 old = baseline and (lambda: baseline[kname](
                     x, vals, idx, m_group=M_GROUP, **kw))
                 row = dict(site=site, dense_ms=dense,
                            bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
                            ops_ms=ops_ms,
-                           cx_floor_ms=cx_floor_ms(m * n, length, tiles),
                            **in_turns(torch, lambda: fn(
                                x, vals, idx, m_group=M_GROUP, **kw), old,
-                               flush_buf, f"{kname} {site} M={m}"))
+                               flush_buf, f"{kname} {policy} {site} M={m}"))
+                if policy == "sorted_tiled_seq":
+                    row["cx_floor_ms"] = cx_floor_ms(m * n, length, tiles)
                 if m == 4:
                     ref = plain_of(fn)
                     row["plain_ms"] = time_launches(torch, lambda: ref(
                         x, vals, idx, m_group=M_GROUP, **kw), 1, flush_buf)
-                table[kname if m == 4 else gather + " M=128"].append(row)
+                if policy == "wide":
+                    lib = time_launches(torch, lambda: torch._int_mm(
+                        xl, w.t()), 10, flush_buf)
+                    row["library_ms" if m == xl.shape[0]
+                        else "int_mm_m32_ms"] = lib
+                table[(kname, policy, m)].append(row)
                 line.append(
-                    f"{kname.split('_seq')[0]} {row['ms']:.4f} ms" + (
-                        f" (old {row['old_ms']:.4f} ms)"
+                    f"{'gather' if kname == gather else 'expand'} {policy} "
+                    f"{row['ms']:.4f}" + (
+                        f" (old {row['old_ms']:.4f})"
                         if "old_ms" in row else "") + (
-                        f" (plain {row['plain_ms']:.2f} ms)"
-                        if "plain_ms" in row else ""))
-            line.append(f"dense kernel {dense:.4f} ms  bound "
-                        f"{max(bytes_ms, ops_ms):.5f} ms")
+                        f" (plain {row['plain_ms']:.2f})"
+                        if "plain_ms" in row else "") + (
+                        f" (_int_mm at M={xl.shape[0]} {lib:.4f})"
+                        if policy == "wide" else "")
+                    + f" dense {dense:.4f}")
+            line.append(f"ms; bound {max(bytes_ms, ops_ms):.5f} ms")
             print("  ".join(line), flush=True)
     return table
 
@@ -2042,8 +2161,10 @@ def baseline_kernels(torch, csrc_dir):
     (an older commit's, for a same-call comparison): its
     ``seq_policy_matmul.cu``, ``nm_seq_policy_matmul.cu``,
     ``quant_matmul.cu``, ``sort_matmul.cu``, ``sorted_stream.cu``,
-    ``nm_sort_matmul.cu``, ``nm_expand_sort.cu`` and, where it has one,
+    ``nm_sort_matmul.cu``, ``nm_expand_sort.cu`` and, where it has them,
     ``nm_expand_pass2.cu`` (else its ``nm_expand_sort.cu`` holds row 13)
+    and ``nm_expand_seq.cu`` (else its ``nm_seq_policy_matmul.cu`` holds
+    row 5)
     compiled with the port's flags, one nvcc each in parallel, into a
     directory of ``src/repro_torch/_build/`` named after ``csrc_dir``, and
     called through the port's own wrappers with that build's library in
@@ -2076,6 +2197,7 @@ def baseline_kernels(torch, csrc_dir):
             raise RuntimeError(f"baseline nvcc failed for {src}:\n{log}")
         libs[src] = ctypes.CDLL(str(out_dir / f"lib{src}.so"))
     libs.setdefault("nm_expand_pass2", libs["nm_expand_sort"])
+    libs.setdefault("nm_expand_seq", libs["nm_seq_policy_matmul"])
 
     # a tree whose expand `sorted` entry point takes no int32-route pool
     # (before the route existed) is called without one
@@ -2115,7 +2237,7 @@ def baseline_kernels(torch, csrc_dir):
     return {"wide": via("seq_policy_matmul", wide),
             **{f.__name__: via(src, f) for src, f in (
                 ("nm_seq_policy_matmul", nm.nm_gather_seq_policy_matmul),
-                ("nm_seq_policy_matmul", nm.nm_seq_policy_matmul),
+                ("nm_expand_seq", nm.nm_seq_policy_matmul),
                 ("quant_matmul", qm.quant_matmul),
                 ("quant_matmul", nm.nm_spmm),
                 ("sort_matmul", sm.sort_matmul),
@@ -2324,8 +2446,8 @@ def prefill_record(rows, work):
     sums over the sites of ms, old_ms where timed, and the bound."""
     rec = {key: sum(r[key] for r in rows)
            for key in ("ms", "bound_ms", "bytes_ms", "ops_ms", "dense_ms",
-                       "gather_ms", "old_ms", "cx_floor_ms")
-           if all(key in r for r in rows)}
+                       "gather_ms", "old_ms", "cx_floor_ms", "library_ms")
+           if all(r.get(key) is not None for r in rows)}
     rec["bound_by"] = ("bytes" if rec["bytes_ms"] >= rec["ops_ms"]
                        else "operations")
     return dict(work=work, timing=TIMING, **rec)
@@ -2377,6 +2499,9 @@ def main() -> int:
             ("seq_policy_matmul", "sorted_seq_kernel<8,32>", "k_tile 256"),
             ("nm_seq_policy_matmul", "nm_gather_kernel<4,32>",
              "8:16, k_tile 256"),
+            ("nm_expand_seq", "nm_expand_kernel<4,32>",
+             "8:16, k_tile 256: a tile's 128 listed nonzero positions"),
+
             ("sort_matmul", "sort_sorted_kernel<32,1>", "kp 2048"),
             ("sort_matmul", "sort_sorted_kernel<32,8>", "kp 16384"),
             ("nm_sort_matmul", "nm_sort_sorted_rows_kernel<16>",
@@ -2461,6 +2586,17 @@ def main() -> int:
             raise AssertionError(f"no {policy} tokens of 3c-3f to compare: "
                                  "a phase before failed")
 
+    def nm_seq_expand_serve(policy, key):
+        got[key] = phase_serve(
+            torch, counters, cfg, args.seed, {"nm_seq_policy_matmul": 7},
+            compressed=True, policy=policy,
+            nm_impl="expand" if policy == "sorted_tiled_seq" else None,
+            want_tokens=got.get("tokens") if policy == "sorted_tiled_seq"
+            else None)[0]
+        if policy == "sorted_tiled_seq" and "tokens" not in got:
+            raise AssertionError("no tokens of 3 / 3b to compare: phase 3 "
+                                 "failed")
+
     def timing():
         baseline = args.baseline_csrc and baseline_kernels(
             torch, args.baseline_csrc)
@@ -2484,6 +2620,7 @@ def main() -> int:
             fault_err=phase_gather_faults(torch, nm, ss, args.seed),
             sorted_err=phase_sorted_regimes(torch, sm, nm, args.seed),
             wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed),
+            dup_err=phase_duplicate_slots(torch, sm, nm, args.seed),
             qm_err=phase_quant_matmul_bodies(torch, sm, qm, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
@@ -2499,11 +2636,16 @@ def main() -> int:
          lambda: nm_expand_serve("sorted_tiled")),
         ("[3h] serve qwen2-1.5b from N:M compressed storage with "
          "nm_impl='expand' under sorted", lambda: nm_expand_serve("sorted")),
-        ("[3i] 28-layer decode logits, bit for bit within 3/3b, 3c/3e/3g "
-         "and 3d/3f/3h", lambda: phase_logits_28(torch, cfg, args.seed)),
-        ("[4] kernel vs plain serving, dense and compressed", lambda:
-            got.update(expand_launches=phase_parity(torch, counters, cfg,
-                                                    args.seed))),
+        ("[3j] serve qwen2-1.5b from N:M compressed storage with "
+         "nm_impl='expand' under sorted_tiled_seq",
+         lambda: nm_seq_expand_serve("sorted_tiled_seq", "expand seq")),
+        ("[3k] serve qwen2-1.5b from N:M compressed storage under wide "
+         "(auto: expand)", lambda: nm_seq_expand_serve("wide", "expand wide")),
+        ("[3i] 28-layer decode logits, bit for bit within 3/3b/3j, "
+         "3c/3e/3g, 3d/3f/3h and dense wide/3k",
+         lambda: phase_logits_28(torch, cfg, args.seed)),
+        ("[4] kernel vs plain serving, dense and compressed",
+         lambda: phase_parity(torch, counters, cfg, args.seed)),
         ("[4b] kernel vs plain serving, sorted_tiled and sorted, dense "
          "and expand",
          lambda: phase_sort_parity(torch, counters, cfg, args.seed)),
@@ -2528,6 +2670,18 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
     csrc = "src/repro_torch/csrc/"
+    nm_timing = got["nm_timing"]
+    gather, expand = "nm_gather_seq_policy_matmul", "nm_seq_policy_matmul"
+
+    def seq_work(policy, m):
+        return (f"7 projection sites of one qwen2-1.5b layer at M={m}, 8:16 "
+                "compressed slabs, acc_bits 16"
+                + (", the int8 tensor-core mainloop" if policy in (
+                    "wide", "wrap") else "")
+                + ("; library: torch._int_mm on the decompressed weight"
+                   + (" (int_mm_m32_ms: at M=32, as it refuses M=4)"
+                      if m == 4 else "") if policy == "wide" else ""))
+
     kernels = [
         kernel_record(
             "seq_policy_matmul", csrc + "seq_policy_matmul.cu",
@@ -2549,27 +2703,49 @@ def main() -> int:
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
-            got["nm_timing"]["nm_gather_seq_policy_matmul"],
+            nm_timing[(gather, "sorted_tiled_seq", 4)],
             launches=got["nm_launches"]["nm_gather_seq_policy_matmul"],
             max_abs_err=max(got["nm_err"]["nm_gather_seq_policy_matmul"],
                             got["fault_err"]["nm_gather_seq_policy_matmul"]),
             by_site={r["site"]: {key: r[key] for key in (
                 "ms", "old_ms", "dense_ms", "bound_ms") if key in r}
-                for r in got["nm_timing"]["nm_gather_seq_policy_matmul"]},
+                for r in nm_timing[(gather, "sorted_tiled_seq", 4)]},
             prefill=prefill_record(
-                got["nm_timing"]["nm_gather_seq_policy_matmul M=128"],
+                nm_timing[(gather, "sorted_tiled_seq", 128)],
                 "7 projection sites of one qwen2-1.5b layer at a prefill "
                 "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
                 "256"),
             path="phase 3b, compressed storage"),
         kernel_record(
-            "nm_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
+            "nm_seq_policy_matmul", csrc + "nm_expand_seq.cu",
             "src/repro/kernels/nm_spmm.py:182",
-            got["nm_timing"]["nm_seq_policy_matmul"],
-            launches=got["expand_launches"],
-            max_abs_err=got["nm_err"]["nm_seq_policy_matmul"],
-            path="phase 4, compressed storage with nm_impl='expand' "
-                 "(1 layer)"),
+            nm_timing[(expand, "sorted_tiled_seq", 4)],
+            launches=got["expand seq"][expand] + got["expand wide"][expand],
+            launches_by_path={"3j sorted_tiled_seq": got["expand seq"][expand],
+                              "3k wide": got["expand wide"][expand]},
+            max_abs_err=max(got["nm_err"][expand], got["dup_err"][expand]),
+            by_site={r["site"]: {key: r[key] for key in (
+                "ms", "old_ms", "dense_ms", "bound_ms") if key in r}
+                for r in nm_timing[(expand, "sorted_tiled_seq", 4)]},
+            prefill=prefill_record(
+                nm_timing[(expand, "sorted_tiled_seq", 128)],
+                "7 projection sites of one qwen2-1.5b layer at a prefill "
+                "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
+                "256"),
+            policies={policy: {
+                "M=4": kernel_record(
+                    "nm_seq_policy_matmul", csrc + "nm_expand_seq.cu",
+                    "src/repro/kernels/nm_spmm.py:182",
+                    nm_timing[(expand, policy, 4)], policy=policy,
+                    work=seq_work(policy, 4)),
+                "M=128": prefill_record(nm_timing[(expand, policy, 128)],
+                                        seq_work(policy, 128))}
+                for policy in ("clip", "wrap", "wide")},
+            launch_note="launches counts one a call; a wrap call whose K "
+                        "is split over blocks runs two kernels (the int8 "
+                        "mainloop, then wrap_kernel); 3j and 3k run no wrap",
+            path="phases 3j (sorted_tiled_seq, nm_impl='expand') and 3k "
+                 "(wide, auto), compressed storage"),
     ]
     timing = got["sort_timing"]
     tiled, srt = got["sorted_tiled"], got["sorted"]

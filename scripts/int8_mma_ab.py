@@ -122,7 +122,7 @@ VARIANTS = {
          "          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
          "    if (err != cudaSuccess) return err;\n    configured = true;\n")]},
     # the int8 mainloop (rows 1, 3 kn_rows, 4)
-    "no_build": {"quant_matmul.cu": [(
+    "no_build": {"nm_chunks.cuh": [(
         "    const int m_group = 1 << lm;\n",
         "    if (n0 >= 0) return;  // no build: timing only\n"
         "    const int m_group = 1 << lm;\n")]},
@@ -134,8 +134,8 @@ VARIANTS = {
     "stages4": {"int8_mma.cuh": [(
         "kStages = MT == 1 ? 3 : 4;", "kStages = 4;")]},
     "wave_uncapped": {"int8_mma.cuh": [(
-        "std::min(resident_blocks<MT, W>(smem), MT == 1 ? 4 : 2)",
-        "resident_blocks<MT, W>(smem)")]},
+        "std::min(resident_blocks<MT, W, E>(smem), MT == 1 ? 4 : 2)",
+        "resident_blocks<MT, W, E>(smem)")]},
 }
 
 

@@ -45,8 +45,14 @@
 // output zeroed first.
 //
 // The epilogue is the kernel's template parameter E:
-// - WholeK (rows 1 `wide`, 3 and 4): the (M, N) sums over the block's
-//   share of K, stored (or added atomically, K split) after its last slab;
+// - WholeK (rows 1 `wide`, 3 and 4, row 5 `wide`): the (M, N) sums over
+//   the block's share of K, stored (or added atomically, K split) after
+//   its last slab;
+// - WrapK (row 5 `wrap`, nm_seq_policy_matmul.cu): the same sums, each
+//   output then the acc_bits register of its exact sum, one floor mod
+//   (a sign extension of its low acc_bits bits, which the int32 sum's
+//   wrap modulo 2^32 does not change): in the store where K is not split,
+//   else in wrap_kernel, a pass over the (M, N) output after the atomics;
 // - TileSums (row 9, sorted_stream.cu): the (M, N, T) sums of each k_tile
 //   tile, contiguous along T (k_tile a power-of-two multiple of kBK).
 //   After every k_tile / kBK slabs the block puts its accumulators in
@@ -62,17 +68,27 @@
 //
 // A loader W provides:
 //   static constexpr int kLead;                 0 or 1, as above
+//   static constexpr bool kExact;               whether build may flag
 //   int raw_bytes() const;                      a stage's raw bytes (a
 //                                               multiple of 16)
 //   template <int NT> void start(uint8_t* tile, uint8_t* raw, int n0,
 //                                int k0) const;
 //   template <int NT> void build(uint8_t* tile, const uint8_t* raw,
-//                                int n0, int k0) const;
+//                                int n0, int k0, int* flag) const;
 // (NT the block's threads) so that after start's copies land (and, with
 // kLead 1, build) tile[r * kRow + j] holds weight row n0 + r at position
 // k0 + j for r < kBN, j < kBK: rows at or past N are free (their outputs
 // are never stored), and so are positions at or past K, which multiply
-// x's zero fill.
+// x's zero fill. A loader whose weights are sums that may leave int8
+// (kExact: nm_chunks.cuh's, on slabs whose slots name one position
+// twice) sets the block's shared *flag to 1 in build where the tile it
+// built is not those sums, and provides
+//   int exact(const int8_t* xrow, int n, int k_begin, int k_end) const;
+// the exact int32 sum of x's row times weight row n over [k_begin,
+// k_end): a flagged block takes it for each of its outputs instead of the
+// tensor cores' sums. The flag is a route the data picks (canonical slabs
+// never set it), read after the mainloop's last barrier, so it costs
+// the block one barrier where it is set to 0 and nothing else.
 
 #pragma once
 
@@ -243,18 +259,38 @@ struct DenseRows {
     copy_tile<kBN, NT>(tile, w + static_cast<int64_t>(n0) * K + k0, K,
                        N - n0, K - k0, mode);
   }
+  static constexpr bool kExact = false;
   template <int NT>
   __device__ __forceinline__ void build(uint8_t*, const uint8_t*, int,
-                                        int) const {}
+                                        int, int*) const {}
 };
 
 // The epilogues (see the header).
 struct WholeK {
   static constexpr bool kTiled = false;
+  static constexpr bool kWrap = false;
+  __device__ __forceinline__ int value(int sum) const { return sum; }
+};
+
+// The acc_bits register of a sum (2 <= acc_bits <= 30): its low acc_bits
+// bits, sign-extended, the floor mod of policy wrap.
+__device__ __forceinline__ int wrap_bits(int sum, int acc_bits) {
+  return static_cast<int>(static_cast<unsigned>(sum) << (32 - acc_bits)) >>
+         (32 - acc_bits);
+}
+
+struct WrapK {
+  static constexpr bool kTiled = false;
+  static constexpr bool kWrap = true;
+  int acc_bits;
+  __device__ __forceinline__ int value(int sum) const {
+    return wrap_bits(sum, acc_bits);
+  }
 };
 
 struct TileSums {
   static constexpr bool kTiled = true;
+  static constexpr bool kWrap = false;
   static constexpr int kHeld = 8;            // tiles held before a write
   static constexpr int kRowWords = kBN + 4;  // a held row's int32 words
   // a held tile: 16 MT rows, 4 words more so that the 8 lanes of a run
@@ -320,6 +356,28 @@ __host__ __device__ __forceinline__ int stage_bytes(const W& wl) {
   return (16 * MT + kBN) * kRow + wl.raw_bytes();
 }
 
+// A flagged block's outputs (W::kExact): each of its (16 MT) x kBN tile's
+// outputs the loader's exact sum over [k_begin, k_end), stored as the
+// epilogue stores the tensor cores' (added atomically where K is split).
+// Out of line, so that the mainloop's epilogue stays as it is.
+template <int MT, typename W, typename E>
+__device__ __noinline__ void exact_sums(const W& wl, const int8_t* x,
+                                        int32_t* out, E epi, int M, int N,
+                                        int K, int m0, int n0, int k_begin,
+                                        int k_end, int split) {
+  for (int i = threadIdx.x; i < 16 * MT * kBN; i += Shape<MT>::kThreads) {
+    const int m = m0 + i / kBN, n = n0 + i % kBN;
+    if (m >= M || n >= N) continue;
+    const int sum = wl.exact(x + static_cast<int64_t>(m) * K, n, k_begin,
+                             k_end);
+    int32_t* o = out + static_cast<int64_t>(m) * N + n;
+    if (split)
+      atomicAdd(o, sum);
+    else
+      *o = epi.value(sum);
+  }
+}
+
 // One block: the (16 MT) x kBN output tile at (blockIdx.y, blockIdx.x) over
 // slabs [blockIdx.z * per, (blockIdx.z + 1) * per) of K. `split`: K is
 // split among blocks, whose sums are added atomically (WholeK). Dynamic
@@ -330,6 +388,7 @@ __global__ void __launch_bounds__(Shape<MT>::kThreads)
                int32_t* __restrict__ out, int M, int N, int K, int per,
                int split, E epi) {
   extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ int flagged;  // W::kExact: a build met a tile it cannot hold
   constexpr int NT = Shape<MT>::kThreads;
   constexpr int TW = Shape<MT>::kTiles;
   constexpr int kStages = Shape<MT>::kStages;
@@ -364,13 +423,17 @@ __global__ void __launch_bounds__(Shape<MT>::kThreads)
   auto build = [&](int s) {
     uint8_t* st = ring + (s % kStages) * stage;
     wl.template build<NT>(st + kXBytes, st + kTileBytes, n0,
-                          k_begin + s * kBK);
+                          k_begin + s * kBK, &flagged);
   };
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slabs) start(s);
     cp_async_commit();
+  }
+  if constexpr (W::kExact) {
+    if (threadIdx.x == 0) flagged = 0;
+    __syncthreads();  // before any build may set it; the copies fly
   }
   cp_async_wait<kStages - 2>();  // slab 0's copies by this thread landed
   if (W::kLead) build(0);
@@ -439,26 +502,45 @@ __global__ void __launch_bounds__(Shape<MT>::kThreads)
           out[(static_cast<int64_t>(m) * N + n) * epi.T + epi.tiles_k +
               i % past] = 0;
       }
-    return;
-  }
-#pragma unroll
-  for (int mt = 0; mt < TW; ++mt) {
-    if (mt0 + mt >= live) break;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // e: (row g or g + 8) x (column pair)
-        const int m = m0 + 16 * (mt0 + mt) + g + 8 * (e >> 1);
-        const int n = n0 + wn * 16 + 8 * j + 2 * t + (e & 1);
-        if (m < M && n < N) {
-          int32_t* o = out + static_cast<int64_t>(m) * N + n;
-          if (split)
-            atomicAdd(o, acc[mt][j][e]);
-          else
-            *o = acc[mt][j][e];
-        }
+  } else {
+    if constexpr (W::kExact) {
+      // every build came before the last slab's barrier, so the flag is
+      // read here with no barrier of its own
+      if (flagged) {
+        exact_sums<MT>(wl, x, out, epi, M, N, K, m0, n0, k_begin, k_end,
+                       split);
+        return;
       }
+    }
+#pragma unroll
+    for (int mt = 0; mt < TW; ++mt) {
+      if (mt0 + mt >= live) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e: (row g or g + 8) x (column pair)
+          const int m = m0 + 16 * (mt0 + mt) + g + 8 * (e >> 1);
+          const int n = n0 + wn * 16 + 8 * j + 2 * t + (e & 1);
+          if (m < M && n < N) {
+            int32_t* o = out + static_cast<int64_t>(m) * N + n;
+            if (split)
+              atomicAdd(o, acc[mt][j][e]);
+            else
+              *o = epi.value(acc[mt][j][e]);
+          }
+        }
+    }
   }
+}
+
+// WrapK where K was split: each output's sum, added up by the atomics,
+// replaced by its acc_bits register.
+__global__ void wrap_kernel(int32_t* __restrict__ out, int64_t n,
+                            int acc_bits) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    out[i] = wrap_bits(out[i], acc_bits);
 }
 
 inline int sm_count() {
@@ -489,21 +571,24 @@ int resident_blocks(int smem) {
 // The (tiles_n, tiles_m) output tiles of (16 MT)-row blocks, K split among
 // as many blocks as the card holds at once (one wave), at most 4 an SM at
 // decode and 2 above (each split adds M N atomics) and at least a slab a
-// block, the partial sums added atomically into a zeroed output.
-template <int MT, typename W>
+// block, the partial sums added atomically into a zeroed output (and,
+// under WrapK, then wrapped by wrap_kernel).
+template <int MT, typename W, typename E = WholeK>
 int launch_tiles(const int8_t* x, const W& wl, int32_t* out, int M, int N,
-                 int K, int64_t tiles_n, int64_t tiles_m, cudaStream_t s) {
+                 int K, int64_t tiles_n, int64_t tiles_m, cudaStream_t s,
+                 E epi = E{}) {
   const int smem = Shape<MT>::kStages * stage_bytes<MT>(wl);
   if (smem > 232448) return cudaErrorInvalidValue;  // 227 KB a block
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mma_kernel<MT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        mma_kernel<MT, W, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
   }
   const int slabs = (K + kBK - 1) / kBK;
   const int64_t tiles = tiles_n * tiles_m;
   const int64_t wave =
-      std::min(resident_blocks<MT, W>(smem), MT == 1 ? 4 : 2) *
+      std::min(resident_blocks<MT, W, E>(smem), MT == 1 ? 4 : 2) *
       static_cast<int64_t>(sm_count());
   int splits = static_cast<int>(
       std::max<int64_t>(1, std::min<int64_t>(slabs, wave / tiles)));
@@ -516,16 +601,27 @@ int launch_tiles(const int8_t* x, const W& wl, int32_t* out, int M, int N,
   }
   const dim3 grid(static_cast<unsigned>(tiles_n),
                   static_cast<unsigned>(tiles_m), splits);
-  mma_kernel<MT, W><<<grid, Shape<MT>::kThreads, smem, s>>>(
-      x, copy_mode(x, K), wl, out, M, N, K, per, splits > 1, WholeK{});
+  mma_kernel<MT, W, E><<<grid, Shape<MT>::kThreads, smem, s>>>(
+      x, copy_mode(x, K), wl, out, M, N, K, per, splits > 1, epi);
+  if constexpr (E::kWrap) {
+    if (splits > 1) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      const int64_t n = static_cast<int64_t>(M) * N;
+      wrap_kernel<<<static_cast<unsigned>(
+                        std::min<int64_t>((n + 255) / 256, 4 * sm_count())),
+                    256, 0, s>>>(out, n, epi.acc_bits);
+    }
+  }
   return cudaGetLastError();
 }
 
-// out (M, N) int32 = x (M, K) int8 times the loader's (N, K) rows; M, N >=
-// 1, K >= 0. Returns the launch's error.
-template <typename W>
+// out (M, N) int32 = x (M, K) int8 times the loader's (N, K) rows, through
+// the epilogue `epi` (WholeK or WrapK); M, N >= 1, K >= 0. Returns the
+// launch's error.
+template <typename W, typename E = WholeK>
 int launch(const int8_t* x, const W& wl, int32_t* out, int M, int N, int K,
-           cudaStream_t s) {
+           cudaStream_t s, E epi = E{}) {
   if (K == 0)
     return cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(M) * N,
                            s);
@@ -533,9 +629,10 @@ int launch(const int8_t* x, const W& wl, int32_t* out, int M, int N, int K,
   const int bm = decode ? 16 : 16 * kPrefillTiles;
   const int64_t tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + bm - 1) / bm;
   if (tiles_m > 65535 || tiles_n > 0x7fffffff) return cudaErrorInvalidValue;
-  return decode ? launch_tiles<1>(x, wl, out, M, N, K, tiles_n, tiles_m, s)
+  return decode ? launch_tiles<1>(x, wl, out, M, N, K, tiles_n, tiles_m, s,
+                                  epi)
                 : launch_tiles<kPrefillTiles>(x, wl, out, M, N, K, tiles_n,
-                                              tiles_m, s);
+                                              tiles_m, s, epi);
 }
 
 // TileSums at (16 MT)-row blocks: the tiles_k tiles of K split among as

@@ -1,14 +1,11 @@
 // nm_seq_policy_matmul.cu: the PQS K-streaming policies on N:M compressed
-// weights, two kernels.
+// weights from the kept products, the gather kernel (row 6); its expand
+// twin (row 5) is nm_expand_seq.cu.
 //
 // Replaces:
 //   nm_gather_kernel <- repro/kernels/nm_spmm.py:nm_gather_seq_policy_matmul
 //     (the Pallas kernel _nm_gather_seq_kernel with gather_nm_products and
-//     pad_last_pow2): only the kept products are formed and accumulated;
-//   nm_expand_kernel <- repro/kernels/nm_spmm.py:nm_seq_policy_matmul (the
-//     Pallas kernel _nm_seq_kernel with expand_nm_slab): each chunk of the
-//     compressed row is expanded to its dense positions, then accumulated
-//     exactly as the dense kernel does; the exactness oracle of the gather.
+//     pad_last_pow2): only the kept products are formed and accumulated.
 //
 // Operands: x (M, K) int8; values (N, G, n_keep) int8 and indices
 // (N, G, n_keep) int32 in canonical form (pruning.nm_compress: indices
@@ -74,38 +71,25 @@
 // (0.0457); at a prefill cohort (M = 128) 13.2 (23.4). Two tiles of 16
 // lanes took 0.59 and 13.7 (chip_smoke.py phase 5 with --baseline-csrc,
 // NVIDIA H100 80GB HBM3, 700.00 W).
-// The expand kernel (row 5, no launch at 28 layers) keeps its int32 body:
-// its rebuilt weight is a sum of slots, past int8 on non-canonical slabs.
-// - Expand: each warp owns a shared-memory buffer of one chunk (32 * E
-//   ints, 8 KB a block at k_tile 256). It zeroes it, scatters the chunk's
-//   kept values into it by atomicAdd (a padded (value 0, index 0) slot
-//   adds nothing and never overwrites a kept value at index 0; a slot whose
-//   index lies outside [0, m) adds nothing, as expand_slots and the
-//   reference's one-hot drop it), and after __syncwarp runs the dense
-//   kernel's body on it.
-// - Groups past G and positions past K are masked with zeros in-kernel,
-//   so ragged G, M, N and K need no host padding.
 
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "nm_seq.cuh"
 #include "nm_tile_sums.cuh"
 #include "pqs_accum.cuh"
 
 namespace {
 
+using nmseq::Args;
+using nmseq::kFillWarps;
 using pqs::kRowsPerWarp;
-using pqs::kWarpsPerBlock;
 using pqs::Clamp;
-static_assert(kRowsPerWarp == 4, "a staged x word holds 4 rows");
 
 constexpr int kGatherWarps = 8;
 // x positions a gather block stages at once: 4 rows, 64 KB
 constexpr int kStagePositions = 16384;
-// warps in flight that fill the card (132 SMs x 64); the gather splits an
-// output's tiles over up to kGatherWarps warps until a launch has them
-constexpr int kFillWarps = 132 * 64;
 
 // The gather kernel (row 6): output n of the block's 4 rows of x takes
 // `split` warps, each a contiguous run of the stream's tiles (tile_len =
@@ -274,89 +258,6 @@ __global__ void __launch_bounds__(32 * kGatherWarps)
   }
 }
 
-template <int E, int LT>
-__global__ void nm_expand_kernel(const int8_t* __restrict__ x,
-                                 const int8_t* __restrict__ vals,
-                                 const int32_t* __restrict__ idx,
-                                 int32_t* __restrict__ out, int M, int N,
-                                 int K, int G, int n_keep, int m_group,
-                                 int policy, int acc_bits, int rounds) {
-  constexpr int C = 32 * E;  // dense positions per warp per chunk
-  __shared__ int buf[kWarpsPerBlock][C];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  const int m0 = blockIdx.y * kRowsPerWarp;
-  if (n >= N) return;  // whole warp leaves together; no block barrier used
-  const int kept = G * n_keep;
-  const int8_t* vrow = vals + static_cast<int64_t>(n) * kept;
-  const int32_t* irow = idx + static_cast<int64_t>(n) * kept;
-  int* wb = buf[warp];
-
-  int acc[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) acc[i] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += C) {
-#pragma unroll
-    for (int r = 0; r < E; ++r) wb[lane * E + r] = 0;
-    __syncwarp();
-    // the groups that reach into [k0, k0 + C)
-    const int s_end = min(G, (k0 + C + m_group - 1) / m_group) * n_keep;
-    for (int s = (k0 / m_group) * n_keep + lane; s < s_end; s += 32) {
-      const int w = vrow[s];
-      if (w) {
-        // a slot whose index leaves its group adds nothing (expand_slots)
-        const int j = irow[s];
-        const int p = (s / n_keep) * m_group + j - k0;
-        if (static_cast<unsigned>(j) < static_cast<unsigned>(m_group) &&
-            static_cast<unsigned>(p) < static_cast<unsigned>(C))
-          atomicAdd(&wb[p], w);
-      }
-    }
-    __syncwarp();
-    int wv[E];
-#pragma unroll
-    for (int r = 0; r < E; ++r) wv[r] = wb[lane * E + r];
-    __syncwarp();  // every lane has read the chunk before it is zeroed
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int m = m0 + i;
-      if (m >= M) break;  // uniform across the warp
-      const int8_t* xrow = x + static_cast<int64_t>(m) * K;
-      int v[E];
-#pragma unroll
-      for (int r = 0; r < E; ++r) {
-        const int k = k0 + lane * E + r;
-        v[r] = k < K ? static_cast<int>(xrow[k]) * wv[r] : 0;
-      }
-      acc[i] = pqs::accumulate_chunk<E, LT>(v, acc[i], policy, acc_bits,
-                                            rounds, lane);
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int m = m0 + i;
-      if (m < M) out[static_cast<int64_t>(m) * N + n] = acc[i];
-    }
-  }
-}
-
-struct Args {
-  const int8_t* x;
-  const int8_t* vals;
-  const int32_t* idx;
-  int32_t* out;
-  int M, N, K, G, n_keep, m_group, policy, acc_bits, rounds;
-  cudaStream_t s;
-
-  dim3 grid(int outputs_per_block) const {
-    return dim3((N + outputs_per_block - 1) / outputs_per_block,
-                (M + kRowsPerWarp - 1) / kRowsPerWarp);
-  }
-};
-
 struct GatherLaunch {
   Args a;
   int tile_len;
@@ -387,75 +288,25 @@ struct GatherLaunch {
   }
 };
 
-struct ExpandLaunch {
-  Args a;
-
-  template <int E, int LT>
-  void operator()() const {
-    nm_expand_kernel<E, LT><<<a.grid(kWarpsPerBlock), 32 * kWarpsPerBlock, 0,
-                              a.s>>>(a.x, a.vals, a.idx, a.out, a.M, a.N, a.K,
-                                     a.G, a.n_keep, a.m_group, a.policy,
-                                     a.acc_bits, a.rounds);
-  }
-};
-
-// cudaErrorInvalidValue for arguments the kernels do not take (the Python
-// wrappers check them first), else 0.
-int check(int M, int N, int K, int G, int n_keep, int m_group, int policy,
-          int acc_bits, int k_tile) {
-  if (policy < 0 || policy > 3 || acc_bits < 2 || acc_bits > 30 || K < 0 ||
-      G < 0 || m_group < 1 || n_keep < 1 || n_keep > m_group ||
-      static_cast<int64_t>(G) * m_group < K ||
-      2 * static_cast<int64_t>(G) * n_keep + 1024 > INT32_MAX)
-    return cudaErrorInvalidValue;
-  if (policy == 3 && (k_tile < m_group || k_tile % m_group != 0))
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
-Args args(const void* x, const void* vals, const void* idx, void* out, int M,
-          int N, int K, int G, int n_keep, int m_group, int policy,
-          int acc_bits, int rounds, void* stream) {
-  return Args{static_cast<const int8_t*>(x),
-              static_cast<const int8_t*>(vals),
-              static_cast<const int32_t*>(idx),
-              static_cast<int32_t*>(out),
-              M, N, K, G, n_keep, m_group, policy, acc_bits, rounds,
-              static_cast<cudaStream_t>(stream)};
-}
-
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. x (M, K) int8, values and
+// Plain C entry point, loaded with ctypes. x (M, K) int8, values and
 // indices (N, G, n_keep) int8 / int32 and out (M, N) int32 are contiguous
-// device buffers. Each returns cudaGetLastError() after its launch.
+// device buffers. Returns cudaGetLastError() after its launch.
 
 extern "C" int pqs_nm_gather_seq_policy_matmul(
     const void* x, const void* vals, const void* idx, void* out, int M,
     int N, int K, int G, int n_keep, int m_group, int policy, int acc_bits,
     int rounds, int k_tile, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
-  const int bad = check(M, N, K, G, n_keep, m_group, policy, acc_bits,
-                        k_tile);
+  const int bad = nmseq::check(M, N, K, G, n_keep, m_group, policy,
+                               acc_bits, k_tile);
   if (bad) return bad;
-  const Args a = args(x, vals, idx, out, M, N, K, G, n_keep, m_group, policy,
-                      acc_bits, rounds, stream);
+  const Args a = nmseq::args(x, vals, idx, out, M, N, K, G, n_keep, m_group,
+                             policy, acc_bits, rounds, stream);
   // sorted_tiled_seq's tile: the bg = k_tile / m groups of a dense k_tile
   // tile; the other policies stream the kept slots in runs of 256
   const int tile_len = policy == 3 ? (k_tile / m_group) * n_keep : 256;
   return pqs::dispatch_tile(pqs::next_pow2(tile_len),
                             GatherLaunch{a, tile_len});
-}
-
-extern "C" int pqs_nm_seq_policy_matmul(
-    const void* x, const void* vals, const void* idx, void* out, int M,
-    int N, int K, int G, int n_keep, int m_group, int policy, int acc_bits,
-    int rounds, int k_tile, void* stream) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  const int bad = check(M, N, K, G, n_keep, m_group, policy, acc_bits,
-                        k_tile);
-  if (bad) return bad;
-  const Args a = args(x, vals, idx, out, M, N, K, G, n_keep, m_group, policy,
-                      acc_bits, rounds, stream);
-  return pqs::dispatch_tile(policy == 3 ? k_tile : 256, ExpandLaunch{a});
 }

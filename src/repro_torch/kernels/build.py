@@ -24,8 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("seq_policy_matmul", "nm_seq_policy_matmul", "sort_matmul",
-           "sorted_stream", "nm_sort_matmul", "nm_expand_sort",
+SOURCES = ("seq_policy_matmul", "nm_seq_policy_matmul", "nm_expand_seq",
+           "sort_matmul", "sorted_stream", "nm_sort_matmul", "nm_expand_sort",
            "nm_expand_pass2", "quant_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -23,7 +23,8 @@ weight, bit for bit:
           dense plain version.
 
 Each wrapper launches its hand-written CUDA kernel
-(``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_sort_matmul.cu``,
+(``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_expand_seq.cu``,
+``csrc/nm_sort_matmul.cu``,
 ``csrc/nm_expand_sort.cu``, ``csrc/quant_matmul.cu``) on CUDA tensors,
 counting the launch in ``.launches``, and takes its plain version
 (``*_ref``) only for tensors on the CPU. The kernels mask ragged M, N, K
@@ -242,15 +243,15 @@ def launch_slabs(source, name, x, values, indices, *, m_group, out_tail=(),
     return out, True
 
 
-def _launch(name, x, values, indices, *, m_group, policy, acc_bits, rounds,
-            k_tile):
-    """Launch ``name`` of csrc/nm_seq_policy_matmul.cu on CUDA tensors.
-    Returns (out, whether a kernel was launched)."""
+def _launch(source, name, x, values, indices, *, m_group, policy, acc_bits,
+            rounds, k_tile):
+    """Launch ``name`` of csrc/<source>.cu on CUDA tensors. Returns (out,
+    whether a kernel was launched)."""
     if policy == "sorted_tiled_seq" and k_tile not in KERNEL_K_TILES:
         raise NotImplementedError(
             f"the CUDA kernels sort tiles of up to {KERNEL_K_TILES[-1]} "
             f"dense positions; k_tile={k_tile}")
-    return launch_slabs("nm_seq_policy_matmul", name, x, values, indices,
+    return launch_slabs(source, name, x, values, indices,
                         m_group=m_group, ints=(SEQ_POLICIES.index(policy),
                                                acc_bits, rounds, k_tile))
 
@@ -273,7 +274,8 @@ def nm_gather_seq_policy_matmul(
     if x.device.type == values.device.type == indices.device.type == "cpu":
         return nm_gather_seq_policy_matmul_ref(x, values, indices, **kw)
     _check(x, values, indices, m_group, policy, acc_bits, k_tile)
-    out, launched = _launch("pqs_nm_gather_seq_policy_matmul", x, values,
+    out, launched = _launch("nm_seq_policy_matmul",
+                            "pqs_nm_gather_seq_policy_matmul", x, values,
                             indices, **kw)
     if launched:
         nm_gather_seq_policy_matmul.launches += 1
@@ -291,16 +293,24 @@ def nm_seq_policy_matmul(
     rounds: int = 1,
     k_tile: int = 256,
 ) -> torch.Tensor:
-    """(M, N) int32 with each chunk expanded to its dense positions: the
-    CUDA expand kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    """(M, N) int32 with the compressed rows expanded to their dense
+    positions (the int32 sums of their slots): on CUDA tensors the CUDA
+    expand kernel (clip and sorted_tiled_seq: each row expanded once a
+    window for up to 4 rows of x, rows packed in pairs, an output's tiles
+    split over warps; wide and wrap: ``nm_spmm``'s tensor-core kernel, wrap
+    with its floor mod as the epilogue), on CPU tensors the plain version.
+    Slabs whose slots name one position twice take the kernels' int32
+    routes, so every slab gives the plain version's result. ``launches``
+    counts one a call; under wrap where K is split over blocks (every
+    qwen2-1.5b site at decode) that call is two kernels on the card, the
+    mainloop and then ``wrap_kernel`` on the summed output."""
     kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
               rounds=rounds, k_tile=k_tile)
     if x.device.type == values.device.type == indices.device.type == "cpu":
         return nm_seq_policy_matmul_ref(x, values, indices, **kw)
     _check(x, values, indices, m_group, policy, acc_bits, k_tile)
-    out, launched = _launch("pqs_nm_seq_policy_matmul", x, values, indices,
-                            **kw)
+    out, launched = _launch("nm_expand_seq", "pqs_nm_seq_policy_matmul", x,
+                            values, indices, **kw)
     if launched:
         nm_seq_policy_matmul.launches += 1
     return out
@@ -338,12 +348,11 @@ def nm_spmm(
     ``csrc/int8_mma.cuh``) on CUDA tensors, the plain version on CPU
     tensors. The kernel masks ragged M, N, K and G.
 
-    The slabs must be canonical (``pruning.nm_compress``'s; checked by
-    ``nm_assert_canonical``, never here): indices in [0, m_group) and at
-    most one nonzero slot at a dense position. On other slabs the kernel
-    drops a slot whose index leaves its group, as the JAX kernel's one-hot
-    does, and wraps two values at one position to int8, where the plain
-    version and the JAX kernel sum them in int32."""
+    On any slabs it equals the plain version and the JAX kernel: a slot
+    whose index leaves its group adds nothing, as the JAX kernel's one-hot
+    drops it, and slots that name one position add in int32 (a block whose
+    slabs do that takes the kernel's exact int32 route; canonical slabs,
+    ``pruning.nm_compress``'s, never do)."""
     _check(x, values, indices, m_group, "wide", 16, 256)
     if on_cpu(x, values, indices):
         return nm_spmm_ref(x, values, indices, m_group=m_group)

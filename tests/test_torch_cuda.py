@@ -8,6 +8,8 @@ installed:
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,6 +22,10 @@ from repro_torch.kernels import nm_spmm, ops
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import sorted_matmul as sm
 from repro_torch.kernels import sorted_stream as ss
+
+# the slab builders of chip_smoke.py's duplicate-slot phase
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import smallest_duplicate, stacked_slabs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1212,6 +1218,16 @@ def test_nm_spmm_non_canonical_slabs(card, n_keep, m_group):
     want = nm_spmm.nm_spmm_ref(x, kept, idx, m_group=m_group)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    # and pairs whose sum leaves int8 (127 + 127, -128 + -128): the
+    # position's weight is their int32 sum, which the kernel's exact route
+    # keeps, where a byte would wrap it
+    past = vals.clone()
+    past[:, 2::3, :2] = 127
+    past[:, 5::6, :2] = -128
+    got = nm_spmm.nm_spmm(x, past, idx, m_group=m_group)
+    want = nm_spmm.nm_spmm_ref(x, past, idx, m_group=m_group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("m", [5, 128])
@@ -1762,3 +1778,106 @@ def test_nm_gather_paired_accum_row_blocks(card, m):
                         x, *slabs, perm, **kw)
                     torch.cuda.synchronize()
                     assert torch.equal(got, want), (k, rounds, acc_bits)
+
+
+@pytest.mark.parametrize("n_keep,m_group", [(8, 16), (4, 16), (2, 8),
+                                            (16, 16), (3, 12), (8, 32)])
+def test_nm_spmm_duplicate_slots_past_int8(card, n_keep, m_group):
+    """Row 4 where two nonzero slots name one position and their sum leaves
+    int8: the smallest case gives the plain version's (254, 32258) (a byte
+    of the tile would wrap it to (-2, -254)), and at each loader's shapes
+    (m_group dividing 16: NmChunks, with 16:16's byte adds; else NmBytes)
+    at decode and prefill M the result equals the plain version's."""
+    x, vals, idx = smallest_duplicate(torch, card)
+    got = nm_spmm.nm_spmm(x, vals, idx, m_group=16)
+    torch.cuda.synchronize()
+    assert got.flatten().tolist() == [254, 32258]
+    for m, k, n in ((4, 1536, 256), (128, 300, 70), (17, 8960, 64)):
+        x, _, vals, idx = _nm_w(m, k, n, n_keep, m_group, m + n_keep, card)
+        sv, si = stacked_slabs(torch, vals, idx)
+        got = nm_spmm.nm_spmm(x, sv, si, m_group=m_group)
+        want = nm_spmm.nm_spmm_ref(x, sv, si, m_group=m_group)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, k, n)
+
+
+# (M, N, K, n_keep, m_group, k_tile) of row 5's packed expand kernel: an
+# output's steps on 1, 2, 4 and 8 warps (N * ceil(M / 4) warps against
+# the 8448 that fill the card), a block of 1, 2 and 4 groups of 4 rows
+# (M 7 and 13 in one step, 128), K past a window of staged positions
+# (8960, 20000, 65536), ragged K and G (K not a multiple of m_group),
+# n_keep = m (dense tiles), M 1, 3, 4, 5, 9 and 128, tiles of 16 to 1024
+EXPAND_SEQ_CASES = (
+    (1, 1, 16, 8, 16, 16), (3, 70, 300, 3, 16, 64),
+    (5, 256, 1536, 8, 16, 256), (9, 70, 4000, 16, 16, 1024),
+    (4, 70, 8960, 8, 16, 256), (8, 1536, 1536, 8, 16, 256),
+    (12, 1536, 1536, 8, 16, 256), (128, 1536, 1536, 8, 16, 256),
+    (1, 70, 65536, 4, 16, 512), (5, 3, 20000, 2, 4, 16),
+    (7, 70, 200, 8, 16, 256), (13, 37, 1000, 4, 16, 1024),
+)
+
+
+@pytest.mark.parametrize("case", EXPAND_SEQ_CASES, ids=str)
+def test_nm_expand_seq_packed_split(card, case):
+    """Row 5 (``nm_seq_policy_matmul``) against its plain version under
+    every policy (``sorted_tiled_seq`` at rounds 0 to 3 with acc_bits 2,
+    16 and 30; ``clip`` and ``wrap`` at 2, 16 and 30; ``wide``) and, on
+    canonical slabs, against the dense kernel on the decompressed weight
+    and the gather kernel; on non-canonical slabs (unsorted indices, a
+    second slot at a kept position) against the plain version."""
+    m, n, k, n_keep, m_group, k_tile = case
+    x, w, vals, idx = _nm_w(m, k, n, n_keep, m_group, m + n + k, card)
+    nv, ni = _non_canonical(vals, idx)
+    runs = [("sorted_tiled_seq", r, b) for r in range(4) for b in (2, 16, 30)]
+    runs += [(p, 1, b) for p in ("clip", "wrap") for b in (2, 16, 30)]
+    runs += [("wide", 1, 16)]
+    for policy, rounds, acc_bits in runs:
+        kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+                  rounds=rounds, k_tile=k_tile)
+        got = nm_spmm.nm_seq_policy_matmul(x, vals, idx, **kw)
+        want = nm_spmm.nm_seq_policy_matmul_ref(x, vals, idx, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (policy, rounds, acc_bits)
+        if acc_bits == 16 and rounds == 1:
+            dense = sm.seq_policy_matmul(
+                x, w, policy=policy, acc_bits=acc_bits, rounds=rounds,
+                k_tile=k_tile)
+            gather = nm_spmm.nm_gather_seq_policy_matmul(x, vals, idx, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, dense), policy
+            assert torch.equal(got, gather), policy
+            got = nm_spmm.nm_seq_policy_matmul(x, nv, ni, **kw)
+            want = nm_spmm.nm_seq_policy_matmul_ref(x, nv, ni, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (policy, "non-canonical")
+
+
+@pytest.mark.parametrize("m,k", [(2, 16), (4, 1536), (5, 8960), (128, 300),
+                                 (13, 200)])
+def test_nm_expand_seq_duplicates_past_int8(card, m, k):
+    """Row 5 where two nonzero slots name one position, their weight 254
+    or -256 (past int8; -256 times x = -128 is past int16 too): under all
+    four policies the expansion reports it and the block takes the int32
+    route (the tensor-core kernel's exact sums under ``wide`` and
+    ``wrap``), equal to the plain version; (2, 16) is the smallest
+    case, (13, 200) a block of 4 groups of 4 rows."""
+    m_group = 16
+    if k == 16:
+        x, vals, idx = smallest_duplicate(torch, card)
+    else:
+        x, _, vals, idx = _nm_w(m, k, 37, 8, m_group, m + k, card)
+        vals, idx = stacked_slabs(torch, vals, idx)
+    runs = [("sorted_tiled_seq", r, b) for r in range(4) for b in (2, 16, 30)]
+    runs += [(p, 1, b) for p in ("clip", "wrap", "wide") for b in (2, 16, 30)]
+    for policy, rounds, acc_bits in runs:
+        for k_tile in (16, 256):
+            kw = dict(m_group=m_group, policy=policy, acc_bits=acc_bits,
+                      rounds=rounds, k_tile=k_tile)
+            got = nm_spmm.nm_seq_policy_matmul(x, vals, idx, **kw)
+            want = nm_spmm.nm_seq_policy_matmul_ref(x, vals, idx, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (policy, rounds, acc_bits, k_tile)
+    if k == 16:
+        wide = nm_spmm.nm_seq_policy_matmul(x, vals, idx, m_group=16,
+                                            policy="wide")
+        assert wide.flatten().tolist() == [254, 32258]
