@@ -68,6 +68,11 @@ imports nothing of JAX or of the JAX package. Phases:
    ``quant_matmul_body`` names it and the KnRows one everywhere, M 1 to
    200, ragged N and K, operands 0, 1 and 4 bytes off alignment, the int8
    extremes and the int32 wrap);
+2c. the overflow census of ``pqs_dot(with_census=True)`` on the card at
+   layer 0's 7 site shapes (``phase_census``): equal to the CPU's census
+   of the same int8 tensors, compressed (gather and expand) equal to
+   dense, M = 128 equal to its 4-row chunks and to one chunk, the output
+   unchanged by the census;
 3. serve full-width qwen2-1.5b (28 layers, random seeded weights, 8:16
    pruned int8, sorted_tiled_seq at 16 bits, k_tile 256) through
    ``ServingEngine`` from dense int8 storage: 4 greedy requests, 16 new
@@ -100,6 +105,21 @@ imports nothing of JAX or of the JAX package. Phases:
 3k. the compressed model under ``wide`` (``auto`` takes the expand
    kernel, as it does for every compressed matmul ``pqs_dot(certified=
    True)`` makes ``wide``): 196 ``nm_seq_policy_matmul`` launches a step;
+3l. the dense model calibrated on one seeded batch (``calibrate``) and
+   served under ``CensusWatch(threshold=0.01, window=4)``: each window's
+   per-site rates and the degrades printed; a degraded site reads rate
+   0.0 in every later window and launches row 1's ``wide`` kernel from
+   the next step, the others keep ``sorted_tiled_seq``; then the
+   census's device time at decode (busy with it less busy without);
+3m. the same from compressed storage (row 6; degraded sites row 5's
+   ``wide``): the events, window totals and tokens of 3l;
+3n. the dense model's layers enforced to a 16-bit register
+   (``enforce_acc_bounds``) and certified (``certify_params``, every
+   projection site safe at 16 bits), served with the certificate and a
+   ``CensusWatch``: no site reaches the monitor, 196 row-1 ``wide``
+   launches a step; served uncertified with the census: 0 events, the
+   same tokens, one 28-layer decode's logits bit for bit; tampered
+   weights refused at construction;
 3i. one 28-layer decode's logits bit for bit within each group: 3 / 3b /
    3j, 3c / 3e / 3g, 3d / 3f / 3h, and dense ``wide`` / 3k;
 4. the same engine at 1 layer, full width: the dense kernel and its
@@ -146,9 +166,12 @@ imports nothing of JAX or of the JAX package. Phases:
    with the new one in the same call (``old_ms``), equal results checked
    first.
 
-The last three lines are a JSON ``kernels`` record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
-exits non-zero without that last line.
+The last four lines are a JSON ``guardrails`` record (the s a decode
+step and the prefill s of 3, 3k and 3l-3n, the census's device ms, the
+host s of certification), the JSON ``kernels`` record, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
+exits non-zero without that last line. ``--only 2c,3l`` runs just the
+phases named after the build (a partial run prints no record).
 """
 
 from __future__ import annotations
@@ -240,7 +263,7 @@ def corner_extremes(x, w):
 
 def phase_kernels(torch, sm, qm, seed):
     """Kernel vs plain version, bit-exact: every policy at the site shapes
-    (M = 4 and 64) and a ragged one; ``wide`` (the tensor-core mainloop)
+    at M = 4 and a ragged one, ``sorted_tiled_seq`` at M = 64; ``wide`` (the tensor-core mainloop)
     also at M = 128 with the int8 extremes at the corners, equal to row 3
     on the transposed weight; ``sorted_tiled_seq`` (the packed int16x2
     sort) at k_tile 1 to 1024, rounds 1 to 3, acc_bits 2, 16 and 30 and
@@ -261,8 +284,11 @@ def phase_kernels(torch, sm, qm, seed):
 
     for i, (m, n, k) in enumerate(cases):
         x, w = operands(torch, m, n, k, seed + i)
-        for policy in sm.SEQ_POLICIES:
-            for rounds in ((1, 2) if policy == "sorted_tiled_seq" else (1,)):
+        # the plain versions add one product a step: at M = 64 the sites
+        # take the serving policy only (every policy runs at M = 4)
+        for policy in ("sorted_tiled_seq",) if m == 64 else sm.SEQ_POLICIES:
+            for rounds in ((1, 2) if policy == "sorted_tiled_seq" and m < 64
+                           else (1,)):
                 _, want, err = check(x, w, policy=policy, acc_bits=16,
                                      rounds=rounds, k_tile=256)
                 # share of outputs at or past the 16-bit register's edge
@@ -315,7 +341,10 @@ def phase_nm_kernels(torch, sm, nm, seed):
     """Both N:M kernels vs their plain versions, bit-exact, and vs the
     dense kernel on the decompressed weight; at the sites, at edge shapes
     and at shapes that reach each split of row 6's tiles over warps
-    (``NM_SPLIT_CASES``); and on non-canonical slabs (``non_canonical``:
+    (``NM_SPLIT_CASES``; from 8 rows of x under ``sorted_tiled_seq``
+    only, the policy whose tiles they split, one round); and on
+    non-canonical slabs
+    (``non_canonical``:
     unsorted indices, two slots at one position) against their plain
     versions only. Returns the max |difference| of each kernel against
     its plain version."""
@@ -331,8 +360,12 @@ def phase_nm_kernels(torch, sm, nm, seed):
     for i, (m, n, k, n_keep, m_group) in enumerate(cases):
         x, w, vals, idx = nm_operands(torch, m, n, k, seed + 50 + i, n_keep,
                                       m_group)
-        for policy in sm.SEQ_POLICIES:
-            for rounds in ((1, 2) if policy == "sorted_tiled_seq" else (1,)):
+        # the plain versions of the split cases of 8 rows or more run
+        # only the policy whose tiles they split, one round
+        split = (m, n, k, n_keep, m_group) in NM_SPLIT_CASES and m >= 8
+        for policy in ("sorted_tiled_seq",) if split else sm.SEQ_POLICIES:
+            for rounds in ((1, 2) if policy == "sorted_tiled_seq"
+                           and not split else (1,)):
                 kw = dict(policy=policy, acc_bits=16, rounds=rounds,
                           k_tile=256)
                 dense = sm.seq_policy_matmul(x, w, **kw)
@@ -693,6 +726,8 @@ def serve(torch, cfg, seed, backend=None, new_tokens=16, compressed=False,
 def reset(counters):
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "policy_launches"):
+            fn.policy_launches = dict.fromkeys(fn.policy_launches, 0)
 
 
 def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
@@ -702,7 +737,8 @@ def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
     to 0 just before and read just after. ``expect`` maps each kernel of
     the path to its launches per layer and step; every other kernel must
     launch 0 times (and the tokens must equal ``want_tokens`` when given).
-    Returns (launches by kernel, decode steps, tokens)."""
+    Returns (launches by kernel, decode steps, tokens, the s a decode step
+    and the prefill s)."""
     reset(counters)
     reqs, eng, t_first, t_rest = serve(torch, cfg, seed,
                                        compressed=compressed, policy=policy,
@@ -746,13 +782,16 @@ def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
                                  f"the dense tokens {want_tokens}")
         print("  tokens identical to the dense storage's", flush=True)
     profile_decode(torch, eng, cfg.vocab_size)
-    return launches, decode_steps, outputs
+    return launches, decode_steps, outputs, dict(per_step=per_step,
+                                                 prefill=t_first - per_step)
 
 
-def profile_decode(torch, eng, vocab):
+def profile_decode(torch, eng, vocab, span=None):
     """Device time by kernel and host time by operator over two decode
     steps of the served model (after the counted run), the device's busy
-    share of the wall, and the tied head's dequantize alone."""
+    share of the wall, and the tied head's dequantize alone. Returns the
+    wall, device busy and PQS kernel ms, and the ms that the
+    ``record_function`` range ``span`` covers on the device's timeline."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -775,9 +814,11 @@ def profile_decode(torch, eng, vocab):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0)
 
-    # kernel rows only: operator rows repeat their kernels' device time
+    # kernel rows only: operator rows repeat their kernels' device time,
+    # and a record_function range also leaves a device-side row, its
+    # extent on the device's timeline
     events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
+                     if e.device_type == DeviceType.CUDA and e.key != span),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     print(f"  profile of 2 decode steps ({len(events)} kernel names): wall "
@@ -800,7 +841,8 @@ def profile_decode(torch, eng, vocab):
         return key.split("(")[0].replace("void ", "")
 
     pqs = [e for e in events if name(e).split("<")[0] in ours]
-    print(f"  PQS kernels: {sum(dev_us(e) for e in pqs) / 1e3:.3f} ms device "
+    pqs_ms = sum(dev_us(e) for e in pqs) / 1e3
+    print(f"  PQS kernels: {pqs_ms:.3f} ms device "
           f"time in {sum(e.count for e in pqs)} launches: " + "; ".join(
               f"{name(e)} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in pqs),
           flush=True)
@@ -815,6 +857,14 @@ def profile_decode(torch, eng, vocab):
     for e in host[:8]:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
+    span_ms = None
+    if span is not None:
+        rows = [e for e in prof.key_averages()
+                if e.key == span and e.device_type == DeviceType.CUDA]
+        span_ms = sum(dev_us(e) for e in rows) / 1e3
+        print(f"  span {span}: {sum(e.count for e in rows)} ranges, "
+              f"{span_ms:.3f} ms from their first kernel's start to their "
+              "last one's end on the device", flush=True)
     emb = eng.params["embed"]  # the tied head dequantizes it every step
     t0 = time.perf_counter()
     for _ in range(3):
@@ -825,6 +875,8 @@ def profile_decode(torch, eng, vocab):
           f"synchronize, mean of 3)", flush=True)
     while eng.step():
         pass
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, pqs_ms=pqs_ms,
+                span_ms=span_ms)
 
 
 def phase_parity(torch, counters, cfg, seed):
@@ -869,21 +921,33 @@ def phase_parity(torch, counters, cfg, seed):
 
 def check_logits(torch, model, cfg, seed, runs):
     """Logits of one decode after a prefill of 4 prompts, for each (name,
-    params, IntegerLinConfig keywords) of ``runs``: all must equal the
-    first run's, and be finite."""
+    params, IntegerLinConfig keywords) of ``runs`` (``census=True`` among
+    them: the run under a ``census_monitor``): all must equal the first
+    run's, and be finite. Returns each census-watched run's totals."""
+    import contextlib
+
     from repro_torch.core import dispatch
 
     toks = torch.tensor([p[:16].tolist() for p in prompts(4, seed,
                                                           cfg.vocab_size)],
                         device="cuda", dtype=torch.int32)
     lengths = torch.full((4,), 16, device="cuda", dtype=torch.int32)
-    logits = {}
+    logits, monitors = {}, {}
     for name, p, kw in runs:
+        kw = dict(kw)
+        watched = kw.pop("census", False)
+        mon = dispatch.CensusMonitor()
         caches = model.init_caches(p, 4, 32, torch.float32)
         with torch.no_grad(), dispatch.integer_lin(
-                dispatch.IntegerLinConfig(**kw)):
+                dispatch.IntegerLinConfig(**kw)), (
+                dispatch.census_monitor(mon) if watched
+                else contextlib.nullcontext()):
             _, caches = model.prefill(p, toks, caches, lengths)
             logits[name], _ = model.decode(p, toks[:, -1:], caches)
+        if watched:
+            monitors[name] = mon.totals()
+            print(f"  {name}: census (dots, events) by site "
+                  f"{monitors[name]}", flush=True)
     first = runs[0][0]
     ref = logits[first].float()
     finite = bool(torch.isfinite(ref).all())
@@ -893,6 +957,7 @@ def check_logits(torch, model, cfg, seed, runs):
           f"{diffs}, finite={finite}", flush=True)
     if any(diffs.values()) or not finite:
         raise AssertionError("logits differ or are not finite")
+    return monitors
 
 
 def phase_logits_28(torch, cfg, seed):
@@ -918,6 +983,393 @@ def phase_logits_28(torch, cfg, seed):
             (f"compressed {impl or 'auto'}", sparse,
              dict(policy=policy, nm_impl=impl)) for impl in impls])
         print(f"  {policy}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the serving guardrails: the overflow census, calibration, CensusWatch and
+# certification
+# ---------------------------------------------------------------------------
+
+CENSUS_FIELDS = ("n_dots", "n_persistent", "n_transient", "n_any",
+                 "n_combine")
+WATCH = dict(threshold=0.01, window=4)
+
+
+def seq_wrapper(storage, policy, k):
+    """The K-streaming wrapper a site of contraction ``k`` launches under
+    ``policy``: row 1 on dense storage; on compressed storage the kernel
+    ``ops.resolve_nm_impl`` picks (``auto``), row 6 (gather) or row 5
+    (expand, every ``wide``)."""
+    from repro_torch.kernels.ops import resolve_nm_impl
+
+    if storage == "dense":
+        return "seq_policy_matmul"
+    impl = resolve_nm_impl(policy, -(-k // M_GROUP), N_KEEP, M_GROUP)
+    return "nm_gather_seq_policy_matmul" if impl == "gather" \
+        else "nm_seq_policy_matmul"
+
+
+def census_ints(c):
+    return [int(getattr(c, f)) for f in CENSUS_FIELDS]
+
+
+def max_diff(torch, a, b):
+    torch.cuda.synchronize()
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def phase_census(torch, seed):
+    """``pqs_dot(with_census=True)`` on the card at layer 0's 7 site
+    shapes, on seeded near-extreme int8 rows (x[0] = w[0] = 127, so a
+    16-bit register overflows) and 8:16-pruned weights: at M = 4 the
+    census equals, field by field, the one of the same int8 tensors on
+    the CPU (``overflow.census`` of their partial products); compressed
+    (gather and expand) equals dense on the decompressed weight; at M =
+    128 it equals the sum of its 4-row chunks and the census of one chunk
+    of all 128 rows (the census budget lifted); ``out`` is the same with
+    and without the census. Returns the largest difference (0)."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.overflow import census, partial_products
+
+    worst = 0
+    kw = dict(policy="sorted_tiled_seq", acc_bits=16)
+    for site, (n, k) in SITES.items():
+        x, w, vals, idx = nm_operands(torch, 4, n, k, seed + 500)
+        out, dense = dispatch.pqs_dot(x, w, with_census=True, **kw)
+        worst = max(worst, max_diff(torch, out, dispatch.pqs_dot(x, w, **kw)))
+        want = census_ints(dense)
+        cpu = census_ints(census(partial_products(w.cpu(), x.cpu()), 16))
+        nm = {}
+        for impl in ("gather", "expand"):
+            o, c = dispatch.pqs_dot(x, (vals, idx), storage="nm",
+                                    m_group=M_GROUP, nm_impl=impl,
+                                    with_census=True, **kw)
+            worst = max(worst, max_diff(torch, o, out))
+            nm[impl] = census_ints(c)
+        x128 = operands(torch, 128, 1, k, seed + 600)[0]
+        o128, c128 = dispatch.pqs_dot(x128, w, with_census=True, **kw)
+        chunks = [0] * len(CENSUS_FIELDS)
+        for i in range(0, 128, 4):
+            o, c = dispatch.pqs_dot(x128[i : i + 4], w, with_census=True,
+                                    **kw)
+            worst = max(worst, max_diff(torch, o, o128[i : i + 4]))
+            chunks = [a + b for a, b in zip(chunks, census_ints(c))]
+        budget = dispatch._CENSUS_BUDGET
+        dispatch._CENSUS_BUDGET = 1 << 40  # all 128 rows in one chunk
+        try:
+            whole = census_ints(dispatch.pqs_dot(x128, w, with_census=True,
+                                                 **kw)[1])
+        finally:
+            dispatch._CENSUS_BUDGET = budget
+        torch.cuda.empty_cache()
+        print(f"  census {site:6s} N={n:5d} K={k:5d} ({', '.join(CENSUS_FIELDS)}"
+              f"): M=4 card {want}, CPU {cpu}, gather {nm['gather']}, expand "
+              f"{nm['expand']}; M=128 {census_ints(c128)}, its 4-row chunks "
+              f"{chunks}, one chunk {whole}", flush=True)
+        if not (want == cpu == nm["gather"] == nm["expand"]) or not (
+                census_ints(c128) == chunks == whole) or not want[3]:
+            raise AssertionError(f"{site}: the censuses disagree (or no "
+                                 "event at M = 4)")
+    if worst:
+        raise AssertionError(f"outputs differ with the census: {worst}")
+    return worst
+
+
+def calibration_batch(cfg, seed):
+    """One seeded calibration batch: 4 rows of 32 tokens."""
+    import numpy as np
+
+    r = np.random.default_rng(seed + 9)
+    return {"tokens": r.integers(0, cfg.vocab_size, (4, 32)).astype(
+        np.int32)}
+
+
+def policy_launches(counters):
+    return {name: dict(fn.policy_launches) for name, fn in counters.items()
+            if hasattr(fn, "policy_launches")}
+
+
+def guarded_serve(torch, counters, cfg, seed, model, params, certificate=None,
+                  calibrate=True):
+    """Serve 4 greedy requests of 16 new tokens under ``sorted_tiled_seq``
+    at 16 bits with a ``CensusWatch(threshold=0.01, window=4)`` (and the
+    certificate, when given), one engine step at a time, every launch
+    count set to 0 just before. Returns what each step launched (by
+    wrapper and policy), the sites degraded before it and its seconds,
+    each window's drained census totals, and the engine."""
+    from repro_torch.core.dispatch import IntegerLinConfig
+    from repro_torch.serving import CensusWatch, Request, ServingEngine
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, params, num_slots=4, max_len=128,
+                        int_lin=IntegerLinConfig(policy="sorted_tiled_seq",
+                                                 certificate=certificate),
+                        census_watch=CensusWatch(**WATCH))
+    built = time.perf_counter() - t0
+    calibrated = None
+    if calibrate:
+        t0 = time.perf_counter()
+        eng.calibrate([calibration_batch(cfg, seed)])
+        torch.cuda.synchronize()
+        calibrated = time.perf_counter() - t0
+    windows = []
+    drain = eng._census.drain
+
+    def recording_drain():
+        windows.append(drain())
+        return windows[-1]
+
+    eng._census.drain = recording_drain
+    reset(counters)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts(4, seed, cfg.vocab_size))]
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while True:
+        before = ({n: f.launches for n, f in counters.items()},
+                  policy_launches(counters), set(eng._degraded),
+                  eng.stats["prefill_steps"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        busy = eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not busy:
+            break
+        launches = {n: f.launches - before[0][n] for n, f in counters.items()}
+        by_policy = {n: {p: v - before[1][n][p] for p, v in pol.items()
+                         if v - before[1][n][p]}
+                     for n, pol in policy_launches(counters).items()}
+        steps.append(dict(launches=launches, by_policy=by_policy,
+                          degraded=before[2], seconds=dt,
+                          passes=1 + eng.stats["prefill_steps"] - before[3]))
+    eng._census.drain = drain
+    for r in reqs:
+        if not r.done or len(r.output) != 16 or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: {r.output}")
+    per_step = sum(s["seconds"] for s in steps[1:]) / max(len(steps) - 1, 1)
+    print(f"  engine built in {built:.2f} s"
+          + (f", calibrated on 4 x 32 tokens in {calibrated:.2f} s"
+             if calibrate else "")
+          + f"; {len(steps)} steps: step 1 (prefill + first decode) "
+          f"{steps[0]['seconds']:.3f} s, later decode {per_step:.4f} s/step, "
+          f"prefill alone ~ {steps[0]['seconds'] - per_step:.3f} s; each step "
+          + " ".join(f"{s['seconds']:.3f}" for s in steps), flush=True)
+    return dict(eng=eng, steps=steps, windows=windows,
+                tokens=[r.output for r in reqs], per_step=per_step,
+                prefill=steps[0]["seconds"] - per_step)
+
+
+def check_degradation(run, storage, layers):
+    """3l / 3m: every window's per-site rates and the degrades printed;
+    a degraded site reads rate 0.0 in every later window; each step
+    launched the narrow kernel at the undegraded sites and the ``wide``
+    one at the degraded sites, 28 of each a site and pass, and nothing
+    else; the other sites keep ``sorted_tiled_seq``."""
+    eng = run["eng"]
+    degraded = set()
+    for j, totals in enumerate(run["windows"]):
+        rates = {s: (e / d if d else 0.0) for s, (d, e) in totals.items()}
+        print(f"  window {j + 1}: " + ", ".join(
+            f"{s} {rates[s]:.4f} ({e}/{d})"
+            for s, (d, e) in sorted(totals.items())), flush=True)
+        if set(totals) != set(SITES):
+            raise AssertionError(f"window {j + 1} sites {sorted(totals)}")
+        stale = [s for s in degraded if rates[s] != 0.0]
+        if stale:
+            raise AssertionError(f"degraded {stale} read a rate above 0")
+        degraded |= {s for s, r in rates.items()
+                     if r > WATCH["threshold"]}
+    for ev in eng.events:
+        print(f"  event {ev}", flush=True)
+    if degraded != eng._degraded or eng.stats["census_degrades"] != len(
+            eng._degraded):
+        raise AssertionError(f"degraded {eng._degraded}, by the rates "
+                             f"{degraded}, stats {eng.stats}")
+    for i, step in enumerate(run["steps"]):
+        need = {}
+        for site, (_, k) in SITES.items():
+            policy = "wide" if site in step["degraded"] else \
+                "sorted_tiled_seq"
+            name = seq_wrapper(storage, policy, k)
+            need.setdefault(name, {}).setdefault(policy, 0)
+            need[name][policy] += layers * step["passes"]
+        got = {n: p for n, p in step["by_policy"].items() if p}
+        others = {n: v for n, v in step["launches"].items()
+                  if v and n not in need}
+        if got != need or others:
+            raise AssertionError(f"step {i + 1}: launches {got} (others "
+                                 f"{others}), need {need}")
+    kept = [s for s in SITES if s not in eng._degraded]
+    if any(eng.int_lin.policy_for(s) != "sorted_tiled_seq" for s in kept) \
+            or any(eng.int_lin.policy_for(s) != "wide"
+                   for s in eng._degraded):
+        raise AssertionError(f"site policies {eng.int_lin.site_policies}")
+    print(f"  degraded {sorted(eng._degraded)} (to wide: "
+          f"{seq_wrapper(storage, 'wide', 1536)} from the step after); kept "
+          f"sorted_tiled_seq: {kept}; every step's launches by policy as "
+          "required", flush=True)
+
+
+def census_profile(torch, eng, vocab):
+    """The census's device time at decode: two profiles of 2 decode steps
+    of the served engine with every site back under ``sorted_tiled_seq``
+    (the degrades undone, no window checked inside them), the census on,
+    its calls in a ``pqs_census`` span, then off. The census's kernels
+    take the difference of the device's busy time. Returns the ms of each
+    per 2 steps."""
+    from torch.profiler import record_function
+
+    from repro_torch.core import dispatch
+
+    census = dispatch._census
+
+    def traced(*args, **kw):
+        with record_function("pqs_census"):
+            return census(*args, **kw)
+
+    int_lin, watch, monitor = eng.int_lin, eng.census_watch, eng._census
+    for site in eng._degraded:
+        eng.int_lin = eng.int_lin.without_site(site)
+    eng.census_watch = None
+    dispatch._census = traced
+    try:
+        on = profile_decode(torch, eng, vocab, span="pqs_census")
+        eng._census = None
+        off = profile_decode(torch, eng, vocab)
+    finally:
+        dispatch._census = census
+        eng.int_lin, eng.census_watch, eng._census = int_lin, watch, monitor
+    census_ms = on["busy_ms"] - off["busy_ms"]
+    print(f"  census at decode, every site censused, per 2 steps: its "
+          f"kernels {census_ms:.1f} ms of device time (busy "
+          f"{on['busy_ms']:.1f} ms with it, {off['busy_ms']:.1f} without; "
+          f"PQS kernels {on['pqs_ms']:.1f}), spread over "
+          f"{on['span_ms']:.1f} ms of the device's timeline; wall "
+          f"{on['wall_ms']:.1f} / {off['wall_ms']:.1f} ms", flush=True)
+    return dict(census_ms=census_ms, span_ms=on["span_ms"],
+                busy_on_ms=on["busy_ms"], busy_off_ms=off["busy_ms"],
+                pqs_ms=on["pqs_ms"], wall_on_ms=on["wall_ms"],
+                wall_off_ms=off["wall_ms"])
+
+
+def phase_census_serve(torch, counters, cfg, seed, compressed, want=None):
+    """3l (dense) / 3m (compressed): build the full-width model, calibrate
+    it on one seeded batch, serve it under ``CensusWatch(threshold=0.01,
+    window=4)``; ``check_degradation``; 3m must give the events, the
+    per-window site totals (the kept-only census against 3l's dense
+    census on the same pruned codes) and the tokens of 3l (``want``)."""
+    model, params = model_params(cfg, seed, compressed)
+    run = guarded_serve(torch, counters, cfg, seed, model, params)
+    check_degradation(run, "compressed" if compressed else "dense",
+                      cfg.num_layers)
+    run["events"] = list(run["eng"].events)
+    if want is not None:
+        same = {key: run[key] == want[key]
+                for key in ("windows", "tokens", "events")}
+        print(f"  the same as 3l: {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"3m differs from 3l: {same}")
+    print(f"  request 0 tokens {run['tokens'][0]}", flush=True)
+    run["profile"] = census_profile(torch, run["eng"], cfg.vocab_size)
+    return run
+
+
+def phase_certified(torch, counters, cfg, seed):
+    """3n: the full-width dense model's layers enforced to a 16-bit
+    register at 8-bit codes (``enforce_acc_bounds``; the embedding is no
+    projection, and its 151,936-long rows would truncate to zero), then
+    ``certify_params``: every projection site safe at 16 bits. Served
+    with the certificate and a ``CensusWatch``: no site reaches the
+    monitor, nothing degrades, row 1's ``wide`` runs 196 launches a step
+    and nothing else. The same weights served uncertified
+    under ``sorted_tiled_seq`` at 16 bits with the census: 0 events at
+    every site in every window, the certified serve's tokens, and one
+    28-layer decode's logits equal to the certified ones bit for bit.
+    Tampered weights are refused at construction."""
+    from repro_torch.core import certify
+    from repro_torch.core.dispatch import IntegerLinConfig
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.serving import ServingEngine
+
+    model, params = model_params(cfg, seed, compressed=False)
+    t0 = time.perf_counter()
+    params["layers"] = certify.enforce_acc_bounds(params["layers"], 16, 8)
+    t1 = time.perf_counter()
+    cert = certify.certify_params(params, 16, 8)
+    t2 = time.perf_counter()
+    cert.verify(params)
+    t3 = time.perf_counter()
+    print(cert.summary(), flush=True)
+    kept = sum(int((layer[SITE_SECTION[s]][s].values != 0).sum())
+               for layer in params["layers"] for s in SITES)
+    total = sum(layer[SITE_SECTION[s]][s].values.numel()
+                for layer in params["layers"] for s in SITES)
+    print(f"  host seconds: enforce_acc_bounds {t1 - t0:.2f}, certify_params "
+          f"{t2 - t1:.2f}, verify {t3 - t2:.2f}, in all {t3 - t0:.2f}; "
+          f"nonzero projection codes after enforcing {kept} of {total}",
+          flush=True)
+    unsafe = [s for s in SITES if cert.site(s) is None
+              or cert.site(s).acc_bits_safe > 16]
+    if unsafe:
+        raise AssertionError(f"sites not certified at 16 bits: {unsafe}")
+    runs = {}
+    for name, c in (("certified", cert), ("censused", None)):
+        print(f"  {name} serve:", flush=True)
+        run = runs[name] = guarded_serve(torch, counters, cfg, seed, model,
+                                         params, certificate=c,
+                                         calibrate=False)
+        eng = run["eng"]
+        policy = "wide" if c is not None else "sorted_tiled_seq"
+        for i, step in enumerate(run["steps"]):
+            need = {"seq_policy_matmul": {
+                policy: len(SITES) * cfg.num_layers * step["passes"]}}
+            got = {n: p for n, p in step["by_policy"].items() if p}
+            others = {n: v for n, v in step["launches"].items()
+                      if v and n != "seq_policy_matmul"}
+            if got != need or others:
+                raise AssertionError(f"{name} step {i + 1}: {got} (others "
+                                     f"{others}), need {need}")
+        print(f"  {name}: windows {run['windows']}; events {eng.events}; "
+              f"degrades {eng.stats['census_degrades']}", flush=True)
+        if c is not None:
+            profile_decode(torch, eng, cfg.vocab_size)
+        if eng.events or eng._degraded:
+            raise AssertionError(f"{name}: a site degraded: {eng.events}")
+        if c is not None and (any(run["windows"]) or eng._census.totals()
+                              or eng.last_census_rates):
+            raise AssertionError("a certified site reached the monitor")
+        if c is None and any(set(w) != set(SITES) or any(
+                e for _, e in w.values()) for w in run["windows"]):
+            raise AssertionError("the censused serve read an event")
+    if runs["certified"]["tokens"] != runs["censused"]["tokens"]:
+        raise AssertionError("certified and censused tokens differ")
+    mons = check_logits(torch, model, cfg, seed, (
+        ("certified", params, dict(certificate=cert)),
+        ("censused", params, dict(census=True))))
+    if any(e for _, e in mons["censused"].values()):
+        raise AssertionError(f"the censused logits read events: {mons}")
+    lay = dict(params["layers"][0])
+    mlp = dict(lay["mlp"])
+    v = mlp["w_up"].values.clone()
+    c = int(v.view(-1)[0])
+    v.view(-1)[0] = c + 1 if c < 127 else c - 1
+    mlp["w_up"] = QTensor(v, mlp["w_up"].scale)
+    lay["mlp"] = mlp
+    tampered = {**params, "layers": [lay] + params["layers"][1:]}
+    try:
+        ServingEngine(model, tampered, num_slots=4, max_len=128,
+                      int_lin=IntegerLinConfig(certificate=cert))
+    except certify.CertificateError as exc:
+        print(f"  tampered weights refused at construction: {exc}",
+              flush=True)
+    else:
+        raise AssertionError("tampered weights were served")
+    return dict(runs=runs, seconds=dict(enforce=t1 - t0, certify=t2 - t1,
+                                        verify=t3 - t2))
 
 
 # the kernel behind each result of the quickstart's matmuls
@@ -1185,7 +1637,11 @@ def phase_sorted_regimes(torch, sm, nm, seed):
             x2, w2 = sorted_rows(torch, 3, 2 * k, 5, seed + kp + k)
             slabs = {"nm_gather_sort_matmul": (x2, *prune(torch, w2)[1:]),
                      "nm_sort_matmul": (x, *prune(torch, w)[1:])}
-            for rounds, acc_bits in ((1, 2), (2, 30), (3, 16)) + (
+            # the plain versions add one product a step: past 4096 keys
+            # the body's regimes take rounds 3 and 0 at 16 bits only (the
+            # rounds and widths are the same code at every kp)
+            for rounds, acc_bits in (((1, 2), (2, 30)) if kp <= 4096 else ()
+                                     ) + ((3, 16),) + (
                     ((0, 16),) if kp in NO_ROUND_KP else ()):
                 kw = dict(policy="sorted", acc_bits=acc_bits, rounds=rounds)
                 errs = {"sort_matmul": diff(
@@ -1199,8 +1655,9 @@ def phase_sorted_regimes(torch, sm, nm, seed):
                 for name, err in errs.items():
                     worst[name] = max(worst[name], err)
             print(f"  sorted body kp={kp:5d} K={k:5d} M=3 N=5 rounds "
-                  f"{'0-3' if kp in NO_ROUND_KP else '1-3'} acc_bits "
-                  f"2/30/16 max|diff| {worst}", flush=True)
+                  + ("1-3, acc_bits 2/30/16" if kp <= 4096 else
+                     "3 and 0 at acc_bits 16") + f" max|diff| {worst}",
+                  flush=True)
         # the expand twin's int32 route: every slot of every other group of
         # rows 1 and 3 at position 0 with value 127, x 127 there (a weight
         # of 381 and keys of 48387, past int16)
@@ -2456,6 +2913,10 @@ def prefill_record(rows, work):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phase tags (2, 2c, 3, 3l, ...): "
+                         "run only those after the build; such a partial "
+                         "run prints no result")
     ap.add_argument("--baseline-csrc", default=None,
                     help="another tree's src/repro_torch/csrc: phase 5 "
                          "also times its rows 1 (wide) and 2-17 (old_ms)")
@@ -2551,7 +3012,7 @@ def main() -> int:
     got = {}  # what each phase measured, for the kernels line
 
     def dense_serve():
-        got["launches"], _, got["tokens"] = phase_serve(
+        got["launches"], _, got["tokens"], got["serve_s"] = phase_serve(
             torch, counters, cfg, args.seed, {"seq_policy_matmul": 7})
 
     def nm_serve():
@@ -2563,7 +3024,7 @@ def main() -> int:
             raise AssertionError("no dense tokens to compare: phase 3 failed")
 
     def sort_serve(policy):
-        got[policy], _, got[policy + " tokens"] = phase_serve(
+        got[policy], _, got[policy + " tokens"], _ = phase_serve(
             torch, counters, cfg, args.seed, SORT_PATHS[policy],
             policy=policy)
 
@@ -2587,12 +3048,12 @@ def main() -> int:
                                  "a phase before failed")
 
     def nm_seq_expand_serve(policy, key):
-        got[key] = phase_serve(
+        got[key], _, _, got[key + " s"] = phase_serve(
             torch, counters, cfg, args.seed, {"nm_seq_policy_matmul": 7},
             compressed=True, policy=policy,
             nm_impl="expand" if policy == "sorted_tiled_seq" else None,
             want_tokens=got.get("tokens") if policy == "sorted_tiled_seq"
-            else None)[0]
+            else None)
         if policy == "sorted_tiled_seq" and "tokens" not in got:
             raise AssertionError("no tokens of 3 / 3b to compare: phase 3 "
                                  "failed")
@@ -2609,19 +3070,33 @@ def main() -> int:
             pass1_timing=phase_pass1_timing(torch, ss, baseline),
             wide_timing=phase_wide_timing(torch, qm, nm, baseline))
 
+    def kernel_checks():
+        for key, fn, kernel_args in (
+                ("err", phase_kernels, (sm, qm)),
+                ("nm_err", phase_nm_kernels, (sm, nm)),
+                ("sort_err", phase_sort_kernels, (sm, ss)),
+                ("nm_sort_err", phase_nm_sort_kernels, (sm, ss, nm)),
+                ("pass1_err", phase_pass1_kernels, (ss,)),
+                ("fault_err", phase_gather_faults, (nm, ss)),
+                ("sorted_err", phase_sorted_regimes, (sm, nm)),
+                ("wide_err", phase_wide_kernels, (sm, qm, nm)),
+                ("dup_err", phase_duplicate_slots, (sm, nm)),
+                ("qm_err", phase_quant_matmul_bodies, (sm, qm))):
+            t = time.perf_counter()
+            got[key] = fn(torch, *kernel_args, args.seed)
+            print(f"  {fn.__name__}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+
+    def census_serve(key, compressed):
+        got[key] = phase_census_serve(torch, counters, cfg, args.seed,
+                                      compressed, want=got.get("3l"))
+        if compressed and "3l" not in got:
+            raise AssertionError("no 3l serve to compare: 3l failed")
+
     phases = [
-        ("[2] kernel vs plain", lambda: got.update(
-            err=phase_kernels(torch, sm, qm, args.seed),
-            nm_err=phase_nm_kernels(torch, sm, nm, args.seed),
-            sort_err=phase_sort_kernels(torch, sm, ss, args.seed),
-            nm_sort_err=phase_nm_sort_kernels(torch, sm, ss, nm,
-                                              args.seed),
-            pass1_err=phase_pass1_kernels(torch, ss, args.seed),
-            fault_err=phase_gather_faults(torch, nm, ss, args.seed),
-            sorted_err=phase_sorted_regimes(torch, sm, nm, args.seed),
-            wide_err=phase_wide_kernels(torch, sm, qm, nm, args.seed),
-            dup_err=phase_duplicate_slots(torch, sm, nm, args.seed),
-            qm_err=phase_quant_matmul_bodies(torch, sm, qm, args.seed))),
+        ("[2] kernel vs plain", kernel_checks),
+        ("[2c] the overflow census on the card", lambda: got.update(
+            census_err=phase_census(torch, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
         ("[3c] serve qwen2-1.5b under sorted_tiled",
@@ -2641,6 +3116,13 @@ def main() -> int:
          lambda: nm_seq_expand_serve("sorted_tiled_seq", "expand seq")),
         ("[3k] serve qwen2-1.5b from N:M compressed storage under wide "
          "(auto: expand)", lambda: nm_seq_expand_serve("wide", "expand wide")),
+        ("[3l] calibrate, then serve qwen2-1.5b under a CensusWatch",
+         lambda: census_serve("3l", False)),
+        ("[3m] calibrate, then serve qwen2-1.5b from N:M compressed "
+         "storage under a CensusWatch", lambda: census_serve("3m", True)),
+        ("[3n] enforce, certify and serve qwen2-1.5b census-free",
+         lambda: got.update({"3n": phase_certified(torch, counters, cfg,
+                                                   args.seed)})),
         ("[3i] 28-layer decode logits, bit for bit within 3/3b/3j, "
          "3c/3e/3g, 3d/3f/3h and dense wide/3k",
          lambda: phase_logits_28(torch, cfg, args.seed)),
@@ -2657,7 +3139,10 @@ def main() -> int:
              torch, sm, qm, nm, cfg, args.seed))),
         ("[5] timing", timing),
     ]
+    only = args.only and set(args.only.split(","))
     for title, fn in phases:
+        if only and title[1:title.index("]")] not in only:
+            continue
         print(title, flush=True)
         t = time.perf_counter()
         try:
@@ -2669,6 +3154,10 @@ def main() -> int:
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
+    if only:
+        print(f"chip_smoke: the phases {sorted(only)} passed (a partial run: "
+              "no result)", flush=True)
+        return 0
     csrc = "src/repro_torch/csrc/"
     nm_timing = got["nm_timing"]
     gather, expand = "nm_gather_seq_policy_matmul", "nm_seq_policy_matmul"
@@ -2682,12 +3171,37 @@ def main() -> int:
                    + (" (int_mm_m32_ms: at M=32, as it refuses M=4)"
                       if m == 4 else "") if policy == "wide" else ""))
 
+    def path_launches(run, name):
+        """A guarded serve's launches of ``name``, in all and by policy."""
+        by_policy = {}
+        for step in run["steps"]:
+            for policy, n in step["by_policy"].get(name, {}).items():
+                by_policy[policy] = by_policy.get(policy, 0) + n
+        return sum(s["launches"][name] for s in run["steps"]), by_policy
+
+    dense, served = "seq_policy_matmul", got["3n"]["runs"]
+    row1_paths = {"3 sorted_tiled_seq": got["launches"][dense]}
+    for path, run in (("3l census-watched", got["3l"]),
+                      ("3n certified", served["certified"]),
+                      ("3n censused", served["censused"])):
+        row1_paths[path], row1_paths[path + " by policy"] = path_launches(
+            run, dense)
+    row5_paths = {"3j sorted_tiled_seq": got["expand seq"][expand],
+                  "3k wide": got["expand wide"][expand]}
+    row6_paths = {"3b sorted_tiled_seq": got["nm_launches"][gather]}
+    for paths, name in ((row5_paths, expand), (row6_paths, gather)):
+        paths["3m census-watched"], paths["3m census-watched by policy"] = \
+            path_launches(got["3m"], name)
+
+    def total(paths):
+        return sum(v for k, v in paths.items() if not k.endswith("policy"))
+
     kernels = [
         kernel_record(
             "seq_policy_matmul", csrc + "seq_policy_matmul.cu",
             "src/repro/kernels/sorted_matmul.py:155",
             got["timing"]["sorted_tiled_seq"],
-            launches=got["launches"]["seq_policy_matmul"],
+            launches=total(row1_paths), launches_by_path=row1_paths,
             max_abs_err=max(got["err"],
                             got["quickstart_err"]["seq_policy_matmul"],
                             got["wide_err"]["seq_policy_matmul"]),
@@ -2699,12 +3213,13 @@ def main() -> int:
                      "the int8 tensor-core mainloop"
                      + ("; torch._int_mm refuses M=4" if m == 4 else ""))
                 for m in (4, 64, 128)},
-            path="phase 3, dense storage"),
+            path="phases 3, 3l (degraded sites: wide) and 3n (certified: "
+                 "wide), dense storage"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
             nm_timing[(gather, "sorted_tiled_seq", 4)],
-            launches=got["nm_launches"]["nm_gather_seq_policy_matmul"],
+            launches=total(row6_paths), launches_by_path=row6_paths,
             max_abs_err=max(got["nm_err"]["nm_gather_seq_policy_matmul"],
                             got["fault_err"]["nm_gather_seq_policy_matmul"]),
             by_site={r["site"]: {key: r[key] for key in (
@@ -2715,14 +3230,13 @@ def main() -> int:
                 "7 projection sites of one qwen2-1.5b layer at a prefill "
                 "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
                 "256"),
-            path="phase 3b, compressed storage"),
+            path="phases 3b and 3m (the undegraded sites), compressed "
+                 "storage"),
         kernel_record(
             "nm_seq_policy_matmul", csrc + "nm_expand_seq.cu",
             "src/repro/kernels/nm_spmm.py:182",
             nm_timing[(expand, "sorted_tiled_seq", 4)],
-            launches=got["expand seq"][expand] + got["expand wide"][expand],
-            launches_by_path={"3j sorted_tiled_seq": got["expand seq"][expand],
-                              "3k wide": got["expand wide"][expand]},
+            launches=total(row5_paths), launches_by_path=row5_paths,
             max_abs_err=max(got["nm_err"][expand], got["dup_err"][expand]),
             by_site={r["site"]: {key: r[key] for key in (
                 "ms", "old_ms", "dense_ms", "bound_ms") if key in r}
@@ -2744,8 +3258,9 @@ def main() -> int:
             launch_note="launches counts one a call; a wrap call whose K "
                         "is split over blocks runs two kernels (the int8 "
                         "mainloop, then wrap_kernel); 3j and 3k run no wrap",
-            path="phases 3j (sorted_tiled_seq, nm_impl='expand') and 3k "
-                 "(wide, auto), compressed storage"),
+            path="phases 3j (sorted_tiled_seq, nm_impl='expand'), 3k "
+                 "(wide, auto) and 3m (the degraded sites: wide, auto), "
+                 "compressed storage"),
     ]
     timing = got["sort_timing"]
     tiled, srt = got["sorted_tiled"], got["sorted"]
@@ -2974,6 +3489,21 @@ def main() -> int:
                                     "torch._int_mm refuses M=4"),
             path="phase 4c, the torch quickstart (repro_torch.quickstart."
                  "run on the card)"))
+    serve_s = {"3 sorted_tiled_seq": got["serve_s"],
+               "3k wide, expand": got["expand wide s"]}
+    for path, run in (("3l census-watched, dense", got["3l"]),
+                      ("3m census-watched, compressed", got["3m"]),
+                      ("3n certified", served["certified"]),
+                      ("3n censused", served["censused"])):
+        serve_s[path] = dict(per_step=run["per_step"],
+                             prefill=run["prefill"])
+    print(json.dumps({"guardrails": {
+        "card": card, "s": serve_s,
+        "census_per_2_decode_steps": {
+            path: got[path]["profile"] for path in ("3l", "3m")},
+        "degraded": {path: sorted(got[path]["eng"]._degraded)
+                     for path in ("3l", "3m")},
+        "certify_host_s": got["3n"]["seconds"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

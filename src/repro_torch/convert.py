@@ -10,10 +10,20 @@ so nothing here imports JAX):
 - a compressed weight as a dict holding ``values`` (out, G, n_keep) int8,
   ``indices`` (out, G, n_keep) int32, ``scale`` (out,) f32 and the ints
   ``m_group`` and ``k_dim``, which becomes a port ``SparseQTensor``;
+- either kind of weight may also hold ``act_qparams``, a dict of
+  ``scale`` and ``offset`` arrays and the ints / bools ``bits`` and
+  ``symmetric`` (a frozen calibration), and ``act_corr``, the frozen
+  Eq. (3) correction;
 - ``"layers"`` stacked along axis 0, (L, ...), which becomes the port's
   list of per-layer dicts (the ints of a compressed weight are shared,
   and so is the (out,) scale of a quantized stacked vector, whose (L,
-  out) codes give each layer its row).
+  out) codes give each layer its row; an (L,) act_qparams scale and
+  offset and an (L, out) act_corr give each layer its own).
+
+``certificate_from_fields(fields)`` builds the port's ``Certificate`` from
+a JAX package certificate's fields as plain Python values
+(``dataclasses.asdict``): the hashes cover integer codes only, so it
+verifies on the converted weights.
 """
 
 from __future__ import annotations
@@ -24,17 +34,34 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.certify import Certificate, SiteCertificate
 from repro_torch.core.qtensor import QTensor, SparseQTensor
+from repro_torch.core.quant import QParams
 
+_DENSE_KEYS = {"values", "scale"}
 _SPARSE_KEYS = {"values", "indices", "scale", "m_group", "k_dim"}
+_CALIBRATION_KEYS = {"act_qparams", "act_corr"}
+
+
+def _weight_keys(node: Any) -> Any:
+    """The key set naming a weight dict's kind (dense or compressed), or
+    None for any other node."""
+    if not isinstance(node, dict):
+        return None
+    keys = set(node) - _CALIBRATION_KEYS
+    return keys if keys in (_DENSE_KEYS, _SPARSE_KEYS) else None
 
 
 def _unstack(node: Any, i: int) -> Any:
-    if isinstance(node, dict) and set(node) == {"values", "scale"} and \
-            node["values"].ndim == 2:
+    if _weight_keys(node) == _DENSE_KEYS and node["values"].ndim == 2:
         # a quantized layer-stacked vector: (L, out) codes, one (out,)
         # scale shared by the layers
         return {"values": node["values"][i], "scale": node["scale"]}
+    if isinstance(node, dict) and set(node) == {"scale", "offset", "bits",
+                                                 "symmetric"}:
+        # act_qparams: scale and offset (L,), one bit width
+        return {**node, "scale": node["scale"][i],
+                "offset": node["offset"][i]}
     if isinstance(node, dict):
         return {k: _unstack(v, i) for k, v in node.items()}
     return node[i] if isinstance(node, np.ndarray) else node
@@ -52,17 +79,30 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     asks for the CPU)."""
     device = resolve_device(device)
 
+    def calibration(node):
+        aq = node.get("act_qparams")
+        if aq is not None:
+            aq = QParams(conv(np.asarray(aq["scale"], np.float32)),
+                         conv(np.asarray(aq["offset"], np.int32)),
+                         int(aq["bits"]), bool(aq["symmetric"]))
+        corr = node.get("act_corr")
+        return aq, None if corr is None else conv(corr)
+
     def conv(node):
-        if isinstance(node, dict) and set(node) == {"values", "scale"}:
-            return QTensor(conv(node["values"]), conv(node["scale"]))
-        if isinstance(node, dict) and set(node) == _SPARSE_KEYS:
+        kind = _weight_keys(node)
+        if kind == _DENSE_KEYS:
+            return QTensor(conv(node["values"]), conv(node["scale"]),
+                           *calibration(node))
+        if kind == _SPARSE_KEYS:
             return SparseQTensor(conv(node["values"]), conv(node["indices"]),
                                  conv(node["scale"]), int(node["m_group"]),
-                                 int(node["k_dim"]))
+                                 int(node["k_dim"]), *calibration(node))
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, np.ndarray):
-            return torch.from_numpy(np.ascontiguousarray(node)).to(device)
+            # ascontiguousarray makes a 0-d array 1-d: keep the shape
+            return torch.from_numpy(np.ascontiguousarray(node)).reshape(
+                node.shape).to(device)
         raise TypeError(f"unexpected leaf {type(node).__name__}")
 
     tree = dict(tree)
@@ -75,3 +115,15 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     if "layers" in tree:
         out["layers"] = [conv(layer) for layer in tree["layers"]]
     return out
+
+
+def certificate_from_fields(fields: dict) -> Certificate:
+    """The port's ``Certificate`` of a JAX package certificate's fields as
+    plain Python values (``dataclasses.asdict`` of it): ``sites``, each
+    with the fields of ``SiteCertificate``, and ``acc_bits``."""
+    sites = tuple(SiteCertificate(
+        site=str(sc["site"]), acc_bits_safe=int(sc["acc_bits_safe"]),
+        bound_pos=int(sc["bound_pos"]), bound_neg=int(sc["bound_neg"]),
+        slack=float(sc["slack"]), act_bits=int(sc["act_bits"]),
+        weight_hash=str(sc["weight_hash"])) for sc in fields["sites"])
+    return Certificate(sites=sites, acc_bits=int(fields["acc_bits"]))

@@ -22,13 +22,23 @@ picks the gather or the expand kernels, and ``sort_impl`` the one-pass or
 two-pass kernels of the global-sort policies). Both are bit-identical to
 the dense path on the decompressed weight.
 
+``with_census=True`` also returns the natural-order overflow census
+(``core.overflow.census``) of the same operands: of the dense partial
+products, or of the kept-only products on compressed storage. It is
+plain torch on the operands' device, whatever the backend, taken over
+M-chunks under ``_CENSUS_BUDGET``.
+
 ``qtensor_dot`` + ``integer_lin`` put serving on this path: inside the
 context every ``models.layers.lin`` whose weight is a QTensor or a
 SparseQTensor runs as an integer dot under the configured policy.
+``census_monitor`` makes every named site report its census counts to a
+``CensusMonitor`` (the serving engine's ``CensusWatch`` reads it), and
+``calibration`` makes ``lin`` report each input's range to an
+``ActCalibrator``. A site whose ``IntegerLinConfig.certificate`` covers
+it (``core.certify``) runs census-free and reports nothing.
 
-Not ported yet, and refused with ``NotImplementedError``: the overflow
-census (``with_census``, ``census_monitor``), meshes and K-sharding
-(``mesh``, ``k_shards``, ``k_axis``, ``defer_combine``).
+Not ported yet, and refused with ``NotImplementedError``: meshes and
+K-sharding (``mesh``, ``k_shards``, ``k_axis``, ``defer_combine``).
 """
 
 from __future__ import annotations
@@ -39,6 +49,12 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.overflow import (
+    Census,
+    census,
+    nm_partial_products,
+    partial_products,
+)
 from repro_torch.core.pruning import nm_decompress
 from repro_torch.core.qtensor import SparseQTensor
 from repro_torch.core.quant import qrange
@@ -53,6 +69,14 @@ STORAGES = ("dense", "nm")
 # two-pass sorted_tiled kernels (per M row 2 * 4 * N * K/k_tile bytes);
 # pqs_dot chunks M to stay under it. The JAX package's value.
 _SORT_STATS_BUDGET = 256 * 1024 * 1024
+
+# Cap on the int32 partial-product cube of one census chunk (4 bytes a
+# product; its running sum takes as much again). A 4 x 32 prefill cohort
+# would otherwise build a 7.0 GB cube at w_gate (8960 x 1536) and the
+# same again for its running sum; a qwen2-1.5b decode row is 55 MB
+# there, so 4 decode rows stay one chunk. Chunking M is exact: the
+# counts are per dot and sum over chunks.
+_CENSUS_BUDGET = 256 * 1024 * 1024
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -154,6 +178,30 @@ def _local_dot(
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
+def _merge_census(tot: Optional[Census], c: Census) -> Census:
+    return c if tot is None else Census(*(a + b for a, b in zip(tot, c)))
+
+
+def _census(x2: torch.Tensor, w: Any, acc_bits: int,
+            m_group: Optional[int]) -> Census:
+    """Natural-order census of x2 (M, K) against a dense (N, K) weight or
+    the kept-only products of (values, indices) slabs, on the operands'
+    device, in M-chunks of at most ``_CENSUS_BUDGET`` bytes of products."""
+    if m_group is None:
+        n, width = w.shape
+    else:
+        n, g, n_keep = w[0].shape
+        width = g * n_keep
+    rows = max(_CENSUS_BUDGET // (4 * n * max(width, 1)), 1)
+    tot = None
+    for i in range(0, max(x2.shape[0], 1), rows):
+        xc = x2[i : i + rows]
+        prods = (partial_products(w, xc) if m_group is None
+                 else nm_partial_products(w[0], w[1], xc, m_group))
+        tot = _merge_census(tot, census(prods, acc_bits))
+    return tot
+
+
 def pqs_dot(
     x: torch.Tensor,  # (..., K) integer carrier (int8, or int32 of int8)
     w: Any,  # (N, K) integer carrier, rows = output channels; or N:M slabs
@@ -178,8 +226,15 @@ def pqs_dot(
     """Quantized dot products with simulated narrow accumulation.
 
     Returns (..., N) int32, each element a dot product accumulated into
-    an acc_bits register under ``policy``. Any M/N/K: padding and batch
-    chunking happen here. ``backend="cuda"`` on CPU tensors raises.
+    an acc_bits register under ``policy``, or ``(out, Census)`` with
+    ``with_census=True`` (the counts summed over every dot). Any M/N/K:
+    padding and batch chunking happen here. ``backend="cuda"`` on CPU
+    tensors raises.
+
+    ``certified=True`` declares that a ``core.certify`` proof covers
+    these operands at acc_bits: both backends accumulate ``wide``,
+    bit-identical to the narrow result by the proof. A certified dot has
+    no census, so it excludes ``with_census``.
 
     ``sort_impl`` picks the CUDA kernels of the global-sort policies, on
     dense and on compressed storage: ``auto`` (the one-pass kernel up to
@@ -198,9 +253,10 @@ def pqs_dot(
         if nm_impl not in ops.NM_IMPLS:
             raise ValueError(
                 f"nm_impl must be one of {ops.NM_IMPLS}, got {nm_impl!r}")
-    if with_census:
-        raise NotImplementedError(
-            "the overflow census is not ported yet (with_census=True)")
+    if certified and with_census:
+        raise ValueError(
+            "certified=True removes the census from the path entirely; "
+            "with_census=True contradicts it")
     if mesh is not None or k_axis is not None or defer_combine or (
         k_shards is not None and int(k_shards) != 1
     ):
@@ -260,7 +316,10 @@ def pqs_dot(
                      k_tile=k_tile, rounds=rounds, backend=backend,
                      batch_chunk=batch_chunk, certified=certified,
                      m_group=nm, nm_impl=nm_impl, sort_impl=sort_impl)
-    return out.reshape(*lead, n)
+    out = out.reshape(*lead, n)
+    if with_census:
+        return out, _census(x2, w, acc_bits, nm)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +336,15 @@ class IntegerLinConfig:
     ``use_static_acts`` picks a QTensor's calibrated ``act_qparams`` over
     the dynamic per-call absmax when it carries them. ``nm_impl`` picks
     the kernel for SparseQTensor weights (None = ``auto``). ``site_policies`` /
-    ``site_acc_bits`` are per-site overrides, ((site, value), ...).
+    ``site_acc_bits`` are per-site overrides, ((site, value), ...): the
+    census degradation swaps one site without touching the rest.
+
+    ``certificate`` (a ``core.certify.Certificate``) turns on the
+    certified path: a site whose proof reaches this config's (acc_bits,
+    act_bits) runs ``pqs_dot(certified=True)``, census-free, and is
+    invisible to any ``census_monitor``. The engine verifies the
+    certificate's weight hashes against the served params at
+    construction.
     """
 
     policy: str = "sorted_tiled_seq"
@@ -290,12 +357,40 @@ class IntegerLinConfig:
     nm_impl: Optional[str] = None  # compressed weights: auto|expand|gather
     site_policies: tuple = ()
     site_acc_bits: tuple = ()
+    certificate: Any = None  # core.certify.Certificate -> certified path
 
     def policy_for(self, site: Optional[str]) -> str:
         return dict(self.site_policies).get(site, self.policy)
 
     def acc_bits_for(self, site: Optional[str]) -> int:
         return dict(self.site_acc_bits).get(site, self.acc_bits)
+
+    def certified_for(self, site: Optional[str], act_bits: int) -> bool:
+        """Does the attached certificate prove this site safe as served?"""
+        return (self.certificate is not None and site is not None
+                and self.certificate.covers(site, self.acc_bits_for(site),
+                                            act_bits))
+
+    def with_site_policy(self, site: str, policy: str) -> "IntegerLinConfig":
+        over = dict(self.site_policies)
+        over[site] = policy
+        return dataclasses.replace(
+            self, site_policies=tuple(sorted(over.items())))
+
+    def with_site_acc_bits(self, site: str, bits: int) -> "IntegerLinConfig":
+        over = dict(self.site_acc_bits)
+        over[site] = int(bits)
+        return dataclasses.replace(
+            self, site_acc_bits=tuple(sorted(over.items())))
+
+    def without_site(self, site: str) -> "IntegerLinConfig":
+        """Drop every per-site override for ``site`` (the undegrade)."""
+        return dataclasses.replace(
+            self,
+            site_policies=tuple((s, p) for s, p in self.site_policies
+                                if s != site),
+            site_acc_bits=tuple((s, b) for s, b in self.site_acc_bits
+                                if s != site))
 
 
 _INT_LIN: list[IntegerLinConfig] = []
@@ -316,6 +411,108 @@ def integer_lin(cfg: Optional[IntegerLinConfig] = None, **kw):
         _INT_LIN.pop()
 
 
+_CALIBRATION: list = []
+
+
+def calibration_store():
+    """Active ``core.quant.ActCalibrator``, or None outside calibration."""
+    return _CALIBRATION[-1] if _CALIBRATION else None
+
+
+@contextlib.contextmanager
+def calibration(store):
+    """Collect activation ranges at QTensor projection sites: inside the
+    context ``models.layers.lin`` reports each QTensor input's float32
+    (min, max) to ``store`` (an ``ActCalibrator``) and runs as it would
+    outside. Freeze with ``store.freeze()`` +
+    ``core.qtensor.attach_act_qparams``."""
+    _CALIBRATION.append(store)
+    try:
+        yield store
+    finally:
+        _CALIBRATION.pop()
+
+
+def _host_ints(values: list) -> list[int]:
+    """Python ints of a list of ints and 0-d tensors: one host copy for
+    the tensors of each (device, dtype), not one a tensor."""
+    out = list(values)
+    groups: dict = {}
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            groups.setdefault((v.device, v.dtype), []).append(i)
+    for idx in groups.values():
+        host = torch.stack([values[i].reshape(()) for i in idx]).to(
+            torch.int64).cpu().tolist()
+        for i, h in zip(idx, host):
+            out[i] = h
+    return [int(v) for v in out]
+
+
+class CensusMonitor:
+    """Per-site overflow-census accumulator, the runtime guardrail's input.
+
+    ``qtensor_dot`` reports, for every named site run under a
+    ``census_monitor`` context, its number of dot products and of
+    overflow events (persistent or transient, plus combine). Counts are
+    Python ints or 0-d tensors on any device; tensors stay where they are
+    until ``totals`` / ``drain`` read them, one host copy for the whole
+    window, so a decode step never waits on the device for them. ``wide``
+    sites report zero events, so a degraded site's rate reads 0.0.
+    """
+
+    def __init__(self):
+        self._dots: dict[str, list] = {}
+        self._events: dict[str, list] = {}
+
+    def observe(self, site, n_dots, n_events) -> None:
+        site = str(site)
+        self._dots.setdefault(site, []).append(n_dots)
+        self._events.setdefault(site, []).append(n_events)
+
+    def totals(self) -> dict[str, tuple[int, int]]:
+        sites = list(self._dots)
+        flat = [v for s in sites for v in self._dots[s] + self._events[s]]
+        ints = iter(_host_ints(flat))
+        out = {}
+        for s in sites:
+            dots = sum(next(ints) for _ in self._dots[s])
+            events = sum(next(ints) for _ in self._events[s])
+            out[s] = (dots, events)
+        return out
+
+    def rates(self) -> dict[str, float]:
+        return {s: (e / d if d else 0.0)
+                for s, (d, e) in self.totals().items()}
+
+    def drain(self) -> dict[str, tuple[int, int]]:
+        out = self.totals()
+        self._dots.clear()
+        self._events.clear()
+        return out
+
+
+_CENSUS_MON: list[CensusMonitor] = []
+
+
+def census_monitor_store() -> Optional[CensusMonitor]:
+    """Active ``CensusMonitor``, or None when monitoring is off."""
+    return _CENSUS_MON[-1] if _CENSUS_MON else None
+
+
+@contextlib.contextmanager
+def census_monitor(mon: Optional[CensusMonitor] = None):
+    """Count overflow events per projection site inside the context: one
+    census per named projection, so serving enables it only when a
+    ``CensusWatch`` is configured."""
+    mon = mon or CensusMonitor()
+    _CENSUS_MON.append(mon)
+    try:
+        yield mon
+    finally:
+        _CENSUS_MON.pop()
+
+
 def qtensor_dot(
     x: torch.Tensor, qt, cfg: IntegerLinConfig, site: Optional[str] = None
 ) -> torch.Tensor:
@@ -329,6 +526,10 @@ def qtensor_dot(
     and only then cast to f32, as the JAX package does, so a bf16 step
     uses the bf16-rounded scale. The output is rescaled by the activation
     scale times the per-channel weight scales, then cast to x.dtype.
+
+    Under a ``census_monitor`` a named site reports (dots, events): its
+    census when its policy is not ``wide``, (dots, 0) when it is; a site
+    the config's certificate covers runs certified and reports nothing.
     """
     aq = qt.act_qparams
     static = cfg.use_static_acts and aq is not None
@@ -351,12 +552,28 @@ def qtensor_dot(
         act_bits = cfg.act_bits
     xq = xq.to(torch.int8 if act_bits <= 8 else torch.int32)
     sparse = isinstance(qt, SparseQTensor)
-    z = pqs_dot(xq, qt if sparse else qt.values_t,
-                acc_bits=cfg.acc_bits_for(site),
-                policy=cfg.policy_for(site), k_tile=cfg.k_tile,
-                rounds=cfg.rounds, backend=cfg.backend,
-                storage="nm" if sparse else "dense",
-                nm_impl=cfg.nm_impl if sparse else None)
+    policy = cfg.policy_for(site)
+    # act_bits is the code range admissible on this path, the quantity
+    # the certificate's bound was taken over
+    certified = cfg.certified_for(site, act_bits)
+    mon = census_monitor_store()
+    want_census = (mon is not None and site is not None
+                   and policy != "wide" and not certified)
+    res = pqs_dot(xq, qt if sparse else qt.values_t,
+                  acc_bits=cfg.acc_bits_for(site), policy=policy,
+                  k_tile=cfg.k_tile, rounds=cfg.rounds, backend=cfg.backend,
+                  storage="nm" if sparse else "dense",
+                  nm_impl=cfg.nm_impl if sparse else None,
+                  with_census=want_census, certified=certified)
+    if want_census:
+        z, cns = res
+        mon.observe(site, cns.n_dots, cns.n_any + cns.n_combine)
+    else:
+        z = res
+        if mon is not None and site is not None and not certified:
+            # wide accumulates in int32, overflow-free: report the dots
+            # so a degraded site's rate reads 0.0
+            mon.observe(site, z.numel(), 0)
     if static and not aq.symmetric:
         z = z - qt.act_corr  # Eq. (3) offset correction, frozen per weight
     zf = z.to(torch.float32) * (s_x * qt.scale)

@@ -63,18 +63,23 @@ def _out_of_range(run: torch.Tensor, acc_bits: int) -> torch.Tensor:
 
 def census(prods: torch.Tensor, acc_bits: int) -> Census:
     """Classify overflows of natural-order accumulation (paper Fig 2a):
-    prods (..., K) int32, the running sum in index order."""
+    prods (..., K) int32, the running sum in index order. A persistent
+    overflow is also an event of the running sum, so the transients are
+    the events less the persistent ones. Every count stays on the
+    device."""
     run = torch.cumsum(prods, dim=-1, dtype=torch.int32)
-    any_ovf = _out_of_range(run, acc_bits).any(dim=-1)
-    persistent = _out_of_range(run[..., -1], acc_bits)
-    transient = any_ovf & ~persistent
+    qmin, qmax = qrange(acc_bits)
+    lo, hi = torch.aminmax(run, dim=-1)  # one pass over the running sums
+    n_any = ((hi > qmax) | (lo < qmin)).sum(dtype=torch.int32)
+    n_persistent = _out_of_range(run[..., -1], acc_bits).sum(
+        dtype=torch.int32)
     dev = prods.device
     return Census(
-        n_dots=torch.tensor(prods[..., 0].numel(), dtype=torch.int32,
-                            device=dev),
-        n_persistent=persistent.sum(dtype=torch.int32),
-        n_transient=transient.sum(dtype=torch.int32),
-        n_any=any_ovf.sum(dtype=torch.int32),
+        n_dots=torch.full((), prods[..., 0].numel(), dtype=torch.int32,
+                          device=dev),
+        n_persistent=n_persistent,
+        n_transient=n_any - n_persistent,
+        n_any=n_any,
         n_combine=torch.zeros((), dtype=torch.int32, device=dev),
     )
 

@@ -163,6 +163,45 @@ def nm_compress_tree(params: Any, n_keep: int, m: int = 16) -> Any:
     return out
 
 
+def attach_act_qparams(params: Any, frozen: dict[str, QParams]) -> Any:
+    """Freeze calibrated activation ranges into a quantized param tree.
+
+    ``frozen`` maps call-site names (the last string key on a leaf's path:
+    "wq", "w_gate", ...) to static QParams from ``ActCalibrator.freeze``.
+    Every matching QTensor / SparseQTensor, each layer's alike, gets
+    QParams whose 0-d scale and offset sit on the weight's device. With
+    asymmetric QParams it also gets ``act_corr``, the Eq. (3) term o_x *
+    sum_k w_k per output channel, frozen here so decode never reduces
+    the weight (a SparseQTensor's kept-only sum is the dense sum).
+    """
+
+    def conv(leaf, site):
+        if not is_qtensor(leaf) or site not in frozen:
+            return leaf
+        qp = frozen[site]
+        dev = leaf.values.device
+        aq = QParams(qp.scale.to(device=dev, dtype=torch.float32),
+                     qp.offset.to(device=dev, dtype=torch.int32), qp.bits,
+                     qp.symmetric)
+        corr = None
+        if not qp.symmetric:
+            v = leaf.values.to(torch.int32)
+            wsum = v.sum(dim=(-2, -1) if isinstance(leaf, SparseQTensor)
+                         else -2, dtype=torch.int32)
+            corr = aq.offset[..., None] * wsum
+        return dataclasses.replace(leaf, act_qparams=aq, act_corr=corr)
+
+    def walk(node, site):
+        if isinstance(node, dict):
+            return {k: walk(v, k if isinstance(k, str) else site)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, site) for v in node)
+        return conv(node, site)
+
+    return walk(params, "")
+
+
 def quantize_weight(
     w: torch.Tensor,
     bits: int = 8,

@@ -26,7 +26,8 @@ Each wrapper launches its hand-written CUDA kernel
 (``csrc/nm_seq_policy_matmul.cu``, ``csrc/nm_expand_seq.cu``,
 ``csrc/nm_sort_matmul.cu``,
 ``csrc/nm_expand_sort.cu``, ``csrc/quant_matmul.cu``) on CUDA tensors,
-counting the launch in ``.launches``, and takes its plain version
+counting the launch in ``.launches`` (the two K-streaming wrappers also
+in ``.policy_launches`` under its policy), and takes its plain version
 (``*_ref``) only for tensors on the CPU. The kernels mask ragged M, N, K
 and G themselves; the plain versions pad G to whole sort tiles
 (``_cover``) or K to kp. The two-pass and chunked kernels of the
@@ -279,6 +280,7 @@ def nm_gather_seq_policy_matmul(
                             indices, **kw)
     if launched:
         nm_gather_seq_policy_matmul.launches += 1
+        nm_gather_seq_policy_matmul.policy_launches[policy] += 1
     return out
 
 
@@ -313,11 +315,14 @@ def nm_seq_policy_matmul(
                             values, indices, **kw)
     if launched:
         nm_seq_policy_matmul.launches += 1
+        nm_seq_policy_matmul.policy_launches[policy] += 1
     return out
 
 
 nm_gather_seq_policy_matmul.launches = 0
 nm_seq_policy_matmul.launches = 0
+nm_gather_seq_policy_matmul.policy_launches = dict.fromkeys(SEQ_POLICIES, 0)
+nm_seq_policy_matmul.policy_launches = dict.fromkeys(SEQ_POLICIES, 0)
 
 
 # ---------------------------------------------------------------------------

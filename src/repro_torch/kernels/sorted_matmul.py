@@ -24,7 +24,8 @@ Each wrapper launches its hand-written CUDA kernel
 of ``csrc/int8_mma.cuh``; ``csrc/sort_matmul.cu``; their headers say how
 they are built and what bounds them) on CUDA tensors, and takes its
 plain version (``*_ref``) only for tensors on the CPU. Each launch adds
-one to the wrapper's ``.launches``.
+one to the wrapper's ``.launches`` (and, for ``seq_policy_matmul``, to
+``.policy_launches`` under its policy).
 """
 
 from __future__ import annotations
@@ -208,10 +209,12 @@ def seq_policy_matmul(
     if err != 0:
         raise RuntimeError(f"seq_policy_matmul launch failed: CUDA error {err}")
     seq_policy_matmul.launches += 1
+    seq_policy_matmul.policy_launches[policy] += 1
     return out
 
 
 seq_policy_matmul.launches = 0
+seq_policy_matmul.policy_launches = dict.fromkeys(SEQ_POLICIES, 0)
 
 
 def _check_sort(x, w, policy, acc_bits, k_tile, kp=None) -> int:

@@ -5,7 +5,8 @@ Plain functions on tensors. Params are dicts of tensors, one dict per
 layer. Activations flow in the compute dtype; norms and softmax run in
 f32. Any projection may be a QTensor or a SparseQTensor: ``lin``
 dequantizes it, or inside ``core.dispatch.integer_lin`` runs it as an
-integer PQS dot. Attention is
+integer PQS dot (and inside ``core.dispatch.calibration`` reports its
+input's range first). Attention is
 plain einsum/softmax, as the JAX package leaves it to XLA, and is never
 query-chunked here.
 """
@@ -26,8 +27,14 @@ Params = dict[str, Any]
 
 def lin(x: torch.Tensor, w: Any, site: Optional[str] = None) -> torch.Tensor:
     """x @ w, with QTensor and SparseQTensor weights run as integer dots
-    inside an ``integer_lin`` context and dequantized otherwise."""
+    inside an ``integer_lin`` context and dequantized otherwise. Inside
+    ``dispatch.calibration`` a named site first reports its input's
+    float32 (min, max) to the store."""
     if is_qtensor(w):
+        store = dispatch.calibration_store()
+        if store is not None and site is not None:
+            xf = x.to(torch.float32)
+            store.observe(site, xf.min(), xf.max())
         cfg = dispatch.integer_lin_config()
         if cfg is not None:
             return dispatch.qtensor_dot(x, w, cfg, site=site)

@@ -1,3 +1,7 @@
 """Serving of the port: the slot-based continuous-batching engine."""
 
-from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
+from repro_torch.serving.engine import (  # noqa: F401
+    CensusWatch,
+    Request,
+    ServingEngine,
+)

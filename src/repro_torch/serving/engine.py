@@ -15,15 +15,23 @@ with an ``active`` mask, so a request's greedy tokens do not depend on
 what shares the batch. Sampling is greedy, or temperature through a
 per-request numpy generator seeded by (engine seed, uid).
 
-Not ported yet, and refused at construction: paged caches, census
-watching, meshes, the token-by-token prefill mode and failure injection.
-Calibration, snapshot/restore and remesh are not ported either.
+Calibration (``calibrate``) freezes static activation ranges into the
+quantized params. A ``CensusWatch`` reads every named site's overflow
+census window by window and degrades a site past its threshold to
+``wide`` (or a wider register), and undegrades it after clean windows
+when asked. An ``IntegerLinConfig.certificate`` is verified against the
+served weights at construction; the sites it covers run census-free.
+
+Not ported yet, and refused at construction: paged caches, meshes, the
+token-by-token prefill mode and failure injection. Snapshot/restore and
+remesh are not ported either.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import time
 from typing import Any, Optional
 
@@ -33,6 +41,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import dispatch
 from repro_torch.models.model import Model
+
+logger = logging.getLogger("repro_torch.serving")
 
 
 @dataclasses.dataclass
@@ -47,6 +57,34 @@ class Request:
     done: bool = False
     t_submit: float = 0.0
     t_done: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CensusWatch:
+    """Census-triggered graceful degradation knobs.
+
+    Every ``window`` decode steps the engine reads the per-site overflow
+    census rates since the last check. A site whose event / dot ratio
+    exceeds ``threshold`` (over at least ``min_dots`` dots) is swapped:
+    ``mode="wide"`` flips its policy to the overflow-free ``wide``,
+    ``mode="widen"`` raises its ``acc_bits`` to ``widen_to``. The rest
+    of the model keeps its narrow policies; a structured event goes to
+    ``engine.events`` and ``stats["census_degrades"]`` counts it.
+
+    Degradation is monotone unless ``undegrade_after=N``: a degraded
+    site whose census stays clean (rate <= threshold over >= min_dots
+    dots) for N consecutive windows drops its overrides
+    (``census_undegrade`` event, ``stats["census_undegrades"]``). A dirty
+    window resets the streak; a window under ``min_dots`` dots neither
+    advances nor resets it.
+    """
+
+    threshold: float = 0.01
+    window: int = 8
+    mode: str = "wide"  # "wide" (policy swap) | "widen" (acc_bits raise)
+    widen_to: int = 30
+    min_dots: int = 1
+    undegrade_after: Optional[int] = None  # N clean windows to re-narrow
 
 
 class ServingEngine:
@@ -71,10 +109,19 @@ class ServingEngine:
             raise NotImplementedError(
                 "only prefill_mode='batched' is ported")
         if page_size is not None or mesh is not None or \
-                census_watch is not None or failure_injector is not None:
+                failure_injector is not None:
             raise NotImplementedError(
-                "paged caches, meshes, census watching and failure "
-                "injection are not ported yet")
+                "paged caches, meshes and failure injection are not "
+                "ported yet")
+        if census_watch is not None and int_lin is None:
+            raise ValueError(
+                "census_watch monitors integer projections; it needs "
+                "int_lin= (float engines have no overflow census)")
+        if int_lin is not None and int_lin.certificate is not None:
+            # a certificate proves accumulator safety only for the integer
+            # weights it hashed: refuse a census-free path for any other
+            # (core.certify.CertificateError)
+            int_lin.certificate.verify(params)
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} differs from "
@@ -102,7 +149,20 @@ class ServingEngine:
             "decode_steps": 0,
             "cohorts": 0,
             "queue_wait_steps": 0,
+            "census_degrades": 0,
+            "census_undegrades": 0,
         }
+        self.events: list[dict] = []  # structured log (census degrades)
+        # census-triggered degradation: one monitor for the engine's
+        # lifetime, drained a window at a time
+        self.census_watch = census_watch
+        self._census = (dispatch.CensusMonitor()
+                        if census_watch is not None else None)
+        self._census_steps = 0
+        self._degraded: set[str] = set()
+        # consecutive clean windows per degraded site (the undegrade)
+        self._clean_windows: dict[str, int] = {}
+        self.last_census_rates: dict[str, float] = {}
 
     # -- step functions ------------------------------------------------------
 
@@ -110,6 +170,8 @@ class ServingEngine:
         stack = contextlib.ExitStack()
         if self.int_lin is not None:
             stack.enter_context(dispatch.integer_lin(self.int_lin))
+        if self._census is not None:
+            stack.enter_context(dispatch.census_monitor(self._census))
         return stack
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -140,6 +202,32 @@ class ServingEngine:
                  for c in self.caches]
         self.caches = self.model.merge_caches(self.caches, zeros,
                                               self._tensor(mask))
+
+    # -- calibration ---------------------------------------------------------
+
+    @torch.no_grad()
+    def calibrate(self, batches: list[Any], act_bits: int = 8,
+                  symmetric: bool = True, decay: float = 0.9) -> dict:
+        """Calibrate, then freeze static activation ranges for integer
+        decode: run ``model.forward`` over ``batches`` (batch dicts with
+        ``tokens``) on the float dequantized path with the range observer
+        active, freeze the bias-corrected per-site bounds into static
+        QParams and attach them to this engine's quantized params. Later
+        steps quantize activations with the frozen scales. Returns the
+        frozen site -> QParams dict."""
+        from repro_torch.core.qtensor import attach_act_qparams
+        from repro_torch.core.quant import ActCalibrator
+
+        cal = ActCalibrator(decay=decay)
+        with dispatch.calibration(cal):
+            for batch in batches:
+                self.model.forward(self.params, {
+                    k: v.to(self.device) if isinstance(v, torch.Tensor)
+                    else self._tensor(np.asarray(v))
+                    for k, v in batch.items()})
+        frozen = cal.freeze(bits=act_bits, symmetric=symmetric)
+        self.params = attach_act_qparams(self.params, frozen)
+        return frozen
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -269,6 +357,8 @@ class ServingEngine:
                 req.t_done = time.perf_counter()
                 self.slots[slot] = None
                 self._ready[slot] = False
+        if self.census_watch is not None:
+            self._check_census()
         return len(active) + len(self._pending)
 
     def drain(self, requests: list[Request], max_steps: int = 100_000) -> None:
@@ -277,3 +367,75 @@ class ServingEngine:
         for _ in range(max_steps):
             if self.step() == 0 and not self.queue:
                 break
+
+    # -- census-triggered graceful degradation --------------------------------
+
+    def _check_census(self) -> None:
+        """Window check: swap any site saturating its accumulator.
+
+        Every ``window`` decode steps, drain the per-site census (one host
+        copy for the window). A degraded site first gets its undegrade
+        pass (``undegrade_after``), then every site over the threshold
+        degrades once: its policy flips to ``wide`` or its ``acc_bits``
+        widens, through ``self.int_lin``, which the next step's context
+        reads. A ``wide`` site keeps reporting dots with zero events, so
+        the next window reads rate 0.0. A certified site never appears:
+        ``dispatch.qtensor_dot`` runs it census-free.
+        """
+        self._census_steps += 1
+        if self._census_steps < self.census_watch.window:
+            return
+        self._census_steps = 0
+        watch = self.census_watch
+        totals = self._census.drain()
+        self.last_census_rates = {
+            s: (e / d if d else 0.0) for s, (d, e) in totals.items()}
+        # reverse transition first: a site clean for N consecutive
+        # windows drops its overrides and re-narrows
+        if watch.undegrade_after is not None:
+            for site in sorted(self._degraded):
+                dots, events = totals.get(site, (0, 0))
+                if dots < watch.min_dots:
+                    continue  # no evidence either way: freeze the streak
+                rate = events / dots
+                if rate > watch.threshold:
+                    self._clean_windows[site] = 0
+                    continue
+                streak = self._clean_windows.get(site, 0) + 1
+                self._clean_windows[site] = streak
+                if streak < watch.undegrade_after:
+                    continue
+                self.int_lin = self.int_lin.without_site(site)
+                self._degraded.discard(site)
+                self._clean_windows.pop(site, None)
+                self.stats["census_undegrades"] += 1
+                self.events.append({
+                    "event": "census_undegrade", "site": site,
+                    "clean_windows": streak, "rate": rate, "dots": dots,
+                    "step": self._step_idx})
+                logger.info(
+                    "census_undegrade site=%s after %d clean windows "
+                    "(rate=%.4f over %d dots) at step %d",
+                    site, streak, rate, dots, self._step_idx)
+        for site, (dots, events) in sorted(totals.items()):
+            if dots < watch.min_dots or site in self._degraded:
+                continue
+            rate = events / dots
+            if rate <= watch.threshold:
+                continue
+            if watch.mode == "widen":
+                self.int_lin = self.int_lin.with_site_acc_bits(
+                    site, watch.widen_to)
+                action = {"acc_bits": watch.widen_to}
+            else:
+                self.int_lin = self.int_lin.with_site_policy(site, "wide")
+                action = {"policy": "wide"}
+            self._degraded.add(site)
+            self.stats["census_degrades"] += 1
+            self.events.append({
+                "event": "census_degrade", "site": site, "rate": rate,
+                "dots": dots, "overflows": events, "step": self._step_idx,
+                **action})
+            logger.warning(
+                "census_degrade site=%s rate=%.4f (%d/%d dots) -> %s at "
+                "step %d", site, rate, events, dots, action, self._step_idx)

@@ -107,6 +107,6 @@ def test_padding_helpers():
 def test_unported_options_raise():
     x = torch.zeros((2, 8), dtype=torch.int8)
     w = torch.zeros((3, 8), dtype=torch.int8)
-    for kw in ({"with_census": True}, {"k_shards": 2}, {"mesh": object()}):
+    for kw in ({"k_shards": 2}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             pqs_dot(x, w, **kw)

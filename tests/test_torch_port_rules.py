@@ -116,8 +116,7 @@ def test_unported_engine_options_raise():
 
     model = build_model(get_config("qwen2-1.5b", smoke=True), device="cpu")
     params = model.init(0)
-    for kw in ({"page_size": 8}, {"prefill_mode": "steps"},
-               {"census_watch": object()}):
+    for kw in ({"page_size": 8}, {"prefill_mode": "steps"}):
         with pytest.raises(NotImplementedError):
             ServingEngine(model, params, num_slots=1, max_len=8,
                           device="cpu", **kw)
