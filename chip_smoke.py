@@ -126,7 +126,8 @@ imports nothing of JAX or of the JAX package. Phases:
    plain version, and the compressed weights through the gather and the
    expand kernel (the expand kernel's path), give identical tokens and
    decode logits;
-4b. at 2 layers under ``sorted_tiled`` and ``sorted``: the dense kernels,
+4b. at 1 layer (``PARITY_LAYERS``; 2 until the paper phases joined the
+   run) under ``sorted_tiled`` and ``sorted``: the dense kernels,
    their plain versions and the compressed weights through the expand
    kernels give identical tokens (4 new ones) and decode logits;
 4c. the torch quickstart (``repro_torch.quickstart.run``) on the card:
@@ -166,9 +167,30 @@ imports nothing of JAX or of the JAX package. Phases:
    with the new one in the same call (``old_ms``), equal results checked
    first.
 
-The last four lines are a JSON ``guardrails`` record (the s a decode
+6a. the paper nets at their published widths on ``synth_mnist(n=4096)``
+   (``phase_paper_nets``): mlp1 and mlp2 under P->Q, mlp2 under Q->P, at
+   w5a5 and in the A2Q regime at a 16-bit register, the convnet under
+   P->Q (8:16, 8-bit unless named); each frozen and run through
+   ``evaluate_int`` (rows 1 and 2: ``sorted`` and ``sorted_tiled``
+   through ``sort_matmul``, ``clip`` and ``wide`` through
+   ``seq_policy_matmul``, one launch a 128-row chunk, K = 36 to 784) and
+   ``overflow_profile`` at registers of 12, 14, 16 and 20 bits: every
+   integer dot equal to its plain version, the card's census equal to
+   the CPU's, the census never rising with the register, the MLPs above
+   0.8 in float32 (not the A2Q net, at chance at 16 bits as in the JAX
+   package), ``wide`` within 0.08 of float32; each net's Fig-2 table
+   printed, and rows 1 and 2 timed at mlp2's hidden layer (M = 128 and
+   512) beside their plain versions and bound;
+6b. ``a2q_finetune`` for 2 AdamW steps on qwen2-1.5b at full width and 2
+   layers (every QAT site reporting its census each step), then
+   ``quantize_and_certify(acc_bits=16)``: the certificate verifies and
+   every site is safe at 16 bits or fewer.
+
+The last five lines are a JSON ``guardrails`` record (the s a decode
 step and the prefill s of 3, 3k and 3l-3n, the census's device ms, the
-host s of certification), the JSON ``kernels`` record, the card's name
+host s of certification), the JSON ``paper`` record (6a's training,
+evaluation and census times and 6b's step times, peak memory and
+certification), the JSON ``kernels`` record, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line. ``--only 2c,3l`` runs just the
 phases named after the build (a partial run prints no record).
@@ -2047,8 +2069,14 @@ def phase_pass1_kernels(torch, ss, seed):
     return worst
 
 
+# depth of phase 4b, cut from 2 to keep the run inside its time limit
+PARITY_LAYERS = 1
+
+
 def phase_sort_parity(torch, counters, cfg, seed, new_tokens=4):
-    """2 layers at full width under ``sorted_tiled`` and under ``sorted``:
+    """``PARITY_LAYERS`` at full width under ``sorted_tiled`` and under
+    ``sorted`` (one layer holds both routes: one-pass at the six K = 1536
+    sites, two-pass at w_out):
     the dense kernels, their plain versions and the compressed weights
     through the expand kernels (which must launch, and no gather kernel)
     give the same tokens (4 new ones each: the plain ``sorted`` path walks
@@ -2056,7 +2084,7 @@ def phase_sort_parity(torch, counters, cfg, seed, new_tokens=4):
     logits."""
     from repro_torch.core.qtensor import nm_compress_tree
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
     model, params = model_params(cfg2, seed, compressed=False)
     sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
     for policy in SORT_PATHS:
@@ -2070,7 +2098,7 @@ def phase_sort_parity(torch, counters, cfg, seed, new_tokens=4):
                                   policy=policy, **kw)
             outs[name] = [r.output for r in reqs]
             launches = {k: f.launches for k, f in counters.items()}
-            print(f"  2-layer serve, {policy}, {name}: "
+            print(f"  {PARITY_LAYERS}-layer serve, {policy}, {name}: "
                   f"{time.perf_counter() - t0:.1f} s; launches {launches}",
                   flush=True)
             if name == "expand" and (
@@ -2910,6 +2938,327 @@ def prefill_record(rows, work):
     return dict(work=work, timing=TIMING, **rec)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the paper's own path (6a) and the LM's accumulator-aware
+# fine-tune (6b)
+# ---------------------------------------------------------------------------
+
+PAPER_POLICIES = ("sorted", "sorted_tiled", "clip", "wide")
+PAPER_BITS = (12, 14, 16, 20)
+# the census on the CPU, against the card's, at these registers (the
+# CPU's product cubes take about a second a net and register)
+PAPER_CPU_CENSUS_BITS = (12, 16)
+# the kernel each policy of the paper path launches: row 1 or row 2
+PAPER_ROW = {"sorted": "sort_matmul", "sorted_tiled": "sort_matmul",
+             "clip": "seq_policy_matmul", "wide": "seq_policy_matmul"}
+PAPER_LIMIT = 512  # evaluate_int / overflow_profile rows (the test set: 410)
+
+
+def paper_nets(seed):
+    """(name, config, PQSConfig, train_papernet keywords) of the nets 6a
+    trains on synth_mnist: 8/8-bit at 8:16 under P->Q and Q->P, w5a5, the
+    A2Q regime at a 16-bit register (no pruning, as
+    benchmarks/pareto_accum.py trains it), and the convnet."""
+    from repro_torch.configs.paper import CONVNET, MLP1, MLP2
+    from repro_torch.core.pqs import PQSConfig
+
+    pq = PQSConfig(weight_bits=8, act_bits=8, n_keep=8, m=16, order="pq")
+    mlp = dict(epochs=6, prune_every=1, fp32_frac=0.67, lr=0.05, seed=seed)
+    return [
+        ("mlp1 P->Q", MLP1, pq, mlp),
+        ("mlp2 P->Q", MLP2, pq, mlp),
+        ("mlp2 Q->P", MLP2, dataclasses.replace(pq, order="qp"), mlp),
+        ("mlp2 w5a5 P->Q", MLP2,
+         dataclasses.replace(pq, weight_bits=5, act_bits=5), mlp),
+        ("mlp2 A2Q p16", MLP2, dataclasses.replace(pq, n_keep=16),
+         dict(mlp, a2q_acc_bits=16)),
+        ("convnet P->Q", CONVNET, pq,
+         dict(epochs=4, prune_every=1, fp32_frac=0.75, lr=0.05, seed=seed)),
+    ]
+
+
+class DotRecorder:
+    """Inside the context every ``dispatch.pqs_dot`` call (the paper
+    path's integer dots) is kept with its operands, keywords and result,
+    so that each can be held against its plain version after the path
+    ran; the path itself runs unchanged."""
+
+    def __init__(self, dispatch):
+        self.dispatch, self.calls = dispatch, []
+
+    def __enter__(self):
+        self.orig = self.dispatch.pqs_dot
+
+        def call(x, w, **kw):
+            out = self.orig(x, w, **kw)
+            self.calls.append((x, w, kw, out))
+            return out
+
+        self.dispatch.pqs_dot = call
+        return self
+
+    def __exit__(self, *exc):
+        self.dispatch.pqs_dot = self.orig
+
+    def plain_errors(self, torch):
+        """(max |kernel - plain|, number of calls): each recorded call's
+        plain version (``backend="torch"`` on the card, unchunked)."""
+        err = 0
+        for x, w, kw, out in self.calls:
+            plain = self.orig(x, w, **dict(kw, backend="torch",
+                                           batch_chunk=None))
+            if not torch.equal(out, plain):
+                err = max(err, int((out.long() - plain.long()).abs().max()))
+        return err, len(self.calls)
+
+
+def phase_paper_nets(torch, counters, seed):
+    """6a: train the paper nets at their published widths on the card,
+    freeze them and run ``evaluate_int`` (rows 1 and 2) and
+    ``overflow_profile`` at every register of ``PAPER_BITS`` under every
+    policy of ``PAPER_POLICIES``. Every integer dot equals its plain
+    version bit for bit, each call launches its row once a 128-row chunk
+    and nothing else, the card's census equals the CPU's, the census
+    never rises with the register, the MLPs pass 0.8 in float32 and
+    ``wide`` stays within 0.08 of float32. Prints each net's Fig-2
+    table; returns the measurements."""
+    from repro_torch.core import dispatch
+    from repro_torch.core import papernets as pn
+    from repro_torch.data import synth_mnist
+
+    data = synth_mnist(n=4096, seed=seed)
+    _, test = data.split(0.9)
+    got = {"nets": {}, "launches": {p: 0 for p in PAPER_POLICIES},
+           "per_call": {}, "err": 0, "dots": 0}
+    for name, cfg, pqs, kw in paper_nets(seed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pn.train_papernet(cfg, pqs, data, device="cuda", **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        net = dict(fp32=res.fp32_acc, train_s=train_s,
+                   epoch_s=train_s / kw["epochs"], acc={}, eval_s={},
+                   census={}, launches_per_call={})
+        got["nets"][name] = net
+        print(f"  {name}: trained {kw['epochs']} epochs in {train_s:.2f} s "
+              f"({net['epoch_s']:.3f} s an epoch), fp32 accuracy "
+              f"{res.fp32_acc:.4f}, last loss {res.history[-1][1]:.4f}",
+              flush=True)
+        # the A2Q regime's bar is none: at a 16-bit register the L1 bound
+        # truncates nearly every weight of a 784-long row to zero, and the
+        # JAX package's A2Q net stays at chance there too (paper Fig 5's
+        # accuracy cost of A2Q)
+        if cfg.kind != "convnet" and "a2q_acc_bits" not in kw and \
+                res.fp32_acc <= 0.8:
+            raise AssertionError(f"{name}: fp32 accuracy {res.fp32_acc} "
+                                 "not above 0.8")
+        with DotRecorder(dispatch) as rec:
+            for policy in PAPER_POLICIES:
+                times, calls = [], []
+                for bits in PAPER_BITS:
+                    first = len(rec.calls)
+                    reset(counters)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    acc = pn.evaluate_int(res.layers, cfg, pqs, test, policy,
+                                          bits, limit=PAPER_LIMIT)
+                    times.append(time.perf_counter() - t)
+                    launched = {k: fn.launches for k, fn in counters.items()
+                                if fn.launches}
+                    chunks = sum(-(-c[0].shape[0] // 128)
+                                 for c in rec.calls[first:])
+                    row = PAPER_ROW[policy]
+                    by_policy = getattr(counters[row], "policy_launches",
+                                        {policy: launched.get(row, 0)})
+                    if launched != {row: chunks} or \
+                            by_policy[policy] != chunks:
+                        raise AssertionError(
+                            f"{name} {policy} {bits}: launches {launched} "
+                            f"(by policy {by_policy}), want {row}: {chunks} "
+                            "(one a 128-row chunk)")
+                    net["acc"][(policy, bits)] = acc
+                    calls.append(chunks)
+                    got["launches"][policy] += chunks
+                net["eval_s"][policy] = sum(times) / len(times)
+                net["launches_per_call"][policy] = calls[0]
+        err, n = rec.plain_errors(torch)
+        got["err"] = max(got["err"], err)
+        got["dots"] += n
+        if err:
+            raise AssertionError(f"{name}: a kernel differs from its plain "
+                                 f"version by {err}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for bits in PAPER_BITS:
+            c = pn.overflow_profile(res.layers, cfg, pqs, test, bits,
+                                    limit=PAPER_LIMIT)
+            net["census"][bits] = [int(v) for v in c[:4]]
+        net["census_s"] = (time.perf_counter() - t) / len(PAPER_BITS)
+        host = pn.to_device(res.layers, "cpu")
+        for bits in PAPER_CPU_CENSUS_BITS:
+            c = pn.overflow_profile(host, cfg, pqs, test, bits,
+                                    limit=PAPER_LIMIT)
+            if [int(v) for v in c[:4]] != net["census"][bits]:
+                raise AssertionError(f"{name} at {bits} bits: card census "
+                                     f"{net['census'][bits]} != CPU "
+                                     f"{[int(v) for v in c[:4]]}")
+        anys = [net["census"][b][3] for b in PAPER_BITS]
+        if anys != sorted(anys, reverse=True):
+            raise AssertionError(f"{name}: census rises with the register "
+                                 f"{dict(zip(PAPER_BITS, anys))}")
+        for bits in PAPER_BITS:
+            if abs(net["acc"][("wide", bits)] - res.fp32_acc) > 0.08:
+                raise AssertionError(f"{name}: wide accuracy "
+                                     f"{net['acc'][('wide', bits)]} against "
+                                     f"fp32 {res.fp32_acc}")
+        print(f"  {name}: {n} integer dots equal their plain versions; "
+              f"evaluate_int s a call {net['eval_s']}, launches a call "
+              f"{net['launches_per_call']}; census "
+              f"{net['census_s']:.3f} s a register, card = CPU at "
+              f"{PAPER_CPU_CENSUS_BITS}", flush=True)
+        print(f"  {name} Fig 2 (test set, {len(test.x)} rows): bits "
+              "persistent transient clip sort sorted_tiled wide", flush=True)
+        for bits in PAPER_BITS:
+            _, pers, trans, _ = net["census"][bits]
+            a = net["acc"]
+            print(f"    {bits:>4} {pers:>10} {trans:>9} "
+                  f"{a[('clip', bits)]:.4f} {a[('sorted', bits)]:.4f} "
+                  f"{a[('sorted_tiled', bits)]:.4f} {a[('wide', bits)]:.4f}",
+                  flush=True)
+        if name == "mlp2 P->Q":
+            got["timing"] = paper_timing(torch, res.layers, cfg, pqs, data)
+    return got
+
+
+def paper_timing(torch, layers, cfg, pqs, data):
+    """Rows 1 and 2 at mlp2's hidden layer (N = K = 784), M = 128 (the
+    path's chunk) and 512, on the frozen layer and the quantized training
+    rows: kernel, plain version and bound; ``wide`` beside
+    ``torch._int_mm`` on the same (N, K) weight."""
+    from repro_torch.core import papernets as pn
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import sorted_matmul as sm
+
+    frozen = pn.freeze_net(layers, cfg, pqs)[0]
+    x = torch.from_numpy(data.x[:512]).cuda()
+    xq = quantize(x, frozen["x_qp"]).to(torch.int8)
+    w = frozen["wq"].to(torch.int8).contiguous()
+    n, k = w.shape
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for policy in PAPER_POLICIES:
+        for m in (128, 512):
+            xm = xq[:m].contiguous()
+            kw = dict(policy=policy, acc_bits=16, k_tile=pqs.k_tile,
+                      rounds=pqs.rounds)
+            if policy in sm.SORT_POLICIES:
+                kp = sm.padded_k(k, policy, pqs.k_tile)
+                fn = lambda: sm.sort_matmul(xm, w, kp=kp, **kw)  # noqa: E731
+                ref = lambda: sm.sort_matmul_ref(  # noqa: E731
+                    xm, w, kp=kp, **kw)
+            else:
+                fn = lambda: sm.seq_policy_matmul(xm, w, **kw)  # noqa: E731
+                ref = lambda: sm.seq_policy_matmul_ref(  # noqa: E731
+                    xm, w, **kw)
+            if not torch.equal(fn(), ref()):
+                raise AssertionError(f"{policy} M={m}: kernel != plain")
+            row = dict(ms=time_launches(torch, fn, 10, flush_buf),
+                       plain_ms=time_launches(torch, ref, 1, flush_buf),
+                       **bound_row(m, n, k, m * k + n * k + 4 * m * n))
+            row["library_ms"] = time_launches(
+                torch, lambda: torch._int_mm(xm, w.t()), 10, flush_buf) \
+                if policy == "wide" else None
+            if policy in sm.SORT_POLICIES:
+                keys = kp if policy == "sorted" else pqs.k_tile
+                row["cx_floor_ms"] = cx_floor_ms(
+                    m * n * (1 if policy == "sorted" else kp // keys), keys,
+                    pqs.rounds)
+            rows[(policy, m)] = row
+            lib = (f"  _int_mm {row['library_ms']:.4f} ms"
+                   if row["library_ms"] is not None else "")
+            print(f"  time mlp2 hidden {policy:12s} M={m:3d} N={n} K={k} "
+                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} "
+                  f"ms  bound {row['bound_ms']:.5f} ms{lib}", flush=True)
+    return rows
+
+
+FINETUNE_LAYERS = 2  # qwen2-1.5b at full width, depth cut from 28
+
+
+def phase_finetune(torch, seed):
+    """6b: ``a2q_finetune`` for 2 AdamW steps on qwen2-1.5b at full width
+    and ``FINETUNE_LAYERS`` layers (seeded random weights, TokenStream
+    batches of 2 x 64 tokens), then ``quantize_and_certify(acc_bits=16)``:
+    every QAT site reports a census rate every step, the losses are
+    finite, the certificate verifies and every site is safe at 16 bits
+    or fewer. Returns the step times, the peak device memory and the
+    certification time."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import QATConfig, a2q_finetune, \
+        quantize_and_certify
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=FINETUNE_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed)
+    stream = TokenStream(cfg.vocab_size, seq_len=64, batch_size=2, seed=seed)
+    stamps = []
+
+    def next_batch(i):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return stream.next_batch()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, hist = a2q_finetune(model, params, next_batch, 2,
+                                QATConfig(acc_bits=16))
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    sites = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_out"}
+    for h in hist:
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"step {h['step']}: loss {h['loss']}")
+        if set(h["census_rates"]) != sites or any(
+                d <= 0 for d, _ in h["census"].values()):
+            raise AssertionError(f"step {h['step']}: census {h['census']}")
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    print(f"  fine-tune: losses {[round(h['loss'], 4) for h in hist]}, "
+          f"s a step {step_s}, peak device memory {peak / 2**30:.2f} GiB; "
+          f"census (dots, events) {hist[0]['census']}", flush=True)
+    t = time.perf_counter()
+    qparams, cert = quantize_and_certify(params, acc_bits=16)
+    cert_s = time.perf_counter() - t
+    cert.verify(qparams)
+    safe = {s.site: s.acc_bits_safe for s in cert.sites}
+    if not sites <= set(safe) or max(safe.values()) > 16:
+        raise AssertionError(f"certificate sites {safe}")
+    print(f"  quantize_and_certify(acc_bits=16): {cert_s:.2f} s; safe bits "
+          f"by site {safe}", flush=True)
+    return dict(losses=[h["loss"] for h in hist], step_s=step_s,
+                peak_gib=peak / 2**30, certify_s=cert_s, safe_bits=safe,
+                census=hist[0]["census"])
+
+
+def paper_records(paper, policies):
+    """Row 1's or row 2's 6a sub-record: launches per evaluate_int call of
+    each net under each of ``policies`` and the times at mlp2's hidden
+    layer (M = 128 and 512)."""
+    return {policy: {
+        "launches_per_evaluate_int": {
+            name: net["launches_per_call"][policy]
+            for name, net in paper["nets"].items()},
+        **{f"M={m}": dict(work=f"mlp2 hidden layer (N = K = 784) at M={m}, "
+                               f"acc_bits 16, k_tile 256, rounds 2",
+                          timing=TIMING, **paper["timing"][(policy, m)])
+           for m in (128, 512)}} for policy in policies}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3138,6 +3487,12 @@ def main() -> int:
          lambda: got.update(full_width_err=phase_wide_full_width(
              torch, sm, qm, nm, cfg, args.seed))),
         ("[5] timing", timing),
+        ("[6a] the paper nets: train, freeze, evaluate_int (rows 1 and 2) "
+         "and overflow_profile", lambda: got.update(
+             paper=phase_paper_nets(torch, counters, args.seed))),
+        ("[6b] accumulator-aware fine-tune of qwen2-1.5b at 2 layers, then "
+         "quantize_and_certify", lambda: got.update(
+             finetune=phase_finetune(torch, args.seed))),
     ]
     only = args.only and set(args.only.split(","))
     for title, fn in phases:
@@ -3180,7 +3535,10 @@ def main() -> int:
         return sum(s["launches"][name] for s in run["steps"]), by_policy
 
     dense, served = "seq_policy_matmul", got["3n"]["runs"]
-    row1_paths = {"3 sorted_tiled_seq": got["launches"][dense]}
+    paper = got["paper"]
+    row1_paths = {"3 sorted_tiled_seq": got["launches"][dense],
+                  "6a clip": paper["launches"]["clip"],
+                  "6a wide": paper["launches"]["wide"]}
     for path, run in (("3l census-watched", got["3l"]),
                       ("3n certified", served["certified"]),
                       ("3n censused", served["censused"])):
@@ -3204,7 +3562,9 @@ def main() -> int:
             launches=total(row1_paths), launches_by_path=row1_paths,
             max_abs_err=max(got["err"],
                             got["quickstart_err"]["seq_policy_matmul"],
-                            got["wide_err"]["seq_policy_matmul"]),
+                            got["wide_err"]["seq_policy_matmul"],
+                            paper["err"]),
+            paper=paper_records(paper, ("clip", "wide")),
             wide={f"M={m}": kernel_record(
                 "seq_policy_matmul", csrc + "seq_policy_matmul.cu",
                 "src/repro/kernels/sorted_matmul.py:155",
@@ -3214,7 +3574,7 @@ def main() -> int:
                      + ("; torch._int_mm refuses M=4" if m == 4 else ""))
                 for m in (4, 64, 128)},
             path="phases 3, 3l (degraded sites: wide) and 3n (certified: "
-                 "wide), dense storage"),
+                 "wide), dense storage; 6a (the paper nets' clip and wide)"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
@@ -3273,11 +3633,16 @@ def main() -> int:
             "sort_matmul", csrc + "sort_matmul.cu",
             "src/repro/kernels/sorted_matmul.py:204", timing["sort_matmul"],
             policy="sorted_tiled", work=six + ", k_tile 256",
-            launches=tiled["sort_matmul"] + srt["sort_matmul"],
+            launches=tiled["sort_matmul"] + srt["sort_matmul"]
+            + paper["launches"]["sorted_tiled"] + paper["launches"]["sorted"],
             launches_by_path={"sorted_tiled": tiled["sort_matmul"],
-                              "sorted": srt["sort_matmul"]},
+                              "sorted": srt["sort_matmul"],
+                              "6a sorted_tiled":
+                                  paper["launches"]["sorted_tiled"],
+                              "6a sorted": paper["launches"]["sorted"]},
             max_abs_err=max(got["sort_err"]["sort_matmul"],
-                            got["sorted_err"]["sort_matmul"]),
+                            got["sorted_err"]["sort_matmul"], paper["err"]),
+            paper=paper_records(paper, ("sorted_tiled", "sorted")),
             sorted_policy=kernel_record(
                 "sort_matmul", csrc + "sort_matmul.cu",
                 "src/repro/kernels/sorted_matmul.py:204",
@@ -3288,7 +3653,8 @@ def main() -> int:
                     timing["sort_matmul[sorted] M=128"],
                     six.replace("decode (M=4)", "a prefill cohort (M=128)")
                     + ", sorted over kp 2048")),
-            path="phases 3c and 3d (one-pass at K = 1536)"),
+            path="phases 3c and 3d (one-pass at K = 1536); 6a (the paper "
+                 "nets' sorted_tiled and sorted, K = 36 to 784)"),
         kernel_record(
             "tile_sums_matmul", csrc + "sorted_stream.cu",
             "src/repro/kernels/sorted_stream.py:110",
@@ -3504,6 +3870,16 @@ def main() -> int:
         "degraded": {path: sorted(got[path]["eng"]._degraded)
                      for path in ("3l", "3m")},
         "certify_host_s": got["3n"]["seconds"]}}))
+    print(json.dumps({"paper": {
+        "card": card,
+        "nets": {name: {key: net[key] for key in (
+            "fp32", "train_s", "epoch_s", "eval_s", "census_s",
+            "launches_per_call")} | {"census": {str(b): c for b, c in
+                                               net["census"].items()}}
+            for name, net in paper["nets"].items()},
+        "dots_held_against_plain": paper["dots"],
+        "finetune": {k: v for k, v in got["finetune"].items()
+                     if k != "census"}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,15 @@ so nothing here imports JAX):
   out) codes give each layer its row; an (L,) act_qparams scale and
   offset and an (L, out) act_corr give each layer its own).
 
+``papernet_layers_from_numpy(layers)`` takes a paper net's layers (a
+list of dicts of ``w``, ``b`` and ``mask`` arrays and ``act_range``, a
+dict of the ``EmaRange`` fields ``lo``, ``hi``, ``n`` and ``decay``) and
+``frozen_layers_from_numpy(frozen)`` its frozen form (``wq`` and ``b``
+arrays, and ``w_qp`` / ``x_qp`` dicts of the ``QParams`` fields ``scale``,
+``offset``, ``bits`` and ``symmetric``): the ``core.pqs`` layers of the
+port. The observer's update count becomes a Python float, as the port
+keeps it.
+
 ``certificate_from_fields(fields)`` builds the port's ``Certificate`` from
 a JAX package certificate's fields as plain Python values
 (``dataclasses.asdict``): the hashes cover integer codes only, so it
@@ -36,7 +45,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.certify import Certificate, SiteCertificate
 from repro_torch.core.qtensor import QTensor, SparseQTensor
-from repro_torch.core.quant import QParams
+from repro_torch.core.quant import EmaRange, QParams
 
 _DENSE_KEYS = {"values", "scale"}
 _SPARSE_KEYS = {"values", "indices", "scale", "m_group", "k_dim"}
@@ -74,6 +83,19 @@ def _layer_count(node: Any) -> int:
     return int(node.shape[0])
 
 
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape).to(
+        device)
+
+
+def _qparams(node: dict, device) -> QParams:
+    return QParams(_tensor(np.asarray(node["scale"], np.float32), device),
+                   _tensor(np.asarray(node["offset"], np.int32), device),
+                   int(node["bits"]), bool(node["symmetric"]))
+
+
 def params_from_numpy(tree: Any, device=None) -> Any:
     """The port's parameter tree on ``device`` (CUDA unless the caller
     asks for the CPU)."""
@@ -82,9 +104,7 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     def calibration(node):
         aq = node.get("act_qparams")
         if aq is not None:
-            aq = QParams(conv(np.asarray(aq["scale"], np.float32)),
-                         conv(np.asarray(aq["offset"], np.int32)),
-                         int(aq["bits"]), bool(aq["symmetric"]))
+            aq = _qparams(aq, device)
         corr = node.get("act_corr")
         return aq, None if corr is None else conv(corr)
 
@@ -100,9 +120,7 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, np.ndarray):
-            # ascontiguousarray makes a 0-d array 1-d: keep the shape
-            return torch.from_numpy(np.ascontiguousarray(node)).reshape(
-                node.shape).to(device)
+            return _tensor(node, device)
         raise TypeError(f"unexpected leaf {type(node).__name__}")
 
     tree = dict(tree)
@@ -115,6 +133,32 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     if "layers" in tree:
         out["layers"] = [conv(layer) for layer in tree["layers"]]
     return out
+
+
+def papernet_layers_from_numpy(layers: list, device=None) -> list[dict]:
+    """A paper net's training layers on ``device`` (CUDA unless the caller
+    asks for the CPU)."""
+    device = resolve_device(device)
+    out = []
+    for layer in layers:
+        rng = layer["act_range"]
+        out.append({
+            **{k: _tensor(layer[k], device) for k in ("w", "b", "mask")},
+            "act_range": EmaRange(
+                _tensor(np.asarray(rng["lo"], np.float32), device),
+                _tensor(np.asarray(rng["hi"], np.float32), device),
+                float(rng["decay"]), float(rng["n"])),
+        })
+    return out
+
+
+def frozen_layers_from_numpy(frozen: list, device=None) -> list[dict]:
+    """A paper net's frozen integer layers on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
+    return [{"wq": _tensor(f["wq"], device), "b": _tensor(f["b"], device),
+             "w_qp": _qparams(f["w_qp"], device),
+             "x_qp": _qparams(f["x_qp"], device)} for f in frozen]
 
 
 def certificate_from_fields(fields: dict) -> Certificate:

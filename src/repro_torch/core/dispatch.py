@@ -37,6 +37,11 @@ SparseQTensor runs as an integer dot under the configured policy.
 ``ActCalibrator``. A site whose ``IntegerLinConfig.certificate`` covers
 it (``core.certify``) runs census-free and reports nothing.
 
+``a2q_qat`` is the training side: inside it every named ``lin`` whose
+weight is still a float matrix runs ``a2q_qat_lin`` (A2Q fake
+quantization under a straight-through estimator, and the census as a
+training signal to the active monitor).
+
 Not ported yet, and refused with ``NotImplementedError``: meshes and
 K-sharding (``mesh``, ``k_shards``, ``k_axis``, ``defer_combine``).
 """
@@ -49,6 +54,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.a2q import a2q_fake_quant, a2q_quantize_project
 from repro_torch.core.overflow import (
     Census,
     census,
@@ -511,6 +517,75 @@ def census_monitor(mon: Optional[CensusMonitor] = None):
         yield mon
     finally:
         _CENSUS_MON.pop()
+
+
+@dataclasses.dataclass(frozen=True)
+class QATQuantConfig:
+    """Accumulator-aware QAT at float linear sites (``a2q_qat`` context).
+
+    Inside the context every named ``models.layers.lin`` whose weight is a
+    float 2-D matrix with min(shape) >= ``min_dim`` runs
+    ``core.a2q.a2q_fake_quant``: per-channel quantize, accumulator
+    projection against the sign-split bound of (``acc_bits``,
+    ``act_bits``) and dequantize, under a straight-through estimator.
+
+    ``census_rows`` > 0 adds the overflow census as a training signal:
+    that many activation rows, quantized without gradient, go through
+    ``core.overflow.census`` against the projected integer weights, and
+    each site reports (dots, events) to the active ``census_monitor``,
+    as serving's sites do.
+    """
+
+    weight_bits: int = 8
+    acc_bits: int = 16
+    act_bits: int = 8
+    min_dim: int = 16
+    census_rows: int = 4
+
+
+_A2Q_QAT: list[QATQuantConfig] = []
+
+
+def a2q_qat_config() -> Optional[QATQuantConfig]:
+    """Active QAT config, or None outside ``a2q_qat``."""
+    return _A2Q_QAT[-1] if _A2Q_QAT else None
+
+
+@contextlib.contextmanager
+def a2q_qat(cfg: Optional[QATQuantConfig] = None, **kw):
+    """Run accumulator-aware fake quantization at float ``lin`` weights
+    inside the context (eager: every step run inside it takes it)."""
+    _A2Q_QAT.append(cfg or QATQuantConfig(**kw))
+    try:
+        yield _A2Q_QAT[-1]
+    finally:
+        _A2Q_QAT.pop()
+
+
+def a2q_qat_lin(x: torch.Tensor, w: torch.Tensor, qcfg: QATQuantConfig,
+                site: Optional[str] = None) -> torch.Tensor:
+    """x (..., in) @ w (in, out) with A2Q-projected fake-quant weights;
+    a named site reports its census to the active monitor directly (the
+    JAX package's ``jax.debug.callback``)."""
+    w_fq = a2q_fake_quant(w.T.to(torch.float32), qcfg.weight_bits,
+                          qcfg.acc_bits, act_bits=qcfg.act_bits).T
+    mon = census_monitor_store()
+    if mon is not None and site is not None and qcfg.census_rows > 0:
+        with torch.no_grad():
+            wq, _ = a2q_quantize_project(
+                w.T.to(torch.float32), qcfg.weight_bits, qcfg.acc_bits,
+                act_bits=qcfg.act_bits)
+            xs = x.detach().reshape(-1, x.shape[-1])[: qcfg.census_rows
+                                                      ].to(torch.float32)
+            qmax = 2 ** (qcfg.act_bits - 1) - 1
+            # times the reciprocal, as XLA compiles the JAX package's
+            # jitted division by the constant qmax
+            s_x = torch.clamp(xs.abs().amax(), min=1e-8) * (1.0 / qmax)
+            xq = torch.clamp(torch.round(xs / s_x), -qmax - 1, qmax
+                             ).to(torch.int32)
+            cns = census(partial_products(wq, xq), qcfg.acc_bits)
+        mon.observe(site, cns.n_dots, cns.n_any)
+    return (x.to(torch.float32) @ w_fq).to(x.dtype)
 
 
 def qtensor_dot(

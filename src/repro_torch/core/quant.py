@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -40,9 +41,17 @@ def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)
 
 
+def _div(t: torch.Tensor, v: float) -> torch.Tensor:
+    """t / v rounded once on every device: PyTorch's CUDA kernels divide
+    by a Python number (a CPU scalar) as a multiply by its reciprocal, two
+    roundings, where the CPU divides, so a layer frozen on the card would
+    differ from the CPU's in the last place."""
+    return torch.div(t, torch.full_like(t, v))
+
+
 def _symmetric(amax: torch.Tensor, bits: int) -> QParams:
     _, qmax = qrange(bits)
-    scale = (amax / qmax).to(torch.float32)
+    scale = _div(amax.to(torch.float32), qmax)
     return QParams(scale, torch.zeros((), dtype=torch.int32,
                                       device=scale.device), bits,
                    symmetric=True)
@@ -58,10 +67,13 @@ def activation_qparams(lo, hi, bits: int) -> QParams:
     """Asymmetric activation params from a calibrated range [lo, hi]
     (paper Eq. 1): s_x = R / (2^b - 1), o_x = -2^(b-1) - round(lo / s_x),
     the range widened to hold 0 so that zero maps to an integer."""
-    lo = torch.clamp(_f32(lo), max=0.0)
-    hi = torch.clamp(_f32(hi), min=0.0)
-    r = torch.clamp(hi - lo, min=1e-8)
-    scale = r / (2**bits - 1)
+    # minimum / maximum split a tie's gradient as jnp.minimum / maximum
+    # do (a ReLU input's range starts exactly at 0); torch.clamp would not
+    lo, hi = _f32(lo), _f32(hi)
+    lo = torch.minimum(lo, torch.zeros_like(lo))
+    hi = torch.maximum(hi, torch.zeros_like(hi))
+    r = torch.maximum(hi - lo, torch.full_like(hi, 1e-8))
+    scale = _div(r, 2**bits - 1)
     qmin, _ = qrange(bits)
     offset = qmin - torch.round(lo / scale)
     return QParams(scale, offset.to(torch.int32), bits)
@@ -109,12 +121,17 @@ class EmaRange:
     """Exponential-moving-average activation range observer (paper
     section 2.1), updated functionally. ``lo``/``hi`` are the raw
     zero-initialised averages; ``bounds()`` applies the 1 - decay^n bias
-    correction (Adam's debiasing) and is what consumers read."""
+    correction (Adam's debiasing) and is what consumers read.
+
+    ``n``, the number of updates, is counted on the host, and the
+    correction is taken in float32 by numpy, as the JAX package's float32
+    ``pow`` gives it: the same value on the CPU and on the card, whose
+    ``powf`` may differ from the host's in the last place."""
 
     lo: torch.Tensor
     hi: torch.Tensor
     decay: float = 0.99
-    n: torch.Tensor | float = 0.0
+    n: float = 0.0
 
     def update(self, x: torch.Tensor) -> "EmaRange":
         return self.update_bounds(x.min(), x.max())
@@ -122,17 +139,19 @@ class EmaRange:
     def update_bounds(self, blo, bhi) -> "EmaRange":
         new_lo = self.decay * self.lo + (1 - self.decay) * blo
         new_hi = self.decay * self.hi + (1 - self.decay) * bhi
-        return EmaRange(new_lo, new_hi, self.decay, _f32(self.n) + 1.0)
+        return EmaRange(new_lo, new_hi, self.decay, float(self.n) + 1.0)
 
     def bounds(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Bias-corrected (lo, hi) calibrated range."""
-        corr = torch.clamp(1.0 - self.decay ** _f32(self.n), min=1e-8)
-        return self.lo / corr, self.hi / corr
+        f32 = np.float32
+        corr = float(max(f32(1.0) - f32(self.decay) ** f32(self.n),
+                         f32(1e-8)))
+        return _div(self.lo, corr), _div(self.hi, corr)
 
     @staticmethod
     def init() -> "EmaRange":
         zero = torch.zeros((), dtype=torch.float32)
-        return EmaRange(zero, zero, n=zero)
+        return EmaRange(zero, zero)
 
 
 class ActCalibrator:
@@ -153,7 +172,7 @@ class ActCalibrator:
         er = self.ranges.get(site)
         if er is None:
             zero = torch.zeros((), dtype=torch.float32)
-            er = EmaRange(zero, zero, self.decay, zero)
+            er = EmaRange(zero, zero, self.decay)
         self.ranges[site] = er.update_bounds(_f32(lo).cpu(), _f32(hi).cpu())
 
     def freeze(self, bits: int = 8, symmetric: bool = True

@@ -6,11 +6,27 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf; dicts, lists and tuples are nodes."""
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf; dicts, lists and tuples are nodes. With
+    ``rest`` (trees of the same structure) ``fn`` takes the leaves of
+    every tree at one place, as ``jax.tree_util.tree_map`` does."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

@@ -29,8 +29,16 @@ def lin(x: torch.Tensor, w: Any, site: Optional[str] = None) -> torch.Tensor:
     """x @ w, with QTensor and SparseQTensor weights run as integer dots
     inside an ``integer_lin`` context and dequantized otherwise. Inside
     ``dispatch.calibration`` a named site first reports its input's
-    float32 (min, max) to the store."""
-    if is_qtensor(w):
+    float32 (min, max) to the store. Inside ``dispatch.a2q_qat`` a named
+    site's float 2-D weight with min(shape) >= the config's ``min_dim``
+    runs ``dispatch.a2q_qat_lin`` (accumulator-aware fake quantization);
+    smaller weights and unnamed sites stay float."""
+    if isinstance(w, torch.Tensor):
+        if w.ndim == 2 and site is not None:
+            qat = dispatch.a2q_qat_config()
+            if qat is not None and min(w.shape) >= qat.min_dim:
+                return dispatch.a2q_qat_lin(x, w, qat, site=site)
+    elif is_qtensor(w):
         store = dispatch.calibration_store()
         if store is not None and site is not None:
             xf = x.to(torch.float32)

@@ -3,6 +3,7 @@ of ``repro.models.model`` for the dense family.
 
     init(seed)                          -> params on the model's device
     forward(params, batch)              -> logits
+    loss(params, batch)                 -> scalar (``lm_loss`` on labels)
     init_caches(params, batch, L, dt)   -> decode caches
     decode(params, token, caches)       -> (logits, new caches)
     prefill(params, toks, caches, lens) -> (logits, new caches)
@@ -61,6 +62,7 @@ class Model:
     device: torch.device
     init: Callable[..., Any]  # (seed) -> params
     forward: Callable[..., torch.Tensor]  # (params, batch) -> logits
+    loss: Callable[..., torch.Tensor]  # (params, batch) -> scalar
     init_caches: Callable[..., Any]  # (params, batch, max_len, dtype)
     decode: Callable[..., tuple]  # (params, token, caches)
     merge_caches: Callable[..., Any]  # (old, new, active (B,) bool)
@@ -83,11 +85,18 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                                    batch["tokens"], batch.get("positions"),
                                    cfg)[0]
 
+    def loss(params, batch):
+        logits, aux = transformer.forward(
+            cast_for_compute(params, cfg), batch["tokens"],
+            batch.get("positions"), cfg)
+        return transformer.lm_loss(logits, batch["labels"], aux)
+
     return Model(
         cfg=cfg,
         device=device,
         init=init,
         forward=fwd,
+        loss=loss,
         init_caches=lambda params, b, L, dt=torch.bfloat16:
             transformer.init_decode_caches(cfg, b, L, dt, device),
         decode=lambda params, tok, caches: transformer.decode_step(

@@ -1,5 +1,5 @@
-"""Decoder-only LM: forward, one-shot prefill and KV-cache decode; torch
-port of ``repro.models.transformer`` for the dense family.
+"""Decoder-only LM: forward, one-shot prefill, KV-cache decode and the LM
+loss; torch port of ``repro.models.transformer`` for the dense family.
 
 The JAX package stacks layer params (L, ...) and scans them; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python loop,
@@ -128,3 +128,28 @@ def decode_step(params: Params, token: torch.Tensor, caches: list,
         x = _ffn(p, x + h, cfg)
         new_caches.append(nc)
     return logits_from_hidden(params, x, cfg), new_caches
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S) int; -1 = ignore
+    aux: Any = 0.0,
+    aux_weight: float = 0.01,
+    z_weight: float = 1e-4,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels >= 0, plus the aux
+    loss and the z-loss (the squared log-partition), in float32."""
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, torch.clamp(labels, min=0).to(torch.int64)
+                        [..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    nll = (lse - gold) * valid
+    denom = torch.clamp(valid.sum(), min=1.0)
+    z_loss = torch.sum((lse**2) * valid) / denom
+    return torch.sum(nll) / denom + aux_weight * aux + z_weight * z_loss

@@ -25,7 +25,11 @@ from repro_torch.kernels import sorted_stream as ss
 
 # the slab builders of chip_smoke.py's duplicate-slot phase
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import smallest_duplicate, stacked_slabs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    DotRecorder,
+    smallest_duplicate,
+    stacked_slabs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1881,3 +1885,38 @@ def test_nm_expand_seq_duplicates_past_int8(card, m, k):
         wide = nm_spmm.nm_seq_policy_matmul(x, vals, idx, m_group=16,
                                             policy="wide")
         assert wide.flatten().tolist() == [254, 32258]
+
+
+# (K, N, M rows, weight/activation bits): the paper nets' layers, conv1's
+# K = 36 and conv2's 144 below k_tile 256, conv1's 49 patch rows an image
+# at a ragged 20090 rows (410 test images), 5-bit codes
+PAPER_SHAPES = ((36, 16, 20090, 8), (144, 32, 6560, 8), (512, 10, 410, 8),
+                (784, 784, 410, 8), (784, 10, 410, 8), (784, 784, 410, 5))
+
+
+@pytest.mark.parametrize("k,n,m,bits", PAPER_SHAPES)
+def test_quant_linear_int_fwd_paper_shapes(card, k, n, m, bits):
+    """quant_linear_int_fwd at the paper nets' shapes, asymmetric
+    activation offsets: each of its integer dots (rows 1 and 2, 128-row
+    chunks) equals the plain version on the same operands under sorted,
+    sorted_tiled, clip and wide."""
+    from repro_torch.core import dispatch, pqs
+    from repro_torch.core.quant import EmaRange
+
+    g = torch.Generator(device="cuda").manual_seed(k + n + bits)
+    layer = pqs.quant_linear_init(g, k, n)
+    x = torch.rand((m, k), generator=g, device="cuda") * 3.0 - 0.5
+    layer["act_range"] = EmaRange(torch.tensor(-0.5, device="cuda"),
+                                  torch.tensor(2.5, device="cuda"), n=500.0)
+    if k % 16 == 0:
+        layer["mask"] = nm_prune_mask(layer["w"], 8, 16)
+    with DotRecorder(dispatch) as rec:
+        for policy in ("sorted", "sorted_tiled", "clip", "wide"):
+            for acc in (12, 16, 20):
+                cfg = pqs.PQSConfig(weight_bits=bits, act_bits=bits,
+                                    acc_bits=acc, policy=policy)
+                frozen = pqs.quant_linear_freeze(layer, cfg)
+                assert int(frozen["x_qp"].offset) != 0
+                pqs.quant_linear_int_fwd(frozen, x, cfg)
+    torch.cuda.synchronize()
+    assert rec.plain_errors(torch) == (0, 12)

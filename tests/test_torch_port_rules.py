@@ -21,7 +21,8 @@ from repro_torch.models.model import build_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "overflow_analysis_torch.py"]
 
 
 def _imports(path):
@@ -42,7 +43,9 @@ def test_port_imports_no_jax(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving, "
-            "repro_torch.convert, repro_torch.kernels.ops; "
+            "repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.core.papernets, repro_torch.optim, "
+            "repro_torch.runtime, repro_torch.overflow_analysis; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
@@ -76,6 +79,35 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.main()
+
+
+def test_paper_path_entry_points_default_to_cuda(monkeypatch):
+    """The paper nets, their conversion, the overflow-analysis session
+    and quantize_and_certify raise without a card unless asked for the
+    CPU."""
+    _no_cuda(monkeypatch)
+    from repro_torch import overflow_analysis
+    from repro_torch.configs.paper import MLP1
+    from repro_torch.convert import papernet_layers_from_numpy
+    from repro_torch.core.papernets import train_papernet
+    from repro_torch.core.pqs import PQSConfig
+    from repro_torch.data import synth_mnist
+    from repro_torch.runtime import quantize_and_certify
+
+    data = synth_mnist(n=160, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_papernet(MLP1, PQSConfig(), data, epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        overflow_analysis.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quantize_and_certify({"w": torch.zeros((64, 64))}, 16)
+    zero = torch.zeros(()).numpy()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        papernet_layers_from_numpy([{
+            "w": zero, "b": zero, "mask": zero,
+            "act_range": {"lo": zero, "hi": zero, "n": 0.0, "decay": 0.99}}])
+    res = train_papernet(MLP1, PQSConfig(), data, epochs=1, device="cpu")
+    assert res.layers[0]["w"].device.type == "cpu"
 
 
 def test_wide_wrappers_never_take_plain_versions_off_the_cpu(monkeypatch):
