@@ -184,14 +184,38 @@ imports nothing of JAX or of the JAX package. Phases:
 6b. ``a2q_finetune`` for 2 AdamW steps on qwen2-1.5b at full width and 2
    layers (every QAT site reporting its census each step), then
    ``quantize_and_certify(acc_bits=16)``: the certificate verifies and
-   every site is safe at 16 bits or fewer.
+   every site is safe at 16 bits or fewer;
+7a. gemma3-12b at its published widths, cut to 6 layers (one whole
+   period: 5 sliding-window layers, then a global one), random seeded
+   weights, 8:16-pruned int8, served on 4 slots under
+   ``sorted_tiled_seq`` from dense storage (row 1) and compressed storage
+   (row 6): three prompts of 20-32 tokens with 16 new tokens, and one of
+   1000 with 40, so that decode passes position 1024 and every local
+   layer's ring wraps. 42 launches a step of the storage's kernel and no
+   other; the local layers' caches hold 1024 slots, the global one
+   ``max_len``; every ``pqs_dot`` of the served prefill (4096 rows of x)
+   equal to its plain version on its first and last 4 rows; the same
+   tokens and one decode's logits bit for bit from both storages; every
+   ``pqs_dot`` of one decode step at layers 0 and 5 equal to its plain
+   version; a 2-step profile of each and the tied head's dequantize
+   (262144 x 3840);
+7b. qwen3-32b at full width and 1 layer: its untied head runs through row
+   1 at N = 151936, K = 5120 (8 launches a step); the head's dot equals
+   its plain version on its first and last 2048 outputs, and is timed
+   alone beside its bound;
+7c. command-r-35b at full width and 1 layer (layer norm, tied vocab
+   256000): 7 launches a step, layer 0's dots equal their plain versions
+   on their first and last 1024 outputs, the tied head's dequantize.
 
-The last five lines are a JSON ``guardrails`` record (the s a decode
+Each phase's line ends with the device memory still held and its peak.
+The last six lines are a JSON ``guardrails``
+record (the s a decode
 step and the prefill s of 3, 3k and 3l-3n, the census's device ms, the
 host s of certification), the JSON ``paper`` record (6a's training,
 evaluation and census times and 6b's step times, peak memory and
-certification), the JSON ``kernels`` record, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
+certification), the JSON ``families`` record (7a-7c's s a decode step,
+prefill s, 2-step profiles and head times), the JSON ``kernels`` record,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line. ``--only 2c,3l`` runs just the
 phases named after the build (a partial run prints no record).
 """
@@ -199,6 +223,7 @@ phases named after the build (a partial run prints no record).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -360,16 +385,20 @@ NM_SPLIT_CASES = ((1, 1, 16, 8, 16), (8, 1536, 1536, 8, 16),
 
 
 def phase_nm_kernels(torch, sm, nm, seed):
-    """Both N:M kernels vs their plain versions, bit-exact, and vs the
+    """Both N:M kernels vs the plain version, bit-exact, and vs the
     dense kernel on the decompressed weight; at the sites, at edge shapes
     and at shapes that reach each split of row 6's tiles over warps
     (``NM_SPLIT_CASES``; from 8 rows of x under ``sorted_tiled_seq``
     only, the policy whose tiles they split, one round); and on
     non-canonical slabs
     (``non_canonical``:
-    unsorted indices, two slots at one position) against their plain
-    versions only. Returns the max |difference| of each kernel against
-    its plain version."""
+    unsorted indices, two slots at one position) against their own plain
+    versions only. On canonical slabs the two plain versions give the same
+    result (``tests/test_torch_nm.py``; here once at K = 8960, under each
+    policy), so both kernels are held against the gather's, which adds
+    only the kept products (the expand's adds every position: at K = 65536
+    it took most of this phase). Returns the max |difference| of each
+    kernel against its plain version."""
     cases = [(4, n, k, N_KEEP, M_GROUP) for (n, k) in SHAPES] + [
         (64, 256, 1536, N_KEEP, M_GROUP), (5, 70, 300, 3, 16),
         (5, 70, 300, 2, 4), *NM_SPLIT_CASES]
@@ -378,7 +407,7 @@ def phase_nm_kernels(torch, sm, nm, seed):
         "nm_seq_policy_matmul": (nm.nm_seq_policy_matmul,
                                  nm.nm_seq_policy_matmul_ref)}
     worst = dict.fromkeys(kernels, 0)
-    cross = 0
+    cross = plains = 0
     for i, (m, n, k, n_keep, m_group) in enumerate(cases):
         x, w, vals, idx = nm_operands(torch, m, n, k, seed + 50 + i, n_keep,
                                       m_group)
@@ -391,20 +420,29 @@ def phase_nm_kernels(torch, sm, nm, seed):
                 kw = dict(policy=policy, acc_bits=16, rounds=rounds,
                           k_tile=256)
                 dense = sm.seq_policy_matmul(x, w, **kw)
+                want = nm.nm_gather_seq_policy_matmul_ref(
+                    x, vals, idx, m_group=m_group, **kw)
                 errs = []
-                for name, (kernel, plain) in kernels.items():
+                for name, (kernel, _) in kernels.items():
                     got = kernel(x, vals, idx, m_group=m_group, **kw)
-                    want = plain(x, vals, idx, m_group=m_group, **kw)
                     torch.cuda.synchronize()
                     err = int((got.long() - want.long()).abs().max())
                     worst[name] = max(worst[name], err)
                     cross = max(cross, int((got.long() - dense.long())
                                            .abs().max()))
                     errs.append(err)
+                if (m, n, k) == (4, 1536, 8960):  # the two plain versions
+                    own = nm.nm_seq_policy_matmul_ref(x, vals, idx,
+                                                      m_group=m_group, **kw)
+                    plains = max(plains, int((own.long() - want.long())
+                                             .abs().max()))
                 print(f"  nm kernels/plain M={m:3d} N={n:5d} K={k:5d} "
                       f"{n_keep}:{m_group} {policy:16s} rounds={rounds} "
                       f"max|diff| gather={errs[0]} expand={errs[1]}; "
-                      f"vs dense kernel {cross}", flush=True)
+                      f"vs dense kernel {cross}"
+                      + (f"; expand's plain vs gather's {plains}"
+                         if (m, n, k) == (4, 1536, 8960) else ""),
+                      flush=True)
         if (m, n, k) not in ((4, 1536, 8960), (5, 70, 300), (1, 70, 65536)):
             continue
         nv, ni = non_canonical(torch, vals, idx)
@@ -422,9 +460,9 @@ def phase_nm_kernels(torch, sm, nm, seed):
                   f"N={n:5d} K={k:5d} {n_keep}:{m_group} {policy:16s} "
                   f"max|diff| gather={errs[0]} expand={errs[1]}",
                   flush=True)
-    if any(worst.values()) or cross:
+    if any(worst.values()) or cross or plains:
         raise AssertionError(f"N:M kernels disagree: {worst}, vs dense "
-                             f"{cross}")
+                             f"{cross}; the plain versions {plains}")
     return worst
 
 
@@ -716,33 +754,37 @@ def model_params(cfg, seed, compressed):
 
 
 def serve(torch, cfg, seed, backend=None, new_tokens=16, compressed=False,
-          nm_impl=None, policy="sorted_tiled_seq"):
-    """Build, quantize (and compress) and serve 4 greedy requests under
-    ``policy``. Returns (requests, engine, seconds of step 1 (admission,
+          nm_impl=None, policy="sorted_tiled_seq", built=None, reqs=None,
+          max_len=128, first=None):
+    """Serve greedy requests on 4 slots under ``policy``: ``reqs`` (by
+    default 4 prompts of 20-32 tokens, ``new_tokens`` each) on ``built``
+    = (model, params) (by default ``cfg`` built, quantized and, when
+    ``compressed``, compressed), with the context ``first`` entered around
+    step 1. Returns (requests, engine, seconds of step 1 (admission,
     prefill, first decode), seconds of the later decode steps)."""
     from repro_torch.core.dispatch import IntegerLinConfig
     from repro_torch.serving import Request, ServingEngine
 
-    model, params = model_params(cfg, seed, compressed)
+    model, params = built or model_params(cfg, seed, compressed)
     torch.cuda.empty_cache()
-    eng = ServingEngine(model, params, num_slots=4, max_len=128,
+    eng = ServingEngine(model, params, num_slots=4, max_len=max_len,
                         int_lin=IntegerLinConfig(policy=policy,
                                                  backend=backend,
                                                  nm_impl=nm_impl))
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
-            for i, p in enumerate(prompts(4, seed, cfg.vocab_size))]
+    reqs = reqs or [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
+                    for i, p in enumerate(prompts(4, seed, cfg.vocab_size))]
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.step()
+    with first or contextlib.nullcontext():
+        eng.step()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     while eng.step():
         pass
     torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return reqs, eng, t1 - t0, t2 - t1
+    return reqs, eng, t1 - t0, time.perf_counter() - t1
 
 
 def reset(counters):
@@ -750,6 +792,25 @@ def reset(counters):
         fn.launches = 0
         if hasattr(fn, "policy_launches"):
             fn.policy_launches = dict.fromkeys(fn.policy_launches, 0)
+
+
+def check_served(counters, eng, reqs, vocab, need_per_step):
+    """The gate of a counted serve: each kernel of ``need_per_step``
+    launched that many times a step and every other kernel never; every
+    request done with its new tokens, all in the vocabulary. Returns the
+    launches by kernel that ran and the engine's steps."""
+    steps = eng.stats["prefill_steps"] + eng.stats["decode_steps"]
+    for r in reqs:
+        if not r.done or len(r.output) != r.max_new_tokens or not all(
+                0 <= t < vocab for t in r.output):
+            raise AssertionError(f"request {r.uid} incomplete or out of "
+                                 f"range: {r.output}")
+    launches = {name: fn.launches for name, fn in counters.items()
+                if fn.launches}
+    need = {name: per * steps for name, per in need_per_step.items() if per}
+    if launches != need:
+        raise AssertionError(f"launches {launches} != {need}, the others 0")
+    return launches, steps
 
 
 def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
@@ -787,15 +848,8 @@ def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
     print(f"  launches {launches}; need {need} (per layer and step "
           f"{expect} x {cfg.num_layers} layers x {steps} steps), the "
           f"others 0; per step {per}", flush=True)
-    for r in reqs:
-        if not r.done or len(r.output) != 16:
-            raise AssertionError(f"request {r.uid} incomplete: {r.output}")
-        if not all(0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.uid}: token out of range")
-    if any(launches[name] != n for name, n in need.items()):
-        raise AssertionError(f"launches {launches} != {need}")
-    if any(n for name, n in launches.items() if name not in need):
-        raise AssertionError(f"another kernel ran on this path: {launches}")
+    check_served(counters, eng, reqs, cfg.vocab_size,
+                 {name: per * cfg.num_layers for name, per in expect.items()})
     outputs = [r.output for r in reqs]
     print(f"  request 0 tokens {outputs[0]}", flush=True)
     if want_tokens is not None:
@@ -817,7 +871,6 @@ def profile_decode(torch, eng, vocab, span=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.qtensor import asarray
     from repro_torch.serving import Request
 
     for i, p in enumerate(prompts(4, 1, vocab)):
@@ -873,9 +926,11 @@ def profile_decode(torch, eng, vocab, span=None):
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
+    launch_calls = sum(e.count for e in host if e.key == "cudaLaunchKernel")
     print(f"  host: {sum(e.count for e in host)} calls, "
           f"{sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms self "
-          f"CPU time; the largest:", flush=True)
+          f"CPU time, {launch_calls} cudaLaunchKernel; the largest:",
+          flush=True)
     for e in host[:8]:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
@@ -887,18 +942,30 @@ def profile_decode(torch, eng, vocab, span=None):
         print(f"  span {span}: {sum(e.count for e in rows)} ranges, "
               f"{span_ms:.3f} ms from their first kernel's start to their "
               "last one's end on the device", flush=True)
-    emb = eng.params["embed"]  # the tied head dequantizes it every step
+    head_ms = table_dequantize_ms(torch, eng.params["embed"])
+    while eng.step():
+        pass
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, pqs_ms=pqs_ms,
+                span_ms=span_ms, launch_calls=launch_calls,
+                head_dequantize_ms=head_ms)
+
+
+def table_dequantize_ms(torch, emb):
+    """The ms of dequantizing the embedding table to bfloat16 (the tied
+    head does it every step): host clock to synchronize, mean of 3."""
+    from repro_torch.core.qtensor import asarray
+
+    asarray(emb, torch.bfloat16)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
         asarray(emb, torch.bfloat16)
     torch.cuda.synchronize()
-    print(f"  tied head dequantize ({type(emb).__name__}): "
-          f"{(time.perf_counter() - t0) / 3 * 1e3:.2f} ms (host clock to "
-          f"synchronize, mean of 3)", flush=True)
-    while eng.step():
-        pass
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, pqs_ms=pqs_ms,
-                span_ms=span_ms)
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  tied head dequantize ({type(emb).__name__} "
+          f"{tuple(emb.shape)}): {ms:.2f} ms (host clock to synchronize, "
+          "mean of 3 after one)", flush=True)
+    return ms
 
 
 def phase_parity(torch, counters, cfg, seed):
@@ -941,35 +1008,46 @@ def phase_parity(torch, counters, cfg, seed):
         ("expand", sparse, dict(nm_impl="expand"))))
 
 
-def check_logits(torch, model, cfg, seed, runs):
-    """Logits of one decode after a prefill of 4 prompts, for each (name,
-    params, IntegerLinConfig keywords) of ``runs`` (``census=True`` among
-    them: the run under a ``census_monitor``): all must equal the first
-    run's, and be finite. Returns each census-watched run's totals."""
-    import contextlib
-
+def decode_logits(torch, model, params, cfg, seed, kw, record=False):
+    """Logits of one decode after a prefill of 4 prompts' first 16 tokens
+    under ``IntegerLinConfig(**kw)`` (with ``census=True`` in ``kw``: under
+    a ``census_monitor``), and with ``record`` every ``pqs_dot`` call of
+    the decode kept (``DotRecorder``). Returns (logits, the census totals
+    or None, the recorder or None)."""
     from repro_torch.core import dispatch
 
+    kw = dict(kw)
+    mon = dispatch.CensusMonitor() if kw.pop("census", False) else None
+    rec = DotRecorder(dispatch) if record else None
     toks = torch.tensor([p[:16].tolist() for p in prompts(4, seed,
                                                           cfg.vocab_size)],
                         device="cuda", dtype=torch.int32)
-    lengths = torch.full((4,), 16, device="cuda", dtype=torch.int32)
+    caches = model.init_caches(params, 4, 32, torch.float32)
+    with torch.no_grad(), dispatch.integer_lin(
+            dispatch.IntegerLinConfig(**kw)), (
+            dispatch.census_monitor(mon) if mon is not None
+            else contextlib.nullcontext()):
+        _, caches = model.prefill(params, toks, caches, torch.full(
+            (4,), 16, device="cuda", dtype=torch.int32))
+        with rec if rec is not None else contextlib.nullcontext():
+            logits, _ = model.decode(params, toks[:, -1:], caches)
+    torch.cuda.synchronize()
+    return logits, None if mon is None else mon.totals(), rec
+
+
+def check_logits(torch, model, cfg, seed, runs):
+    """``decode_logits`` for each (name, params, IntegerLinConfig keywords)
+    of ``runs`` (``census=True`` among them: the run under a
+    ``census_monitor``): all must equal the first run's, and be finite.
+    Returns each census-watched run's totals."""
     logits, monitors = {}, {}
     for name, p, kw in runs:
-        kw = dict(kw)
-        watched = kw.pop("census", False)
-        mon = dispatch.CensusMonitor()
-        caches = model.init_caches(p, 4, 32, torch.float32)
-        with torch.no_grad(), dispatch.integer_lin(
-                dispatch.IntegerLinConfig(**kw)), (
-                dispatch.census_monitor(mon) if watched
-                else contextlib.nullcontext()):
-            _, caches = model.prefill(p, toks, caches, lengths)
-            logits[name], _ = model.decode(p, toks[:, -1:], caches)
-        if watched:
-            monitors[name] = mon.totals()
-            print(f"  {name}: census (dots, events) by site "
-                  f"{monitors[name]}", flush=True)
+        logits[name], totals, _ = decode_logits(torch, model, p, cfg, seed,
+                                                kw)
+        if totals is not None:
+            monitors[name] = totals
+            print(f"  {name}: census (dots, events) by site {totals}",
+                  flush=True)
     first = runs[0][0]
     ref = logits[first].float()
     finite = bool(torch.isfinite(ref).all())
@@ -1297,6 +1375,8 @@ def phase_census_serve(torch, counters, cfg, seed, compressed, want=None):
             raise AssertionError(f"3m differs from 3l: {same}")
     print(f"  request 0 tokens {run['tokens'][0]}", flush=True)
     run["profile"] = census_profile(torch, run["eng"], cfg.vocab_size)
+    # the record keeps the degraded sites, not the engine and its weights
+    run["degraded"] = sorted(run.pop("eng")._degraded)
     return run
 
 
@@ -1390,6 +1470,8 @@ def phase_certified(torch, counters, cfg, seed):
               flush=True)
     else:
         raise AssertionError("tampered weights were served")
+    for run in runs.values():
+        del run["eng"]  # the record keeps no engine and its weights
     return dict(runs=runs, seconds=dict(enforce=t1 - t0, certify=t2 - t1,
                                         verify=t3 - t2))
 
@@ -1738,8 +1820,13 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
     slabs of K = 300 and at 16:16 (dense-as-sparse) slabs of K = 1536 and
     8960, rounds 1 and 2, with tied tile sums; given, as on the main path,
     the unpadded x and slabs. The one-pass kernel equals the two-pass route
-    under both policies. Then ``auto_expand``. Returns the max |difference|
-    of each kernel against its plain version."""
+    under both policies. On these canonical slabs the two families' plain
+    versions give the same results (``tests/test_torch_nm_expand_sort.py``),
+    so the expand kernels are held against the gather's plain versions,
+    which sort only the kept keys (the expand's own are held on
+    non-canonical slabs in ``phase_sorted_regimes`` and
+    ``phase_duplicate_slots``). Then ``auto_expand``. Returns the max
+    |difference| of each kernel against its plain version."""
     from repro_torch.core.sorted_accum import pair_permutation
     from repro_torch.kernels.sorted_matmul import padded_k
 
@@ -1763,7 +1850,7 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
         for rounds in (1, 2):
             kw = dict(acc_bits=16, rounds=rounds)
             tk = dict(kw, k_tile=256)
-            outs, errs = {}, {}
+            outs, errs, plain = {}, {}, None
             for impl, (one_fn, sums_fn, two_fn, chunked_fn,
                        stream_fn) in families.items():
                 sums = sums_fn(x, vals, idx, k_tile=256, **nk)
@@ -1773,18 +1860,20 @@ def phase_nm_sort_kernels(torch, sm, ss, nm, seed):
                 ones = one_fn(x, vals, idx, policy="sorted", **kw, **nk)
                 chunked = chunked_fn(x, vals, idx, **kw, **nk)
                 outs[impl] = (one, sums, two, ones, chunked)
-                errs[one_fn.__name__] = max(
-                    diff(one, plain_of(one_fn)(x, vals, idx,
-                                            policy="sorted_tiled", **tk,
-                                            **nk)),
-                    diff(ones, plain_of(one_fn)(x, vals, idx, policy="sorted",
-                                             **kw, **nk)))
-                errs[sums_fn.__name__] = diff(sums, plain_of(sums_fn)(
-                    x, vals, idx, k_tile=256, **nk))
-                errs[two_fn.__name__] = diff(two, plain_of(two_fn)(
-                    x, vals, idx, perm, **tk, **nk))
-                errs[chunked_fn.__name__] = diff(chunked, plain_of(chunked_fn)(
-                    x, vals, idx, **kw, **nk))
+                if plain is None:  # the gather family's plain versions
+                    plain = (
+                        plain_of(one_fn)(x, vals, idx, policy="sorted_tiled",
+                                         **tk, **nk),
+                        plain_of(one_fn)(x, vals, idx, policy="sorted", **kw,
+                                         **nk),
+                        plain_of(sums_fn)(x, vals, idx, k_tile=256, **nk),
+                        plain_of(two_fn)(x, vals, idx, perm, **tk, **nk),
+                        plain_of(chunked_fn)(x, vals, idx, **kw, **nk))
+                errs[one_fn.__name__] = max(diff(one, plain[0]),
+                                            diff(ones, plain[1]))
+                errs[sums_fn.__name__] = diff(sums, plain[2])
+                errs[two_fn.__name__] = diff(two, plain[3])
+                errs[chunked_fn.__name__] = diff(chunked, plain[4])
                 dense = max(
                     diff(one, sm.sort_matmul(x, w, policy="sorted_tiled",
                                              kp=kt, **tk)),
@@ -3000,16 +3089,32 @@ class DotRecorder:
     def __exit__(self, *exc):
         self.dispatch.pqs_dot = self.orig
 
-    def plain_errors(self, torch):
-        """(max |kernel - plain|, number of calls): each recorded call's
-        plain version (``backend="torch"`` on the card, unchunked)."""
-        err = 0
-        for x, w, kw, out in self.calls:
-            plain = self.orig(x, w, **dict(kw, backend="torch",
-                                           batch_chunk=None))
-            if not torch.equal(out, plain):
-                err = max(err, int((out.long() - plain.long()).abs().max()))
-        return err, len(self.calls)
+    def plain_errors(self, torch, calls=None, cols=None, rows=None):
+        """(max |kernel - plain|, number of calls held): each recorded call
+        (those at the indices ``calls``) against its plain version
+        (``backend="torch"`` on the card, unchunked); with ``cols``, on the
+        first and last ``cols`` outputs alone (a dense weight's: an output
+        reads only its own weight row), with ``rows`` on the first and last
+        ``rows`` rows of x alone (an output row reads only its own); the
+        ends in one plain call."""
+
+        def ends(n, k, device):
+            return (slice(None) if k is None or 2 * k >= n else torch.cat([
+                torch.arange(k), torch.arange(n - k, n)]).to(device))
+
+        err, held = 0, 0
+        for i in range(len(self.calls)) if calls is None else calls:
+            x, w, kw, out = self.calls[i]
+            x, out = x.reshape(-1, x.shape[-1]), out.reshape(-1, out.shape[-1])
+            r = ends(x.shape[0], rows, x.device)
+            c = ends(out.shape[-1], cols, x.device)
+            plain = self.orig(x[r], w if cols is None else w[c],
+                              **dict(kw, backend="torch", batch_chunk=None))
+            got = out[r][:, c]
+            if not torch.equal(got, plain):
+                err = max(err, int((got.long() - plain.long()).abs().max()))
+            held += 1
+        return err, held
 
 
 def phase_paper_nets(torch, counters, seed):
@@ -3243,6 +3348,237 @@ def phase_finetune(torch, seed):
     return dict(losses=[h["loss"] for h in hist], step_s=step_s,
                 peak_gib=peak / 2**30, certify_s=cert_s, safe_bits=safe,
                 census=hist[0]["census"])
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the dense decoder family at full width: gemma3-12b (7a), qwen3-32b's
+# untied head (7b), command-r-35b's layer norm (7c)
+# ---------------------------------------------------------------------------
+
+GEMMA3_LAYERS = 6  # one whole period: 5 sliding-window layers, 1 global
+GEMMA3_LONG = (1000, 40)  # prompt and new tokens: decode passes 1024
+GEMMA3_MAX_LEN = sum(GEMMA3_LONG)
+FAMILY_KERNEL = {False: "seq_policy_matmul",
+                 True: "nm_gather_seq_policy_matmul"}  # by compressed
+HEAD_COLS = 2048  # outputs at each end of qwen3's head held against plain
+LAYER_COLS = 1024  # the same for command-r's layer 0
+PREFILL_ROWS = 4  # rows of x at each end of gemma3's prefill dots
+
+
+def family_requests(cfg, seed, new_tokens, long=None):
+    """4 greedy requests: prompts of 20-32 tokens with ``new_tokens`` new
+    ones; with ``long`` = (prompt, new), the last one that long."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    ps = prompts(4, seed, cfg.vocab_size)
+    news = [new_tokens] * 4
+    if long is not None:
+        ps[3] = np.random.default_rng(seed + 1).integers(
+            0, cfg.vocab_size, size=long[0]).astype(np.int32)
+        news[3] = long[1]
+    return [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(ps, news))]
+
+
+def family_serve(torch, counters, cfg, seed, built, reqs, max_len,
+                 compressed, per_step, first=None):
+    """Serve ``reqs`` on ``built`` = (model, params) on 4 slots under
+    ``sorted_tiled_seq`` with every launch count set to 0 just before and
+    read just after (``first`` entered around step 1): the storage's
+    K-streaming kernel (row 1 dense, row 6 compressed) must launch
+    ``per_step`` times a step, every other kernel never (``check_served``).
+    Returns the engine, the tokens and the record: the s a decode step,
+    the prefill s, the launches by kernel and the steps."""
+    reset(counters)
+    reqs, eng, t_first, t_rest = serve(torch, cfg, seed, built=built,
+                                       reqs=reqs, max_len=max_len,
+                                       first=first)
+    kernel = FAMILY_KERNEL[compressed]
+    launches, steps = check_served(counters, eng, reqs, cfg.vocab_size,
+                                   {kernel: per_step})
+    decode_steps = eng.stats["decode_steps"]
+    per_decode = t_rest / max(decode_steps - 1, 1)
+    print(f"  {cfg.name}, {'compressed' if compressed else 'dense'}: "
+          f"{sum(len(r.output) for r in reqs)} tokens, prefill steps "
+          f"{eng.stats['prefill_steps']}, decode steps {decode_steps}; step "
+          f"1 (prefill + first decode) {t_first:.3f} s, later decode "
+          f"{per_decode:.4f} s/step, prefill alone ~ "
+          f"{t_first - per_decode:.3f} s; launches {launches} ({kernel}: "
+          f"{per_step} x {steps} steps)", flush=True)
+    return eng, [r.output for r in reqs], dict(
+        per_step=per_decode, prefill=t_first - per_decode, launches=launches,
+        steps=steps)
+
+
+def held_decode(torch, model, params, cfg, seed, n_calls, what, **kw):
+    """One decode step's ``pqs_dot`` calls recorded (``decode_logits``),
+    there must be ``n_calls`` of them, each held against its plain version
+    (``DotRecorder.plain_errors`` keywords ``kw``). Returns the
+    recorder."""
+    _, _, rec = decode_logits(torch, model, params, cfg, seed,
+                              dict(policy="sorted_tiled_seq"), record=True)
+    if len(rec.calls) != n_calls:
+        raise AssertionError(f"{len(rec.calls)} pqs_dot calls != {n_calls}")
+    err, n = rec.plain_errors(torch, **kw)
+    print(f"  {what}: {n} dots against their plain versions, max |diff| "
+          f"{err}", flush=True)
+    if err:
+        raise AssertionError(f"{what}: a dot differs from its plain version "
+                             f"by {err}")
+    return rec
+
+
+def phase_gemma3(torch, counters, seed):
+    """7a: gemma3-12b at its published widths, cut to ``GEMMA3_LAYERS``
+    layers (one whole 5-local + 1-global period), random seeded weights,
+    8:16-pruned int8, served on 4 slots under ``sorted_tiled_seq`` from
+    dense storage (row 1) and from compressed storage (row 6): three
+    prompts of 20-32 tokens with 16 new tokens and one of 1000 with 40,
+    so that decode passes position 1024 and every local layer's ring
+    wraps. Gates: 7 x 6 launches a step of the storage's kernel and no
+    other; the local layers' caches hold 1024 slots, the global layer's
+    ``max_len``; every ``pqs_dot`` of the served prefill at layers 0 and 5
+    (4 slots x a 1024 bucket: 4096 rows of x, the far end of the kernels'
+    row grid) equal to its plain version on its first and last
+    ``PREFILL_ROWS`` rows; the same tokens from both storages; one
+    decode's logits bit for bit across them; every ``pqs_dot`` of one
+    decode step at layers 0 and 5 equal to its plain version. Returns the
+    record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.core.qtensor import nm_compress_tree
+    from repro_torch.models.transformer import layer_windows
+
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              num_layers=GEMMA3_LAYERS)
+    t0 = time.perf_counter()
+    model, params = model_params(cfg, seed, compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"  init, quantize and compress: {init_s:.1f} s; windows "
+          f"{layer_windows(cfg)}", flush=True)
+    per_step = len(SITES) * cfg.num_layers
+    layers = list(range(7)) + list(range(per_step - 7, per_step))
+    out = {"init_s": init_s}
+    tokens = {}
+    for compressed, p in ((False, params), (True, sparse)):
+        storage = "compressed" if compressed else "dense"
+        rec = DotRecorder(dispatch)  # step 1: the prefill and a decode
+        eng, tokens[storage], run = family_serve(
+            torch, counters, cfg, seed, (model, p),
+            family_requests(cfg, seed, 16, GEMMA3_LONG), GEMMA3_MAX_LEN,
+            compressed, per_step, first=rec)
+        shapes = [tuple(c["k"].shape) for c in eng.caches]
+        pos = int(eng.caches[0]["pos"].max())
+        want = [(4, 1024 if win else GEMMA3_MAX_LEN, cfg.num_kv_heads,
+                 cfg.resolved_head_dim) for win in layer_windows(cfg)]
+        print(f"  cache shapes {shapes}; the long request's position "
+              f"{pos}", flush=True)
+        if shapes != want or pos <= 1024:
+            raise AssertionError(f"caches {shapes} != {want}, or position "
+                                 f"{pos} did not pass 1024")
+        t = time.perf_counter()
+        m = [c[0].numel() // c[0].shape[-1] for c in rec.calls]
+        prefill = [i for i, rows in enumerate(m) if rows > 4]
+        if len(prefill) != per_step or {m[i] for i in prefill} != {4096}:
+            raise AssertionError(f"step 1's dots at rows {m}: not one "
+                                 f"prefill pass of {per_step} at 4096")
+        err, n = rec.plain_errors(torch, rows=PREFILL_ROWS, calls=[
+            prefill[i] for i in layers])
+        del rec
+        print(f"  the prefill's {n} dots of layers 0 and 5 (M = 4096) on "
+              f"rows 0-{PREFILL_ROWS - 1} and {4096 - PREFILL_ROWS}-4095 "
+              f"against their plain versions: max |diff| {err}", flush=True)
+        if err:
+            raise AssertionError(f"{storage}: a prefill dot differs from its "
+                                 f"plain version by {err}")
+        run.update(prefill_plain_held=n,
+                   prefill_checks_s=time.perf_counter() - t,
+                   profile=profile_decode(torch, eng, cfg.vocab_size))
+        out[storage] = run
+        del eng
+    if tokens["compressed"] != tokens["dense"]:
+        raise AssertionError(f"tokens differ: {tokens}")
+    print(f"  the same tokens from both storages; request 3 (1000-token "
+          f"prompt) {tokens['dense'][3]}", flush=True)
+    t = time.perf_counter()
+    check_logits(torch, model, cfg, seed, (
+        ("dense", params, dict(policy="sorted_tiled_seq")),
+        ("compressed", sparse, dict(policy="sorted_tiled_seq"))))
+    for storage, p in (("dense", params), ("compressed", sparse)):
+        held_decode(torch, model, p, cfg, seed, per_step,
+                    f"{storage}, one decode step, layers 0 and 5",
+                    calls=layers)
+    out.update(plain_held=dict.fromkeys(("dense", "compressed"), len(layers)),
+               checks_s=time.perf_counter() - t)
+    return out
+
+
+def phase_qwen3(torch, counters, sm, seed):
+    """7b: qwen3-32b at full width, 1 layer: its untied head runs through
+    row 1 at N = 151936, K = 5120 (8 launches a step with the layer's 7),
+    4 requests of 8 new tokens from dense storage; the head's dot of one
+    decode step equals its plain version on its first and last
+    ``HEAD_COLS`` outputs; the head alone timed by CUDA events beside its
+    bound, its plain version and ``torch._int_mm`` at M = 32. Returns the
+    record."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=1)
+    built = model_params(cfg, seed, compressed=False)
+    per_step = len(SITES) + 1
+    eng, _, run = family_serve(torch, counters, cfg, seed, built,
+                               family_requests(cfg, seed, 8), 128, False,
+                               per_step)
+    del eng
+    rec = held_decode(torch, *built, cfg, seed, per_step,
+                      f"the head (N={cfg.vocab_size}, K={cfg.d_model}) on "
+                      f"its first and last {HEAD_COLS} outputs",
+                      calls=[per_step - 1], cols=HEAD_COLS)
+    x, w, kw, _ = rec.calls[-1]
+    if tuple(w.shape) != (cfg.vocab_size, cfg.d_model):
+        raise AssertionError(f"the last dot is on {tuple(w.shape)}")
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    m, (n, k) = x2.shape[0], w.shape
+    seq = dict(policy="sorted_tiled_seq", acc_bits=16, k_tile=256)
+    ms = time_launches(torch, lambda: sm.seq_policy_matmul(x2, w, **seq), 10,
+                       flush_buf)
+    plain = time_launches(torch, lambda: sm.seq_policy_matmul_ref(
+        x2, w, **seq), 1, flush_buf)
+    x32 = x2.repeat(32 // m, 1)
+    lib = time_launches(torch, lambda: torch._int_mm(x32, w.t()), 10,
+                        flush_buf)
+    head = dict(ms=ms, plain_ms=plain, int_mm_m32_ms=lib,
+                **bound_row(m, n, k, m * k + n * k + 4 * m * n))
+    print(f"  head alone, M={m}: kernel {ms:.4f} ms, plain {plain:.1f} ms, "
+          f"bound {head['bound_ms']:.4f} ms, torch._int_mm at M=32 "
+          f"{lib:.4f} ms", flush=True)
+    return dict(run, head=head)
+
+
+def phase_command_r(torch, counters, seed):
+    """7c: command-r-35b at full width, 1 layer (layer norm, tied vocab
+    256000): 4 requests of 8 new tokens from dense storage, 7 row-1
+    launches a step; layer 0's 7 dots of one decode step equal their plain
+    versions on their first and last ``LAYER_COLS`` outputs; the tied
+    head's dequantize timed. Returns the record."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("command-r-35b"), num_layers=1)
+    built = model_params(cfg, seed, compressed=False)
+    eng, _, run = family_serve(torch, counters, cfg, seed, built,
+                               family_requests(cfg, seed, 8), 128, False,
+                               len(SITES))
+    del eng
+    held_decode(torch, *built, cfg, seed, len(SITES),
+                f"layer 0 on their first and last {LAYER_COLS} outputs",
+                cols=LAYER_COLS)
+    return dict(run, head_dequantize_ms=table_dequantize_ms(
+        torch, built[1]["embed"]))
 
 
 def paper_records(paper, policies):
@@ -3493,11 +3829,21 @@ def main() -> int:
         ("[6b] accumulator-aware fine-tune of qwen2-1.5b at 2 layers, then "
          "quantize_and_certify", lambda: got.update(
              finetune=phase_finetune(torch, args.seed))),
+        ("[7a] serve gemma3-12b at full width, 6 layers (5 sliding-window "
+         "rings + 1 global), dense and compressed", lambda: got.update(
+             gemma3=phase_gemma3(torch, counters, args.seed))),
+        ("[7b] serve qwen3-32b at full width, 1 layer: the untied head "
+         "through row 1", lambda: got.update(
+             qwen3=phase_qwen3(torch, counters, sm, args.seed))),
+        ("[7c] serve command-r-35b at full width, 1 layer (layer norm)",
+         lambda: got.update(
+             command_r=phase_command_r(torch, counters, args.seed))),
     ]
     only = args.only and set(args.only.split(","))
     for title, fn in phases:
         if only and title[1:title.index("]")] not in only:
             continue
+        torch.cuda.reset_peak_memory_stats()
         print(title, flush=True)
         t = time.perf_counter()
         try:
@@ -3505,7 +3851,10 @@ def main() -> int:
         except Exception:  # report every phase, fail at the end
             traceback.print_exc()
             failures.append(title)
-        print(f"{title} done in {time.perf_counter() - t:.1f} s", flush=True)
+        print(f"{title} done in {time.perf_counter() - t:.1f} s; device "
+              f"memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
@@ -3544,9 +3893,16 @@ def main() -> int:
                       ("3n censused", served["censused"])):
         row1_paths[path], row1_paths[path + " by policy"] = path_launches(
             run, dense)
+    gemma3, qwen3, command_r = got["gemma3"], got["qwen3"], got["command_r"]
+    for path, run in (("7a gemma3-12b, dense", gemma3["dense"]),
+                      ("7b qwen3-32b", qwen3), ("7c command-r-35b",
+                                                command_r)):
+        row1_paths[path] = run["launches"][dense]
     row5_paths = {"3j sorted_tiled_seq": got["expand seq"][expand],
                   "3k wide": got["expand wide"][expand]}
-    row6_paths = {"3b sorted_tiled_seq": got["nm_launches"][gather]}
+    row6_paths = {"3b sorted_tiled_seq": got["nm_launches"][gather],
+                  "7a gemma3-12b, compressed":
+                      gemma3["compressed"]["launches"][gather]}
     for paths, name in ((row5_paths, expand), (row6_paths, gather)):
         paths["3m census-watched"], paths["3m census-watched by policy"] = \
             path_launches(got["3m"], name)
@@ -3573,8 +3929,18 @@ def main() -> int:
                      "the int8 tensor-core mainloop"
                      + ("; torch._int_mm refuses M=4" if m == 4 else ""))
                 for m in (4, 64, 128)},
+            qwen3_head=dict(
+                work="qwen3-32b's untied head (N=151936, K=5120) at decode "
+                     "(M=4), acc_bits 16, k_tile 256; library: "
+                     "torch._int_mm at M=32 (it refuses M=4)",
+                timing=TIMING, library_ms=None,
+                bound_by="bytes" if qwen3["head"]["bytes_ms"]
+                >= qwen3["head"]["ops_ms"] else "operations",
+                **qwen3["head"]),
             path="phases 3, 3l (degraded sites: wide) and 3n (certified: "
-                 "wide), dense storage; 6a (the paper nets' clip and wide)"),
+                 "wide), dense storage; 6a (the paper nets' clip and wide); "
+                 "7a-7c (gemma3-12b, qwen3-32b with its head, "
+                 "command-r-35b), dense storage"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
@@ -3590,8 +3956,8 @@ def main() -> int:
                 "7 projection sites of one qwen2-1.5b layer at a prefill "
                 "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
                 "256"),
-            path="phases 3b and 3m (the undegraded sites), compressed "
-                 "storage"),
+            path="phases 3b and 3m (the undegraded sites) and 7a "
+                 "(gemma3-12b), compressed storage"),
         kernel_record(
             "nm_seq_policy_matmul", csrc + "nm_expand_seq.cu",
             "src/repro/kernels/nm_spmm.py:182",
@@ -3867,8 +4233,7 @@ def main() -> int:
         "card": card, "s": serve_s,
         "census_per_2_decode_steps": {
             path: got[path]["profile"] for path in ("3l", "3m")},
-        "degraded": {path: sorted(got[path]["eng"]._degraded)
-                     for path in ("3l", "3m")},
+        "degraded": {path: got[path]["degraded"] for path in ("3l", "3m")},
         "certify_host_s": got["3n"]["seconds"]}}))
     print(json.dumps({"paper": {
         "card": card,
@@ -3880,6 +4245,15 @@ def main() -> int:
         "dots_held_against_plain": paper["dots"],
         "finetune": {k: v for k, v in got["finetune"].items()
                      if k != "census"}}}))
+    print(json.dumps({"families": {
+        "card": card,
+        "7a gemma3-12b": {
+            "layers": GEMMA3_LAYERS, "init_s": gemma3["init_s"],
+            "checks_s": gemma3["checks_s"],
+            "dots_held_against_plain": gemma3["plain_held"],
+            **{storage: gemma3[storage] for storage in ("dense",
+                                                        "compressed")}},
+        "7b qwen3-32b": qwen3, "7c command-r-35b": command_r}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

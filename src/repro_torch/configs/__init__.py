@@ -8,6 +8,9 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 _REGISTRY = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "gemma3-12b": "gemma3_12b",
+    "qwen3-32b": "qwen3_32b",
+    "command-r-35b": "command_r_35b",
 }
 
 ARCH_IDS = list(_REGISTRY)

@@ -1,16 +1,20 @@
 """Model configuration schema of the port: the fields of
-``repro.configs.base.ModelConfig`` that the dense decoder family reads.
+``repro.configs.base.ModelConfig`` that the dense decoder family reads,
+and those that name what is not ported yet.
 
-Families other than ``dense``, layer norm, the plain-GELU MLP, QK norm,
-an untied head, embedding scaling, sliding-window attention, M-RoPE,
-logit soft-capping and query-chunked attention are not ported yet;
-``validate`` refuses a config that asks for them.
+The dense family is ported whole: sliding-window attention with
+gemma3's 1-global-in-``global_period`` pattern, logit soft-capping, QK
+norm, scaled embeddings, an untied head, layer norm, the gated SiLU /
+GELU and the plain-GELU MLP, and query-chunked attention. ``validate``
+refuses the other families (``moe``, ``ssm``, hybrid, encoder-decoder,
+vlm, audio), M-RoPE (``mrope_sections``) and embedding inputs
+(``input_is_embeddings``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,15 +31,25 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
-    sliding_window: Optional[int] = None
+    mrope_sections: Optional[tuple[int, ...]] = None  # not ported
+    sliding_window: Optional[int] = None  # local-attention window
+    global_period: Optional[int] = None  # gemma3: 1 global per N layers
     attn_logit_softcap: Optional[float] = None
-    norm: str = "rmsnorm"
-    activation: str = "silu"  # silu | gelu (gated MLP)
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    activation: str = "silu"  # silu (gated) | gelu (gated) | gelu_plain
     tie_embeddings: bool = False
-    scale_embeddings: bool = False
+    scale_embeddings: bool = False  # gemma: x *= sqrt(d_model)
+    input_is_embeddings: bool = False  # not ported
+    # other families, not ported: a config that sets them is refused
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    is_encoder_decoder: bool = False
     max_seq_len: int = 131_072
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # query-chunked attention from this many tokens (a multiple of the chunk)
+    attn_chunk_q: int = 512
+    attn_chunk_threshold: int = 4096
 
     @property
     def resolved_head_dim(self) -> int:
@@ -45,12 +59,18 @@ class ModelConfig:
         if self.family != "dense":
             raise NotImplementedError(
                 f"family {self.family!r} is not ported yet (dense only)")
-        if (self.sliding_window is not None or self.attn_logit_softcap
-                or self.qk_norm or self.scale_embeddings
-                or not self.tie_embeddings or self.norm != "rmsnorm"
-                or self.activation not in ("silu", "gelu")):
-            raise NotImplementedError(
-                "this config needs decoder features not ported yet (see "
-                "the module docstring)")
+        for field, missing in (("moe", "mixture-of-experts layers"),
+                               ("ssm", "state-space layers"),
+                               ("is_encoder_decoder", "the encoder-decoder"),
+                               ("mrope_sections", "M-RoPE"),
+                               ("input_is_embeddings", "embedding inputs")):
+            if getattr(self, field):
+                raise NotImplementedError(
+                    f"{self.name}: {field} asks for {missing}, not ported "
+                    "yet")
+        if self.norm not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {self.norm!r}")
+        if self.activation not in ("silu", "gelu", "gelu_plain"):
+            raise ValueError(f"unknown activation {self.activation!r}")
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError("num_heads must be a multiple of num_kv_heads")

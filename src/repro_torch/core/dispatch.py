@@ -80,8 +80,9 @@ _SORT_STATS_BUDGET = 256 * 1024 * 1024
 # product; its running sum takes as much again). A 4 x 32 prefill cohort
 # would otherwise build a 7.0 GB cube at w_gate (8960 x 1536) and the
 # same again for its running sum; a qwen2-1.5b decode row is 55 MB
-# there, so 4 decode rows stay one chunk. Chunking M is exact: the
-# counts are per dot and sum over chunks.
+# there, so 4 decode rows stay one chunk. Where one row's cube is past it
+# (qwen3-32b's untied head: 151936 x 5120, 3.1 GB) N is chunked too.
+# Chunking is exact: the counts are per dot and sum over chunks.
 _CENSUS_BUDGET = 256 * 1024 * 1024
 
 
@@ -192,19 +193,25 @@ def _census(x2: torch.Tensor, w: Any, acc_bits: int,
             m_group: Optional[int]) -> Census:
     """Natural-order census of x2 (M, K) against a dense (N, K) weight or
     the kept-only products of (values, indices) slabs, on the operands'
-    device, in M-chunks of at most ``_CENSUS_BUDGET`` bytes of products."""
+    device, in chunks of at most ``_CENSUS_BUDGET`` bytes of products: of
+    M rows, and of N outputs where one row's products are past it."""
     if m_group is None:
         n, width = w.shape
     else:
         n, g, n_keep = w[0].shape
         width = g * n_keep
-    rows = max(_CENSUS_BUDGET // (4 * n * max(width, 1)), 1)
+    row_bytes = 4 * max(width, 1)
+    rows = max(_CENSUS_BUDGET // (n * row_bytes), 1)
+    cols = n if rows > 1 else max(min(_CENSUS_BUDGET // row_bytes, n), 1)
     tot = None
     for i in range(0, max(x2.shape[0], 1), rows):
         xc = x2[i : i + rows]
-        prods = (partial_products(w, xc) if m_group is None
-                 else nm_partial_products(w[0], w[1], xc, m_group))
-        tot = _merge_census(tot, census(prods, acc_bits))
+        for j in range(0, n, cols):
+            prods = (partial_products(w[j : j + cols], xc) if m_group is None
+                     else nm_partial_products(w[0][j : j + cols],
+                                              w[1][j : j + cols], xc,
+                                              m_group))
+            tot = _merge_census(tot, census(prods, acc_bits))
     return tot
 
 

@@ -6,9 +6,12 @@ layer. Activations flow in the compute dtype; norms and softmax run in
 f32. Any projection may be a QTensor or a SparseQTensor: ``lin``
 dequantizes it, or inside ``core.dispatch.integer_lin`` runs it as an
 integer PQS dot (and inside ``core.dispatch.calibration`` reports its
-input's range first). Attention is
-plain einsum/softmax, as the JAX package leaves it to XLA, and is never
-query-chunked here.
+input's range first). Attention is plain einsum/softmax, as the JAX
+package leaves it to XLA, over query chunks of ``cfg.attn_chunk_q`` from
+``cfg.attn_chunk_threshold`` tokens. A layer's sliding window is a static
+argument (the layer loop is Python; the JAX package's traced
+``use_window`` flag selects the same mask in its scan), and its decode
+cache is a ring of ``min(s_max, window)`` slots.
 """
 
 from __future__ import annotations
@@ -79,6 +82,22 @@ def rms_norm(x: torch.Tensor, gamma: Any, eps: float = 1e-6):
     return out.to(dt)
 
 
+def layer_norm(x: torch.Tensor, gamma: Any, eps: float = 1e-5):
+    """Layer norm without a bias (command-r), gamma stored as scale - 1."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * (
+        1.0 + asarray(gamma, torch.float32))
+    return out.to(dt)
+
+
+def norm(x: torch.Tensor, gamma: Any, cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(x, gamma) if cfg.norm == "rmsnorm" else layer_norm(
+        x, gamma)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -119,23 +138,36 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
         p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
         p["bk"] = torch.zeros((g * hd,), dtype=dt, device=device)
         p["bv"] = torch.zeros((g * hd,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(hd, device)
+        p["k_norm"] = norm_init(hd, device)
     return p
 
 
-def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool):
-    """(Sq, Sk) boolean mask: True = attend."""
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int] = None):
+    """(Sq, Sk) boolean mask: True = attend; a query sees the keys less
+    than ``window`` positions behind it."""
     diff = q_pos[:, None] - k_pos[None, :]
     m = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if causal:
         m = m & (diff >= 0)
+    if window is not None:
+        m = m & (diff < window)
     return m
 
 
-def _sdpa(q, k, v, mask):
+def _softcap(scores: torch.Tensor, softcap: Optional[float]):
+    return scores if softcap is None else torch.tanh(
+        scores / softcap) * softcap
+
+
+def _sdpa(q, k, v, mask, softcap=None):
     """Attention with unexpanded GQA KV: q (B,Sq,H,hd), k/v (B,Sk,G,hd).
 
     Decode (Sq == 1) keeps KV unexpanded; Sq > 1 repeats each KV head
-    H/G times, as the JAX package does. Masked scores are -1e30.
+    H/G times, as the JAX package does. Scores are soft-capped (tanh(s /
+    c) c) after the 1/sqrt(hd) scale; masked scores are -1e30.
     """
     b, sq, h, hd = q.shape
     g = k.shape[2]
@@ -146,7 +178,7 @@ def _sdpa(q, k, v, mask):
         g, rep = h, 1
     qg = q.reshape(b, sq, g, rep, hd)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).to(torch.float32)
-    scores = scores / (hd**0.5)
+    scores = _softcap(scores / (hd**0.5), softcap)
     if mask.ndim == 2:
         mask = mask[None, None, None]
     scores = torch.where(mask, scores, -1e30)
@@ -155,7 +187,25 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, sq, h, hd)
 
 
-def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
+def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, softcap, chunk):
+    """``_sdpa`` over query chunks of ``chunk`` rows (one chunk when it is
+    the whole sequence): the scores peak at (B, H, chunk, Sk) instead of
+    (B, H, Sq, Sk); each query row's math is the unchunked one's."""
+    sq = q.shape[1]
+    assert sq % chunk == 0, (sq, chunk)
+    return torch.cat([
+        _sdpa(q[:, i : i + chunk], k, v,
+              _attn_mask(q_pos[i : i + chunk], k_pos, causal, window),
+              softcap)
+        for i in range(0, sq, chunk)], dim=1)
+
+
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """q (B, S, H, hd) and k, v (B, S, G, hd): projected, biased, QK-normed
+    over head_dim (always ``rms_norm``, as in the JAX package), then
+    rotated (k and v unexpanded)."""
+    b, s, _ = x.shape
+    h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = lin(x, params["wq"], site="wq")
     k = lin(x, params["wk"], site="wk")
     v = lin(x, params["wv"], site="wv")
@@ -164,50 +214,56 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
         q = q + asarray(params["bq"], x.dtype)
         k = k + asarray(params["bk"], x.dtype)
         v = v + asarray(params["bv"], x.dtype)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, g, hd)
+    v = v.reshape(b, s, g, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = apply_rope(q, positions, hd, cfg.rope_theta)
+    k = apply_rope(k, positions, hd, cfg.rope_theta)
     return q, k, v
 
 
 def attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, causal: bool = True,
-              return_kv: bool = False):
-    """Full-sequence self-attention (prefill, no cache). ``return_kv``
-    also returns the unexpanded post-RoPE (k, v) (B, S, G, hd)."""
+              window: Optional[int] = None, return_kv: bool = False):
+    """Full-sequence self-attention (prefill, no cache), local over
+    ``window`` positions when given. ``return_kv`` also returns the
+    unexpanded post-RoPE (k, v) (B, S, G, hd)."""
     b, s, _ = x.shape
-    h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(params, x, cfg)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, g, hd)
-    v = v.reshape(b, s, g, hd)
-    q = apply_rope(q, positions, hd, cfg.rope_theta)
-    k = apply_rope(k, positions, hd, cfg.rope_theta)
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(params, x, cfg, positions)
     q_pos = positions[0]  # (S,) shared across the batch
-    o = _sdpa(q, k, v, _attn_mask(q_pos, q_pos, causal))
+    chunk = (cfg.attn_chunk_q if s >= cfg.attn_chunk_threshold
+             and s % cfg.attn_chunk_q == 0 else s)
+    o = _sdpa_chunked(q, k, v, q_pos, q_pos, causal, window,
+                      cfg.attn_logit_softcap, chunk)
     out = lin(o.reshape(b, s, h * hd), params["wo"], site="wo")
     return (out, (k, v)) if return_kv else out
 
 
 def attention_decode(params: Params, x: torch.Tensor, cache: dict,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, *, window: Optional[int] = None):
     """Single-token decode against a dense KV cache {"k","v": (B, S_max,
     G, hd), "pos": (B,)}; returns (out, new_cache). The new cache is a
-    copy: the engine merges old and new lanes by slot."""
+    copy: the engine merges old and new lanes by slot. A sliding-window
+    layer's cache is a ring: position p is written at p mod S_max, and a
+    slot is valid when it holds one of the last min(pos + 1, window)
+    writes."""
     b, one, _ = x.shape
     assert one == 1
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pos = cache["pos"]  # (B,) next write index per sequence
     s_max = cache["k"].shape[1]
-    q, k, v = _qkv(params, x, cfg)
-    q = q.reshape(b, 1, h, hd)
-    k = k.reshape(b, 1, g, hd)
-    v = v.reshape(b, 1, g, hd)
-    pvec = pos[:, None].to(torch.int32)
-    q = apply_rope(q, pvec, hd, cfg.rope_theta)
-    k = apply_rope(k, pvec, hd, cfg.rope_theta)
+    q, k, v = _qkv(params, x, cfg, pos[:, None].to(torch.int32))
 
     rows = torch.arange(b, device=x.device)
-    # an index past the cache drops its write, as JAX's scatter does
-    inb = (pos < s_max)[:, None, None]
-    idx = torch.clamp(pos, max=s_max - 1)
+    # a ring wraps (remainder, not fmod: jnp.mod's sign rule); past the end
+    # of a global layer's cache the write drops, as JAX's scatter does
+    idx = (torch.remainder(pos, s_max) if window is not None
+           else torch.clamp(pos, max=s_max - 1))
+    inb = ((pos < s_max) | (window is not None))[:, None, None]
 
     def write(c, new):
         out = c.clone()
@@ -218,10 +274,15 @@ def attention_decode(params: Params, x: torch.Tensor, cache: dict,
     new_cache = {"k": new_k, "v": new_v, "pos": pos + 1}
     kk = new_k.to(x.dtype)  # (B, S_max, G, hd), never expanded
     vv = new_v.to(x.dtype)
-    valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
+    slot = torch.arange(s_max, device=x.device)
+    if window is not None:
+        age = torch.remainder(idx[:, None] - slot[None, :], s_max)
+        valid = age < torch.clamp(pos + 1, max=window)[:, None]
+    else:
+        valid = slot[None, :] <= pos[:, None]
     qg = q.reshape(b, 1, g, h // g, hd)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kk).to(torch.float32)
-    scores = scores / (hd**0.5)
+    scores = _softcap(scores / (hd**0.5), cfg.attn_logit_softcap)
     scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bgrqk,bkgd->bqgrd", probs, vv)
@@ -237,6 +298,13 @@ def attention_decode(params: Params, x: torch.Tensor, cache: dict,
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     d, ff = cfg.d_model, cfg.d_ff
     dt = getattr(torch, cfg.param_dtype)
+    if cfg.activation == "gelu_plain":
+        return {
+            "w_in": dense_init(gen, d, ff, dt, device),
+            "b_in": torch.zeros((ff,), dtype=dt, device=device),
+            "w_out": dense_init(gen, ff, d, dt, device),
+            "b_out": torch.zeros((d,), dtype=dt, device=device),
+        }
     return {
         "w_gate": dense_init(gen, d, ff, dt, device),
         "w_up": dense_init(gen, d, ff, dt, device),
@@ -245,6 +313,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated SiLU / GELU, or the plain GELU MLP with biases; GELU is the
+    tanh form, as ``jax.nn.gelu``'s default."""
+    if cfg.activation == "gelu_plain":
+        hid = lin(x, params["w_in"], site="w_in") + asarray(
+            params["b_in"], x.dtype)
+        hid = F.gelu(hid, approximate="tanh")
+        return lin(hid, params["w_out"], site="w_out") + asarray(
+            params["b_out"], x.dtype)
     gate = lin(x, params["w_gate"], site="w_gate")
     gate = F.silu(gate) if cfg.activation == "silu" else F.gelu(
         gate, approximate="tanh")
@@ -279,11 +355,14 @@ def write_prefill_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
     }
 
 
-def empty_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
-                   device) -> dict:
+def empty_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
+                   window: Optional[int], dtype, device) -> dict:
+    """A layer's cache: ``s_max`` slots, or a ring of min(s_max, window)
+    for a sliding-window layer."""
     g, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    size = min(s_max, window) if window is not None else s_max
     return {
-        "k": torch.zeros((batch, s_max, g, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, s_max, g, hd), dtype=dtype, device=device),
+        "k": torch.zeros((batch, size, g, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, g, hd), dtype=dtype, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }

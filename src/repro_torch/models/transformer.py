@@ -3,7 +3,8 @@ loss; torch port of ``repro.models.transformer`` for the dense family.
 
 The JAX package stacks layer params (L, ...) and scans them; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python loop,
-and decode caches are a per-layer list of {"k", "v", "pos"} dicts.
+and decode caches are a per-layer list of {"k", "v", "pos"} dicts, a
+sliding-window layer's a ring of its window (``layer_windows``).
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ from repro_torch.models.layers import (
     attention,
     attention_decode,
     attn_init,
+    dense_init,
     empty_kv_cache,
+    lin,
     mlp,
     mlp_init,
+    norm,
     norm_init,
-    rms_norm,
     write_prefill_kv,
 )
 
@@ -49,30 +52,54 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
         "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                              dtype=dt, device=device) * (1.0 / cfg.d_model**0.5),
     }
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device)
     return p
+
+
+def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
+    """Each layer's sliding window (None = global attention): with a
+    ``global_period`` the last layer of every period is global."""
+    out: list[Optional[int]] = []
+    for i in range(cfg.num_layers):
+        if cfg.sliding_window is not None and cfg.global_period is not None:
+            is_global = (i % cfg.global_period) == cfg.global_period - 1
+            out.append(None if is_global else cfg.sliding_window)
+        else:
+            out.append(cfg.sliding_window)
+    return out
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     """tokens (B, S) int -> (B, S, d). A QTensor or compressed table is
     gathered before it is dequantized: elementwise the same values,
-    without dequantizing every row of the vocabulary."""
+    without dequantizing every row of the vocabulary. Scaled embeddings
+    take sqrt(d_model) rounded to the compute dtype first, as the JAX
+    package does (sqrt(3840) is 62.0 in bfloat16)."""
     dt = getattr(torch, cfg.compute_dtype)
     emb = params["embed"]
     if isinstance(emb, (QTensor, SparseQTensor)):
         codes = emb.values[tokens] if isinstance(emb, QTensor) else \
             emb.input_rows(tokens)
-        return (codes.to(torch.float32) * emb.scale).to(dt)
-    return emb.to(dt)[tokens]
+        x = (codes.to(torch.float32) * emb.scale).to(dt)
+    else:
+        x = emb.to(dt)[tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
+    return x
 
 
 def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    x = rms_norm(x, params["ln_f"])
-    # the tied head is a dequantized float matmul, as in the JAX package
-    return x @ asarray(params["embed"], x.dtype).T
+    x = norm(x, params["ln_f"], cfg)
+    if cfg.tie_embeddings:
+        # the tied head is a dequantized float matmul, as in the JAX package
+        return x @ asarray(params["embed"], x.dtype).T
+    # the untied head is a projection: an integer dot under integer_lin
+    return lin(x, params["head"], site="head")
 
 
 def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg)
+    return x + mlp(p["mlp"], norm(x, p["ln2"], cfg), cfg)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -87,8 +114,9 @@ def forward(params: Params, tokens: torch.Tensor,
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = embed_tokens(params, tokens, cfg)
-    for p in params["layers"]:
-        x = x + attention(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)
+    for p, win in zip(params["layers"], layer_windows(cfg)):
+        x = x + attention(p["attn"], norm(x, p["ln1"], cfg), positions, cfg,
+                          window=win)
         x = _ffn(p, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits_from_hidden(params, x, cfg), aux
@@ -103,9 +131,9 @@ def prefill_step(params: Params, tokens: torch.Tensor, caches: list,
     positions = _positions(b, s, tokens.device)
     x = embed_tokens(params, tokens, cfg)
     new_caches = []
-    for p, cache in zip(params["layers"], caches):
-        h, (k, v) = attention(p["attn"], rms_norm(x, p["ln1"]), positions,
-                              cfg, return_kv=True)
+    for p, cache, win in zip(params["layers"], caches, layer_windows(cfg)):
+        h, (k, v) = attention(p["attn"], norm(x, p["ln1"], cfg), positions,
+                              cfg, window=win, return_kv=True)
         x = _ffn(p, x + h, cfg)
         new_caches.append(write_prefill_kv(cache, k, v, lengths))
     return logits_from_hidden(params, x, cfg), new_caches
@@ -113,8 +141,10 @@ def prefill_step(params: Params, tokens: torch.Tensor, caches: list,
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                        device) -> list:
-    return [empty_kv_cache(cfg, batch, max_len, dtype, device)
-            for _ in range(cfg.num_layers)]
+    """A cache a layer: ``max_len`` slots, a ring of the window for a
+    sliding-window layer."""
+    return [empty_kv_cache(cfg, batch, max_len, win, dtype, device)
+            for win in layer_windows(cfg)]
 
 
 def decode_step(params: Params, token: torch.Tensor, caches: list,
@@ -122,9 +152,9 @@ def decode_step(params: Params, token: torch.Tensor, caches: list,
     """One decode step; returns (logits (B, 1, V), new caches)."""
     x = embed_tokens(params, token, cfg)
     new_caches = []
-    for p, cache in zip(params["layers"], caches):
-        h, nc = attention_decode(p["attn"], rms_norm(x, p["ln1"]), cache,
-                                 cfg)
+    for p, cache, win in zip(params["layers"], caches, layer_windows(cfg)):
+        h, nc = attention_decode(p["attn"], norm(x, p["ln1"], cfg), cache,
+                                 cfg, window=win)
         x = _ffn(p, x + h, cfg)
         new_caches.append(nc)
     return logits_from_hidden(params, x, cfg), new_caches

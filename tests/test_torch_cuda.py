@@ -1920,3 +1920,47 @@ def test_quant_linear_int_fwd_paper_shapes(card, k, n, m, bits):
                 pqs.quant_linear_int_fwd(frozen, x, cfg)
     torch.cuda.synchronize()
     assert rec.plain_errors(torch) == (0, 12)
+
+
+# (N, K) of gemma3-12b's projection sites: wq, wk / wv, wo, w_gate / w_up,
+# w_out (K = 3840, 4096 and 15360; N = 2048 to 15360)
+GEMMA3_SITES = ((4096, 3840), (2048, 3840), (3840, 4096), (15360, 3840),
+                (3840, 15360))
+
+
+@pytest.mark.parametrize("n,k", GEMMA3_SITES)
+def test_rows_1_and_6_at_gemma3_sites(card, n, k):
+    """Rows 1 and 6 at decode (M = 4) under ``sorted_tiled_seq`` (16-bit
+    register, k_tile 256), 8:16 slabs: each equals its plain version, and
+    row 6 equals row 1 on the decompressed weight."""
+    x, w, vals, idx = _nm_w(4, k, n, 8, 16, n + k, card)
+    kw = dict(policy="sorted_tiled_seq", acc_bits=16, k_tile=256)
+    dense = sm.seq_policy_matmul(x, w, **kw)
+    gather = nm_spmm.nm_gather_seq_policy_matmul(x, vals, idx, m_group=16,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, sm.seq_policy_matmul_ref(x, w, **kw))
+    assert torch.equal(gather, nm_spmm.nm_gather_seq_policy_matmul_ref(
+        x, vals, idx, m_group=16, **kw))
+    assert torch.equal(gather, dense)
+
+
+def test_row_1_at_qwen3_head(card):
+    """Row 1 at qwen3-32b's untied head (N = 151936, K = 5120, M = 4): the
+    grid's far end included. Each output reads only its own weight row, so
+    the first and last 2048 columns are held against the plain version on
+    those rows alone."""
+    n, k = 151936, 5120
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randint(-128, 128, (4, k), generator=g, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=card,
+                      dtype=torch.int8)
+    x[0] = 127
+    w[0] = 127
+    kw = dict(policy="sorted_tiled_seq", acc_bits=16, k_tile=256)
+    got = sm.seq_policy_matmul(x, w, **kw)
+    torch.cuda.synchronize()
+    for cols in (slice(0, 2048), slice(n - 2048, n)):
+        assert torch.equal(got[:, cols], sm.seq_policy_matmul_ref(
+            x, w[cols].contiguous(), **kw)), cols
