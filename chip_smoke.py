@@ -83,21 +83,22 @@ imports nothing of JAX or of the JAX package. Phases:
 3b. the same model served from N:M compressed storage
    (``nm_compress_tree``): every projection through the gather kernel,
    none through the dense one, and the same tokens as phase 3;
-3c. the model of phase 3 served under ``sorted_tiled``: 168
-   ``sort_matmul``, 28 ``tile_sums_matmul`` and 28 ``paired_accum_matmul``
-   launches a step (one-pass at K = 1536, two-pass at w_out's K = 8960);
-3d. and under ``sorted``: 168 ``sort_matmul`` and 28
+3c. the model of phase 3 cut to ``SORT_SERVE_LAYERS`` (14) layers, served
+   under ``sorted_tiled``: 84 ``sort_matmul``, 14 ``tile_sums_matmul`` and
+   14 ``paired_accum_matmul`` launches a step (one-pass at K = 1536,
+   two-pass at w_out's K = 8960);
+3d. and under ``sorted``: 84 ``sort_matmul`` and 14
    ``chunked_sort_matmul`` launches a step;
-3e. the compressed model of phase 3b under ``sorted_tiled``: 168
-   ``nm_gather_sort_matmul``, 28 ``nm_gather_tile_sums`` and 28
+3e. the compressed 14-layer model under ``sorted_tiled``: 84
+   ``nm_gather_sort_matmul``, 14 ``nm_gather_tile_sums`` and 14
    ``nm_gather_paired_accum_matmul`` launches a step, the tokens of 3c;
-3f. and under ``sorted``: 168 ``nm_gather_sort_matmul`` and 28
+3f. and under ``sorted``: 84 ``nm_gather_sort_matmul`` and 14
    ``nm_gather_chunked_sort_matmul`` launches a step, the tokens of 3d;
-3g. the compressed model with ``nm_impl="expand"`` under ``sorted_tiled``:
-   168 ``nm_sort_matmul``, 28 ``nm_tile_sums_matmul`` and 28
-   ``nm_paired_accum_matmul`` launches a step, no gather kernel, the
+3g. the compressed 14-layer model with ``nm_impl="expand"`` under
+   ``sorted_tiled``: 84 ``nm_sort_matmul``, 14 ``nm_tile_sums_matmul`` and
+   14 ``nm_paired_accum_matmul`` launches a step, no gather kernel, the
    tokens of 3c (and so of 3e);
-3h. and under ``sorted``: 168 ``nm_sort_matmul`` and 28
+3h. and under ``sorted``: 84 ``nm_sort_matmul`` and 14
    ``nm_chunked_sort_matmul`` launches a step, the tokens of 3d and 3f;
 3j. the compressed model with ``nm_impl="expand"`` under
    ``sorted_tiled_seq``: 196 ``nm_seq_policy_matmul`` launches a step (row
@@ -129,7 +130,8 @@ imports nothing of JAX or of the JAX package. Phases:
 4b. at 1 layer (``PARITY_LAYERS``; 2 until the paper phases joined the
    run) under ``sorted_tiled`` and ``sorted``: the dense kernels,
    their plain versions and the compressed weights through the expand
-   kernels give identical tokens (4 new ones) and decode logits;
+   kernels give identical tokens (2 new ones; 4 until phase 8 joined)
+   and decode logits;
 4c. the torch quickstart (``repro_torch.quickstart.run``) on the card:
    it launches ``quant_matmul`` (on its TMA-fed body), ``nm_spmm`` and
    ``seq_policy_matmul``,
@@ -205,7 +207,22 @@ imports nothing of JAX or of the JAX package. Phases:
    alone beside its bound;
 7c. command-r-35b at full width and 1 layer (layer norm, tied vocab
    256000): 7 launches a step, layer 0's dots equal their plain versions
-   on their first and last 1024 outputs, the tied head's dequantize.
+   on their first and last 1024 outputs, the tied head's dequantize;
+8a. granite-moe-3b at its published widths (40 experts, top-8, expert
+   d_ff 512), cut to 4 layers, dense (row 1) and compressed (row 6): 16
+   launches a step (the attention; the experts are float einsums on the
+   dequantized stack), the same tokens and logits from both storages,
+   the prefill's and one decode's dots at layers 0 and 3 equal to plain,
+   layer 0's ``moe_ffn`` against the dropless ``moe_ffn_dense`` on the
+   card; the experts' bytes and dequantize ms a layer; rows 1 and 6 timed
+   at its 4 sites;
+8b. mamba2-2.7b at its published widths, cut to 4 layers, dense and
+   compressed, with a 1000-token prompt (a 4096-row prefill of 4 SSD
+   chunks of 256): 8 launches a step (in_proj N = 10576, out_proj),
+   per-layer ``ssd`` / ``conv`` caches, the same tokens and logits, the
+   dots held against plain, and layer 0's chunked ``mamba_forward`` over
+   the long prompt against 1000 ``mamba_step`` calls; rows 1 and 6 timed
+   at its 2 sites.
 
 Each phase's line ends with the device memory still held and its peak.
 The last six lines are a JSON ``guardrails``
@@ -213,8 +230,9 @@ record (the s a decode
 step and the prefill s of 3, 3k and 3l-3n, the census's device ms, the
 host s of certification), the JSON ``paper`` record (6a's training,
 evaluation and census times and 6b's step times, peak memory and
-certification), the JSON ``families`` record (7a-7c's s a decode step,
-prefill s, 2-step profiles and head times), the JSON ``kernels`` record,
+certification), the JSON ``families`` record (7a-8b's s a decode step,
+prefill s, 2-step profiles, head and experts times), the JSON ``kernels``
+record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero without that last line. ``--only 2c,3l`` runs just the
 phases named after the build (a partial run prints no record).
@@ -2160,15 +2178,16 @@ def phase_pass1_kernels(torch, ss, seed):
 
 # depth of phase 4b, cut from 2 to keep the run inside its time limit
 PARITY_LAYERS = 1
+SORT_SERVE_LAYERS = 14  # 3c-3h: half of qwen2-1.5b's 28 layers
 
 
-def phase_sort_parity(torch, counters, cfg, seed, new_tokens=4):
+def phase_sort_parity(torch, counters, cfg, seed, new_tokens=2):
     """``PARITY_LAYERS`` at full width under ``sorted_tiled`` and under
     ``sorted`` (one layer holds both routes: one-pass at the six K = 1536
     sites, two-pass at w_out):
     the dense kernels, their plain versions and the compressed weights
     through the expand kernels (which must launch, and no gather kernel)
-    give the same tokens (4 new ones each: the plain ``sorted`` path walks
+    give the same tokens (2 new ones each: the plain ``sorted`` path walks
     16384 saturating adds in Python at w_out) and the same decode
     logits."""
     from repro_torch.core.qtensor import nm_compress_tree
@@ -3581,6 +3600,343 @@ def phase_command_r(torch, counters, seed):
         torch, built[1]["embed"]))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE family (8a, granite-moe-3b) and the SSM family (8b,
+# mamba2-2.7b) at their published widths
+# ---------------------------------------------------------------------------
+
+FAMILY8_LAYERS = 4  # both cut from their published depth (32, 64)
+MAMBA_LONG = (1000, 40)  # a 1024 bucket: 4 SSD chunks of 256 at prefill
+MOE_REL_TOL = 0.02  # moe_ffn against moe_ffn_dense in bfloat16, of max |ref|
+SSD_OUT_REL_TOL = 0.02  # chunked against stepwise outputs (bfloat16)
+SSD_STATE_REL_TOL = 1e-3  # and the float32 states, of max |ref|
+
+
+class CallRecorder:
+    """Inside the context every call of ``getattr(owner, name)`` is kept
+    with its arguments; the calls run unchanged."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+
+        def call(*args, **kw):
+            self.calls.append((args, kw))
+            return self.orig(*args, **kw)
+
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def family_sites_timing(torch, sm, nm, sites, seed):
+    """Rows 1 and 6 at a family's projection sites (name -> (N, K)) at
+    decode (M = 4), ``sorted_tiled_seq`` at 16 bits, k_tile 256, 8:16:
+    each kernel (mean of 10) beside its plain version (1) and bound.
+    Returns {kernel: rows}."""
+    flush_buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+    kw = dict(policy="sorted_tiled_seq", acc_bits=16, rounds=1, k_tile=256)
+    m, out = 4, {"seq_policy_matmul": [], "nm_gather_seq_policy_matmul": []}
+    for i, (site, (n, k)) in enumerate(sites.items()):
+        x, w, vals, idx = nm_operands(torch, m, n, k, seed + i)
+        kept = vals.numel()
+        for name, fn, ref, args, nbytes, prods in (
+                ("seq_policy_matmul", sm.seq_policy_matmul,
+                 sm.seq_policy_matmul_ref, (x, w), n * k, n * k),
+                ("nm_gather_seq_policy_matmul",
+                 lambda *a, **k2: nm.nm_gather_seq_policy_matmul(
+                     *a, m_group=M_GROUP, **k2),
+                 lambda *a, **k2: nm.nm_gather_seq_policy_matmul_ref(
+                     *a, m_group=M_GROUP, **k2),
+                 (x, vals, idx), 5 * kept, kept)):
+            ms = time_launches(torch, lambda: fn(*args, **kw), 10, flush_buf)
+            plain = time_launches(torch, lambda: ref(*args, **kw), 1,
+                                  flush_buf)
+            row = dict(site=site, ms=ms, plain_ms=plain, **bound_row(
+                m, n, prods // n, m * k + nbytes + 4 * m * n))
+            out[name].append(row)
+            print(f"  time {name} {site} M={m} N={n} K={k}: kernel {ms:.4f} "
+                  f"ms, plain {plain:.2f} ms, bound {row['bound_ms']:.5f} "
+                  "ms", flush=True)
+    return out
+
+
+def dequantize_ms(torch, leaves):
+    """Host ms (to synchronize) of dequantizing ``leaves`` to bfloat16,
+    mean of 3 after one."""
+    from repro_torch.core.qtensor import asarray
+
+    def run():
+        for leaf in leaves:
+            asarray(leaf, torch.bfloat16)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 3 * 1e3
+
+
+def family8_serves(torch, counters, cfg, seed, model, params, sparse, reqs,
+                   max_len, per_step, layers, check_caches=None):
+    """Serve ``reqs`` from dense (row 1) and compressed (row 6) storage
+    with the launch gate of ``family_serve``; step 1's prefill dots of
+    ``layers`` held against plain on their first and last
+    ``PREFILL_ROWS`` rows; a 2-step profile; the same tokens from both.
+    Returns the records by storage."""
+    from repro_torch.core import dispatch
+
+    out, tokens = {}, {}
+    for compressed, p in ((False, params), (True, sparse)):
+        storage = "compressed" if compressed else "dense"
+        rec = DotRecorder(dispatch)
+        eng, tokens[storage], run = family_serve(
+            torch, counters, cfg, seed, (model, p), reqs(), max_len,
+            compressed, per_step, first=rec)
+        if check_caches is not None:
+            check_caches(eng)
+        t = time.perf_counter()
+        m = [c[0].numel() // c[0].shape[-1] for c in rec.calls]
+        prefill = [i for i, rows in enumerate(m) if rows > 4]
+        if len(prefill) != per_step or len({m[i] for i in prefill}) != 1:
+            raise AssertionError(f"step 1's dots at rows {m}: not one "
+                                 f"prefill pass of {per_step}")
+        rows = m[prefill[0]]
+        err, n = rec.plain_errors(torch, rows=PREFILL_ROWS, calls=[
+            prefill[i] for i in layers])
+        del rec
+        print(f"  the prefill's {n} dots of layers 0 and "
+              f"{cfg.num_layers - 1} (M = {rows}) on rows 0-"
+              f"{PREFILL_ROWS - 1} and {rows - PREFILL_ROWS}-{rows - 1} "
+              f"against their plain versions: max |diff| {err}", flush=True)
+        if err:
+            raise AssertionError(f"{storage}: a prefill dot differs from its "
+                                 f"plain version by {err}")
+        run.update(prefill_rows=rows, prefill_plain_held=n,
+                   prefill_checks_s=time.perf_counter() - t,
+                   profile=profile_decode(torch, eng, cfg.vocab_size))
+        out[storage] = run
+        del eng
+    if tokens["compressed"] != tokens["dense"]:
+        raise AssertionError(f"tokens differ: {tokens}")
+    print(f"  the same tokens from both storages; request 0 "
+          f"{tokens['dense'][0]}", flush=True)
+    check_logits(torch, model, cfg, seed, (
+        ("dense", params, dict(policy="sorted_tiled_seq")),
+        ("compressed", sparse, dict(policy="sorted_tiled_seq"))))
+    for storage, p in (("dense", params), ("compressed", sparse)):
+        held_decode(torch, model, p, cfg, seed, per_step,
+                    f"{storage}, one decode step, layers 0 and "
+                    f"{cfg.num_layers - 1}", calls=layers)
+    return out
+
+
+def phase_granite_moe(torch, counters, sm, nm, seed):
+    """8a: granite-moe-3b at its published widths (d 1536, 24 x 64 heads,
+    8 KV heads, 40 experts top-8 of d_ff 512 in every layer, tied vocab
+    49155), cut to ``FAMILY8_LAYERS`` layers, random seeded weights,
+    8:16-pruned int8 (the experts quantized per matrix, a scale per expert
+    column; the router float), served on 4 slots under
+    ``sorted_tiled_seq`` from dense storage (row 1) and compressed storage
+    (row 6): 4 prompts of 20-32 tokens, 16 new each. Gates: 4 x 4
+    launches a step of the storage's kernel and no other (the experts are
+    float einsums on the dequantized stack, as in the JAX package); the
+    same tokens from both storages and one decode's logits bit for bit;
+    every ``pqs_dot`` of one decode step and of the prefill's first and
+    last rows at layers 0 and 3 equal to plain; layer 0's ``moe_ffn`` on
+    one decode's input: its dispatch buffer holds each token in slot 0 of
+    its routed experts and zeros elsewhere, and its output is within
+    ``MOE_REL_TOL`` of the dropless ``moe_ffn_dense``'s largest
+    magnitude. Prints the experts' bytes and dequantize ms a layer
+    (each storage) and the tied head's. Returns the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.core.qtensor import QTensor, asarray, nm_compress_tree
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import cast_for_compute
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              num_layers=FAMILY8_LAYERS)
+    t0 = time.perf_counter()
+    model, params = model_params(cfg, seed, compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    experts = [layer["moe"][k] for layer in params["layers"]
+               for k in ("w_gate", "w_up", "w_out")]
+    codes = sum(e.values.numel() for e in experts)
+    copies = sum(e.values_t.numel() for e in experts
+                 if isinstance(e, QTensor) and e.values_t is not None)
+    print(f"  init, quantize and compress: {init_s:.1f} s; the experts' "
+          f"int8 codes {codes / 2**30:.3f} GiB, transposed copies "
+          f"{copies / 2**30:.3f} GiB; embed {type(params['embed']).__name__}"
+          f" in both trees", flush=True)
+    if copies or not isinstance(sparse["embed"], QTensor):
+        raise AssertionError("expert stacks keep a transposed copy, or the "
+                             "unprunable tied table was compressed")
+    per_step = 4 * cfg.num_layers
+    layers = list(range(4)) + list(range(per_step - 4, per_step))
+    out = {"init_s": init_s, "expert_code_bytes": codes,
+           "expert_copy_bytes": copies}
+    out.update(family8_serves(
+        torch, counters, cfg, seed, model, params, sparse,
+        lambda: family_requests(cfg, seed, 16), 64, per_step, layers))
+    # layer 0's MoE on one decode's input: the grouped dispatch's buffer
+    # against the routing, its output against the dropless oracle
+    with CallRecorder(moe_lib, "moe_ffn") as rec:
+        decode_logits(torch, model, params, cfg, seed,
+                      dict(policy="sorted_tiled_seq"))
+    x = next(a[1] for a, _ in rec.calls if a[1].shape[0] == 4)
+    p0 = cast_for_compute(params, cfg)["layers"][0]["moe"]
+    with CallRecorder(moe_lib, "_experts") as experts_in, torch.no_grad():
+        got, _ = moe_lib.moe_ffn(p0, x, cfg, cfg.moe)
+        want, _ = moe_lib.moe_ffn_dense(p0, x, cfg, cfg.moe)
+        idx = moe_lib.route(x, asarray(p0["router"], torch.float32),
+                            cfg.moe)[0]
+    torch.cuda.synchronize()
+    # one token a group: each of its k distinct experts takes it in slot 0
+    buf = experts_in.calls[0][0][1]  # (G, E, C, d)
+    expect = torch.zeros_like(buf)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    expect[rows, idx[:, 0], 0] = x[:, 0, None]
+    placed = torch.equal(buf, expect)
+    diff = float((got.float() - want.float()).abs().max())
+    ref = float(want.float().abs().max())
+    print(f"  layer 0's moe_ffn at decode (x {tuple(x.shape)}, buffer "
+          f"{tuple(buf.shape)}): each token in slot 0 of its "
+          f"{cfg.moe.top_k} routed experts and zeros elsewhere {placed}; "
+          f"against moe_ffn_dense max |diff| {diff:.5f} of max |ref| "
+          f"{ref:.4f}", flush=True)
+    if not placed or not diff <= MOE_REL_TOL * ref:
+        raise AssertionError("moe_ffn's dispatch misplaces a token, or its "
+                             "output differs from moe_ffn_dense")
+    out.update(moe_vs_dense=dict(max_abs_diff=diff, ref_max=ref,
+                                 rel_tol=MOE_REL_TOL))
+    out["experts_dequantize_ms_a_layer"] = {
+        storage: dequantize_ms(torch, [tree["layers"][0]["moe"][k] for k in (
+            "w_gate", "w_up", "w_out")])
+        for storage, tree in (("dense", params), ("compressed", sparse))}
+    print(f"  the experts' dequantize a layer (40 x 3 matrices of 1536 x 512 "
+          f"to bfloat16): {out['experts_dequantize_ms_a_layer']} ms",
+          flush=True)
+    out["head_dequantize_ms"] = table_dequantize_ms(torch, params["embed"])
+    out["sites"] = family_sites_timing(torch, sm, nm, {
+        "wq": (1536, 1536), "wk": (512, 1536), "wv": (512, 1536),
+        "wo": (1536, 1536)}, seed)
+    out["plain_held"] = len(layers)
+    return out
+
+
+def phase_mamba2(torch, counters, sm, nm, seed):
+    """8b: mamba2-2.7b at its published widths (d 2560, d_inner 5120, 80
+    heads x 64, d_state 128, conv 4, tied vocab 50280), cut to
+    ``FAMILY8_LAYERS`` layers, random seeded weights, 8:16-pruned int8,
+    served on 4 slots under ``sorted_tiled_seq`` from dense storage (row
+    1) and compressed storage (row 6): three prompts of 20-32 tokens (16
+    new) and one of 1000 (40 new), a 1024 bucket, so the prefill runs 4
+    SSD chunks of 256 and decode starts from a multi-chunk state. Gates: 2
+    x 4 launches a step of the storage's kernel and no other (in_proj N =
+    10576, out_proj K = 5120); per-layer caches ``ssd`` (4, 80, 64, 128)
+    float32 and ``conv`` (4, 3, 5376); the same tokens and one decode's
+    logits bit for bit from both storages; every ``pqs_dot`` of one decode
+    step at layers 0 and 3 equal to plain (all of in_proj's outputs), and
+    of the prefill (M = 4096) on its first and last rows; layer 0's
+    chunked ``mamba_forward`` over the 1000-token prompt against 1000
+    ``mamba_step`` calls in float (the projections dequantized): outputs
+    within ``SSD_OUT_REL_TOL`` and final states within
+    ``SSD_STATE_REL_TOL`` of their largest magnitude, the conv rings
+    equal. Returns the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import QTensor, asarray, nm_compress_tree
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.layers import norm
+    from repro_torch.models.model import cast_for_compute
+    from repro_torch.models.transformer import embed_tokens
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              num_layers=FAMILY8_LAYERS)
+    dims = ssm_lib.ssm_dims(cfg)
+    t0 = time.perf_counter()
+    model, params = model_params(cfg, seed, compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"  init, quantize and compress: {init_s:.1f} s; dims {dims}",
+          flush=True)
+    if not isinstance(sparse["embed"], QTensor):
+        raise AssertionError("the unprunable tied table was compressed")
+    per_step = 2 * cfg.num_layers
+    layers = [0, 1, per_step - 2, per_step - 1]
+    want = [((4, dims["nheads"], cfg.ssm.head_dim, cfg.ssm.d_state),
+             torch.float32), ((4, cfg.ssm.d_conv - 1, dims["d_xbc"]),
+                              torch.float32)]
+
+    def check_caches(eng):
+        got = [[(tuple(c[k].shape), c[k].dtype) for k in ("ssd", "conv")]
+               for c in eng.caches]
+        print(f"  caches a layer {got[0]}", flush=True)
+        if any(g != want for g in got) or len(got) != cfg.num_layers:
+            raise AssertionError(f"caches {got} != {want} a layer")
+
+    out = {"init_s": init_s}
+    out.update(family8_serves(
+        torch, counters, cfg, seed, model, params, sparse,
+        lambda: family_requests(cfg, seed, 16, MAMBA_LONG), sum(MAMBA_LONG),
+        per_step, layers, check_caches))
+    # layer 0, chunked against stepwise, in float on the long prompt
+    t = time.perf_counter()
+    long = family_requests(cfg, seed, 16, MAMBA_LONG)[3].prompt
+    n = len(long)
+    toks = torch.zeros((1, 1024), dtype=torch.int32, device="cuda")
+    toks[0, :n] = torch.from_numpy(long).to("cuda")
+    cp = cast_for_compute(params, cfg)
+    lp = dict(cp["layers"][0]["mamba"])
+    for k in ("in_proj", "out_proj"):  # lin's float path, dequantized once
+        lp[k] = asarray(lp[k], torch.bfloat16)
+    with torch.no_grad():
+        x = norm(embed_tokens(cp, toks, cfg), cp["layers"][0]["ln"], cfg)
+        full, cache = ssm_lib.mamba_forward(
+            lp, x, cfg, lengths=torch.tensor([n], device="cuda"))
+        step = ssm_lib.empty_ssm_cache(cfg, 1, torch.float32, "cuda")
+        outs = []
+        for i in range(n):
+            o, step = ssm_lib.mamba_step(lp, x[:, i : i + 1], step, cfg)
+            outs.append(o)
+        outs = torch.cat(outs, 1)
+    torch.cuda.synchronize()
+    rec = {}
+    for key, a, b, tol in (("out", outs, full[:, :n], SSD_OUT_REL_TOL),
+                           ("ssd", step["ssd"], cache["ssd"],
+                            SSD_STATE_REL_TOL)):
+        diff = float((a.float() - b.float()).abs().max())
+        ref = float(b.float().abs().max())
+        rec[key] = dict(max_abs_diff=diff, ref_max=ref, rel_tol=tol)
+        if not diff <= tol * ref:
+            raise AssertionError(f"chunked {key} differs from stepwise by "
+                                 f"{diff} (max |ref| {ref})")
+    ring = torch.equal(step["conv"].float(), cache["conv"].float())
+    print(f"  layer 0 over the {n}-token prompt, {n // 256 + 1} chunks of "
+          f"256 against {n} mamba_step calls: outputs {rec['out']}, final "
+          f"state {rec['ssd']}, conv rings equal {ring}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if not ring:
+        raise AssertionError("the conv rings differ")
+    out.update(chunked_vs_stepwise=rec,
+               head_dequantize_ms=table_dequantize_ms(torch,
+                                                      params["embed"]),
+               sites=family_sites_timing(torch, sm, nm, {
+                   "in_proj": (dims["d_in_proj"], cfg.d_model),
+                   "out_proj": (cfg.d_model, dims["d_inner"])}, seed),
+               plain_held=len(layers))
+    return out
+
+
 def paper_records(paper, policies):
     """Row 1's or row 2's 6a sub-record: launches per evaluate_int call of
     each net under each of ``policies`` and the times at mlp2's hidden
@@ -3708,14 +4064,17 @@ def main() -> int:
         if "tokens" not in got:
             raise AssertionError("no dense tokens to compare: phase 3 failed")
 
+    # the global-sort serves (3c-3h) at SORT_SERVE_LAYERS of qwen2's 28
+    sort_cfg = dataclasses.replace(cfg, num_layers=SORT_SERVE_LAYERS)
+
     def sort_serve(policy):
         got[policy], _, got[policy + " tokens"], _ = phase_serve(
-            torch, counters, cfg, args.seed, SORT_PATHS[policy],
+            torch, counters, sort_cfg, args.seed, SORT_PATHS[policy],
             policy=policy)
 
     def nm_sort_serve(policy):
         got["nm " + policy] = phase_serve(
-            torch, counters, cfg, args.seed, NM_SORT_PATHS[policy],
+            torch, counters, sort_cfg, args.seed, NM_SORT_PATHS[policy],
             compressed=True, policy=policy,
             want_tokens=got.get(policy + " tokens"))[0]
         if policy + " tokens" not in got:
@@ -3725,7 +4084,7 @@ def main() -> int:
     def nm_expand_serve(policy):
         gather = "nm " + policy
         got["expand " + policy] = phase_serve(
-            torch, counters, cfg, args.seed, NM_EXPAND_PATHS[policy],
+            torch, counters, sort_cfg, args.seed, NM_EXPAND_PATHS[policy],
             compressed=True, policy=policy, nm_impl="expand",
             want_tokens=got.get(policy + " tokens"))[0]
         if policy + " tokens" not in got or gather not in got:
@@ -3784,18 +4143,20 @@ def main() -> int:
             census_err=phase_census(torch, args.seed))),
         ("[3] serve qwen2-1.5b", dense_serve),
         ("[3b] serve qwen2-1.5b from N:M compressed storage", nm_serve),
-        ("[3c] serve qwen2-1.5b under sorted_tiled",
+        ("[3c] serve qwen2-1.5b at 14 layers under sorted_tiled",
          lambda: sort_serve("sorted_tiled")),
-        ("[3d] serve qwen2-1.5b under sorted", lambda: sort_serve("sorted")),
-        ("[3e] serve qwen2-1.5b from N:M compressed storage under "
-         "sorted_tiled", lambda: nm_sort_serve("sorted_tiled")),
-        ("[3f] serve qwen2-1.5b from N:M compressed storage under sorted",
-         lambda: nm_sort_serve("sorted")),
-        ("[3g] serve qwen2-1.5b from N:M compressed storage with "
-         "nm_impl='expand' under sorted_tiled",
+        ("[3d] serve qwen2-1.5b at 14 layers under sorted",
+         lambda: sort_serve("sorted")),
+        ("[3e] serve qwen2-1.5b at 14 layers from N:M compressed storage "
+         "under sorted_tiled", lambda: nm_sort_serve("sorted_tiled")),
+        ("[3f] serve qwen2-1.5b at 14 layers from N:M compressed storage "
+         "under sorted", lambda: nm_sort_serve("sorted")),
+        ("[3g] serve qwen2-1.5b at 14 layers from N:M compressed storage "
+         "with nm_impl='expand' under sorted_tiled",
          lambda: nm_expand_serve("sorted_tiled")),
-        ("[3h] serve qwen2-1.5b from N:M compressed storage with "
-         "nm_impl='expand' under sorted", lambda: nm_expand_serve("sorted")),
+        ("[3h] serve qwen2-1.5b at 14 layers from N:M compressed storage "
+         "with nm_impl='expand' under sorted",
+         lambda: nm_expand_serve("sorted")),
         ("[3j] serve qwen2-1.5b from N:M compressed storage with "
          "nm_impl='expand' under sorted_tiled_seq",
          lambda: nm_seq_expand_serve("sorted_tiled_seq", "expand seq")),
@@ -3838,6 +4199,12 @@ def main() -> int:
         ("[7c] serve command-r-35b at full width, 1 layer (layer norm)",
          lambda: got.update(
              command_r=phase_command_r(torch, counters, args.seed))),
+        ("[8a] serve granite-moe-3b at full width, 4 layers (40 experts, "
+         "top-8), dense and compressed", lambda: got.update(
+             granite=phase_granite_moe(torch, counters, sm, nm, args.seed))),
+        ("[8b] serve mamba2-2.7b at full width, 4 layers (chunked SSD, conv "
+         "ring), dense and compressed", lambda: got.update(
+             mamba=phase_mamba2(torch, counters, sm, nm, args.seed))),
     ]
     only = args.only and set(args.only.split(","))
     for title, fn in phases:
@@ -3894,15 +4261,41 @@ def main() -> int:
         row1_paths[path], row1_paths[path + " by policy"] = path_launches(
             run, dense)
     gemma3, qwen3, command_r = got["gemma3"], got["qwen3"], got["command_r"]
+    granite, mamba = got["granite"], got["mamba"]
     for path, run in (("7a gemma3-12b, dense", gemma3["dense"]),
                       ("7b qwen3-32b", qwen3), ("7c command-r-35b",
-                                                command_r)):
+                                                command_r),
+                      ("8a granite-moe-3b, dense", granite["dense"]),
+                      ("8b mamba2-2.7b, dense", mamba["dense"])):
         row1_paths[path] = run["launches"][dense]
     row5_paths = {"3j sorted_tiled_seq": got["expand seq"][expand],
                   "3k wide": got["expand wide"][expand]}
     row6_paths = {"3b sorted_tiled_seq": got["nm_launches"][gather],
                   "7a gemma3-12b, compressed":
-                      gemma3["compressed"]["launches"][gather]}
+                      gemma3["compressed"]["launches"][gather],
+                  "8a granite-moe-3b, compressed":
+                      granite["compressed"]["launches"][gather],
+                  "8b mamba2-2.7b, compressed":
+                      mamba["compressed"]["launches"][gather]}
+
+    def family8_sites(name):
+        """Row 1's or row 6's sub-records at 8a's and 8b's sites."""
+        return {key: kernel_record(
+            name, csrc + ("seq_policy_matmul.cu" if name == dense
+                          else "nm_seq_policy_matmul.cu"),
+            "src/repro/kernels/sorted_matmul.py:155" if name == dense
+            else "src/repro/kernels/nm_spmm.py:381", run["sites"][name],
+            work=f"the {len(run['sites'][name])} projection sites of one "
+                 f"{what} layer at decode (M=4), acc_bits 16, k_tile 256"
+                 + ("" if name == dense else ", 8:16 compressed slabs"),
+            launches_per_step=served["launches"][name] // served["steps"],
+            by_site={r["site"]: {k: r[k] for k in ("ms", "plain_ms",
+                                                   "bound_ms")}
+                     for r in run["sites"][name]})
+            for key, run, what in (("8a_granite_moe_3b", granite,
+                                    "granite-moe-3b"),
+                                   ("8b_mamba2_2_7b", mamba, "mamba2-2.7b"))
+            for served in [run["dense" if name == dense else "compressed"]]}
     for paths, name in ((row5_paths, expand), (row6_paths, gather)):
         paths["3m census-watched"], paths["3m census-watched by policy"] = \
             path_launches(got["3m"], name)
@@ -3937,10 +4330,12 @@ def main() -> int:
                 bound_by="bytes" if qwen3["head"]["bytes_ms"]
                 >= qwen3["head"]["ops_ms"] else "operations",
                 **qwen3["head"]),
+            families=family8_sites(dense),
             path="phases 3, 3l (degraded sites: wide) and 3n (certified: "
                  "wide), dense storage; 6a (the paper nets' clip and wide); "
                  "7a-7c (gemma3-12b, qwen3-32b with its head, "
-                 "command-r-35b), dense storage"),
+                 "command-r-35b) and 8a-8b (granite-moe-3b's attention, "
+                 "mamba2-2.7b's projections), dense storage"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
@@ -3956,8 +4351,10 @@ def main() -> int:
                 "7 projection sites of one qwen2-1.5b layer at a prefill "
                 "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
                 "256"),
-            path="phases 3b and 3m (the undegraded sites) and 7a "
-                 "(gemma3-12b), compressed storage"),
+            families=family8_sites(gather),
+            path="phases 3b and 3m (the undegraded sites), 7a "
+                 "(gemma3-12b) and 8a-8b (granite-moe-3b, mamba2-2.7b), "
+                 "compressed storage"),
         kernel_record(
             "nm_seq_policy_matmul", csrc + "nm_expand_seq.cu",
             "src/repro/kernels/nm_spmm.py:182",
@@ -4253,7 +4650,11 @@ def main() -> int:
             "dots_held_against_plain": gemma3["plain_held"],
             **{storage: gemma3[storage] for storage in ("dense",
                                                         "compressed")}},
-        "7b qwen3-32b": qwen3, "7c command-r-35b": command_r}}))
+        "7b qwen3-32b": qwen3, "7c command-r-35b": command_r,
+        **{name: {"layers": FAMILY8_LAYERS, **{
+            k: v for k, v in run.items() if k != "sites"}}
+           for name, run in (("8a granite-moe-3b", granite),
+                             ("8b mamba2-2.7b", mamba))}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

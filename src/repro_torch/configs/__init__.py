@@ -4,13 +4,20 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+)
 
 _REGISTRY = {
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma3-12b": "gemma3_12b",
     "qwen3-32b": "qwen3_32b",
     "command-r-35b": "command_r_35b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 ARCH_IDS = list(_REGISTRY)

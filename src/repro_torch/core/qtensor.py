@@ -3,11 +3,13 @@ of ``repro.core.qtensor``.
 
 The public layout is the JAX package's. A dense ``QTensor`` keeps
 ``values`` (in, out) int8, the layout of the float weight it replaces;
-the integer dot consumes the weight as (out, in) rows, so each QTensor
-also keeps a contiguous ``values_t`` copy, made once when the QTensor is
-built instead of a transpose and copy on every call. A ``SparseQTensor``
-keeps the compressed slabs (out, G, n_keep) that the N:M kernels stream
-(``core.pruning`` describes the format).
+the integer dot consumes the weight as (out, in) rows, so a 2-D QTensor
+(a projection) also keeps a contiguous ``values_t`` copy, made once when
+the QTensor is built instead of a transpose and copy on every call. A
+stack of matrices (an MoE layer's experts, (E, in, out)) is only ever
+dequantized, so it keeps none. A ``SparseQTensor`` keeps the compressed
+slabs (out, G, n_keep) that the N:M kernels stream (``core.pruning``
+describes the format).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ class QTensor:
     act_qparams: optional calibrated static input-activation QParams.
     act_corr: with asymmetric act_qparams, the Eq. (3) correction
         o_x * sum_k w_k^q per output channel (int32).
-    values_t: (..., out, in) contiguous int8 copy of ``values``.
+    values_t: (out, in) contiguous int8 copy of 2-D ``values``; None for
+        a stack, which no integer dot reads.
     """
 
     values: torch.Tensor
@@ -43,7 +46,7 @@ class QTensor:
     def __post_init__(self):
         # a 1-D QTensor is one layer's row of a quantized layer-stacked
         # vector (quantize_tree); it has no (out, in) form
-        if self.values_t is None and self.values.ndim >= 2:
+        if self.values_t is None and self.values.ndim == 2:
             self.values_t = self.values.transpose(-1, -2).contiguous()
 
     @property
@@ -55,7 +58,12 @@ class QTensor:
         return self.values.ndim
 
     def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
-        return (self.values.to(torch.float32) * self.scale).to(dtype)
+        """(..., in, out) in ``dtype``: each column times its scale, a
+        stack's matrix by matrix (scale (..., out)), elementwise what
+        ``SparseQTensor.dequant`` gives for the same codes."""
+        scale = self.scale[..., None, :] if self.values.ndim >= 2 \
+            else self.scale  # a 1-D row: (out,) codes, (out,) scale
+        return (self.values.to(torch.float32) * scale).to(dtype)
 
 
 @dataclasses.dataclass

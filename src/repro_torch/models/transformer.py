@@ -1,10 +1,13 @@
 """Decoder-only LM: forward, one-shot prefill, KV-cache decode and the LM
-loss; torch port of ``repro.models.transformer`` for the dense family.
+loss; torch port of ``repro.models.transformer`` for the dense and MoE
+families.
 
 The JAX package stacks layer params (L, ...) and scans them; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python loop,
 and decode caches are a per-layer list of {"k", "v", "pos"} dicts, a
-sliding-window layer's a ring of its window (``layer_windows``).
+sliding-window layer's a ring of its window (``layer_windows``). With
+``cfg.moe`` every layer's FFN is a routed MoE layer (``models.moe``): the
+grouped dispatch in forward and decode, one group a token in prefill.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor, SparseQTensor, asarray
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     Params,
     attention,
@@ -32,12 +36,16 @@ from repro_torch.models.layers import (
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    return {
+    p: Params = {
         "ln1": norm_init(cfg.d_model, device),
         "attn": attn_init(gen, cfg, device),
         "ln2": norm_init(cfg.d_model, device),
-        "mlp": mlp_init(gen, cfg, device),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_init(gen, cfg, cfg.moe, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -98,8 +106,19 @@ def logits_from_hidden(params: Params, x: torch.Tensor, cfg: ModelConfig):
     return lin(x, params["head"], site="head")
 
 
-def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + mlp(p["mlp"], norm(x, p["ln2"], cfg), cfg)
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str
+         ) -> tuple[torch.Tensor, Any]:
+    """The residual FFN of a layer: (x + ffn(norm(x)), the MoE aux loss, 0
+    for a dense layer). ``mode`` picks the MoE dispatch: ``"prefill"``
+    routes every token in its own group (``moe_ffn_per_token``), so it
+    drops no token that decode would keep; ``"forward"`` and ``"decode"``
+    take the grouped capacity buffer (``moe_ffn``)."""
+    h = norm(x, p["ln2"], cfg)
+    if cfg.moe is None:
+        return x + mlp(p["mlp"], h, cfg), 0.0
+    fn = moe_lib.moe_ffn_per_token if mode == "prefill" else moe_lib.moe_ffn
+    h, aux = fn(p["moe"], h, cfg, cfg.moe)
+    return x + h, aux
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -109,17 +128,19 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def forward(params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cfg: ModelConfig = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits, aux loss = 0)."""
+    """Full-sequence forward. Returns (logits, the MoE aux loss summed over
+    the layers and divided by their number; 0 for the dense family)."""
     b, s = tokens.shape[:2]
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = embed_tokens(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, win in zip(params["layers"], layer_windows(cfg)):
         x = x + attention(p["attn"], norm(x, p["ln1"], cfg), positions, cfg,
                           window=win)
-        x = _ffn(p, x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits_from_hidden(params, x, cfg), aux
+        x, a = _ffn(p, x, cfg, "forward")
+        aux = aux + a
+    return logits_from_hidden(params, x, cfg), aux / max(cfg.num_layers, 1)
 
 
 def prefill_step(params: Params, tokens: torch.Tensor, caches: list,
@@ -134,7 +155,7 @@ def prefill_step(params: Params, tokens: torch.Tensor, caches: list,
     for p, cache, win in zip(params["layers"], caches, layer_windows(cfg)):
         h, (k, v) = attention(p["attn"], norm(x, p["ln1"], cfg), positions,
                               cfg, window=win, return_kv=True)
-        x = _ffn(p, x + h, cfg)
+        x, _ = _ffn(p, x + h, cfg, "prefill")
         new_caches.append(write_prefill_kv(cache, k, v, lengths))
     return logits_from_hidden(params, x, cfg), new_caches
 
@@ -155,7 +176,7 @@ def decode_step(params: Params, token: torch.Tensor, caches: list,
     for p, cache, win in zip(params["layers"], caches, layer_windows(cfg)):
         h, nc = attention_decode(p["attn"], norm(x, p["ln1"], cfg), cache,
                                  cfg, window=win)
-        x = _ffn(p, x + h, cfg)
+        x, _ = _ffn(p, x + h, cfg, "decode")
         new_caches.append(nc)
     return logits_from_hidden(params, x, cfg), new_caches
 

@@ -1,9 +1,11 @@
 """Batched serving engine with dense cache lanes; torch port of
 ``repro.serving.engine``.
 
-``num_slots`` sequence slots share one batched KV cache (batch = slot
-axis). Requests are admitted into free slots, their prompts consumed by
-ONE batched prefill step per admission cohort (prompt length padded to a
+``num_slots`` sequence slots share one batched decode cache (batch =
+slot axis): the model's per-layer KV caches, or for the SSM family its
+per-layer {"ssd", "conv"} state, whose SSD state stays float32. Requests
+are admitted into free slots, their prompts consumed by ONE batched
+prefill step per admission cohort (prompt length padded to a
 power-of-two bucket), then all slots advance together by one decode step
 per token. Every step runs all ``num_slots`` rows, the idle ones
 included, and masks only the cache merge, as the JAX engine does: the
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import dispatch
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, cast_for_compute
 
 logger = logging.getLogger("repro_torch.serving")
 
@@ -127,7 +129,9 @@ class ServingEngine:
             raise ValueError(f"engine device {self.device} differs from "
                              f"the model's {model.device}")
         self.model = model
-        self.params = params
+        # the float leaves in the compute dtype once: the model's cast on
+        # every step then finds them cast and launches nothing
+        self.params = cast_for_compute(params, model.cfg)
         self.num_slots = num_slots
         self.max_len = max_len
         self.int_lin = int_lin

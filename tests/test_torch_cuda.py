@@ -1964,3 +1964,29 @@ def test_row_1_at_qwen3_head(card):
     for cols in (slice(0, 2048), slice(n - 2048, n)):
         assert torch.equal(got[:, cols], sm.seq_policy_matmul_ref(
             x, w[cols].contiguous(), **kw)), cols
+
+
+# (N, K) of mamba2-2.7b's in_proj (N = 10576 = 32 * 330 + 16: a partial
+# last output block) and out_proj, and granite-moe-3b's wk / wv
+MOE_SSM_SITES = ((10576, 2560), (2560, 5120), (512, 1536))
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("n,k", MOE_SSM_SITES)
+def test_rows_1_and_6_at_moe_ssm_sites(card, n, k, m):
+    """Rows 1 and 6 at decode (M = 4) and a prefill cohort (M = 128) under
+    ``sorted_tiled_seq`` (16-bit register, k_tile 256), 8:16 slabs: every
+    output equal to the plain version's (the ragged last block of
+    in_proj's N included), and row 6 equal to row 1 on the decompressed
+    weight."""
+    x, w, vals, idx = _nm_w(m, k, n, 8, 16, n + k + m, card)
+    kw = dict(policy="sorted_tiled_seq", acc_bits=16, k_tile=256)
+    dense = sm.seq_policy_matmul(x, w, **kw)
+    gather = nm_spmm.nm_gather_seq_policy_matmul(x, vals, idx, m_group=16,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert dense.shape == (m, n)
+    assert torch.equal(dense, sm.seq_policy_matmul_ref(x, w, **kw))
+    assert torch.equal(gather, nm_spmm.nm_gather_seq_policy_matmul_ref(
+        x, vals, idx, m_group=16, **kw))
+    assert torch.equal(gather, dense)

@@ -120,22 +120,20 @@ def _port_config(jcfg, **kw):
     return ModelConfig(**{**fields, **kw})
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
-                                  "jamba-v0.1-52b", "whisper-medium",
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-medium",
                                   "qwen2-vl-72b"])
 def test_validate_refuses_other_families(arch):
-    """moe, ssm, hybrid, encdec (whisper's family is audio) and vlm."""
+    """hybrid, encdec (whisper's family is audio) and vlm."""
     cfg = _port_config(jget_config(arch, smoke=True))
     with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
         cfg.validate()
 
 
 @pytest.mark.parametrize("field,value", [
-    ("moe", jget_config("granite-moe-1b-a400m").moe),
-    ("ssm", jget_config("mamba2-2.7b").ssm),
     ("is_encoder_decoder", True),
     ("mrope_sections", (2, 3, 1)),
-    ("input_is_embeddings", True)])
+    ("input_is_embeddings", True),
+    ("moe_local_groups", True)])
 def test_validate_refuses_features(field, value):
     """On a dense config each unported feature is refused by name."""
     cfg = _port_config(jget_config("qwen2-1.5b", smoke=True),
