@@ -125,13 +125,14 @@ imports nothing of JAX or of the JAX package. Phases:
    3j, 3c / 3e / 3g, 3d / 3f / 3h, and dense ``wide`` / 3k;
 4. the same engine at 1 layer, full width: the dense kernel and its
    plain version, and the compressed weights through the gather and the
-   expand kernel (the expand kernel's path), give identical tokens and
-   decode logits;
+   expand kernel (the expand kernel's path), give identical tokens (4
+   new ones to prompts of 5-8 tokens, ``parity_requests``; 16 to the
+   prompts of phase 3 until phase 9 joined) and decode logits;
 4b. at 1 layer (``PARITY_LAYERS``; 2 until the paper phases joined the
    run) under ``sorted_tiled`` and ``sorted``: the dense kernels,
    their plain versions and the compressed weights through the expand
-   kernels give identical tokens (2 new ones; 4 until phase 8 joined)
-   and decode logits;
+   kernels give identical tokens (2 new ones, to the prompts of phase 4
+   since phase 9 joined; 4 until phase 8 joined) and decode logits;
 4c. the torch quickstart (``repro_torch.quickstart.run``) on the card:
    it launches ``quant_matmul`` (on its TMA-fed body), ``nm_spmm`` and
    ``seq_policy_matmul``,
@@ -196,7 +197,7 @@ imports nothing of JAX or of the JAX package. Phases:
    layer's ring wraps. 42 launches a step of the storage's kernel and no
    other; the local layers' caches hold 1024 slots, the global one
    ``max_len``; every ``pqs_dot`` of the served prefill (4096 rows of x)
-   equal to its plain version on its first and last 4 rows; the same
+   equal to its plain version on its first and last 2 rows; the same
    tokens and one decode's logits bit for bit from both storages; every
    ``pqs_dot`` of one decode step at layers 0 and 5 equal to its plain
    version; a 2-step profile of each and the tied head's dequantize
@@ -222,7 +223,31 @@ imports nothing of JAX or of the JAX package. Phases:
    per-layer ``ssd`` / ``conv`` caches, the same tokens and logits, the
    dots held against plain, and layer 0's chunked ``mamba_forward`` over
    the long prompt against 1000 ``mamba_step`` calls; rows 1 and 6 timed
-   at its 2 sites.
+   at its 2 sites;
+9a. jamba-v0.1-52b at its published widths (16 experts top-2 of d_ff
+   14336, Mamba2 d_inner 8192, tied vocab 65536), cut to 5 layers, which
+   hold each layer kind of the published pattern (Mamba2 + MLP, Mamba2 +
+   MoE, attention + MLP), dense and compressed: the launches a step that
+   the layer kinds give (21), per-layer caches of each kind, the same
+   tokens and logits, one decode's dots at layers 0 and 4 and the
+   prefill's at layer 4 equal to plain; the experts' and the tied head's
+   dequantize ms; rows 1 and 6 timed at its 6 site shapes;
+9b. whisper-medium at its published widths and depth (24 + 24 layers):
+   the engine on its zero-encoder cross K/V (192 launches a step, the
+   same tokens from both storages), then the model bundle inside
+   ``integer_lin``: ``encode`` 4 clips of 1500 seeded frames, the cross
+   K/V, a prefill and 2 decodes, each pass's launches counted, the
+   encoder's dots at layers 0 and 23 on the first and last 4 frames and
+   one decode step's at layers 0 and 23 equal to plain, the logits bit
+   for bit across storages; rows 1 and 6 timed at its 3 site shapes;
+9c. qwen2-vl-72b at its published widths (M-RoPE (16, 24, 24), untied
+   head 152064), cut to 2 layers, through the model bundle (embedding
+   inputs): ``forward`` on 4 x 96 embeddings at distinct t / h / w
+   streams (an 8 x 8 image grid, then text), a prefill of 4 x 32 and 4
+   decodes, dense and compressed: 15 launches a pass, the forward's dots
+   of layers 0 and 1 on the first and last row and a decode's head
+   equal to plain, the logits bit for bit across storages; rows 1 and 6
+   timed at 3 of its site shapes (wq, w_gate and the head).
 
 Each phase's line ends with the device memory still held and its peak.
 The last six lines are a JSON ``guardrails``
@@ -230,7 +255,7 @@ record (the s a decode
 step and the prefill s of 3, 3k and 3l-3n, the census's device ms, the
 host s of certification), the JSON ``paper`` record (6a's training,
 evaluation and census times and 6b's step times, peak memory and
-certification), the JSON ``families`` record (7a-8b's s a decode step,
+certification), the JSON ``families`` record (7a-9c's s a decode step,
 prefill s, 2-step profiles, head and experts times), the JSON ``kernels``
 record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failed phase
@@ -881,25 +906,37 @@ def phase_serve(torch, counters, cfg, seed, expect, compressed=False,
 
 
 def profile_decode(torch, eng, vocab, span=None):
-    """Device time by kernel and host time by operator over two decode
-    steps of the served model (after the counted run), the device's busy
-    share of the wall, and the tied head's dequantize alone. Returns the
-    wall, device busy and PQS kernel ms, and the ms that the
-    ``record_function`` range ``span`` covers on the device's timeline."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """``profile_steps`` over two decode steps of the served model (after
+    the counted run: 4 new requests admitted and prefilled first), and the
+    tied head's dequantize alone. Returns the profile's record and the
+    head's ms."""
     from repro_torch.serving import Request
 
     for i, p in enumerate(prompts(4, 1, vocab)):
         eng.submit(Request(uid=100 + i, prompt=p, max_new_tokens=4))
     eng.step()  # admission, prefill and the first decode
     torch.cuda.synchronize()
+    out = profile_steps(torch, lambda: (eng.step(), eng.step()), span)
+    out["head_dequantize_ms"] = table_dequantize_ms(torch,
+                                                    eng.params["embed"])
+    while eng.step():
+        pass
+    return out
+
+
+def profile_steps(torch, run, span=None):
+    """Device time by kernel and host time by operator over ``run`` (two
+    decode steps), the device's busy share of the wall. Returns the wall,
+    device busy and PQS kernel ms, the ``cudaLaunchKernel`` calls, and the
+    ms that the ``record_function`` range ``span`` covers on the device's
+    timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
-        eng.step()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -960,12 +997,10 @@ def profile_decode(torch, eng, vocab, span=None):
         print(f"  span {span}: {sum(e.count for e in rows)} ranges, "
               f"{span_ms:.3f} ms from their first kernel's start to their "
               "last one's end on the device", flush=True)
-    head_ms = table_dequantize_ms(torch, eng.params["embed"])
-    while eng.step():
-        pass
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, pqs_ms=pqs_ms,
-                span_ms=span_ms, launch_calls=launch_calls,
-                head_dequantize_ms=head_ms)
+                span_ms=span_ms, launch_calls=launch_calls)
+
+
 
 
 def table_dequantize_ms(torch, emb):
@@ -986,12 +1021,27 @@ def table_dequantize_ms(torch, emb):
     return ms
 
 
+PARITY_NEW_TOKENS = 4  # phase 4's serves (16 until 9a-9c joined the run)
+
+
+def parity_requests(cfg, seed, new_tokens):
+    """4 greedy requests whose prompts are the first 5-8 tokens of
+    ``prompts``: phases 4 and 4b's plain versions prefill an 8-token bucket
+    (32 rows of x) instead of 32 tokens (128 rows)."""
+    from repro_torch.serving import Request
+
+    return [Request(uid=i, prompt=p[: 5 + i], max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts(4, seed, cfg.vocab_size))]
+
+
 def phase_parity(torch, counters, cfg, seed):
     """1 layer at full width (every site of the model; the depth is cut to
     keep the plain version's serve short): the dense kernel and its plain
     version, and the compressed weights through the gather and the expand
-    kernel, give the same tokens and decode logits; the expand serve must
-    launch the expand kernel at every site and the gather kernel never."""
+    kernel, give the same tokens (``parity_requests``,
+    ``PARITY_NEW_TOKENS`` new ones) and decode logits; the expand serve
+    must launch the expand kernel at every site and the gather kernel
+    never."""
     from repro_torch.core.qtensor import nm_compress_tree
 
     cfg1 = dataclasses.replace(cfg, num_layers=1)
@@ -1002,7 +1052,8 @@ def phase_parity(torch, counters, cfg, seed):
                      ("expand", dict(compressed=True, nm_impl="expand"))):
         reset(counters)
         t0 = time.perf_counter()
-        reqs, eng, _, _ = serve(torch, cfg1, seed, **kw)
+        reqs, eng, _, _ = serve(torch, cfg1, seed, reqs=parity_requests(
+            cfg1, seed, PARITY_NEW_TOKENS), **kw)
         outs[name] = [r.output for r in reqs]
         print(f"  1-layer serve, {name}: {time.perf_counter() - t0:.1f} s; "
               f"launches {dict((k, f.launches) for k, f in counters.items())}",
@@ -1413,6 +1464,7 @@ def phase_certified(torch, counters, cfg, seed):
     from repro_torch.core import certify
     from repro_torch.core.dispatch import IntegerLinConfig
     from repro_torch.core.qtensor import QTensor
+    from repro_torch.core.tree import LayerStack
     from repro_torch.serving import ServingEngine
 
     model, params = model_params(cfg, seed, compressed=False)
@@ -1479,7 +1531,7 @@ def phase_certified(torch, counters, cfg, seed):
     v.view(-1)[0] = c + 1 if c < 127 else c - 1
     mlp["w_up"] = QTensor(v, mlp["w_up"].scale)
     lay["mlp"] = mlp
-    tampered = {**params, "layers": [lay] + params["layers"][1:]}
+    tampered = {**params, "layers": LayerStack([lay] + params["layers"][1:])}
     try:
         ServingEngine(model, tampered, num_slots=4, max_len=128,
                       int_lin=IntegerLinConfig(certificate=cert))
@@ -1716,10 +1768,13 @@ def phase_sort_kernels(torch, sm, ss, seed):
 # kp regimes of the register-resident `sorted` body (csrc/pqs_accum.cuh
 # sorted_dot): padded to 64 keys, one warp, the first exchange across
 # warps, w_out's 16384 and 16 warps of 64 keys a lane
-SORTED_KP = (32, 64, 2048, 4096, 16384, 65536)
+# one kp or two of each regime: the register network on one warp (32, 64,
+# 2048), the radix body (4096; 16384 until 9a-9c joined the run) and the
+# register network on 16 warps (65536)
+SORTED_KP = (32, 64, 2048, 4096, 65536)
 # kp where the body also runs with no round (natural order): one of the
-# radix regime and the register network's 65536
-NO_ROUND_KP = (16384, 65536)
+# radix regime (and 65536 until 9a-9c joined the run)
+NO_ROUND_KP = (4096,)
 
 
 def sorted_rows(torch, m, k, n, seed):
@@ -2187,9 +2242,9 @@ def phase_sort_parity(torch, counters, cfg, seed, new_tokens=2):
     sites, two-pass at w_out):
     the dense kernels, their plain versions and the compressed weights
     through the expand kernels (which must launch, and no gather kernel)
-    give the same tokens (2 new ones each: the plain ``sorted`` path walks
-    16384 saturating adds in Python at w_out) and the same decode
-    logits."""
+    give the same tokens (``parity_requests``, 2 new ones each: the plain
+    ``sorted`` path walks 16384 saturating adds in Python at w_out) and
+    the same decode logits."""
     from repro_torch.core.qtensor import nm_compress_tree
 
     cfg2 = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
@@ -2202,8 +2257,9 @@ def phase_sort_parity(torch, counters, cfg, seed, new_tokens=2):
                          ("expand", dict(compressed=True, nm_impl="expand"))):
             reset(counters)
             t0 = time.perf_counter()
-            reqs, _, _, _ = serve(torch, cfg2, seed, new_tokens=new_tokens,
-                                  policy=policy, **kw)
+            reqs, _, _, _ = serve(torch, cfg2, seed, policy=policy,
+                                  reqs=parity_requests(cfg2, seed,
+                                                       new_tokens), **kw)
             outs[name] = [r.output for r in reqs]
             launches = {k: f.launches for k, f in counters.items()}
             print(f"  {PARITY_LAYERS}-layer serve, {policy}, {name}: "
@@ -3381,7 +3437,10 @@ FAMILY_KERNEL = {False: "seq_policy_matmul",
                  True: "nm_gather_seq_policy_matmul"}  # by compressed
 HEAD_COLS = 2048  # outputs at each end of qwen3's head held against plain
 LAYER_COLS = 1024  # the same for command-r's layer 0
-PREFILL_ROWS = 4  # rows of x at each end of gemma3's prefill dots
+# rows of x at each end of a served prefill's dots held against plain (4
+# until 9a-9c joined the run)
+PREFILL_ROWS = 2
+VLM_ROWS = 1  # the same for qwen2-vl's forward (M = 384), one at each end
 
 
 def family_requests(cfg, seed, new_tokens, long=None):
@@ -3684,12 +3743,15 @@ def dequantize_ms(torch, leaves):
 
 
 def family8_serves(torch, counters, cfg, seed, model, params, sparse, reqs,
-                   max_len, per_step, layers, check_caches=None):
+                   max_len, per_step, layers, check_caches=None,
+                   prefill_calls=None):
     """Serve ``reqs`` from dense (row 1) and compressed (row 6) storage
-    with the launch gate of ``family_serve``; step 1's prefill dots of
-    ``layers`` held against plain on their first and last
-    ``PREFILL_ROWS`` rows; a 2-step profile; the same tokens from both.
-    Returns the records by storage."""
+    with the launch gate of ``family_serve``; step 1's prefill dots at the
+    call indices ``prefill_calls`` (by default ``layers``) held against
+    plain on their first and last ``PREFILL_ROWS`` rows; a 2-step profile;
+    the same tokens from both; one decode's logits bit for bit across them
+    and its dots at the call indices ``layers`` equal to plain. Returns
+    the records by storage."""
     from repro_torch.core import dispatch
 
     out, tokens = {}, {}
@@ -3709,10 +3771,10 @@ def family8_serves(torch, counters, cfg, seed, model, params, sparse, reqs,
                                  f"prefill pass of {per_step}")
         rows = m[prefill[0]]
         err, n = rec.plain_errors(torch, rows=PREFILL_ROWS, calls=[
-            prefill[i] for i in layers])
+            prefill[i] for i in (layers if prefill_calls is None
+                                 else prefill_calls)])
         del rec
-        print(f"  the prefill's {n} dots of layers 0 and "
-              f"{cfg.num_layers - 1} (M = {rows}) on rows 0-"
+        print(f"  the prefill's {n} dots (M = {rows}) on rows 0-"
               f"{PREFILL_ROWS - 1} and {rows - PREFILL_ROWS}-{rows - 1} "
               f"against their plain versions: max |diff| {err}", flush=True)
         if err:
@@ -3934,6 +3996,409 @@ def phase_mamba2(torch, counters, sm, nm, seed):
                    "in_proj": (dims["d_in_proj"], cfg.d_model),
                    "out_proj": (cfg.d_model, dims["d_inner"])}, seed),
                plain_held=len(layers))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the model zoo at its published widths: the hybrid
+# (9a, jamba), the encoder-decoder (9b, whisper) and the vlm backbone (9c,
+# qwen2-vl)
+# ---------------------------------------------------------------------------
+
+JAMBA_LAYERS = 5  # of 32: layers 0-4 hold every kind of the published pattern
+QWEN2_VL_LAYERS = 2  # of 80
+WHISPER_FRAMES = 1500  # whisper's 30-second window
+VLM_GRID = 8  # an 8 x 8 grid of image patches before the text
+VLM_TEXT = 32
+VLM_DECODES = 4
+
+
+def pass_sites(layers, parts=("attn", "mamba", "mlp")):
+    """Each layer's integer dots in one pass, in call order: the quantized
+    projections of its ``parts`` (a MoE layer's experts and router are
+    float, as in the JAX package)."""
+    from repro_torch.core.qtensor import is_qtensor
+
+    return [[name for part in parts if part in layer
+             for name, w in layer[part].items()
+             if is_qtensor(w) and w.ndim == 2] for layer in layers]
+
+
+def call_indices(sites, layers):
+    """The positions in a pass's call order of the dots of ``layers``."""
+    starts = [sum(len(s) for s in sites[:i]) for i in range(len(sites))]
+    return [starts[i] + j for i in layers for j in range(len(sites[i]))]
+
+
+def storages(torch, cfg, seed):
+    """(model, dense params, compressed params, init s): ``cfg`` built,
+    8:16-pruned int8 (``model_params``), then ``nm_compress_tree``."""
+    from repro_torch.core.qtensor import nm_compress_tree
+
+    t0 = time.perf_counter()
+    model, params = model_params(cfg, seed, compressed=False)
+    sparse = nm_compress_tree(params, N_KEEP, M_GROUP)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"  init, quantize and compress: {init_s:.1f} s; device memory "
+          f"held {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return model, params, sparse, init_s
+
+
+def counted(counters, compressed, need, what):
+    """The launches since the last ``reset``: the storage's K-streaming
+    kernel ``need`` times, every other kernel never."""
+    kernel = FAMILY_KERNEL[compressed]
+    launches = {name: fn.launches for name, fn in counters.items()
+                if fn.launches}
+    print(f"  {what}: launches {launches} (need {need} of {kernel})",
+          flush=True)
+    if launches != ({kernel: need} if need else {}):
+        raise AssertionError(f"{what}: launches {launches} != {need} of "
+                             f"{kernel}, the others 0")
+    return need
+
+
+def phase_jamba(torch, counters, sm, nm, seed):
+    """9a: jamba-v0.1-52b at its published widths (d 4096, 32 x 128 heads,
+    8 KV heads, d_ff 14336, 16 experts top-2, Mamba2 d_inner 8192 / 128
+    heads / d_state 16, tied vocab 65536), cut to ``JAMBA_LAYERS`` layers,
+    which hold every layer kind of the published pattern: Mamba2 + MLP
+    (0, 2), Mamba2 + MoE (1, 3), attention + MLP (4). Random seeded
+    weights, 8:16-pruned int8 (the experts a matrix at a time, the router
+    float), served on 4 slots under ``sorted_tiled_seq`` from dense (row
+    1) and compressed storage (row 6): 4 prompts of 20-32 tokens, 16 new
+    each. Gates: the launches a step the layer kinds give (2 a Mamba2
+    layer, 3 an MLP, 4 the attention: 21) of the storage's kernel and no
+    other; per-layer caches of the layer's kind; the same tokens and one
+    decode's logits bit for bit from both storages; every ``pqs_dot`` of
+    one decode step at layers 0 and 4, and of the prefill at layer 4 on
+    its first and last rows, equal to plain. Prints the experts' and the
+    tied head's dequantize ms. Returns the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    from repro_torch.models.ssm import ssm_dims
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              num_layers=JAMBA_LAYERS)
+    kinds = [("attention" if hybrid.is_attn_layer(i, cfg) else "mamba")
+             + (" + moe" if hybrid.is_moe_layer(i, cfg) else " + mlp")
+             for i in range(cfg.num_layers)]
+    model, params, sparse, init_s = storages(torch, cfg, seed)
+    sites = pass_sites(params["layers"])
+    per_step = sum(len(s) for s in sites)
+    print(f"  layers {kinds}; dots a pass {[len(s) for s in sites]} = "
+          f"{per_step}", flush=True)
+    dims = ssm_dims(cfg)
+    want = [{"k": (4, 64, cfg.num_kv_heads, cfg.resolved_head_dim),
+             "v": (4, 64, cfg.num_kv_heads, cfg.resolved_head_dim),
+             "pos": (4,)} if hybrid.is_attn_layer(i, cfg) else
+            {"ssd": (4, dims["nheads"], cfg.ssm.head_dim, cfg.ssm.d_state),
+             "conv": (4, cfg.ssm.d_conv - 1, dims["d_xbc"])}
+            for i in range(cfg.num_layers)]
+
+    def check_caches(eng):
+        got = [{k: tuple(v.shape) for k, v in c.items()} for c in eng.caches]
+        print(f"  caches by layer {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"caches {got} != {want}")
+
+    last = cfg.num_layers - 1
+    out = {"init_s": init_s, "layer_kinds": kinds,
+           "dots_per_pass": per_step}
+    out.update(family8_serves(
+        torch, counters, cfg, seed, model, params, sparse,
+        lambda: family_requests(cfg, seed, 16), 64, per_step,
+        call_indices(sites, [0, last]), check_caches,
+        prefill_calls=call_indices(sites, [last])))
+    moe = next(layer["moe"] for layer in params["layers"] if "moe" in layer)
+    moe_c = next(layer["moe"] for layer in sparse["layers"] if "moe" in layer)
+    out["experts_dequantize_ms_a_layer"] = {
+        storage: dequantize_ms(torch, [tree[k] for k in (
+            "w_gate", "w_up", "w_out")])
+        for storage, tree in (("dense", moe), ("compressed", moe_c))}
+    print(f"  the experts' dequantize a MoE layer (16 x 3 matrices of 4096 "
+          f"x 14336 to bfloat16): {out['experts_dequantize_ms_a_layer']} ms",
+          flush=True)
+    out["head_dequantize_ms"] = {
+        storage: table_dequantize_ms(torch, tree["embed"])
+        for storage, tree in (("dense", params), ("compressed", sparse))}
+    out["sites"] = family_sites_timing(torch, sm, nm, {
+        "in_proj": (dims["d_in_proj"], cfg.d_model),
+        "out_proj": (cfg.d_model, dims["d_inner"]),
+        "wq": (cfg.num_heads * cfg.resolved_head_dim, cfg.d_model),
+        "wk": (cfg.num_kv_heads * cfg.resolved_head_dim, cfg.d_model),
+        "w_gate": (cfg.d_ff, cfg.d_model),
+        "w_out": (cfg.d_model, cfg.d_ff)}, seed)
+    return out
+
+
+def phase_whisper(torch, counters, sm, nm, seed):
+    """9b: whisper-medium at its published widths and depth (24 encoder and
+    24 decoder layers, d 1024, 16 heads, d_ff 4096, vocab 51865, learned
+    decoder positions), random seeded weights, 8:16-pruned int8, dense
+    (row 1) and compressed storage (row 6). The engine: 4 slots, 4
+    prompts of 20-32 tokens, 16 new each, its cross K/V from a zero
+    encoder output of 1500 frames (as the JAX engine builds them, at
+    construction, outside the integer context): the launches a step the
+    decoder's layers give (self-attention 4, cross-attention wq / wo 2,
+    MLP 2: 192), the same tokens from both storages. The model bundle,
+    all inside ``integer_lin``: ``encode`` 4 clips of ``WHISPER_FRAMES``
+    seeded frames (6 dots a layer), ``init_caches(enc_out=...)`` (the
+    cross K/V: 2 unnamed dots a layer), a prefill of 4 x 16 tokens and 2
+    decodes (8 a layer each), each pass's launches counted; the encoder's
+    dots at layers 0 and 23 equal to plain on the first and last 4 frames,
+    one decode step's at layers 0 and 23 equal to plain; the prefill's and
+    both decodes' logits bit for bit from both storages. Returns the
+    record."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.models import encdec
+    from repro_torch.models.model import cast_for_compute
+
+    cfg = get_config("whisper-medium")
+    model, params, sparse, init_s = storages(torch, cfg, seed)
+    # a decoder step's dots: self-attention, the cross-attention's wq and
+    # wo (its K / V are cached), the MLP
+    layers = params["dec_layers"]
+    xattn = pass_sites(layers, ("xattn",))
+    step_sites = [a + [k for k in x if k in ("wq", "wo")] + m
+                  for a, x, m in zip(pass_sites(layers, ("attn",)), xattn,
+                                     pass_sites(layers, ("mlp",)))]
+    cross = sum(k in ("wk", "wv") for x in xattn for k in x)
+    enc_sites = pass_sites(params["enc_layers"], ("attn", "mlp"))
+    per_step = sum(len(s) for s in step_sites)
+    per_encode = sum(len(s) for s in enc_sites)
+    print(f"  dots a decoder step {per_step} ({len(step_sites[0])} a layer),"
+          f" an encode {per_encode}, the cross K/V {cross}", flush=True)
+    out = {"init_s": init_s, "dots_per_step": per_step,
+           "dots_per_encode": per_encode, "cross_kv_dots": cross}
+    tokens = {}
+    for compressed, p in ((False, params), (True, sparse)):
+        storage = "compressed" if compressed else "dense"
+        eng, tokens[storage], run = family_serve(
+            torch, counters, cfg, seed, (model, p),
+            family_requests(cfg, seed, 16), 64, compressed, per_step)
+        shapes = {k: tuple(eng.caches[k][0]["k"].shape)
+                  for k in ("self", "cross")}
+        print(f"  caches a layer {shapes}", flush=True)
+        if shapes["cross"] != (4, WHISPER_FRAMES, cfg.num_kv_heads,
+                               cfg.resolved_head_dim):
+            raise AssertionError(f"cross K/V {shapes['cross']}")
+        run["profile"] = profile_decode(torch, eng, cfg.vocab_size)
+        out[storage] = run
+        del eng
+    if tokens["compressed"] != tokens["dense"]:
+        raise AssertionError(f"tokens differ: {tokens}")
+    print(f"  the same tokens from both storages; request 0 "
+          f"{tokens['dense'][0]}", flush=True)
+    # the model bundle: encode, the cross K/V, a prefill and 2 decodes
+    frames = torch.from_numpy(np.random.default_rng(seed + 3).standard_normal(
+        (4, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)).to("cuda")
+    toks = torch.tensor([p[:16].tolist() for p in prompts(
+        4, seed, cfg.vocab_size)], device="cuda", dtype=torch.int32)
+    lengths = torch.full((4,), 16, device="cuda", dtype=torch.int32)
+    last = cfg.num_layers - 1
+    logits, bundle = {}, {}
+    for compressed, p in ((False, params), (True, sparse)):
+        storage = "compressed" if compressed else "dense"
+        rec = {}
+        with torch.no_grad(), dispatch.integer_lin(dispatch.IntegerLinConfig(
+                policy="sorted_tiled_seq")):
+            reset(counters)
+            t0 = time.perf_counter()
+            with DotRecorder(dispatch) as rec["encode"]:
+                enc = encdec.encode(cast_for_compute(p, cfg), frames, cfg)
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            counted(counters, compressed, per_encode, f"{storage} encode")
+            reset(counters)
+            caches = model.init_caches(p, 4, 32, torch.float32, enc_out=enc)
+            counted(counters, compressed, cross, f"{storage} cross K/V")
+            reset(counters)
+            lp, caches = model.prefill(p, toks, caches, lengths)
+            counted(counters, compressed, per_step, f"{storage} prefill")
+            outs = [lp]
+            nxt = toks[:, -1:]
+            for i in range(2):
+                reset(counters)
+                with DotRecorder(dispatch) if i == 0 else \
+                        contextlib.nullcontext() as rec[f"decode {i}"]:
+                    ld, caches = model.decode(p, nxt, caches)
+                counted(counters, compressed, per_step,
+                        f"{storage} decode {i}")
+                outs.append(ld)
+                nxt = ld[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        logits[storage] = outs
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        print(f"  {storage} bundle: encode {tuple(enc.shape)} in {t_enc:.2f}"
+              f" s, logits {[tuple(o.shape) for o in outs]} finite {finite}",
+              flush=True)
+        if not finite or tuple(enc.shape) != (4, WHISPER_FRAMES, cfg.d_model):
+            raise AssertionError(f"{storage}: encoder states or logits")
+        t = time.perf_counter()
+        err, n = rec["encode"].plain_errors(
+            torch, rows=4, calls=call_indices(enc_sites, [0, last]))
+        err2, n2 = rec["decode 0"].plain_errors(
+            torch, calls=call_indices(step_sites, [0, last]))
+        print(f"  {storage}: the encoder's {n} dots of layers 0 and {last} "
+              f"(M = {4 * WHISPER_FRAMES}) on frames 0-3 and "
+              f"{4 * WHISPER_FRAMES - 4}-{4 * WHISPER_FRAMES - 1}, and one "
+              f"decode step's {n2} dots of layers 0 and {last}, against "
+              f"their plain versions: max |diff| {err}, {err2}; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if err or err2:
+            raise AssertionError(f"{storage}: a dot differs from its plain "
+                                 f"version by {max(err, err2)}")
+        bundle[storage] = dict(encode_s=t_enc, plain_held=n + n2,
+                               launches=per_encode + cross + 3 * per_step)
+        del rec, caches, enc
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(
+        logits["dense"], logits["compressed"])]
+    print(f"  prefill and 2 decodes' logits, dense against compressed: "
+          f"max |diff| {diffs}", flush=True)
+    if any(diffs):
+        raise AssertionError("the storages' logits differ")
+    out["bundle"] = bundle
+    out["head_dequantize_ms"] = table_dequantize_ms(torch, params["embed"])
+    out["sites"] = family_sites_timing(torch, sm, nm, {
+        "wq": (cfg.d_model, cfg.d_model), "w_in": (cfg.d_ff, cfg.d_model),
+        "w_out": (cfg.d_model, cfg.d_ff)}, seed)
+    return out
+
+
+def vlm_positions(torch, b):
+    """(3, b, S) M-RoPE streams: ``VLM_GRID`` x ``VLM_GRID`` image patches
+    (t 0, h the row, w the column), then ``VLM_TEXT`` text positions, all
+    three streams at ``VLM_GRID`` + i."""
+    n = VLM_GRID * VLM_GRID
+    grid = torch.arange(n, device="cuda")
+    img = torch.stack([torch.zeros_like(grid), grid // VLM_GRID,
+                       grid % VLM_GRID])
+    text = (VLM_GRID + torch.arange(VLM_TEXT, device="cuda")).expand(3, -1)
+    pos = torch.cat([img, text], dim=1).to(torch.int32)
+    return pos[:, None].expand(3, b, n + VLM_TEXT).contiguous()
+
+
+def phase_qwen2_vl(torch, counters, sm, nm, seed):
+    """9c: qwen2-vl-72b at its published widths (d 8192, 64 x 128 heads, 8
+    KV heads, d_ff 29568, M-RoPE sections (16, 24, 24), untied head
+    152064), cut to ``QWEN2_VL_LAYERS`` layers, random seeded weights,
+    8:16-pruned int8, dense (row 1) and compressed storage (row 6). Its
+    inputs are embeddings (a stubbed vision frontend; there is no table),
+    so it runs through the model bundle: ``forward`` on 4 sequences of
+    ``VLM_GRID``^2 image patches and ``VLM_TEXT`` text positions of seeded
+    embeddings, each with distinct t / h / w streams (``vlm_positions``),
+    then a prefill of 4 x 32 embeddings and ``VLM_DECODES`` decodes. Gates:
+    each pass the launches the layers and the head give (7 a layer plus the
+    head: 15) of the storage's kernel and no other; the forward's dots of
+    layers 0 and 1 equal to plain on its first and last ``VLM_ROWS`` rows
+    (a plain version at K = 29568 takes 3 s a row); one decode
+    step's head equal to plain (4 rows); the forward's and the decodes'
+    logits bit for bit from both storages. Returns the record."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
+                              num_layers=QWEN2_VL_LAYERS)
+    model, params, sparse, init_s = storages(torch, cfg, seed)
+    sites = pass_sites(params["layers"])
+    per_pass = sum(len(s) for s in sites) + 1  # the untied head
+    r = np.random.default_rng(seed + 5)
+    s = VLM_GRID * VLM_GRID + VLM_TEXT
+    emb = torch.from_numpy(r.standard_normal((4, s, cfg.d_model)).astype(
+        np.float32)).to("cuda")
+    pos = vlm_positions(torch, 4)
+    steps = torch.from_numpy(r.standard_normal(
+        (4, VLM_DECODES, cfg.d_model)).astype(np.float32)).to("cuda")
+    t_h_w = pos[:, 0, 60:68].tolist()
+    print(f"  dots a pass {[len(x) for x in sites]} + the head = {per_pass};"
+          f" forward on {tuple(emb.shape)}, streams t / h / w at positions "
+          f"60-67 {t_h_w}", flush=True)
+    out = {"init_s": init_s, "dots_per_pass": per_pass}
+    logits = {}
+    for compressed, p in ((False, params), (True, sparse)):
+        storage = "compressed" if compressed else "dense"
+        rec = {}
+        with torch.no_grad(), dispatch.integer_lin(dispatch.IntegerLinConfig(
+                policy="sorted_tiled_seq")):
+            reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with DotRecorder(dispatch) as rec["forward"]:
+                lf = model.forward(p, {"embeddings": emb, "positions": pos})
+            torch.cuda.synchronize()
+            t_fwd = time.perf_counter() - t0
+            counted(counters, compressed, per_pass, f"{storage} forward")
+            caches = model.init_caches(p, 4, 64, torch.float32)
+            reset(counters)
+            t0 = time.perf_counter()
+            lp, caches = model.prefill(p, emb[:, -VLM_TEXT:], caches,
+                                       torch.full((4,), VLM_TEXT,
+                                                  device="cuda",
+                                                  dtype=torch.int32))
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            counted(counters, compressed, per_pass, f"{storage} prefill")
+            outs, t_steps = [lf, lp], []
+            for i in range(VLM_DECODES):
+                reset(counters)
+                t0 = time.perf_counter()
+                with DotRecorder(dispatch) if i == 0 else \
+                        contextlib.nullcontext() as rec[f"decode {i}"]:
+                    ld, caches = model.decode(p, steps[:, i : i + 1], caches)
+                torch.cuda.synchronize()
+                t_steps.append(time.perf_counter() - t0)
+                counted(counters, compressed, per_pass,
+                        f"{storage} decode {i}")
+                outs.append(ld)
+            run = dict(forward_s=t_fwd, prefill=t_prefill,
+                       per_step=sum(t_steps[1:]) / (VLM_DECODES - 1),
+                       launches_per_pass=per_pass,
+                       launches=per_pass * (2 + VLM_DECODES))
+            run["profile"] = profile_steps(torch, lambda: [model.decode(
+                p, steps[:, i : i + 1], caches) for i in range(2)])
+        logits[storage] = outs
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        print(f"  {storage}: forward {t_fwd:.2f} s, prefill {t_prefill:.3f} "
+              f"s, decode {run['per_step']:.4f} s/step; logits "
+              f"{[tuple(o.shape) for o in outs]} finite {finite}", flush=True)
+        if not finite:
+            raise AssertionError(f"{storage}: logits not finite")
+        t = time.perf_counter()
+        err, n = rec["forward"].plain_errors(
+            torch, rows=VLM_ROWS,
+            calls=call_indices(sites, range(cfg.num_layers)))
+        err2, n2 = rec["decode 0"].plain_errors(torch, calls=[per_pass - 1])
+        rows = 4 * s
+        print(f"  {storage}: the forward's {n} dots of layers 0 and 1 (M = "
+              f"{rows}) on {VLM_ROWS} row(s) at each end, and one "
+              f"decode step's head (N = {cfg.vocab_size}, M = 4), against "
+              f"their plain versions: max |diff| {err}, {err2}; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if err or err2:
+            raise AssertionError(f"{storage}: a dot differs from its plain "
+                                 f"version by {max(err, err2)}")
+        run.update(plain_held=n + n2, plain_checks_s=time.perf_counter() - t)
+        out[storage] = run
+        del rec, caches
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(
+        logits["dense"], logits["compressed"])]
+    print(f"  forward, prefill and {VLM_DECODES} decodes' logits, dense "
+          f"against compressed: max |diff| {diffs}", flush=True)
+    if any(diffs):
+        raise AssertionError("the storages' logits differ")
+    # (w_out's K = 29568 is held in tests/test_torch_cuda.py; its plain
+    # version takes 12 s at M = 4)
+    out["sites"] = family_sites_timing(torch, sm, nm, {
+        "wq": (cfg.num_heads * cfg.resolved_head_dim, cfg.d_model),
+        "w_gate": (cfg.d_ff, cfg.d_model),
+        "head": (cfg.vocab_size, cfg.d_model)}, seed)
     return out
 
 
@@ -4205,6 +4670,18 @@ def main() -> int:
         ("[8b] serve mamba2-2.7b at full width, 4 layers (chunked SSD, conv "
          "ring), dense and compressed", lambda: got.update(
              mamba=phase_mamba2(torch, counters, sm, nm, args.seed))),
+        ("[9a] serve jamba-v0.1-52b at full width, 5 layers (Mamba2 / "
+         "attention / MoE interleave), dense and compressed",
+         lambda: got.update(jamba=phase_jamba(torch, counters, sm, nm,
+                                              args.seed))),
+        ("[9b] whisper-medium at full width and depth: the engine, then "
+         "encode, cross K/V, prefill and decode, dense and compressed",
+         lambda: got.update(whisper=phase_whisper(torch, counters, sm, nm,
+                                                  args.seed))),
+        ("[9c] qwen2-vl-72b at full width, 2 layers: M-RoPE embeddings "
+         "through forward, prefill and decode, dense and compressed",
+         lambda: got.update(qwen2_vl=phase_qwen2_vl(torch, counters, sm, nm,
+                                                    args.seed))),
     ]
     only = args.only and set(args.only.split(","))
     for title, fn in phases:
@@ -4262,12 +4739,18 @@ def main() -> int:
             run, dense)
     gemma3, qwen3, command_r = got["gemma3"], got["qwen3"], got["command_r"]
     granite, mamba = got["granite"], got["mamba"]
+    jamba, whisper, qwen2_vl = got["jamba"], got["whisper"], got["qwen2_vl"]
     for path, run in (("7a gemma3-12b, dense", gemma3["dense"]),
                       ("7b qwen3-32b", qwen3), ("7c command-r-35b",
                                                 command_r),
                       ("8a granite-moe-3b, dense", granite["dense"]),
-                      ("8b mamba2-2.7b, dense", mamba["dense"])):
+                      ("8b mamba2-2.7b, dense", mamba["dense"]),
+                      ("9a jamba-v0.1-52b, dense", jamba["dense"]),
+                      ("9b whisper-medium engine, dense", whisper["dense"])):
         row1_paths[path] = run["launches"][dense]
+    row1_paths["9b whisper-medium bundle, dense"] = whisper["bundle"][
+        "dense"]["launches"]
+    row1_paths["9c qwen2-vl-72b, dense"] = qwen2_vl["dense"]["launches"]
     row5_paths = {"3j sorted_tiled_seq": got["expand seq"][expand],
                   "3k wide": got["expand wide"][expand]}
     row6_paths = {"3b sorted_tiled_seq": got["nm_launches"][gather],
@@ -4276,26 +4759,42 @@ def main() -> int:
                   "8a granite-moe-3b, compressed":
                       granite["compressed"]["launches"][gather],
                   "8b mamba2-2.7b, compressed":
-                      mamba["compressed"]["launches"][gather]}
+                      mamba["compressed"]["launches"][gather],
+                  "9a jamba-v0.1-52b, compressed":
+                      jamba["compressed"]["launches"][gather],
+                  "9b whisper-medium engine, compressed":
+                      whisper["compressed"]["launches"][gather],
+                  "9b whisper-medium bundle, compressed":
+                      whisper["bundle"]["compressed"]["launches"],
+                  "9c qwen2-vl-72b, compressed":
+                      qwen2_vl["compressed"]["launches"]}
 
-    def family8_sites(name):
-        """Row 1's or row 6's sub-records at 8a's and 8b's sites."""
+    def family_sites(name):
+        """Row 1's or row 6's sub-records at the sites of 8a-9c."""
+        def per_step(run):
+            if "launches_per_pass" in run:  # 9c's model bundle
+                return run["launches_per_pass"]
+            return run["launches"][name] // run["steps"]
+
         return {key: kernel_record(
             name, csrc + ("seq_policy_matmul.cu" if name == dense
                           else "nm_seq_policy_matmul.cu"),
             "src/repro/kernels/sorted_matmul.py:155" if name == dense
             else "src/repro/kernels/nm_spmm.py:381", run["sites"][name],
-            work=f"the {len(run['sites'][name])} projection sites of one "
-                 f"{what} layer at decode (M=4), acc_bits 16, k_tile 256"
+            work=f"the {len(run['sites'][name])} projection site shapes of "
+                 f"{what} at decode (M=4), acc_bits 16, k_tile 256"
                  + ("" if name == dense else ", 8:16 compressed slabs"),
-            launches_per_step=served["launches"][name] // served["steps"],
+            launches_per_step=per_step(
+                run["dense" if name == dense else "compressed"]),
             by_site={r["site"]: {k: r[k] for k in ("ms", "plain_ms",
                                                    "bound_ms")}
                      for r in run["sites"][name]})
-            for key, run, what in (("8a_granite_moe_3b", granite,
-                                    "granite-moe-3b"),
-                                   ("8b_mamba2_2_7b", mamba, "mamba2-2.7b"))
-            for served in [run["dense" if name == dense else "compressed"]]}
+            for key, run, what in (
+                ("8a_granite_moe_3b", granite, "granite-moe-3b"),
+                ("8b_mamba2_2_7b", mamba, "mamba2-2.7b"),
+                ("9a_jamba_v0_1_52b", jamba, "jamba-v0.1-52b"),
+                ("9b_whisper_medium", whisper, "whisper-medium"),
+                ("9c_qwen2_vl_72b", qwen2_vl, "qwen2-vl-72b"))}
     for paths, name in ((row5_paths, expand), (row6_paths, gather)):
         paths["3m census-watched"], paths["3m census-watched by policy"] = \
             path_launches(got["3m"], name)
@@ -4330,12 +4829,14 @@ def main() -> int:
                 bound_by="bytes" if qwen3["head"]["bytes_ms"]
                 >= qwen3["head"]["ops_ms"] else "operations",
                 **qwen3["head"]),
-            families=family8_sites(dense),
+            families=family_sites(dense),
             path="phases 3, 3l (degraded sites: wide) and 3n (certified: "
                  "wide), dense storage; 6a (the paper nets' clip and wide); "
                  "7a-7c (gemma3-12b, qwen3-32b with its head, "
-                 "command-r-35b) and 8a-8b (granite-moe-3b's attention, "
-                 "mamba2-2.7b's projections), dense storage"),
+                 "command-r-35b), 8a-8b (granite-moe-3b's attention, "
+                 "mamba2-2.7b's projections) and 9a-9c (jamba-v0.1-52b, "
+                 "whisper-medium's engine and model bundle, qwen2-vl-72b "
+                 "with its head), dense storage"),
         kernel_record(
             "nm_gather_seq_policy_matmul", csrc + "nm_seq_policy_matmul.cu",
             "src/repro/kernels/nm_spmm.py:381",
@@ -4351,9 +4852,10 @@ def main() -> int:
                 "7 projection sites of one qwen2-1.5b layer at a prefill "
                 "cohort (M=128), 8:16 compressed slabs, acc_bits 16, k_tile "
                 "256"),
-            families=family8_sites(gather),
+            families=family_sites(gather),
             path="phases 3b and 3m (the undegraded sites), 7a "
-                 "(gemma3-12b) and 8a-8b (granite-moe-3b, mamba2-2.7b), "
+                 "(gemma3-12b), 8a-8b (granite-moe-3b, mamba2-2.7b) and "
+                 "9a-9c (jamba-v0.1-52b, whisper-medium, qwen2-vl-72b), "
                  "compressed storage"),
         kernel_record(
             "nm_seq_policy_matmul", csrc + "nm_expand_seq.cu",
@@ -4654,7 +5156,13 @@ def main() -> int:
         **{name: {"layers": FAMILY8_LAYERS, **{
             k: v for k, v in run.items() if k != "sites"}}
            for name, run in (("8a granite-moe-3b", granite),
-                             ("8b mamba2-2.7b", mamba))}}}))
+                             ("8b mamba2-2.7b", mamba))},
+        "9a jamba-v0.1-52b": {"layers": JAMBA_LAYERS, **{
+            k: v for k, v in jamba.items() if k != "sites"}},
+        "9b whisper-medium": {k: v for k, v in whisper.items()
+                              if k != "sites"},
+        "9c qwen2-vl-72b": {"layers": QWEN2_VL_LAYERS, **{
+            k: v for k, v in qwen2_vl.items() if k != "sites"}}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,28 @@
 """Model configuration schema of the port: the fields of
-``repro.configs.base.ModelConfig`` that the dense, MoE and SSM families
-read, and those that name what is not ported yet.
+``repro.configs.base.ModelConfig`` that the model zoo reads.
 
-The dense family is ported whole: sliding-window attention with
-gemma3's 1-global-in-``global_period`` pattern, logit soft-capping, QK
-norm, scaled embeddings, an untied head, layer norm, the gated SiLU /
-GELU and the plain-GELU MLP, and query-chunked attention. So are the
-MoE family (granite-moe: ``MoEConfig``, top-k routed experts in every
-layer) and the SSM family (mamba2: ``SSMConfig``, chunked SSD).
-``validate`` refuses the other families (hybrid, encoder-decoder, vlm,
-audio), M-RoPE (``mrope_sections``) and embedding inputs
-(``input_is_embeddings``).
+Every family of the JAX package is ported: the dense decoder
+(sliding-window attention with gemma3's 1-global-in-``global_period``
+pattern, logit soft-capping, QK norm, scaled embeddings, an untied head,
+layer norm, the gated SiLU / GELU and the plain-GELU MLP, query-chunked
+attention), the MoE family (granite-moe: ``MoEConfig``), the SSM family
+(mamba2: ``SSMConfig``, chunked SSD), the hybrid (jamba: attention at
+``i % attn_period == attn_offset``, Mamba2 elsewhere, MoE on the layers
+``MoEConfig.layer_period`` / ``layer_offset`` pick), the encoder-decoder
+(whisper, family ``audio``: ``is_encoder_decoder`` with
+``encoder_layers``) and the vlm backbone (qwen2-vl: M-RoPE through
+``mrope_sections``, embedding inputs through ``input_is_embeddings``).
+``validate`` makes the JAX package's checks, raised as errors, and
+refuses ``moe_local_groups``, which needs a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +52,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm (the families ported so far)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -57,7 +63,7 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
-    mrope_sections: Optional[tuple[int, ...]] = None  # not ported
+    mrope_sections: Optional[tuple[int, ...]] = None  # qwen2-vl M-RoPE
     sliding_window: Optional[int] = None  # local-attention window
     global_period: Optional[int] = None  # gemma3: 1 global per N layers
     attn_logit_softcap: Optional[float] = None
@@ -65,11 +71,15 @@ class ModelConfig:
     activation: str = "silu"  # silu (gated) | gelu (gated) | gelu_plain
     tie_embeddings: bool = False
     scale_embeddings: bool = False  # gemma: x *= sqrt(d_model)
-    input_is_embeddings: bool = False  # not ported
+    input_is_embeddings: bool = False  # vlm / audio feed embeddings
+    # hybrid (jamba): attention layer at i % attn_period == attn_offset
+    attn_period: int = 1
+    attn_offset: int = 0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    # not ported: a config that sets it is refused
+    # encoder-decoder
     is_encoder_decoder: bool = False
+    encoder_layers: int = 0
     max_seq_len: int = 131_072
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -86,24 +96,21 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     def validate(self) -> None:
-        if self.family not in ("dense", "moe", "ssm"):
+        if self.family not in FAMILIES:
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
+        if self.family in ("moe", "hybrid") and self.moe is None:
+            raise ValueError(f"{self.name}: the {self.family} family needs "
+                             "moe=")
+        if self.family in ("ssm", "hybrid") and self.ssm is None:
+            raise ValueError(f"{self.name}: the {self.family} family needs "
+                             "ssm=")
+        if self.is_encoder_decoder and self.encoder_layers <= 0:
+            raise ValueError(f"{self.name}: is_encoder_decoder needs "
+                             "encoder_layers > 0")
+        if self.moe_local_groups:
             raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (dense, moe and "
-                "ssm only)")
-        if self.family == "moe" and self.moe is None:
-            raise ValueError(f"{self.name}: the moe family needs moe=")
-        if self.family == "ssm" and self.ssm is None:
-            raise ValueError(f"{self.name}: the ssm family needs ssm=")
-        for field, missing in (("is_encoder_decoder", "the encoder-decoder"),
-                               ("mrope_sections", "M-RoPE"),
-                               ("input_is_embeddings", "embedding inputs"),
-                               ("moe_local_groups",
-                                "the sequence-folded MoE dispatch of a "
-                                "mesh")):
-            if getattr(self, field):
-                raise NotImplementedError(
-                    f"{self.name}: {field} asks for {missing}, not ported "
-                    "yet")
+                f"{self.name}: moe_local_groups asks for the "
+                "sequence-folded MoE dispatch of a mesh, not ported yet")
         if self.norm not in ("rmsnorm", "layernorm"):
             raise ValueError(f"unknown norm {self.norm!r}")
         if self.activation not in ("silu", "gelu", "gelu_plain"):

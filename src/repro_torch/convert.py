@@ -14,11 +14,16 @@ so nothing here imports JAX):
   ``scale`` and ``offset`` arrays and the ints / bools ``bits`` and
   ``symmetric`` (a frozen calibration), and ``act_corr``, the frozen
   Eq. (3) correction;
-- ``"layers"`` stacked along axis 0, (L, ...), which becomes the port's
-  list of per-layer dicts (the ints of a compressed weight are shared,
-  and so is the (out,) scale of a quantized stacked vector, whose (L,
-  out) codes give each layer its row; an (L,) act_qparams scale and
-  offset and an (L, out) act_corr give each layer its own).
+- the stacked layers, ``"layers"`` (the dense, MoE, vlm and SSM
+  families) and ``"enc_layers"`` / ``"dec_layers"`` (the
+  encoder-decoder), each a dict of arrays stacked along axis 0, (L,
+  ...), which becomes the port's ``LayerStack`` of per-layer dicts (the
+  ints of a compressed weight are shared, and so is the (out,) scale of
+  a quantized stacked vector, whose (L, out) codes give each layer its
+  row; an (L,) act_qparams scale and offset and an (L, out) act_corr
+  give each layer its own);
+- lists, such as the hybrid's ``"layers"`` (a list of per-layer dicts
+  in the JAX package too), which stay lists.
 
 ``papernet_layers_from_numpy(layers)`` takes a paper net's layers (a
 list of dicts of ``w``, ``b`` and ``mask`` arrays and ``act_range``, a
@@ -46,10 +51,12 @@ from repro_torch import resolve_device
 from repro_torch.core.certify import Certificate, SiteCertificate
 from repro_torch.core.qtensor import QTensor, SparseQTensor
 from repro_torch.core.quant import EmaRange, QParams
+from repro_torch.core.tree import LayerStack
 
 _DENSE_KEYS = {"values", "scale"}
 _SPARSE_KEYS = {"values", "indices", "scale", "m_group", "k_dim"}
 _CALIBRATION_KEYS = {"act_qparams", "act_corr"}
+_STACKED_KEYS = ("layers", "enc_layers", "dec_layers")
 
 
 def _weight_keys(node: Any) -> Any:
@@ -119,19 +126,18 @@ def params_from_numpy(tree: Any, device=None) -> Any:
                                  int(node["k_dim"]), *calibration(node))
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
         if isinstance(node, np.ndarray):
             return _tensor(node, device)
         raise TypeError(f"unexpected leaf {type(node).__name__}")
 
-    tree = dict(tree)
-    if isinstance(tree.get("layers"), dict):
-        stacked = tree["layers"]
-        tree["layers"] = [_unstack(stacked, i)
-                          for i in range(_layer_count(stacked))]
-    out = {k: v for k, v in tree.items() if k != "layers"}
-    out = conv(out)
-    if "layers" in tree:
-        out["layers"] = [conv(layer) for layer in tree["layers"]]
+    stacked = {k: v for k, v in tree.items()
+               if k in _STACKED_KEYS and isinstance(v, dict)}
+    out = conv({k: v for k, v in tree.items() if k not in stacked})
+    for k, v in stacked.items():
+        out[k] = LayerStack(conv(_unstack(v, i))
+                            for i in range(_layer_count(v)))
     return out
 
 

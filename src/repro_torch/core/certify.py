@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core.qtensor import QTensor, SparseQTensor, is_qtensor
 from repro_torch.core.quant import qrange
+from repro_torch.core.tree import LayerStack
 
 
 class CertificateError(ValueError):
@@ -122,7 +123,7 @@ def _leaf_hash(leaf: _SiteLeaf) -> str:
 
 
 def _stacked_rows(rows: list) -> QTensor:
-    """The 1-D QTensor rows of a layer list (one layer's row of a
+    """The 1-D QTensor rows of a ``LayerStack`` (one layer's row of a
     quantized layer-stacked vector each) as the (L, out) QTensor the JAX
     package holds."""
     return QTensor(torch.stack([r.values for r in rows]), rows[0].scale,
@@ -131,7 +132,7 @@ def _stacked_rows(rows: list) -> QTensor:
 
 def _site_leaves(params: Any) -> dict[str, list[_SiteLeaf]]:
     """Every QTensor / SparseQTensor leaf grouped by call-site name (the
-    last string key on its path), each layer list's leaves stacked."""
+    last string key on its path), each ``LayerStack``'s leaves stacked."""
     sites: dict[str, list[_SiteLeaf]] = {}
 
     def walk(node, site):
@@ -139,7 +140,7 @@ def _site_leaves(params: Any) -> dict[str, list[_SiteLeaf]]:
             for k, v in node.items():
                 walk(v, k if isinstance(k, str) else site)
         elif isinstance(node, (list, tuple)):
-            if node and all(isinstance(v, dict) for v in node):
+            if isinstance(node, LayerStack) and node:
                 walk_stack(list(node), site)
             else:
                 for v in node:
@@ -354,7 +355,7 @@ def enforce_acc_bounds(params: Any, acc_bits: int, act_bits: int = 8) -> Any:
     """Project every quantized leaf inside the certifiable region: rows
     over the bound are truncated in the integer domain (rows inside it
     pass through bit for bit), act_corr recomputed for leaves that carry
-    frozen asymmetric QParams. The 1-D QTensor rows of a layer list are
+    frozen asymmetric QParams. The 1-D QTensor rows of a ``LayerStack`` are
     truncated as the JAX package's (L, out) leaf, whose rows run across
     the layers."""
 
@@ -362,7 +363,7 @@ def enforce_acc_bounds(params: Any, acc_bits: int, act_bits: int = 8) -> Any:
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            if node and all(isinstance(v, dict) for v in node):
+            if isinstance(node, LayerStack) and node:
                 return type(node)(walk_stack(list(node)))
             return type(node)(walk(v) for v in node)
         if is_qtensor(node):

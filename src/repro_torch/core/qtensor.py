@@ -22,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.pruning import nm_compress, nm_decompress, nm_prune_mask
 from repro_torch.core.quant import QParams, qrange
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import LayerStack, tree_map
 
 
 @dataclasses.dataclass
@@ -137,8 +137,11 @@ def nm_compress_tree(params: Any, n_keep: int, m: int = 16) -> Any:
     raise up front, and so does a tree in which no QTensor leaf matched
     the pattern: it would otherwise serve fully dense, silently.
 
-    A 1-D QTensor row (one layer's row of a quantized layer-stacked
-    vector, ``quantize_tree``) stays dense on purpose and is not counted:
+    Leaves are taken one by one, a ``LayerStack``'s layer by layer: the
+    JAX package compresses a stacked (L, in, out) leaf matrix by matrix,
+    so the slabs are the same. A 1-D QTensor row (one layer's row of a
+    quantized layer-stacked vector, ``quantize_tree``) stays dense on
+    purpose and is not counted:
     its N:M groups would run across the layers, and a layer reads only
     its own row (``asarray``). The JAX package compresses the stacked
     (L, out) leaf when L % m == 0 and counts it; compression is lossless,
@@ -266,15 +269,16 @@ def quantize_tree(
     The skip rules are the JAX package's: leaves under ``min_size``
     elements or with a trailing dim under ``min_dim`` stay float, and a
     leaf whose in dim is not a multiple of ``m`` is quantized without
-    pruning. The JAX package stacks the layers into (L, in, out) leaves,
-    the port keeps a list of per-layer dicts; so a leaf inside a list of
-    dicts counts ``min_size`` over the L layers of that list, as the
-    stacked leaf does, and both packages quantize the same leaves. A 1-D
-    leaf (out,) of such a list is, stacked, an (L, out) matrix: once it
-    passes the rules it is quantized as JAX quantizes that matrix (in =
-    L, one scale per column, pruned along the layers when L % m == 0),
-    and each layer holds its row: a QTensor of values (out,) and the
-    shared scale (out,).
+    pruning. Where the JAX package stacks layers into (L, in, out)
+    leaves, the port keeps a ``LayerStack`` of per-layer dicts; a leaf
+    inside one counts ``min_size`` over its L layers, as the stacked leaf
+    does, and both packages quantize the same leaves. A 1-D leaf (out,)
+    of a stack is, stacked, an (L, out) matrix: once it passes the rules
+    it is quantized as JAX quantizes that matrix (in = L, one scale per
+    column, pruned along the layers when L % m == 0), and each layer
+    holds its row: a QTensor of values (out,) and the shared scale
+    (out,). A plain list (the hybrid's layers, a list in the JAX package
+    too) is walked leaf by leaf.
     """
     device = resolve_device(device)
 
@@ -306,8 +310,9 @@ def quantize_tree(
         return [QTensor(v, q.scale) for v in q.values]
 
     def walk_stack(dicts, layers):
-        """The dicts of one layer list side by side: a key whose values are
-        all dicts recurses, a 1-D leaf may quantize across the layers."""
+        """The dicts of one ``LayerStack`` side by side: a key whose values
+        are all dicts recurses, a 1-D leaf may quantize across the
+        layers."""
         done = {}
         for key in dicts[0]:
             vals = [d.get(key) for d in dicts]
@@ -323,10 +328,10 @@ def quantize_tree(
     def walk(node, layers):
         if isinstance(node, dict):
             return {k: walk(v, layers) for k, v in node.items()}
+        if isinstance(node, LayerStack) and node:
+            # JAX's leading L axis
+            return LayerStack(walk_stack(node, layers * len(node)))
         if isinstance(node, (list, tuple)):
-            if node and all(isinstance(v, dict) for v in node):
-                # a layer stack: JAX's leading L axis
-                return type(node)(walk_stack(node, layers * len(node)))
             return type(node)(walk(v, layers) for v in node)
         return conv(node, layers)
 

@@ -1,9 +1,22 @@
 """Parameter trees of the port: nested dicts and lists whose leaves are
-tensors, QTensors or plain values (the counterpart of JAX pytrees)."""
+tensors, QTensors or plain values (the counterpart of JAX pytrees).
+
+Where the JAX package stacks a family's layers along a leading L axis
+(the dense, MoE, vlm and SSM ``"layers"``, the encoder-decoder's
+``"enc_layers"`` and ``"dec_layers"``), the port keeps a ``LayerStack``:
+a list of per-layer dicts that the tree functions treat as that axis
+(``quantize_tree`` counts sizes over it, ``cast_for_compute`` counts one
+dimension more). A plain list of layer dicts, the hybrid's ``"layers"``,
+is a list in the JAX package too, and its leaves are taken one by one."""
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+
+class LayerStack(list):
+    """The per-layer dicts of a stack the JAX package holds as one
+    (L, ...) tree; ``tree_map`` keeps the type."""
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:

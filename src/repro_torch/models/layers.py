@@ -1,5 +1,5 @@
-"""Decoder layers: norms, RoPE, GQA attention, MLP; torch port of
-``repro.models.layers`` for the dense family.
+"""Model-zoo layers: norms, RoPE and M-RoPE, GQA self- and
+cross-attention, MLP; torch port of ``repro.models.layers``.
 
 Plain functions on tensors. Params are dicts of tensors, one dict per
 layer. Activations flow in the compute dtype; norms and softmax run in
@@ -11,7 +11,8 @@ package leaves it to XLA, over query chunks of ``cfg.attn_chunk_q`` from
 ``cfg.attn_chunk_threshold`` tokens. A layer's sliding window is a static
 argument (the layer loop is Python; the JAX package's traced
 ``use_window`` flag selects the same mask in its scan), and its decode
-cache is a ring of ``min(s_max, window)`` slots.
+cache is a ring of ``min(s_max, window)`` slots. Positions are (B, S),
+or (3, B, S) t / h / w streams under M-RoPE (``cfg.mrope_sections``).
 """
 
 from __future__ import annotations
@@ -109,10 +110,25 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, head_dim: int,
-               theta: float) -> torch.Tensor:
-    """x (B, S, H, hd), positions (B, S) int."""
+               theta: float,
+               mrope_sections: Optional[tuple[int, ...]] = None
+               ) -> torch.Tensor:
+    """x (B, S, H, hd), positions (B, S) int, or (3, B, S) under M-RoPE:
+    the head_dim / 2 frequency slots split into t / h / w sections
+    (``mrope_sections``), each slot rotated by its own stream."""
     freqs = rope_freqs(head_dim, theta, x.device)
-    angles = positions.to(torch.float32)[..., None] * freqs  # (B, S, hd/2)
+    if mrope_sections is not None:
+        assert positions.ndim == 3 and positions.shape[0] == 3
+        sec = torch.cat([torch.full((n,), i, dtype=torch.int64,
+                                    device=x.device)
+                         for i, n in enumerate(mrope_sections)])
+        angles = positions.to(torch.float32)[..., None] * freqs
+        angles = angles.movedim(0, -1)  # (B, S, hd/2, 3)
+        angles = torch.gather(
+            angles, -1, sec.expand(angles.shape[:-1])[..., None])[..., 0]
+    else:
+        assert positions.ndim == 2
+        angles = positions.to(torch.float32)[..., None] * freqs  # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -200,63 +216,85 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, causal, window, softcap, chunk):
         for i in range(0, sq, chunk)], dim=1)
 
 
-def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig, positions):
-    """q (B, S, H, hd) and k, v (B, S, G, hd): projected, biased, QK-normed
-    over head_dim (always ``rms_norm``, as in the JAX package), then
-    rotated (k and v unexpanded)."""
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig, positions,
+         src: Optional[torch.Tensor] = None):
+    """q (B, S, H, hd) from x and k, v (B, Sk, G, hd) from ``src`` (x by
+    default; the encoder states of a cross-attention): projected, biased,
+    QK-normed over head_dim (always ``rms_norm``, as in the JAX package),
+    then rotated at ``positions`` unless they are None (k and v
+    unexpanded)."""
     b, s, _ = x.shape
+    src = x if src is None else src
+    sk = src.shape[1]
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = lin(x, params["wq"], site="wq")
-    k = lin(x, params["wk"], site="wk")
-    v = lin(x, params["wv"], site="wv")
+    k = lin(src, params["wk"], site="wk")
+    v = lin(src, params["wv"], site="wv")
     if cfg.qkv_bias:
         # asarray: a bias quantized with its layer stack is a QTensor row
         q = q + asarray(params["bq"], x.dtype)
         k = k + asarray(params["bk"], x.dtype)
         v = v + asarray(params["bv"], x.dtype)
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, g, hd)
-    v = v.reshape(b, s, g, hd)
+    k = k.reshape(b, sk, g, hd)
+    v = v.reshape(b, sk, g, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, hd, cfg.rope_theta)
-    k = apply_rope(k, positions, hd, cfg.rope_theta)
+    if positions is not None:
+        q = apply_rope(q, positions, hd, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, hd, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
 def attention(params: Params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, causal: bool = True,
-              window: Optional[int] = None, return_kv: bool = False):
-    """Full-sequence self-attention (prefill, no cache), local over
-    ``window`` positions when given. ``return_kv`` also returns the
-    unexpanded post-RoPE (k, v) (B, S, G, hd)."""
+              window: Optional[int] = None,
+              kv_x: Optional[torch.Tensor] = None, use_rope: bool = True,
+              return_kv: bool = False):
+    """Full-sequence attention (prefill, no cache), local over ``window``
+    positions when given. With ``kv_x`` it is a cross-attention: keys and
+    values from ``kv_x``, no causal mask, no rotation. ``use_rope=False``
+    leaves the positions out (jamba's and whisper's layers).
+    ``return_kv`` also returns the unexpanded post-RoPE (k, v) (B, Sk, G,
+    hd). The query positions are the first sequence's (t's under
+    M-RoPE), shared across the batch."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(params, x, cfg, positions)
-    q_pos = positions[0]  # (S,) shared across the batch
+    q, k, v = _qkv(params, x, cfg,
+                   positions if use_rope and kv_x is None else None, kv_x)
+    pos1d = positions[0] if positions.ndim == 3 else positions
+    q_pos = pos1d[0]  # (S,)
+    k_pos = q_pos if kv_x is None else torch.arange(k.shape[1],
+                                                    device=x.device)
     chunk = (cfg.attn_chunk_q if s >= cfg.attn_chunk_threshold
              and s % cfg.attn_chunk_q == 0 else s)
-    o = _sdpa_chunked(q, k, v, q_pos, q_pos, causal, window,
-                      cfg.attn_logit_softcap, chunk)
+    o = _sdpa_chunked(q, k, v, q_pos, k_pos, causal and kv_x is None,
+                      window, cfg.attn_logit_softcap, chunk)
     out = lin(o.reshape(b, s, h * hd), params["wo"], site="wo")
     return (out, (k, v)) if return_kv else out
 
 
 def attention_decode(params: Params, x: torch.Tensor, cache: dict,
-                     cfg: ModelConfig, *, window: Optional[int] = None):
+                     cfg: ModelConfig, *, window: Optional[int] = None,
+                     use_rope: bool = True):
     """Single-token decode against a dense KV cache {"k","v": (B, S_max,
     G, hd), "pos": (B,)}; returns (out, new_cache). The new cache is a
     copy: the engine merges old and new lanes by slot. A sliding-window
     layer's cache is a ring: position p is written at p mod S_max, and a
     slot is valid when it holds one of the last min(pos + 1, window)
-    writes."""
+    writes. Under M-RoPE all three streams take the cache position."""
     b, one, _ = x.shape
     assert one == 1
     h, g, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pos = cache["pos"]  # (B,) next write index per sequence
     s_max = cache["k"].shape[1]
-    q, k, v = _qkv(params, x, cfg, pos[:, None].to(torch.int32))
+    pvec = None
+    if use_rope:
+        pvec = pos[:, None].to(torch.int32)  # (B, 1)
+        if cfg.mrope_sections is not None:
+            pvec = pvec.expand((3,) + pvec.shape)
+    q, k, v = _qkv(params, x, cfg, pvec)
 
     rows = torch.arange(b, device=x.device)
     # a ring wraps (remainder, not fmod: jnp.mod's sign rule); past the end
@@ -295,8 +333,9 @@ def attention_decode(params: Params, x: torch.Tensor, cache: dict,
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
+             d_ff: Optional[int] = None) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     dt = getattr(torch, cfg.param_dtype)
     if cfg.activation == "gelu_plain":
         return {

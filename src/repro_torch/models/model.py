@@ -1,5 +1,5 @@
 """build_model(cfg): the model bundle the serving engine drives; torch port
-of ``repro.models.model`` for the dense, MoE and SSM families.
+of ``repro.models.model`` for every family of the model zoo.
 
     init(seed)                          -> params on the model's device
     forward(params, batch)              -> logits
@@ -9,10 +9,16 @@ of ``repro.models.model`` for the dense, MoE and SSM families.
     prefill(params, toks, caches, lens) -> (logits, new caches)
     merge_caches(old, new, active)      -> caches, inactive slots kept
 
-The SSM family (mamba2) is the pure-Mamba2 LM: a list of {"ln", "mamba"}
-layers, a tied embedding, and decode caches a per-layer list of {"ssd",
-"conv"} dicts (``models.ssm``), which the engine carries like the KV
-caches (slot axis 0).
+Batches: {"tokens", "labels"}; the vlm family may feed "embeddings" (B,
+S, d) and M-RoPE "positions" (3, B, S); the audio family (whisper, the
+encoder-decoder) "frames" (B, S_enc, d) beside the decoder's "tokens".
+The SSM family (mamba2) is the pure-Mamba2 LM: a ``LayerStack`` of
+{"ln", "mamba"} layers, a tied embedding, and decode caches a per-layer
+list of {"ssd", "conv"} dicts (``models.ssm``). The hybrid (jamba,
+``models.hybrid``) mixes both kinds of layer and cache. The
+encoder-decoder's caches are {"self": its per-layer KV caches, "cross":
+the per-layer cross-attention K/V} (``models.encdec``). The engine
+carries every kind alike (slot axis 0).
 """
 
 from __future__ import annotations
@@ -25,9 +31,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor, SparseQTensor, asarray
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import LayerStack, tree_leaves
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models import transformer
 from repro_torch.models.layers import Params, norm, norm_init
 
 
@@ -35,21 +41,28 @@ def cast_for_compute(params: Any, cfg: ModelConfig) -> Any:
     """Cast the float params that the JAX package holds as >=2-D arrays to
     the compute dtype; QTensors (int8) pass through.
 
-    The JAX package casts the layer-stacked tree, where a per-layer vector
-    (a norm's gamma, a bias, mamba2's ``a_log``) is an (L, d) matrix; the
-    port keeps one dict a layer, so a leaf under ``params["layers"]``
-    counts one dimension more than it has. Top-level vectors (``ln_f``)
-    are not stacked there and stay float32."""
+    The JAX package casts its tree with the layers stacked, where a
+    per-layer vector (a norm's gamma, a bias, mamba2's ``a_log``) is an
+    (L, d) matrix; the port keeps a ``LayerStack`` of per-layer dicts
+    there, so a leaf inside one counts one dimension more than it has.
+    A plain list (the hybrid's layers, a list in the JAX package too) and
+    the top-level vectors (``ln_f``) add none: their vectors stay
+    float32."""
     dt = getattr(torch, cfg.compute_dtype)
 
-    def conv(leaf, stacked):
-        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() and \
-                leaf.ndim + stacked >= 2:
-            return leaf.to(dt)
-        return leaf
+    def walk(node, stacked):
+        if isinstance(node, dict):
+            return {k: walk(v, stacked) for k, v in node.items()}
+        if isinstance(node, LayerStack):
+            return LayerStack(walk(v, stacked + 1) for v in node)
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, stacked) for v in node)
+        if isinstance(node, torch.Tensor) and node.is_floating_point() and \
+                node.ndim + stacked >= 2:
+            return node.to(dt)
+        return node
 
-    return {k: tree_map(lambda leaf: conv(leaf, int(k == "layers")), v)
-            for k, v in params.items()}
+    return walk(params, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -60,9 +73,9 @@ def cast_for_compute(params: Any, cfg: ModelConfig) -> Any:
 def mamba_lm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     dt = getattr(torch, cfg.param_dtype)
     return {
-        "layers": [{"ln": norm_init(cfg.d_model, device),
-                    "mamba": ssm_lib.mamba_init(gen, cfg, device)}
-                   for _ in range(cfg.num_layers)],
+        "layers": LayerStack({"ln": norm_init(cfg.d_model, device),
+                              "mamba": ssm_lib.mamba_init(gen, cfg, device)}
+                             for _ in range(cfg.num_layers)),
         "ln_f": norm_init(cfg.d_model, device),
         "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                              dtype=dt, device=device) * (1.0 / cfg.d_model**0.5),
@@ -143,15 +156,25 @@ class Model:
     init: Callable[..., Any]  # (seed) -> params
     forward: Callable[..., torch.Tensor]  # (params, batch) -> logits
     loss: Callable[..., torch.Tensor]  # (params, batch) -> scalar
-    init_caches: Callable[..., Any]  # (params, batch, max_len, dtype)
+    # (params, batch, max_len, dtype[, enc_out= for the encoder-decoder])
+    init_caches: Callable[..., Any]
     decode: Callable[..., tuple]  # (params, token, caches)
     merge_caches: Callable[..., Any]  # (old, new, active (B,) bool)
     prefill: Callable[..., tuple]  # (params, tokens, caches, lengths)
 
 
+def _tokens_or_embeddings(batch: dict) -> torch.Tensor:
+    if "embeddings" in batch:
+        return batch["embeddings"]
+    if "frames" in batch:
+        return batch["frames"]
+    return batch["tokens"]
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """The model of ``cfg``'s family (dense or MoE decoder, or the Mamba2
-    LM) on ``device`` (CUDA unless the caller asks for the CPU)."""
+    """The model of ``cfg``'s family (dense, MoE or vlm decoder, the
+    Mamba2 LM, the hybrid or the encoder-decoder) on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
     cfg.validate()
     device = resolve_device(device)
 
@@ -160,25 +183,61 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         gen.manual_seed(seed)
         return gen
 
-    if cfg.family == "ssm":
+    cache_dtype = torch.bfloat16
+    if cfg.family in ("dense", "moe", "vlm"):
+        init_fn, decode_fn = transformer.init_params, transformer.decode_step
+        prefill_fn = transformer.prefill_step
+
+        def forward_fn(params, batch):
+            return transformer.forward(params, _tokens_or_embeddings(batch),
+                                       batch.get("positions"), cfg)
+
+        def caches_fn(params, b, L, dt):
+            return transformer.init_decode_caches(cfg, b, L, dt, device)
+    elif cfg.family == "audio" or cfg.is_encoder_decoder:
+        init_fn = encdec.init_params
+
+        def decode_fn(params, tok, caches, cfg):
+            logits, new = encdec.decode_step(params, tok, caches["self"],
+                                             caches["cross"], cfg)
+            return logits, {"self": new, "cross": caches["cross"]}
+
+        def prefill_fn(params, toks, caches, lengths, cfg):
+            logits, new = encdec.prefill_step(params, toks, caches["self"],
+                                              caches["cross"], lengths, cfg)
+            return logits, {"self": new, "cross": caches["cross"]}
+
+        def forward_fn(params, batch):  # (logits, aux): no aux loss
+            return encdec.forward(params, batch["frames"], batch["tokens"],
+                                  cfg), 0.0
+
+        def caches_fn(params, b, L, dt, enc_out=None):
+            if enc_out is None:  # the engine's zero encoder: 1500 frames
+                enc_out = torch.zeros((b, 1500, cfg.d_model), dtype=dt,
+                                      device=device)
+            return {"self": encdec.init_decode_caches(cfg, b, L, dt, device),
+                    "cross": encdec.precompute_cross_kv(params, enc_out,
+                                                        cfg)}
+    elif cfg.family == "hybrid":
+        init_fn, decode_fn = hybrid.init_params, hybrid.decode_step
+        prefill_fn = hybrid.prefill_step
+
+        def forward_fn(params, batch):
+            return hybrid.forward(params, batch["tokens"], None, cfg)
+
+        def caches_fn(params, b, L, dt):
+            return hybrid.init_decode_caches(cfg, b, L, dt, device)
+    elif cfg.family == "ssm":
         init_fn, decode_fn = mamba_lm_init, mamba_lm_decode
         prefill_fn, cache_dtype = mamba_lm_prefill, torch.float32
 
         def forward_fn(params, batch):  # (logits, aux): no aux loss
             return mamba_lm_forward(params, batch["tokens"], cfg), 0.0
 
-        def caches_fn(b, L, dt):  # O(1) in the sequence: no max_len
+        def caches_fn(params, b, L, dt):  # O(1) in the sequence: no max_len
             return mamba_lm_init_caches(cfg, b, dt, device)
     else:
-        init_fn, decode_fn = transformer.init_params, transformer.decode_step
-        prefill_fn, cache_dtype = transformer.prefill_step, torch.bfloat16
-
-        def forward_fn(params, batch):
-            return transformer.forward(params, batch["tokens"],
-                                       batch.get("positions"), cfg)
-
-        def caches_fn(b, L, dt):
-            return transformer.init_decode_caches(cfg, b, L, dt, device)
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def loss(params, batch):
         logits, aux = forward_fn(cast_for_compute(params, cfg), batch)
@@ -191,10 +250,11 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         forward=lambda params, batch: forward_fn(
             cast_for_compute(params, cfg), batch)[0],
         loss=loss,
-        init_caches=lambda params, b, L, dt=cache_dtype: caches_fn(b, L, dt),
+        init_caches=lambda params, b, L, dt=cache_dtype, **kw: caches_fn(
+            params, b, L, dt, **kw),
         decode=lambda params, tok, caches: decode_fn(
             cast_for_compute(params, cfg), tok, caches, cfg),
-        merge_caches=merge_caches_on_axis(0),  # per-layer list: (B, ...)
+        merge_caches=merge_caches_on_axis(0),  # per-layer lists: (B, ...)
         prefill=lambda params, toks, caches, lengths: prefill_fn(
             cast_for_compute(params, cfg), toks, caches, lengths, cfg),
     )

@@ -1,13 +1,17 @@
 """Decoder-only LM: forward, one-shot prefill, KV-cache decode and the LM
-loss; torch port of ``repro.models.transformer`` for the dense and MoE
-families.
+loss; torch port of ``repro.models.transformer`` for the dense, MoE and
+vlm families.
 
 The JAX package stacks layer params (L, ...) and scans them; here
-``params["layers"]`` is a list of per-layer dicts walked by a Python loop,
-and decode caches are a per-layer list of {"k", "v", "pos"} dicts, a
-sliding-window layer's a ring of its window (``layer_windows``). With
-``cfg.moe`` every layer's FFN is a routed MoE layer (``models.moe``): the
-grouped dispatch in forward and decode, one group a token in prefill.
+``params["layers"]`` is a ``LayerStack`` of per-layer dicts walked by a
+Python loop, and decode caches are a per-layer list of {"k", "v", "pos"}
+dicts, a sliding-window layer's a ring of its window (``layer_windows``).
+With ``cfg.moe`` every layer's FFN is a routed MoE layer
+(``models.moe``): the grouped dispatch in forward and decode, one group a
+token in prefill. With ``cfg.input_is_embeddings`` (qwen2-vl's stubbed
+vision frontend) the inputs may be (B, S, d) embeddings, and an untied
+model has no ``embed`` table; under M-RoPE the default positions are the
+token index on all three streams.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor, SparseQTensor, asarray
+from repro_torch.core.tree import LayerStack
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     Params,
@@ -54,12 +59,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     ``repro_torch.convert.params_from_numpy`` instead."""
     dt = getattr(torch, cfg.param_dtype)
     p: Params = {
-        "layers": [layer_init(gen, cfg, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": LayerStack(layer_init(gen, cfg, device)
+                             for _ in range(cfg.num_layers)),
         "ln_f": norm_init(cfg.d_model, device),
-        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                             dtype=dt, device=device) * (1.0 / cfg.d_model**0.5),
     }
+    if not cfg.input_is_embeddings or cfg.tie_embeddings:
+        p["embed"] = torch.randn((cfg.vocab_size, cfg.d_model),
+                                 generator=gen, dtype=dt, device=device) * (
+            1.0 / cfg.d_model**0.5)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device)
     return p
@@ -78,20 +85,27 @@ def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
     return out
 
 
+def table_rows(table: Any, idx: torch.Tensor, dt) -> torch.Tensor:
+    """Rows ``idx`` of an embedding table (V, d) in ``dt``. A QTensor or
+    compressed table is gathered before it is dequantized: elementwise
+    the same values, without dequantizing every row."""
+    if isinstance(table, (QTensor, SparseQTensor)):
+        codes = table.values[idx] if isinstance(table, QTensor) else \
+            table.input_rows(idx)
+        return (codes.to(torch.float32) * table.scale).to(dt)
+    return table.to(dt)[idx]
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    """tokens (B, S) int -> (B, S, d). A QTensor or compressed table is
-    gathered before it is dequantized: elementwise the same values,
-    without dequantizing every row of the vocabulary. Scaled embeddings
-    take sqrt(d_model) rounded to the compute dtype first, as the JAX
-    package does (sqrt(3840) is 62.0 in bfloat16)."""
+    """tokens (B, S) int -> (B, S) rows of the table (``table_rows``), or
+    float (B, S, d) embeddings passed through in the compute dtype.
+    Scaled embeddings take sqrt(d_model) rounded to the compute dtype
+    first, as the JAX package does (sqrt(3840) is 62.0 in bfloat16)."""
     dt = getattr(torch, cfg.compute_dtype)
-    emb = params["embed"]
-    if isinstance(emb, (QTensor, SparseQTensor)):
-        codes = emb.values[tokens] if isinstance(emb, QTensor) else \
-            emb.input_rows(tokens)
-        x = (codes.to(torch.float32) * emb.scale).to(dt)
+    if tokens.is_floating_point():
+        x = tokens.to(dt)
     else:
-        x = emb.to(dt)[tokens]
+        x = table_rows(params["embed"], tokens, dt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
     return x
@@ -121,18 +135,23 @@ def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str
     return x + h, aux
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+def positions_for(b: int, s: int, cfg: ModelConfig, device
+                  ) -> torch.Tensor:
+    """The token index (B, S), on all three streams (3, B, S) under
+    M-RoPE."""
+    pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    return pos.expand(3, b, s) if cfg.mrope_sections is not None else pos
 
 
 def forward(params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cfg: ModelConfig = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits, the MoE aux loss summed over
-    the layers and divided by their number; 0 for the dense family)."""
+    """Full-sequence forward of (B, S) tokens or (B, S, d) embeddings.
+    Returns (logits, the MoE aux loss summed over the layers and divided
+    by their number; 0 for the dense family)."""
     b, s = tokens.shape[:2]
     if positions is None:
-        positions = _positions(b, s, tokens.device)
+        positions = positions_for(b, s, cfg, tokens.device)
     x = embed_tokens(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, win in zip(params["layers"], layer_windows(cfg)):
@@ -145,11 +164,12 @@ def forward(params: Params, tokens: torch.Tensor,
 
 def prefill_step(params: Params, tokens: torch.Tensor, caches: list,
                  lengths: torch.Tensor, cfg: ModelConfig):
-    """Consume whole left-aligned prompts in one batched pass: each layer's
-    post-RoPE K/V go into the slot cache lanes, masked by ``lengths``.
-    Returns (logits (B, S, V), new caches) with ``pos = lengths``."""
-    b, s = tokens.shape
-    positions = _positions(b, s, tokens.device)
+    """Consume whole left-aligned prompts ((B, S) tokens or (B, S, d)
+    embeddings) in one batched pass: each layer's post-RoPE K/V go into
+    the slot cache lanes, masked by ``lengths``. Returns (logits (B, S,
+    V), new caches) with ``pos = lengths``."""
+    b, s = tokens.shape[:2]
+    positions = positions_for(b, s, cfg, tokens.device)
     x = embed_tokens(params, tokens, cfg)
     new_caches = []
     for p, cache, win in zip(params["layers"], caches, layer_windows(cfg)):
@@ -170,7 +190,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def decode_step(params: Params, token: torch.Tensor, caches: list,
                 cfg: ModelConfig) -> tuple[torch.Tensor, Any]:
-    """One decode step; returns (logits (B, 1, V), new caches)."""
+    """One decode step of (B, 1) tokens or (B, 1, d) embeddings; returns
+    (logits (B, 1, V), new caches)."""
     x = embed_tokens(params, token, cfg)
     new_caches = []
     for p, cache, win in zip(params["layers"], caches, layer_windows(cfg)):

@@ -2,8 +2,12 @@
 ``repro.serving.engine``.
 
 ``num_slots`` sequence slots share one batched decode cache (batch =
-slot axis): the model's per-layer KV caches, or for the SSM family its
-per-layer {"ssd", "conv"} state, whose SSD state stays float32. Requests
+slot axis): the model's per-layer KV caches, for the SSM family its
+per-layer {"ssd", "conv"} state, whose SSD state stays float32, both
+kinds for the hybrid, and for the encoder-decoder {"self": KV caches,
+"cross": the cross-attention K/V}, built at construction from a zero
+encoder output outside any integer context, as the JAX engine builds
+them. Requests
 are admitted into free slots, their prompts consumed by ONE batched
 prefill step per admission cohort (prompt length padded to a
 power-of-two bucket), then all slots advance together by one decode step
@@ -42,6 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import dispatch
+from repro_torch.core.tree import tree_map
 from repro_torch.models.model import Model, cast_for_compute
 
 logger = logging.getLogger("repro_torch.serving")
@@ -196,14 +201,17 @@ class ServingEngine:
         with self._int_ctx():
             _, new = self.model.prefill(self.params, self._tensor(toks),
                                         self.caches, self._tensor(lengths))
-        new = [{k: n[k].to(o[k].dtype) for k in o}
-               for o, n in zip(self.caches, new)]
+        # each leaf back to its cache dtype (a bfloat16 conv ring fed
+        # float32 activations), the whole tree walked as the JAX engine's
+        # tree_map does
+        new = tree_map(lambda o, n: n.to(o.dtype), self.caches, new)
         self.caches = self.model.merge_caches(self.caches, new,
                                               self._tensor(active))
 
     def _reset(self, mask: np.ndarray) -> None:
-        zeros = [{k: torch.zeros_like(v) for k, v in c.items()}
-                 for c in self.caches]
+        """Zero the ``mask`` slots of every cache leaf (the
+        encoder-decoder's cross K/V included, as in the JAX engine)."""
+        zeros = tree_map(torch.zeros_like, self.caches)
         self.caches = self.model.merge_caches(self.caches, zeros,
                                               self._tensor(mask))
 

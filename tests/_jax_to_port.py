@@ -26,6 +26,8 @@ def to_numpy(tree):
         return out
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_numpy(v) for v in tree]
     return np.array(tree)
 
 

@@ -1990,3 +1990,27 @@ def test_rows_1_and_6_at_moe_ssm_sites(card, n, k, m):
     assert torch.equal(gather, nm_spmm.nm_gather_seq_policy_matmul_ref(
         x, vals, idx, m_group=16, **kw))
     assert torch.equal(gather, dense)
+
+
+# (N, K) of the rest of the zoo: jamba-v0.1-52b's in_proj (N = 16544 = 32 *
+# 517), whisper-medium's w_out (K = 4096) and qwen2-vl-72b's MLP w_out (K =
+# 29568 = 115.5 k_tiles of 256: a partial last tile)
+ZOO_SITES = ((16544, 4096), (1024, 4096), (8192, 29568))
+
+
+@pytest.mark.parametrize("n,k", ZOO_SITES)
+def test_rows_1_and_6_at_zoo_sites(card, n, k):
+    """Rows 1 and 6 at decode (M = 4) under ``sorted_tiled_seq`` (16-bit
+    register, k_tile 256), 8:16 slabs: each equals its plain version, and
+    row 6 equals row 1 on the decompressed weight."""
+    x, w, vals, idx = _nm_w(4, k, n, 8, 16, n + k, card)
+    kw = dict(policy="sorted_tiled_seq", acc_bits=16, k_tile=256)
+    dense = sm.seq_policy_matmul(x, w, **kw)
+    gather = nm_spmm.nm_gather_seq_policy_matmul(x, vals, idx, m_group=16,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert dense.shape == (4, n)
+    assert torch.equal(dense, sm.seq_policy_matmul_ref(x, w, **kw))
+    assert torch.equal(gather, nm_spmm.nm_gather_seq_policy_matmul_ref(
+        x, vals, idx, m_group=16, **kw))
+    assert torch.equal(gather, dense)

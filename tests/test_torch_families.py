@@ -123,10 +123,17 @@ def _port_config(jcfg, **kw):
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-medium",
                                   "qwen2-vl-72b"])
 def test_validate_refuses_other_families(arch):
-    """hybrid, encdec (whisper's family is audio) and vlm."""
+    """hybrid, encdec (whisper's family is audio) and vlm are ported, so
+    ``validate`` accepts them; it refuses them where the JAX package's
+    ``validate`` does: a hybrid without its ``moe``, an encoder-decoder
+    without encoder layers, a family the zoo has not."""
     cfg = _port_config(jget_config(arch, smoke=True))
-    with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
-        cfg.validate()
+    cfg.validate()
+    bad = {"jamba-v0.1-52b": dict(moe=None),
+           "whisper-medium": dict(encoder_layers=0),
+           "qwen2-vl-72b": dict(family="vision")}[arch]
+    with pytest.raises(ValueError, match=next(iter(bad))):
+        dataclasses.replace(cfg, **bad).validate()
 
 
 @pytest.mark.parametrize("field,value", [
@@ -135,11 +142,28 @@ def test_validate_refuses_other_families(arch):
     ("input_is_embeddings", True),
     ("moe_local_groups", True)])
 def test_validate_refuses_features(field, value):
-    """On a dense config each unported feature is refused by name."""
-    cfg = _port_config(jget_config("qwen2-1.5b", smoke=True),
-                       **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    """On a dense config each feature is refused where the JAX package's
+    ``validate`` refuses it (an encoder-decoder with no encoder layers)
+    and accepted where it accepts it (M-RoPE, embedding inputs), and
+    ``moe_local_groups``, which needs a mesh, is refused by name."""
+    jcfg = dataclasses.replace(jget_config("qwen2-1.5b", smoke=True),
+                               **{field: value})
+    cfg = _port_config(jcfg)
+    try:
+        jcfg.validate()
+        jax_refuses = False
+    except AssertionError:
+        jax_refuses = True
+    if field == "moe_local_groups":
+        assert not jax_refuses
+        with pytest.raises(NotImplementedError, match=field):
+            cfg.validate()
+    elif jax_refuses:
+        with pytest.raises(ValueError, match=field):
+            cfg.validate()
+    else:
         cfg.validate()
+    assert jax_refuses == (field == "is_encoder_decoder")
 
 
 def test_layer_windows_match_jax():

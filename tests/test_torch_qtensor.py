@@ -14,6 +14,7 @@ from repro.core.quant import activation_qparams, symmetric_activation_qparams
 from repro_torch.core import dispatch as td
 from repro_torch.core import qtensor as tqt
 from repro_torch.core.quant import QParams
+from repro_torch.core.tree import LayerStack
 
 
 def _w(seed, shape):
@@ -66,7 +67,7 @@ def test_quantize_tree(n_keep):
 
 
 def test_quantize_tree_counts_one_layer():
-    """A per-layer list quantizes exactly when JAX's stacked (L, in, out)
+    """A ``LayerStack`` quantizes exactly when JAX's stacked (L, in, out)
     leaf does: ``min_size`` counts all L layers in both packages. The
     stacked (2, 48, 48) leaf has 4608 elements, one layer 2304, so at
     min_size 4096 both quantize and at 8192 neither does."""
@@ -74,8 +75,9 @@ def test_quantize_tree_counts_one_layer():
     for min_size, quantized in ((1 << 12, True), (1 << 13, False)):
         kw = dict(bits=8, n_keep=8, m=16, min_size=min_size, min_dim=16)
         j = jqt.quantize_tree({"wq": jnp.asarray(w)}, **kw)["wq"]
-        layers = tqt.quantize_tree([{"wq": torch.from_numpy(a)} for a in w],
-                                   device="cpu", **kw)
+        layers = tqt.quantize_tree(
+            LayerStack({"wq": torch.from_numpy(a)} for a in w),
+            device="cpu", **kw)
         assert isinstance(j, jqt.QTensor) == quantized
         for i, layer in enumerate(layers):
             assert isinstance(layer["wq"], tqt.QTensor) == quantized
@@ -100,8 +102,8 @@ def test_quantize_tree_stacked_bias_matches_jax(n_keep):
     j = j["layers"]["b"]
     assert isinstance(j, jqt.QTensor)
     layers = tqt.quantize_tree(
-        {"layers": [{"b": torch.from_numpy(a)} for a in b]}, device="cpu",
-        **kw)["layers"]
+        {"layers": LayerStack({"b": torch.from_numpy(a)} for a in b)},
+        device="cpu", **kw)["layers"]
     conv = params_from_numpy(
         {"layers": {"b": {"values": np.array(j.values),
                           "scale": np.array(j.scale)}}}, device="cpu")
@@ -124,8 +126,9 @@ def test_quantize_tree_stacked_bias_matches_jax(n_keep):
             {"layers": {"b": jnp.asarray(b), "w": jnp.asarray(w)}}, **kw),
             n_keep, 16)["layers"]
         tt = tqt.nm_compress_tree(tqt.quantize_tree(
-            {"layers": [{"b": torch.from_numpy(b[i]),
-                         "w": torch.from_numpy(w[i])} for i in range(16)]},
+            {"layers": LayerStack({"b": torch.from_numpy(b[i]),
+                                   "w": torch.from_numpy(w[i])}
+                                  for i in range(16))},
             device="cpu", **kw), n_keep, 16)["layers"]
         assert isinstance(jt["b"], jqt.SparseQTensor)
         assert isinstance(jt["w"], jqt.SparseQTensor)
@@ -140,8 +143,9 @@ def test_quantize_tree_stacked_bias_matches_jax(n_keep):
         rows = tqt.nm_compress_tree(layers, n_keep, 16)
         assert all(r["b"] is l["b"] for r, l in zip(rows, layers))
     # below min_dim layers the stacked leaf stays float in both packages
-    few = tqt.quantize_tree([{"b": torch.from_numpy(a)} for a in b[:8]],
-                            device="cpu", **kw)
+    few = tqt.quantize_tree(
+        LayerStack({"b": torch.from_numpy(a)} for a in b[:8]),
+        device="cpu", **kw)
     assert all(isinstance(layer["b"], torch.Tensor) for layer in few)
 
 
